@@ -5,7 +5,8 @@ single-tracer BAO likelihood: calculator graph, host-side fiducial
 cosmology, BAO template and damped-wiggle theory, windowed observable,
 analytic covariance and the Gaussian likelihood with static-J analytic
 marginalization. Per-evaluation compute runs on a batch of chains, in
-float32, on the device the likelihood is given; the Chebyshev lookups run
+float32, on the CUDA card unless the caller asks for the CPU by name
+(``device='cpu'``); the Chebyshev lookups run
 through a hand-written CUDA kernel (``ops/cuda_kernels.py``).
 """
 

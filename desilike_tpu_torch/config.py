@@ -1,8 +1,9 @@
 """Global configuration for desilike_tpu_torch: dtype policy and devices.
 
 Per-evaluation compute runs in float32 on the device the likelihood was
-given; host-side initialization (fiducial tables, fit matrices, window,
-covariance, whitening, static design matrices) runs in float64 on the CPU.
+given, the CUDA card when it was given none; host-side initialization
+(fiducial tables, fit matrices, window, covariance, whitening, static
+design matrices) runs in float64 on the CPU.
 
 Float32 matmuls stay full float32: reduced-precision matmuls inject noise
 into the log-posterior that collapses the step-size adaptation of gradient

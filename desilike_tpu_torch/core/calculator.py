@@ -149,8 +149,8 @@ class Calculator(BaseClass):
     until the node is part of an evaluated pipeline (or
     ``runtime_info.initialize()``). ``device`` is an explicit request
     ('cpu', 'cuda', 'cuda:1'); it raises at once if the device is not
-    available. A pipeline evaluates on the one device its nodes request
-    (the CPU if none does).
+    available. A pipeline evaluates on the one device its nodes request,
+    and on the card if none does: the CPU only when asked for by name.
     """
 
     _params = None

@@ -39,7 +39,17 @@ class Pipeline(BaseClass):
         if len(devices) > 1:
             raise ValueError('calculators of one pipeline request different devices: {}'.format(
                 sorted(str(d) for d in devices)))
-        self.device = devices.pop() if devices else torch.device('cpu')
+        self._device = devices.pop() if devices else None
+
+    @property
+    def device(self):
+        """The evaluation device: the one the calculators request, else the
+        card (``config.device('cuda')``, which raises where there is none).
+        Resolved at first use, so that host-side initialization, which
+        evaluates on the CPU by name, needs no card."""
+        if self._device is None:
+            self._device = config.device('cuda')
+        return self._device
 
     def _stale(self):
         return any((not c.runtime_info.initialized) or c.init._updated
@@ -153,7 +163,7 @@ class Pipeline(BaseClass):
         Returns (root_get, derived dict of full-name -> value).
         """
         ref = next(iter(full_values.values()), None)
-        dtype, device = (ref.dtype, ref.device) if ref is not None else (config.HOST_DTYPE, torch.device('cpu'))
+        dtype, device = (ref.dtype, ref.device) if ref is not None else (config.get_dtype(), self.device)
         for calc in self.calculators:
             cvals = {p.basename: full_values[p.name] for p in calc.runtime_info.params
                      if p.derived is not True and not p.drop}

@@ -12,10 +12,14 @@ Counterpart of ``desilike_tpu/ops/pallas_kernels.py``. Each kernel has:
 The CUDA sources live in ``desilike_tpu_torch/csrc``. At first use they are
 compiled with ``nvcc`` for ``sm_90a`` into a plain-C shared library under
 ``desilike_tpu_torch/build/``, named by a hash of the sources and flags (an
-edit rebuilds it), and loaded with ``ctypes``.
+edit rebuilds it), and loaded with ``ctypes``. The Clenshaw kernel's launch
+geometry is computed here (:func:`clenshaw_geometry`), so that the CPU tests
+can check that it covers every query once.
 """
 
+import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -28,12 +32,127 @@ import torch
 CLENSHAW_LAUNCHES = 0
 """Launches of the CUDA Clenshaw kernel (forward and backward) since the last reset."""
 
+LAST_GEOMETRY = None
+"""The :class:`ClenshawGeometry` of the last launch of the Clenshaw kernel."""
+
 _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCES = (os.path.join(_PACKAGE_DIR, 'csrc', 'clenshaw.cu'),)
 BUILD_DIR = os.path.join(_PACKAGE_DIR, 'build')
 _NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3', '-shared',
                '-Xcompiler', '-fPIC', '-Xptxas', '-v')
-_MAX_ORDER = 12288   # coefficients staged in 48 KB of static-limit shared memory
+
+QUERIES_PER_THREAD = 4
+"""K, the queries a thread of the Clenshaw kernel evaluates by default."""
+_KS = (8, 4, 2)             # the K the kernel is compiled for
+_ROW_KS = (4, 8, 2)         # per-row coefficients: the K tried, in turn, for the flat layout
+_MAX_ORDER = 12288          # a padded coefficient row fits the 48 KB of shared memory that needs no opt-in
+_SMEM_BYTES = 48 * 1024
+_THREADS = 256              # most threads a block of the flat layout, and column tile of long rows
+_MAX_ROW_THREADS = 512      # row layout: most threads a block, and longest row kept in one tile
+MAX_GRID = 65535            # most blocks a launch; past it the blocks walk their tiles with a grid stride
+IDLE_LIMIT = 1. / 8.        # K is lowered when it would leave more of the launched query slots idle
+_ROW_IDLE = 1. / 16.        # row-layout blocks grow by a row only while more than this idles
+
+ClenshawGeometry = collections.namedtuple(
+    'ClenshawGeometry', ['k', 'per_row', 'flat', 'threads', 'rows_per_block', 'row_threads', 'col_tiles',
+                         'tiles', 'grid', 'idle'])
+ClenshawGeometry.__doc__ = """Launch geometry of the Clenshaw kernel (see ``csrc/clenshaw.cu``).
+
+k: queries a thread; threads: a block; tiles: units of work, walked by ``grid``
+blocks with a grid stride; rows_per_block: the coefficient rows a block
+stages. Flat layout (``flat``): tile t is the flat queries [t threads k,
+(t + 1) threads k) of the rows x q index space, k consecutive ones a thread;
+per-row coefficients take it only when k divides q, and each tile stages the
+rows it spans. Row layout (per-row coefficients otherwise): tile t is rows
+[g R, g R + R) (g = t // col_tiles, R = rows_per_block) and, within each, the
+queries s W k + i + j W (s = t % col_tiles, W = row_threads, thread r W + i,
+j < k). idle: the share of the launched query slots (tiles x threads x k)
+that hold no query."""
+
+
+def _round_up(value, multiple):
+    return -(-value // multiple) * multiple
+
+
+def _flat_geometry(rows, q, order, per_row, k, max_grid):
+    """The flat layout, or None where the rows a per-row tile spans do not fit 48 KB."""
+    n = rows * q
+    threads = min(_THREADS, _round_up(-(-n // k), 32))
+    window = 1
+    if per_row:
+        most = _SMEM_BYTES // (_round_up(order, 4) * 4)
+        while threads > 32 and (threads * k - 1) // q + 2 > most:
+            threads -= 32
+        window = min(rows, (threads * k - 1) // q + 2)
+        if window > most:
+            return None
+    tiles = -(-n // (threads * k))
+    return ClenshawGeometry(k, per_row, True, threads, window, 0, 1, tiles, min(tiles, max_grid),
+                            1. - n / (tiles * threads * k))
+
+
+def _row_geometry(rows, q, order, k, max_grid):
+    n = rows * q
+    row_threads = -(-q // k)
+    if row_threads > _MAX_ROW_THREADS:
+        col_tiles = -(-row_threads // _THREADS)
+        row_threads = _THREADS
+        candidates = [1]
+    else:
+        col_tiles = 1
+        most = min(rows, _MAX_ROW_THREADS // row_threads, _SMEM_BYTES // (_round_up(order, 4) * 4))
+        candidates = range(1, max(1, most) + 1)
+    best = None
+    for rows_per_block in candidates:  # the fewest rows that idle at most 1/16, else the least idle
+        threads = _round_up(rows_per_block * row_threads, 32)
+        tiles = -(-rows // rows_per_block) * col_tiles
+        idle = 1. - n / (tiles * threads * k)
+        if best is None or idle < best.idle:
+            best = ClenshawGeometry(k, True, False, threads, rows_per_block, row_threads, col_tiles, tiles,
+                                    min(tiles, max_grid), idle)
+        if idle <= _ROW_IDLE:
+            break
+    return best
+
+
+@functools.lru_cache(maxsize=256)
+def clenshaw_geometry(rows, q, order, per_row, queries_per_thread=None, max_grid=MAX_GRID):
+    """Launch geometry of the Clenshaw kernel for x (rows, q) and ``order``
+    coefficients, shared or one row per row (``per_row``).
+
+    Per-row coefficients take the flat layout with the first K (of
+    ``queries_per_thread`` if given, else 4, 8, 2) that divides q and idles
+    at most :data:`IDLE_LIMIT`, where the rows a tile spans fit 48 KB; else
+    the row layout (odd q, such as 1, 3 or 561, or orders whose padded rows
+    leave 48 KB too small for the rows a tile spans). For shared
+    coefficients and the row layout, K is ``queries_per_thread`` (default
+    :data:`QUERIES_PER_THREAD`) unless that leaves more than
+    :data:`IDLE_LIMIT` of the launched slots idle (a launch of one small
+    block, such as a (56, 1) lookup), and then the largest smaller K that
+    does not (or, failing all, the one that idles least). Row-layout blocks
+    hold the fewest rows that idle at most 1/16, within 512 threads and
+    48 KB of staged coefficients. Returns a :class:`ClenshawGeometry`.
+    """
+    if queries_per_thread is not None and queries_per_thread not in _KS:
+        raise ValueError('queries_per_thread {} not one of {}'.format(queries_per_thread, _KS))
+    if per_row:
+        for k in (_ROW_KS if queries_per_thread is None else (queries_per_thread,)):
+            geometry = _flat_geometry(rows, q, order, True, k, max_grid) if q % k == 0 else None
+            if geometry is not None and geometry.idle <= IDLE_LIMIT:
+                return geometry
+    wanted = QUERIES_PER_THREAD if queries_per_thread is None else queries_per_thread
+    best = None
+    for k in _KS:
+        if k > wanted:
+            continue
+        geometry = _row_geometry(rows, q, order, k, max_grid) if per_row else \
+            _flat_geometry(rows, q, order, False, k, max_grid)
+        if geometry.idle <= IDLE_LIMIT:
+            return geometry
+        if best is None or geometry.idle < best.idle:
+            best = geometry
+    return best
+
 
 _LIBRARY = None
 BUILD_INFO = {}
@@ -78,9 +197,8 @@ def library():
         os.replace(tmp, target)
         log = proc.stdout + proc.stderr
     lib = ctypes.CDLL(target)
-    lib.clenshaw_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_void_p]
+    lib.clenshaw_f32.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 12
+                                 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
     lib.clenshaw_f32.restype = ctypes.c_int
     BUILD_INFO.update(path=target, seconds=time.perf_counter() - t0, log=log)
     _LIBRARY = lib
@@ -131,8 +249,8 @@ def clenshaw_derivative_coeffs(coeffs):
     return torch.cat([0.5 * deriv[..., :1], deriv[..., 1:]], dim=-1)
 
 
-def _launch_clenshaw(x, coeffs, log_values):
-    global CLENSHAW_LAUNCHES
+def _launch_clenshaw(x, coeffs, log_values, queries_per_thread=None, max_grid=MAX_GRID):
+    global CLENSHAW_LAUNCHES, LAST_GEOMETRY
     if x.device.type != 'cuda':
         raise ValueError('the CUDA Clenshaw kernel needs a CUDA tensor, got one on {}'.format(x.device))
     if coeffs.device != x.device:
@@ -149,18 +267,26 @@ def _launch_clenshaw(x, coeffs, log_values):
     if not (x.is_contiguous() and coeffs.is_contiguous()):
         raise ValueError('the CUDA Clenshaw kernel takes contiguous tensors')
     if not 1 <= order <= _MAX_ORDER:
-        raise ValueError('order {} outside [1, {}]'.format(order, _MAX_ORDER))
+        raise ValueError('order {} outside [1, {}]: a padded coefficient row must fit 48 KB of shared '
+                         'memory'.format(order, _MAX_ORDER))
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
+    per_row = coeffs.ndim == 2 and rows > 1  # one coefficient row is a shared one
+    geometry = clenshaw_geometry(rows, q, order, per_row, queries_per_thread, max_grid)
+    # float4 loads and stores: a view with a storage offset takes the scalar path
+    vec = geometry.flat and geometry.k % 4 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     lib = library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.clenshaw_f32(x.data_ptr(), coeffs.data_ptr(), out.data_ptr(), rows, q, order,
-                               order if coeffs.ndim == 2 else 0, int(bool(log_values)), stream)
+        err = lib.clenshaw_f32(x.data_ptr(), coeffs.data_ptr(), out.data_ptr(), rows, q, order, int(per_row),
+                               int(bool(log_values)), geometry.k, int(vec), int(geometry.flat), geometry.threads,
+                               geometry.rows_per_block, geometry.row_threads, geometry.col_tiles,
+                               geometry.tiles, geometry.grid, stream)
     if err != 0:
         raise RuntimeError('CUDA Clenshaw kernel launch failed with cudaError {:d}'.format(err))
     CLENSHAW_LAUNCHES += 1
+    LAST_GEOMETRY = geometry
     return out
 
 

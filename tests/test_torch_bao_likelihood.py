@@ -174,7 +174,7 @@ def test_damped_bao_matches_golden():
     float32 evaluation in the port."""
     from test_golden import GOLDEN, K, VALUES
     theory = DampedBAOWigglesTracerPowerSpectrumMultipoles(
-        ells=(0, 2), k=K, template=BAOPowerSpectrumTemplate(z=0.8, apmode='qparqper'))
+        ells=(0, 2), k=K, template=BAOPowerSpectrumTemplate(z=0.8, apmode='qparqper'), device='cpu')
     pipe = Pipeline(theory)
     allowed = set(pipe.params.basenames()) | set(pipe.params.names())
     pipe.evaluate({k: v for k, v in VALUES.items() if k in allowed})
@@ -200,11 +200,11 @@ def test_damped_bao_variants_match_jax(model, mode, apmode, broadband, params):
     values = {'qpar': 1.02, 'qper': 0.98, 'qiso': 1.01, 'qap': 0.97, 'b1': 1.8, 'sigmas': 2., 'sigmaper': 5.,
               'dbeta': 1.1, 'df': 1.05, 'al0_0': 300., 'al0_1': -200., 'al2_-2': 50.}
     powers = []
-    for theory_cls, template_cls, pipeline_cls in [(JaxTheory, JaxTemplate, JaxPipeline),
-                                                   (DampedBAOWigglesTracerPowerSpectrumMultipoles,
-                                                    BAOPowerSpectrumTemplate, Pipeline)]:
+    for theory_cls, template_cls, pipeline_cls, device in [(JaxTheory, JaxTemplate, JaxPipeline, {}),
+                                                           (DampedBAOWigglesTracerPowerSpectrumMultipoles,
+                                                            BAOPowerSpectrumTemplate, Pipeline, {'device': 'cpu'})]:
         theory = theory_cls(ells=(0, 2), k=k, model=model, mode=mode, broadband=broadband,
-                            template=template_cls(z=0.8, apmode=apmode))
+                            template=template_cls(z=0.8, apmode=apmode), **device)
         if params:
             theory.init.params = params
         pipe = pipeline_cls(theory)
@@ -238,7 +238,8 @@ def test_small_logpost_matches_jax(solved):
         theory = theory_cls(ells=(0, 2), template=template_cls(z=0.8, apmode='qparqper'))
         theory.init.params = {'al*': spec}
         observable = observable_cls(data={'qpar': 1., 'qper': 1., 'b1': 2.}, klim=klim, theory=theory)
-        like = likelihood_cls(observables=[observable], footprints=[footprint_cls(volume=2e9, nbar=5e-4)])
+        device = {} if likelihood_cls is JaxLikelihood else {'device': 'cpu'}
+        like = likelihood_cls(observables=[observable], footprints=[footprint_cls(volume=2e9, nbar=5e-4)], **device)
         assert len(like.pipeline.solved_params) == (10 if solved else 0)
         if likelihood_cls is JaxLikelihood:
             fn = like.logpost_fn()
@@ -279,7 +280,7 @@ def test_logpost_float64_matches_jax_x64(own_likelihood):
 def test_explicit_covariance_matches_footprint(own_likelihood):
     from desilike_tpu_torch import ObservablesGaussianLikelihood
     like = ObservablesGaussianLikelihood(observables=own_likelihood.observables,
-                                         covariance=own_likelihood.covariance)
+                                         covariance=own_likelihood.covariance, device='cpu')
     points = REFERENCE['points'][:4]
     got = logpost_and_grad(like, points)
     expected = logpost_and_grad(own_likelihood, points)
@@ -323,6 +324,50 @@ def test_reference_file_matches_live_jax():
     # float32 rounding, which is bounded by the tolerance stated above
     assert_matches(values, grads, REFERENCE['logpost'][:4], REFERENCE['grad'][:4], JAX_F32_ATOL, JAX_F32_GRAD_RTOL)
     assert_matches(values, grads, REFERENCE['logpost_x64'][:4], REFERENCE['grad_x64'][:4], JAX_F32_ATOL, JAX_F32_GRAD_RTOL)
+
+
+def _golden_theory(**kwargs):
+    return DampedBAOWigglesTracerPowerSpectrumMultipoles(
+        ells=(0, 2), k=np.linspace(0.02, 0.3, 29), template=BAOPowerSpectrumTemplate(z=0.8, apmode='qparqper'),
+        **kwargs)
+
+
+@pytest.mark.parametrize('entry', ['likelihood', 'theory'])
+def test_default_device_is_the_card(entry):
+    """Built with no device, a likelihood or a theory pipeline initializes on
+    the host (mock data, covariance, fiducial tables: float64 on the CPU by
+    name), and evaluates on the card: here, without one, the first
+    evaluation raises instead of returning a CPU result."""
+    if entry == 'likelihood':
+        like = build_likelihood(device=None)
+        assert like.flatdata.shape == (112,) and like.covariance.shape == (112, 112)
+        pipe = like.pipeline
+
+        def evaluate():
+            return like.logpost(qpar=1., qper=1., b1=2., dbeta=1.)
+    else:
+        pipe = Pipeline(_golden_theory())
+        assert pipe.calculators[1].pk_dd_coeffs_fid.shape == (202,)
+        pipe.host_evaluate({'b1': 2.})   # asked for the CPU by name
+
+        def evaluate():
+            return pipe.evaluate({'b1': 2.})
+    if torch.cuda.is_available():
+        assert pipe.device.type == 'cuda' and evaluate().device.type == 'cuda'
+    else:
+        with pytest.raises(RuntimeError, match='cuda'):
+            evaluate()
+        with pytest.raises(RuntimeError, match='cuda'):
+            pipe.run_once({})
+
+
+def test_cpu_by_name_evaluates_on_the_cpu():
+    theory = _golden_theory(device='cpu')
+    pipe = Pipeline(theory)
+    assert pipe.device == torch.device('cpu')
+    pipe.evaluate({'b1': torch.tensor([1.8, 2.])})
+    assert theory.power.device.type == 'cpu' and theory.power.dtype == torch.float32
+    assert theory.power.shape == (2, 2, 29)
 
 
 def test_cuda_likelihood_request_raises_without_cuda():

@@ -116,6 +116,96 @@ def test_derivative_coeffs_match_recurrence():
     np.testing.assert_allclose(got, d[:, :25], rtol=1e-12, atol=1e-12)
 
 
+@pytest.mark.parametrize('order', [1, 2, 3, 5, 202])
+def test_zero_padding_is_exact(order):
+    """The kernel stages the coefficients zero-padded to a multiple of 4: the
+    zero terms above the top degree leave b1 = b2 = 0, so the plain version
+    gives bitwise the same values with and without the padding."""
+    rng = np.random.default_rng(order)
+    x = torch.from_numpy(rng.uniform(-1., 1., size=(3, 41)).astype('f4'))
+    for coeffs in (rng.normal(size=order), rng.normal(size=(3, order))):
+        c = torch.from_numpy(coeffs.astype('f4'))
+        padded = torch.nn.functional.pad(c, (0, -order % 4 or 4))
+        assert padded.shape[-1] % 4 == 0 and padded.shape[-1] > order
+        for log_values in (True, False):
+            assert torch.equal(clenshaw_reference(x, padded, log_values), clenshaw_reference(x, c, log_values))
+
+
+def _launch_counts(geometry, rows, q):
+    """How often the launch described by ``geometry`` evaluates each flat
+    (row, query) index, by the index arithmetic of csrc/clenshaw.cu: block b
+    walks tiles b, b + grid, ...; the tile-to-query maps are those of
+    :class:`ClenshawGeometry`."""
+    g, n = geometry, rows * q
+    steps = -(-g.tiles // g.grid)
+    walked = (np.arange(g.grid)[:, None] + g.grid * np.arange(steps)[None, :]).ravel()
+    walked = np.sort(walked[walked < g.tiles])
+    np.testing.assert_array_equal(walked, np.arange(g.tiles))  # every tile once
+    tid = np.arange(g.threads)
+    j = np.arange(g.k)
+    counts = np.zeros(n, dtype='u1')
+    chunk = max(1, (1 << 21) // (g.threads * g.k))
+    for start in range(0, g.tiles, chunk):
+        tile = np.arange(start, min(start + chunk, g.tiles))[:, None, None]
+        if g.flat:
+            flat = (tile * g.threads + tid[None, :, None]) * g.k + j[None, None, :]
+            live = flat < n
+            if g.per_row:  # a thread's queries lie in one row; a tile's rows fit its window
+                row = np.where(live, flat // q, -1)
+                first = np.where(live, row, rows).min(axis=2)
+                assert (np.where(live, row, first[..., None]) == first[..., None]).all()
+                spanned = row.max(axis=(1, 2)) - np.where(live, row, rows).min(axis=(1, 2)) + 1
+                assert spanned.max() <= g.rows_per_block
+        else:
+            r, i = tid // g.row_threads, tid % g.row_threads
+            group, col = tile // g.col_tiles, tile % g.col_tiles
+            row = group * g.rows_per_block + r[None, :, None]
+            qq = col * g.row_threads * g.k + i[None, :, None] + j[None, None, :] * g.row_threads
+            live = (r[None, :, None] < g.rows_per_block) & (row < rows) & (qq < q)
+            flat = row * q + qq
+        flat = flat[live]
+        if flat.size:
+            lo = flat.min()
+            counts[lo:flat.max() + 1] += np.minimum(np.bincount(flat - lo), 2).astype('u1')
+    return counts
+
+
+@pytest.mark.parametrize('rows', [1, 56, 4096, 70000])
+@pytest.mark.parametrize('q', [1, 3, 290, 560, 561])
+@pytest.mark.parametrize('per_row', [False, True], ids=['shared', 'per_row'])
+def test_geometry_covers_every_query_once(rows, q, per_row):
+    """The launch geometry, computed here in Python, covers every (row, query)
+    once, with a grid stride too, in the flat layout (per-row coefficients
+    where K divides Q) and in the row layout; blocks fit the card (threads a
+    multiple of 32 up to 512, staged coefficients within 48 KB); at the main
+    path's Q = 560 and the golden theory's Q = 290 at most 1/8 of the
+    launched query slots idle."""
+    order = 202
+    per_row = per_row and rows > 1  # as the wrapper: one coefficient row is a shared one
+    geometry = cuda_kernels.clenshaw_geometry(rows, q, order, per_row)
+    assert geometry.flat == (not per_row or q % geometry.k == 0)
+    assert geometry.threads % 32 == 0 and geometry.threads <= 512
+    assert geometry.rows_per_block * -(-order // 4) * 16 <= 48 * 1024
+    assert geometry.grid == min(geometry.tiles, cuda_kernels.MAX_GRID)
+    assert (_launch_counts(geometry, rows, q) == 1).all()
+    strided = cuda_kernels.clenshaw_geometry(rows, q, order, per_row, max_grid=7)
+    assert strided.grid == min(7, geometry.tiles) and strided._replace(grid=geometry.grid) == geometry
+    assert (_launch_counts(strided, rows, q) == 1).all()
+    if q in (290, 560):
+        assert geometry.idle <= cuda_kernels.IDLE_LIMIT == 1. / 8.
+
+
+def test_kobs_lookup_is_one_block():
+    """The (56, 1) lookup of pknow at the observed k: one block of 32 threads
+    (the first design launched 56 blocks of 256)."""
+    geometry = cuda_kernels.clenshaw_geometry(56, 1, 202, False)
+    assert geometry.grid == geometry.tiles == 1 and geometry.threads == 32
+    main = cuda_kernels.clenshaw_geometry(4096, 560, 202, False)
+    assert main.k == cuda_kernels.QUERIES_PER_THREAD and main.tiles == 4096 * 560 // (256 * main.k)
+    with pytest.raises(ValueError, match='queries_per_thread'):
+        cuda_kernels.clenshaw_geometry(56, 1, 202, False, queries_per_thread=7)
+
+
 def test_cpu_tensor_takes_plain_version(tables):
     coeffs, x = tables[1], tables[3]
     before = cuda_kernels.CLENSHAW_LAUNCHES

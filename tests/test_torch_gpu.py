@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import build_likelihood
+from chip_smoke import build_likelihood, case_label, check_kernel_case, kernel_cases
 from desilike_tpu_torch.cosmology import background, linear
 from desilike_tpu_torch.ops import cuda_kernels
 from desilike_tpu_torch.ops.chebyshev import ChebyshevLogInterp
@@ -60,6 +60,14 @@ def test_kernel_matches_reference(cuda, coeffs, shared, log_values):
     torch.testing.assert_close(got, expected, rtol=0., atol=1e-5 * float(expected.abs().max()))
 
 
+@pytest.mark.parametrize('case', kernel_cases(), ids=case_label)
+def test_kernel_cases_match_reference(cuda, case):
+    """The shapes chip_smoke.py checks: ragged Q, orders 1 to 320, shared and
+    per-row, with and without exp, a view at a storage offset, 70000 rows
+    (also walked with a grid stride), K = 2 and 8; 1e-5 of the magnitude."""
+    check_kernel_case(case, cuda)
+
+
 def test_kernel_walks_rows_past_the_grid_limit(cuda, coeffs):
     """More rows than gridDim.y allows (65535): per-row and shared coefficients."""
     rng = np.random.default_rng(4)
@@ -77,7 +85,7 @@ def test_kernel_gradient(cuda, coeffs):
     """x-gradient through the kernel's backward (the derivative series on
     the same kernel) against autograd through the plain recurrence."""
     rng = np.random.default_rng(3)
-    x = torch.tensor(rng.uniform(-1., 1., size=(16, 560)), dtype=torch.float32, device=cuda)
+    x = torch.tensor(rng.uniform(-1., 1., size=(4096, 560)), dtype=torch.float32, device=cuda)
     xk = x.clone().requires_grad_(True)
     clenshaw(xk, coeffs).sum().backward()
     xr = x.clone().requires_grad_(True)
@@ -93,6 +101,10 @@ def test_kernel_rejects_bad_inputs(cuda, coeffs):
         clenshaw(torch.zeros((560, 4), device=cuda).t(), coeffs)
     with pytest.raises(NotImplementedError, match='A5'):
         clenshaw(x, coeffs.clone().requires_grad_(True))
+    with pytest.raises(ValueError, match='48 KB'):
+        clenshaw(x, torch.ones(12289, device=cuda))
+    with pytest.raises(ValueError, match='queries_per_thread'):
+        cuda_kernels._launch_clenshaw(x, coeffs, True, queries_per_thread=7)
 
 
 def test_kernel_raises_when_library_fails_to_build(cuda, tmp_path, monkeypatch):
@@ -105,12 +117,13 @@ def test_kernel_raises_when_library_fails_to_build(cuda, tmp_path, monkeypatch):
 
 
 def test_logpost_on_card_matches_cpu(cuda):
-    """Config 1 on the card (the kernel, forward and backward) against the
-    port's CPU plain path, both float32, at the 16 frozen points."""
+    """Config 1 on the card, where a likelihood built with no device runs
+    (the kernel, forward and backward), against the port's CPU plain path,
+    both float32, at the 16 frozen points."""
     reference = np.load(REFERENCE)
     names = list(reference['names'])
     results = []
-    for device in ('cuda', 'cpu'):
+    for device in (None, 'cpu'):  # no device: the card
         like = build_likelihood(device)
         values = {n: torch.tensor(reference['points'][:, i], dtype=torch.float32, device=like.pipeline.device,
                                   requires_grad=True) for i, n in enumerate(names)}
@@ -118,7 +131,8 @@ def test_logpost_on_card_matches_cpu(cuda):
         logpost, _ = like.logpost_fn()(values)
         logpost.sum().backward()
         launched = cuda_kernels.CLENSHAW_LAUNCHES - before
-        assert launched == (5 if device == 'cuda' else 0)  # 3 lookups forward, 2 with a gradient
+        assert like.pipeline.device.type == (device or 'cuda')
+        assert launched == (5 if device is None else 0)  # 3 lookups forward, 2 with a gradient
         grad = torch.stack([values[n].grad for n in names], dim=-1)
         results.append((logpost.detach().cpu().numpy(), grad.cpu().numpy()))
     (lp, g), (lp_cpu, g_cpu) = results
