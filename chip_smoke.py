@@ -1,35 +1,53 @@
 """Smoke test of the PyTorch port (desilike_tpu_torch) on one CUDA card.
 
-Drives the port's main path, the batched config-1 BAO log-posterior of
-``__graft_entry__._build_likelihood`` at full width, on the card, through
-the hand-written CUDA Clenshaw kernel, and checks it:
+Drives the port's main paths on the card, at full width, through the
+hand-written CUDA kernels, and checks them: the batched config-1 BAO
+log-posterior of ``__graft_entry__._build_likelihood`` and the batched
+config-4 joint two-tracer full-shape + BAO log-posterior of
+``bench.build_likelihood``, each with its gradient.
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions, and
    the kernel library's build time;
-2. the kernel against its plain PyTorch version (:func:`kernel_cases`): the
-   main-path shapes (B in {1, 4096}, Q = 560, the template's order 202),
-   ragged Q in {1, 3, 561} at orders {1, 2, 3, 203, 320}, shared and per-row
-   coefficients, with and without exp, an x view with a storage offset,
-   70000 rows (also walked with a grid stride), K = 2 and 8 queries a thread,
-   the (56, 1) lookup's one-block launch; and its x-gradient against autograd
-   through the plain version at B = 1 and 4096;
-3. the likelihood at full width: log-posterior and gradient over B = 4096
-   seeded chains (finite, through the kernel; launches counted forward and
-   with the gradient), the frozen JAX values of
+2. the kernels against their plain PyTorch versions. The Clenshaw series
+   (:func:`kernel_cases`): the main-path shapes (B in {1, 4096}, Q = 560,
+   the template's order 202), ragged Q in {1, 3, 561} at orders {1, 2, 3,
+   203, 320}, shared and per-row coefficients, with and without exp, an x
+   view with a storage offset, 70000 rows (also walked with a grid stride),
+   K = 2 and 8 queries a thread, the (56, 1) lookup's one-block launch; and
+   its x-gradient against autograd through the plain version at B = 1 and
+   4096. The coefficient gradient (:func:`coeff_grad_cases`): B in {1,
+   4096} x Q in {288, 560} at order 202, per-row and shared, with and
+   without exp, ragged Q in {1, 3, 561} at orders {1, 2, 3, 203, 320}, 70000
+   rows (also walked with a grid stride); and the full backward of the series
+   (x and coefficients) against autograd through the plain version at
+   (4096, 288, 202) per-row;
+3. the likelihoods at full width. Config 1: log-posterior and gradient over
+   B = 4096 seeded chains (finite, through the kernel; launches counted
+   forward and with the gradient), the frozen JAX values of
    ``tests/data/torch_port_bao_reference.npz``, the ``damped_bao`` golden
    vector of ``tests/data/golden_theories.npz`` from a theory built with no
    device (the card by default), and the gradient on the card against the
-   port's CPU plain path;
-4. times: the kernel's device time from CUDA-graph replay of 50 launches at
-   (4096, 560, 202) shared and per-row and (65536, 560, 202) shared, each
-   beside its bound; the wrapper's host time a call; the plain version; and
-   log-posterior evaluations per second at B = 4096 and 65536.
+   port's CPU plain path. Config 4: the same over B = 4096 chains (both
+   kernels launched, the 30 solved parameters in ``aux['solved']``), the
+   frozen JAX values of ``tests/data/torch_port_joint_reference.npz``, the
+   card against the CPU plain path at 4 points, and the ``kaiser`` and
+   ``eft_kaiser`` golden vectors;
+4. times (reported, not gated): the Clenshaw kernel's device time from
+   CUDA-graph replay of 50 launches at (4096, 560, 202) shared and per-row,
+   (4096, 288, 202) per-row and (65536, 560, 202) shared, the coefficient
+   gradient's at (4096, 288, 202) and (4096, 560, 202) per-row, each beside
+   its bound; the wrapper's host time a call; the plain versions; the
+   nearest library call to the coefficient gradient
+   (``torch.special.chebyshev_polynomial_t`` over (B, Q, order), then an
+   einsum); and log-posterior evaluations per second, config 1 at B = 4096
+   and 65536, config 4 at B = 4096 (forward and with the gradient) and 32768.
 
 Any failure raises (exit code 1). The last two lines of standard output are
 a JSON object describing the kernels, then ``{"ok": true, "device": ...}``.
 Needs one CUDA device and no network; imports nothing of JAX.
 
-Run from the repository root: ``python3 chip_smoke.py``.
+Run from the repository root: ``python3 chip_smoke.py`` (``--kernels-only``
+stops after phase 2 and prints no result line).
 """
 
 import json
@@ -43,12 +61,25 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH = 4096
 BIG_BATCH = 65536
-NQUERY = 560  # 56 k bins x 10 mu nodes per chain
+JOINT_BIG_BATCH = 32768  # the batch the JAX package's bench uses for config 4
+NQUERY = 560  # BAO lookups: 56 k bins x 10 mu nodes per chain
+FS_NQUERY = 288  # full-shape lookups: 36 k bins x 8 mu nodes per chain
+ORDER = 202  # the templates' Chebyshev order
 KGRID = np.geomspace(1e-4, 1., 2000)  # the config-1 template grid
 FP32_FLOPS = 67e12   # published H100 SXM FP32 rate outside the tensor cores, at 700 W
 HBM_BYTES = 3.35e12  # published H100 SXM memory rate
 KERNEL_RTOL = 1e-5   # of the output's magnitude: the kernel fuses 2x b1 - b2 + c into one FFMA
                      # and an FADD where torch rounds every operation, both float32
+COEFF_GRAD_RTOL = 1e-4  # of the gradient's magnitude: sums of up to 561 (per-row) or 39 M (shared) terms
+                        # in another order, over a forward T_j recurrence with a fused multiply-add
+# config 4 against the frozen JAX values at 16 points. Against x64: the float32 pipeline's own
+# rounding on 368 data, almost all of it in the whitened residual, whose theory vector carries 1e-6
+# of relative float32 error against errors of ~2% (measured on the CPU: log-posterior within 8.1e-3,
+# gradient within 5.6e-5 of its norm; in float64 the port is within 9e-11 and 3e-12). Against the
+# JAX package's float32 values, which are 5.5e-2 and 2.0e-3 from its own x64 values (it cancels
+# terms of ~1e4): measured 5.4e-2 and 2.0e-3, with the JAX host state 6.2e-2 and 5.8e-4.
+JOINT_X64_ATOL, JOINT_X64_GRAD_RTOL = 2e-2, 5e-4
+JOINT_F32_ATOL, JOINT_F32_GRAD_RTOL = 0.15, 1e-2
 
 
 def build_likelihood(device):
@@ -68,14 +99,51 @@ def build_likelihood(device):
     return like
 
 
+def build_joint_likelihood(device):
+    """Config 4 in the port, with the calls of the JAX package's bench:
+    two tracers, each with a full-shape observable (ShapeFit template,
+    EFT-like Kaiser theory, counterterms and stochastic terms marginalized)
+    and a BAO observable (broadband marginalized); ``device=None``: the card."""
+    from desilike_tpu_torch import (DampedBAOWigglesTracerPowerSpectrumMultipoles, BAOPowerSpectrumTemplate,
+                                    ShapeFitPowerSpectrumTemplate, EFTLikeKaiserTracerPowerSpectrumMultipoles,
+                                    TracerPowerSpectrumMultipolesObservable, BoxFootprint,
+                                    ObservablesGaussianLikelihood)
+    observables, footprints = [], []
+    for tracer, z, b1 in [('LRG', 0.8, 2.0), ('ELG', 1.1, 1.3)]:
+        fs_theory = EFTLikeKaiserTracerPowerSpectrumMultipoles(
+            ells=(0, 2), template=ShapeFitPowerSpectrumTemplate(z=z, namespace=tracer), namespace=tracer)
+        fs_theory.init.params = {'ct*': dict(derived='.marg'), 'sn*': dict(derived='.marg')}
+        observables.append(TracerPowerSpectrumMultipolesObservable(
+            data={'{}.b1'.format(tracer): b1},
+            klim={0: (0.02, 0.2, 0.005), 2: (0.02, 0.2, 0.005)}, theory=fs_theory))
+        footprints.append(BoxFootprint(volume=2e9, nbar=5e-4))
+        bao_theory = DampedBAOWigglesTracerPowerSpectrumMultipoles(
+            ells=(0, 2), template=BAOPowerSpectrumTemplate(z=z, namespace=tracer + 'bao'),
+            namespace=tracer + 'bao')
+        bao_theory.init.params = {'al*': dict(derived='.marg')}
+        observables.append(TracerPowerSpectrumMultipolesObservable(
+            data={'{}bao.b1'.format(tracer): b1},
+            klim={0: (0.02, 0.3, 0.005), 2: (0.02, 0.3, 0.005)}, theory=bao_theory))
+        footprints.append(BoxFootprint(volume=2e9, nbar=5e-4))
+    like = ObservablesGaussianLikelihood(observables=observables, footprints=footprints, device=device)
+    like.pipeline
+    return like
+
+
 def chains(names, batch, seed, device):
-    """Seeded parameter batch around the fiducial, inside the priors."""
+    """Seeded parameter batch around the fiducial, inside the priors; b1 is
+    centered on the value the tracer's data were generated with."""
     import torch
     rng = np.random.default_rng(seed)
-    center = {'qpar': 1., 'qper': 1., 'b1': 2., 'dbeta': 1.}
-    width = {'qpar': 0.04, 'qper': 0.04, 'b1': 0.3, 'dbeta': 0.1}
-    return {n: torch.tensor(center[n] + width[n] * rng.uniform(-1., 1., batch), dtype=torch.float32,
-                            device=device, requires_grad=True) for n in names}
+    center = {'qpar': 1., 'qper': 1., 'dbeta': 1., 'df': 1., 'dm': 0.}
+    width = {'qpar': 0.04, 'qper': 0.04, 'b1': 0.3, 'dbeta': 0.1, 'df': 0.1, 'dm': 0.05}
+    values = {}
+    for name in names:
+        namespace, _, basename = name.rpartition('.')
+        mid = (1.3 if namespace.startswith('ELG') else 2.) if basename == 'b1' else center[basename]
+        values[name] = torch.tensor(mid + width[basename] * rng.uniform(-1., 1., batch), dtype=torch.float32,
+                                    device=device, requires_grad=True)
+    return values
 
 
 def logpost_and_grad(fn, values):
@@ -191,6 +259,65 @@ def check_kernel_case(case, device):
     return err, rel, geometry
 
 
+def coeff_grad_cases():
+    """The shapes at which the coefficient-gradient kernel is held against
+    its plain version: dicts of rows, q, order, per_row, log_values, and
+    optionally max_grid."""
+    cases = []
+    for rows in (1, BATCH):
+        for q in (FS_NQUERY, NQUERY):
+            for per_row in (True, False):
+                for log_values in (True, False):
+                    cases.append(dict(rows=rows, q=q, order=ORDER, per_row=per_row, log_values=log_values))
+    for q in (1, 3, 561):
+        for order in (1, 2, 3, 203, 320):
+            for per_row in (True, False):
+                cases.append(dict(rows=56, q=q, order=order, per_row=per_row, log_values=order % 2 == 1))
+    for per_row in (True, False):
+        cases.append(dict(rows=70000, q=561, order=ORDER, per_row=per_row, log_values=False))
+        cases.append(dict(rows=70000, q=3, order=ORDER, per_row=per_row, log_values=True, max_grid=7))
+    cases.append(dict(rows=56, q=1200, order=ORDER, per_row=True, log_values=False))  # three column tiles
+    return cases
+
+
+def check_coeff_grad_case(case, device):
+    """Launch the coefficient-gradient kernel on ``case`` (x and coefficients
+    of :func:`case_inputs`, a seeded grad_y, y from the plain series when
+    exp'd) and hold it against clenshaw_coeff_grad_reference; returns (max
+    abs err, err relative to the gradient's max, geometry). Raises if they
+    disagree beyond COEFF_GRAD_RTOL."""
+    import torch
+    from desilike_tpu_torch.ops import cuda_kernels
+    x, c = case_inputs(case, device)
+    grad_y = torch.tensor(np.random.default_rng(3).normal(size=tuple(x.shape)), dtype=torch.float32, device=device)
+    y = cuda_kernels.clenshaw_reference(x, c, log_values=True) if case['log_values'] else None
+    got = cuda_kernels._launch_coeff_grad(x, grad_y, y, case['order'], case['per_row'],
+                                          max_grid=case.get('max_grid', cuda_kernels.MAX_GRID))
+    expected = cuda_kernels.clenshaw_coeff_grad_reference(x, grad_y if y is None else grad_y * y, case['order'],
+                                                          case['per_row'])
+    torch.cuda.synchronize()
+    if got.shape != expected.shape:
+        raise AssertionError('coefficient gradient has shape {} for {}'.format(tuple(got.shape), case_label(case)))
+    err = float((got - expected).abs().max())
+    rel = err / float(expected.abs().max())
+    if not rel <= COEFF_GRAD_RTOL:
+        raise AssertionError('kernel disagrees with clenshaw_coeff_grad_reference at {}: {:.3e} of the '
+                             'magnitude'.format(case_label(case), rel))
+    return err, rel, cuda_kernels.coeff_grad_geometry(case['rows'], case['q'], case['order'], case['per_row'],
+                                                      case.get('max_grid', cuda_kernels.MAX_GRID))
+
+
+def coeff_grad_bound_ms(rows, q, order, per_row):
+    """Least time of the H100 for the coefficient gradient: 3 FLOP (an FFMA
+    and an FADD) a (query, degree) at the FP32 rate, or x, w and y once and
+    the gradient once at the memory rate, whichever is larger. Returns (ms,
+    'operations' or 'bytes')."""
+    flops = 3. * rows * q * order
+    nbytes = 4. * (3 * rows * q + (rows if per_row else 1) * order)
+    ops_ms, bytes_ms = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+    return (ops_ms, 'operations') if ops_ms >= bytes_ms else (bytes_ms, 'bytes')
+
+
 def clenshaw_bound_ms(rows, q, order, per_row):
     """Least time of the H100 for the series: 3 FLOP (an FFMA and an FADD) a
     step-query at the FP32 rate, or x and y once and the coefficients once at
@@ -254,18 +381,67 @@ def host_ms(fn, calls=200):
     return elapsed / calls * 1e3
 
 
-def main():
+def theory_golden(label, theory, golden, name):
+    """Evaluate ``theory`` (built with no device: the card) at the golden
+    parameter values it takes and hold its multipoles against the golden
+    vector ``name`` at the tolerance of the JAX package's golden test."""
+    from desilike_tpu_torch import Pipeline
+    # the parameter values of tests/test_golden.py
+    values = {'qpar': 1.02, 'qper': 0.98, 'b1': 1.8, 'sigmapar': 9., 'sigmaper': 6., 'sigmas': 2., 'dbeta': 1.1,
+              'df': 1.05, 'dm': 0.02, 'sn0': 500., 'ct0_2': 10., 'ct2_2': 5.}
+    pipe = Pipeline(theory)
+    allowed = set(pipe.params.basenames())
+    pipe.evaluate({key: value for key, value in values.items() if key in allowed})
+    if theory.power.device.type != 'cuda':
+        raise AssertionError('a theory built with no device evaluates on {}'.format(theory.power.device))
+    got = theory.power[0].cpu().numpy().astype('f8')
+    ref = golden[name]
+    err = float(np.abs(got - ref).max() / np.abs(ref).max())
+    print('{}: {} theory on the card (built with no device) vs golden: max err relative to max {:.3e} '
+          '(tol 2e-5 + 2e-5 rtol)'.format(label, name, err))
+    np.testing.assert_allclose(got, ref, atol=2e-5 * np.max(np.abs(ref)), rtol=2e-5)
+
+
+def at_points(likelihood, names, rows):
+    """Log-posterior and gradient of ``likelihood`` at the points ``rows`` (one column per name), as numpy."""
+    import torch
+    vals = {n: torch.tensor(rows[:, i], dtype=torch.float32, device=likelihood.pipeline.device,
+                            requires_grad=True) for i, n in enumerate(names)}
+    lp, g = logpost_and_grad(likelihood.logpost_fn(), vals)
+    return lp.cpu().numpy(), g.cpu().numpy()
+
+
+def drive(fn, values):
+    """One forward call and one call with the gradient, with the launch
+    counters set to 0 just before each and read just after: returns
+    (logpost, grad, launches forward, launches with the gradient), the
+    launches as (Clenshaw, coefficient gradient)."""
+    import torch
+    from desilike_tpu_torch.ops import cuda_kernels
+    cuda_kernels.CLENSHAW_LAUNCHES = cuda_kernels.COEFF_GRAD_LAUNCHES = 0
+    with torch.no_grad():
+        fn(values)
+    torch.cuda.synchronize()
+    forward = (cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES)
+    cuda_kernels.CLENSHAW_LAUNCHES = cuda_kernels.COEFF_GRAD_LAUNCHES = 0
+    logpost, grad = logpost_and_grad(fn, values)
+    torch.cuda.synchronize()
+    return logpost, grad, forward, (cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES)
+
+
+def main(kernels_only=False):
     import torch
     if not torch.cuda.is_available():
         raise RuntimeError('chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False')
     sys.path.insert(0, ROOT)
     from desilike_tpu_torch.ops import cuda_kernels
-    from desilike_tpu_torch.ops.cuda_kernels import clenshaw, clenshaw_reference
+    from desilike_tpu_torch.ops.cuda_kernels import clenshaw, clenshaw_reference, clenshaw_coeff_grad_reference
     from desilike_tpu_torch.interop import state_from_numpy
-    from desilike_tpu_torch import Pipeline, config
-    reference = np.load(os.path.join(ROOT, 'tests', 'data', 'torch_port_bao_reference.npz'))
-    golden = np.load(os.path.join(ROOT, 'tests', 'data', 'golden_theories.npz'))
+    from desilike_tpu_torch import (config, DampedBAOWigglesTracerPowerSpectrumMultipoles, BAOPowerSpectrumTemplate,
+                                    ShapeFitPowerSpectrumTemplate, KaiserTracerPowerSpectrumMultipoles,
+                                    EFTLikeKaiserTracerPowerSpectrumMultipoles)
     cuda = config.device('cuda')
+    started = time.perf_counter()
 
     # --- phase 1: the card ---
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
@@ -276,14 +452,14 @@ def main():
         smi, torch.__version__, torch.version.cuda, cuda_kernels.BUILD_INFO['seconds'], ' | '.join(ptxas)))
     print(smi)
 
-    # --- phase 2: the kernel against its plain version ---
+    # --- phase 2: the kernels against their plain versions ---
     like = build_likelihood(None)  # no device: the card
     pipe = like.pipeline
     names = pipe.varied_params.names()
     template = pipe.calculators[1]
     order = template._cheb.order
-    if order != 202:
-        raise AssertionError('the kernel cases assume the template\'s order 202, got {}'.format(order))
+    if order != ORDER:
+        raise AssertionError('the kernel cases assume the template\'s order {}, got {}'.format(ORDER, order))
     coeffs = torch.tensor(template.pk_dd_coeffs_fid, dtype=torch.float32, device=cuda)
     max_abs_err, max_rel = 0., 0.
     kobs = None
@@ -314,121 +490,226 @@ def main():
     print('phase 2: {} kernel cases agree with clenshaw_reference: max abs err {:.3e}, relative {:.3e} (tol {:.0e})'.format(
         len(kernel_cases()), max_abs_err, max_rel, KERNEL_RTOL))
 
-    # --- phase 3: the likelihood at full width ---
+    grad_abs_err, grad_rel = 0., 0.
+    for case in coeff_grad_cases():
+        err, rel, geometry = check_coeff_grad_case(case, cuda)
+        grad_abs_err, grad_rel = max(grad_abs_err, err), max(grad_rel, rel)
+        print('phase 2: coefficient gradient {}: max abs err {:.3e}, relative to max {:.3e}; NQ={} {} blocks of {} '
+              'warps, idle {:.3f}'.format(case_label(case), err, rel, geometry.nq, geometry.grid, geometry.warps,
+                                          geometry.idle))
+    print('phase 2: {} coefficient-gradient cases agree with clenshaw_coeff_grad_reference: max abs err {:.3e}, '
+          'relative {:.3e} (tol {:.0e})'.format(len(coeff_grad_cases()), grad_abs_err, grad_rel, COEFF_GRAD_RTOL))
+    # the full backward of the series at the full-shape lookups' shape: x and per-row coefficients
+    case = dict(rows=BATCH, q=FS_NQUERY, order=ORDER, per_row=True, log_values=True)
+    x, c = case_inputs(case, cuda)
+    weight = torch.tensor(np.random.default_rng(4).normal(size=tuple(x.shape)), dtype=torch.float32, device=cuda)
+    grads = []
+    for function in (clenshaw, clenshaw_reference):
+        xg, cg = x.clone().requires_grad_(True), c.clone().requires_grad_(True)
+        (function(xg, cg) * weight).sum().backward()
+        grads.append((xg.grad, cg.grad))
+    torch.cuda.synchronize()
+    rel_x = float((grads[0][0] - grads[1][0]).abs().max() / grads[1][0].abs().max())
+    rel_c = float((grads[0][1] - grads[1][1]).abs().max() / grads[1][1].abs().max())
+    print('phase 2: full backward at {}: x-gradient {:.3e}, coefficient gradient {:.3e} of the magnitude from '
+          'autograd through the plain version (tol 1e-4)'.format(case_label(case), rel_x, rel_c))
+    if not (rel_x <= 1e-4 and rel_c <= COEFF_GRAD_RTOL):
+        raise AssertionError('the backward of the series disagrees with autograd of clenshaw_reference')
+    if kernels_only:
+        print('phases 1 and 2 took {:.1f} s'.format(time.perf_counter() - started))
+        return
+
+    # --- phase 3: the likelihoods at full width ---
+    reference = np.load(os.path.join(ROOT, 'tests', 'data', 'torch_port_bao_reference.npz'))
+    joint_reference = np.load(os.path.join(ROOT, 'tests', 'data', 'torch_port_joint_reference.npz'))
+    golden = np.load(os.path.join(ROOT, 'tests', 'data', 'golden_theories.npz'))
     fn = like.logpost_fn()
     if pipe.device.type != 'cuda':
         raise AssertionError('a likelihood built with no device evaluates on {}'.format(pipe.device))
     values = chains(names, BATCH, seed=0, device=cuda)
-    cuda_kernels.CLENSHAW_LAUNCHES = 0
-    with torch.no_grad():
-        fn(values)
-    torch.cuda.synchronize()
-    launches_forward = cuda_kernels.CLENSHAW_LAUNCHES
-    cuda_kernels.CLENSHAW_LAUNCHES = 0
-    logpost, grad = logpost_and_grad(fn, values)
-    torch.cuda.synchronize()
-    launches = cuda_kernels.CLENSHAW_LAUNCHES
+    logpost, grad, forward1, launches1 = drive(fn, values)
     finite = bool(torch.isfinite(logpost).all() and torch.isfinite(grad).all())
-    print('phase 3: logpost and gradient over B={} chains on {}: shape {}, all finite {}, mean logpost {:.4f}, '
-          'Clenshaw launches {} forward, {} with the gradient'.format(
-              BATCH, logpost.device, tuple(logpost.shape), finite, float(logpost.mean()), launches_forward, launches))
-    if logpost.shape != (BATCH,) or not finite or launches_forward <= 0 or launches <= launches_forward:
-        raise AssertionError('main path failed')
+    print('phase 3: config 1: logpost and gradient over B={} chains on {}: shape {}, all finite {}, mean logpost '
+          '{:.4f}, Clenshaw launches {} forward, {} with the gradient'.format(
+              BATCH, logpost.device, tuple(logpost.shape), finite, float(logpost.mean()), forward1[0], launches1[0]))
+    if logpost.shape != (BATCH,) or not finite or forward1[0] <= 0 or launches1[0] <= forward1[0]:
+        raise AssertionError('config 1 main path failed')
 
     points = reference['points']
-
-    def at_points(likelihood, rows):
-        vals = {n: torch.tensor(rows[:, i], dtype=torch.float32, device=likelihood.pipeline.device,
-                                requires_grad=True) for i, n in enumerate(names)}
-        lp, g = logpost_and_grad(likelihood.logpost_fn(), vals)
-        return lp.cpu().numpy(), g.cpu().numpy()
-
     # the JAX float32 values carry up to 0.036 / 0.71% of their own float32
     # error (measured against the JAX package in x64); the x64 values bound
     # the port's own float32 error
-    lp, g = at_points(state_from_numpy(build_likelihood('cuda'), reference), points)
-    check_close('phase 3: card, JAX host state vs JAX float32 at 16 points', lp, reference['logpost'], 5e-2,
-                g, reference['grad'], 1e-2)
-    lp, g = at_points(like, points)
-    check_close('phase 3: card, own host state vs JAX float32 at 16 points', lp, reference['logpost'], 5e-2,
-                g, reference['grad'], 1e-2)
-    check_close('phase 3: card, own host state vs JAX float64 (x64) at 16 points', lp, reference['logpost_x64'],
-                2e-3, g, reference['grad_x64'], 5e-4)
-    cpu_like = build_likelihood('cpu')
-    lp_cpu, g_cpu = at_points(cpu_like, points[:4])
-    check_close('phase 3: card vs the port\'s CPU plain path at 4 points', lp[:4], lp_cpu, 2e-3, g[:4], g_cpu, 5e-4)
+    lp, g = at_points(state_from_numpy(build_likelihood('cuda'), reference), names, points)
+    check_close('phase 3: config 1: card, JAX host state vs JAX float32 at 16 points', lp, reference['logpost'],
+                5e-2, g, reference['grad'], 1e-2)
+    lp, g = at_points(like, names, points)
+    check_close('phase 3: config 1: card, own host state vs JAX float32 at 16 points', lp, reference['logpost'],
+                5e-2, g, reference['grad'], 1e-2)
+    check_close('phase 3: config 1: card, own host state vs JAX float64 (x64) at 16 points', lp,
+                reference['logpost_x64'], 2e-3, g, reference['grad_x64'], 5e-4)
+    lp_cpu, g_cpu = at_points(build_likelihood('cpu'), names, points[:4])
+    check_close('phase 3: config 1: card vs the port\'s CPU plain path at 4 points', lp[:4], lp_cpu, 2e-3,
+                g[:4], g_cpu, 5e-4)
+    k29 = np.linspace(0.02, 0.3, 29)
+    theory_golden('phase 3', DampedBAOWigglesTracerPowerSpectrumMultipoles(
+        ells=(0, 2), k=k29, template=BAOPowerSpectrumTemplate(z=0.8, apmode='qparqper')), golden, 'damped_bao')
 
-    from desilike_tpu_torch import DampedBAOWigglesTracerPowerSpectrumMultipoles, BAOPowerSpectrumTemplate
-    theory = DampedBAOWigglesTracerPowerSpectrumMultipoles(
-        ells=(0, 2), k=np.linspace(0.02, 0.3, 29),
-        template=BAOPowerSpectrumTemplate(z=0.8, apmode='qparqper'))  # no device: the card
-    # the parameter values of tests/test_golden.py that this theory takes
-    golden_values = {'qpar': 1.02, 'qper': 0.98, 'b1': 1.8, 'sigmapar': 9., 'sigmaper': 6., 'sigmas': 2.,
-                     'dbeta': 1.1, 'df': 1.05}
-    tpipe = Pipeline(theory)
-    tpipe.evaluate(golden_values)
-    if theory.power.device.type != 'cuda':
-        raise AssertionError('a theory built with no device evaluates on {}'.format(theory.power.device))
-    got = theory.power[0].cpu().numpy().astype('f8')
-    ref = golden['damped_bao']
-    err = float(np.abs(got - ref).max() / np.abs(ref).max())
-    print('phase 3: damped_bao theory on the card (built with no device) vs golden: max err relative to max '
-          '{:.3e} (tol 2e-5 + 2e-5 rtol)'.format(err))
-    np.testing.assert_allclose(got, ref, atol=2e-5 * np.max(np.abs(ref)), rtol=2e-5)
+    joint = build_joint_likelihood(None)  # no device: the card
+    jpipe = joint.pipeline
+    jnames = jpipe.varied_params.names()
+    solved_names = jpipe.solved_params.names()
+    if jnames != list(joint_reference['names']) or solved_names != list(joint_reference['solved_names']):
+        raise AssertionError('config 4 varies {} and solves {}'.format(jnames, solved_names))
+    jfn = joint.logpost_fn()
+    if jpipe.device.type != 'cuda':
+        raise AssertionError('a likelihood built with no device evaluates on {}'.format(jpipe.device))
+    jvalues = chains(jnames, BATCH, seed=0, device=cuda)
+    logpost, grad, forward4, launches4 = drive(jfn, jvalues)
+    with torch.no_grad():
+        aux = jfn(jvalues)[1]
+    finite = bool(torch.isfinite(logpost).all() and torch.isfinite(grad).all())
+    print('phase 3: config 4: logpost and gradient over B={} chains on {}: shape {}, gradient {}, all finite {}, '
+          'mean logpost {:.4f}; launches forward: Clenshaw {}, coefficient gradient {}; with the gradient: '
+          'Clenshaw {}, coefficient gradient {}; {} data, {} varied, {} solved'.format(
+              BATCH, logpost.device, tuple(logpost.shape), tuple(grad.shape), finite, float(logpost.mean()),
+              forward4[0], forward4[1], launches4[0], launches4[1], joint.size, len(jnames), len(solved_names)))
+    if (logpost.shape != (BATCH,) or grad.shape != (BATCH, 18) or not finite or forward4[0] <= 0
+            or launches4[0] <= forward4[0] or forward4[1] != 0 or launches4[1] <= 0):
+        raise AssertionError('config 4 main path failed')
+    if list(aux['solved']) != solved_names or len(solved_names) != 30 or joint.size != 368 \
+            or aux['solved_hessian'].shape != (BATCH, 30, 30) \
+            or not all(bool(torch.isfinite(value).all()) and value.shape == (BATCH,) for value in aux['solved'].values()):
+        raise AssertionError('config 4: aux[\'solved\'] does not hold the 30 solved parameters')
+
+    jpoints = joint_reference['points']
+    lp, g = at_points(state_from_numpy(build_joint_likelihood('cuda'), joint_reference), jnames, jpoints)
+    check_close('phase 3: config 4: card, JAX host state vs JAX float32 at 16 points', lp, joint_reference['logpost'],
+                JOINT_F32_ATOL, g, joint_reference['grad'], JOINT_F32_GRAD_RTOL)
+    lp, g = at_points(joint, jnames, jpoints)
+    check_close('phase 3: config 4: card, own host state vs JAX float32 at 16 points', lp, joint_reference['logpost'],
+                JOINT_F32_ATOL, g, joint_reference['grad'], JOINT_F32_GRAD_RTOL)
+    check_close('phase 3: config 4: card, own host state vs JAX float64 (x64) at 16 points', lp,
+                joint_reference['logpost_x64'], JOINT_X64_ATOL, g, joint_reference['grad_x64'], JOINT_X64_GRAD_RTOL)
+    lp_cpu, g_cpu = at_points(build_joint_likelihood('cpu'), jnames, jpoints[:4])
+    check_close('phase 3: config 4: card vs the port\'s CPU plain path at 4 points', lp[:4], lp_cpu, JOINT_X64_ATOL,
+                g[:4], g_cpu, JOINT_X64_GRAD_RTOL)
+    theory_golden('phase 3', KaiserTracerPowerSpectrumMultipoles(
+        ells=(0, 2, 4), k=k29, template=ShapeFitPowerSpectrumTemplate(z=0.8)), golden, 'kaiser')
+    theory_golden('phase 3', EFTLikeKaiserTracerPowerSpectrumMultipoles(
+        ells=(0, 2), k=k29, template=ShapeFitPowerSpectrumTemplate(z=0.8)), golden, 'eft_kaiser')
+    print('phases 1 to 3 took {:.1f} s'.format(time.perf_counter() - started))
 
     # --- phase 4: times (reported, not gated) ---
-    saved = cuda_kernels.CLENSHAW_LAUNCHES
+    saved = (cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES)
     timed = {}
-    for label, rows, per_row in (('shared', BATCH, False), ('per-row', BATCH, True), ('shared', BIG_BATCH, False)):
-        case = dict(rows=rows, q=NQUERY, order=order, per_row=per_row, log_values=True)
+    for label, rows, q, per_row in (('shared', BATCH, NQUERY, False), ('per-row', BATCH, NQUERY, True),
+                                    ('per-row', BATCH, FS_NQUERY, True), ('shared', BIG_BATCH, NQUERY, False)):
+        case = dict(rows=rows, q=q, order=order, per_row=per_row, log_values=True)
         x, c = case_inputs(case, cuda, seed=2)
         runs = [time_graph(lambda: clenshaw(x, c)) for _ in range(2)]
-        bound_ms, bound_by = clenshaw_bound_ms(rows, NQUERY, order, per_row)
-        timed[label, rows] = dict(ms=float(np.mean(runs)), bound_ms=bound_ms, bound_by=bound_by,
-                                  geometry=cuda_kernels.LAST_GEOMETRY)  # that of the launches timed
+        bound_ms, bound_by = clenshaw_bound_ms(rows, q, order, per_row)
+        timed[label, rows, q] = dict(ms=float(np.mean(runs)), bound_ms=bound_ms, bound_by=bound_by,
+                                     geometry=cuda_kernels.LAST_GEOMETRY)  # that of the launches timed
         print('phase 4: Clenshaw {}x{} order {} {} on {!r}: device time {:.4f} ms a launch (CUDA-graph replay, '
               'runs {}); bound {:.4f} ms ({}), {:.1%} of it'.format(
-                  rows, NQUERY, order, label, smi, timed[label, rows]['ms'], ['%.4f' % t for t in runs], bound_ms,
-                  bound_by, bound_ms / timed[label, rows]['ms']))
-    main = timed['shared', BATCH]
+                  rows, q, order, label, smi, timed[label, rows, q]['ms'], ['%.4f' % t for t in runs], bound_ms,
+                  bound_by, bound_ms / timed[label, rows, q]['ms']))
+    main_shape = timed['shared', BATCH, NQUERY]
     x, c = case_inputs(dict(rows=BATCH, q=NQUERY, order=order, per_row=False, log_values=True), cuda, seed=2)
     wrapper_host_ms = host_ms(lambda: clenshaw(x, c))
-    plain = [time_cuda(lambda: clenshaw_reference(x, c), 10)]
+    plain = [time_cuda(lambda: clenshaw_reference(x, c), 5)]
     events = [time_cuda(lambda: clenshaw(x, c), 200)]
-    plain.append(time_cuda(lambda: clenshaw_reference(x, c), 10))
+    plain.append(time_cuda(lambda: clenshaw_reference(x, c), 5))
     plain_ms = float(np.mean(plain))
     print('phase 4: Clenshaw {}x{} order {}: wrapper host time {:.4f} ms a call; back-to-back calls {:.4f} ms a '
           'call (CUDA events, host included); plain version {:.4f} ms (runs {})'.format(
               BATCH, NQUERY, order, wrapper_host_ms, events[0], plain_ms, ['%.4f' % t for t in plain]))
-    cuda_kernels.CLENSHAW_LAUNCHES = saved
+
+    grad_timed = {}
+    for q in (FS_NQUERY, NQUERY):
+        case = dict(rows=BATCH, q=q, order=order, per_row=True, log_values=True)
+        x, c = case_inputs(case, cuda, seed=2)
+        w = torch.tensor(np.random.default_rng(5).normal(size=tuple(x.shape)), dtype=torch.float32, device=cuda)
+        with torch.no_grad():
+            y = clenshaw(x, c)  # the exp'd forward output, multiplied in at load as on the config-4 path
+
+        def kernel_call():  # the launch that clenshaw's backward makes
+            return cuda_kernels._launch_coeff_grad(x, w, y, order, True)
+
+        runs = [time_graph(kernel_call) for _ in range(2)]
+        bound_ms, bound_by = coeff_grad_bound_ms(BATCH, q, order, True)
+        entry = grad_timed[q] = dict(ms=float(np.mean(runs)), bound_ms=bound_ms, bound_by=bound_by,
+                                     geometry=cuda_kernels.coeff_grad_geometry(BATCH, q, order, True))
+        wy = w * y
+        entry['plain_ms'] = time_cuda(lambda: clenshaw_coeff_grad_reference(x, wy, order), 3, warmup=1)
+        got = kernel_call()
+
+        def library_call():  # the nearest a library offers: every T_j(x) materialised, then a contraction
+            degrees = torch.arange(order, device=cuda)
+            return torch.einsum('bq,bqj->bj', wy, torch.special.chebyshev_polynomial_t(x[..., None], degrees))
+
+        try:  # a yardstick only, used nowhere in the port: where the card cannot hold it, say so
+            entry['library_ms'] = time_cuda(library_call, 3, warmup=1)
+            lib_rel = float((library_call() - got).abs().max() / got.abs().max())
+        except torch.cuda.OutOfMemoryError as exc:
+            entry['library_ms'], lib_rel = None, float('nan')
+            print('phase 4: chebyshev_polynomial_t + einsum could not run at {}x{}: {}'.format(BATCH, q, str(exc)[:300]))
+        print('phase 4: coefficient gradient {}x{} order {} per-row on {!r}: device time {:.4f} ms a launch '
+              '(CUDA-graph replay, runs {}); bound {:.4f} ms ({}), {:.1%} of it; plain version {:.4f} ms; '
+              'chebyshev_polynomial_t + einsum {} ms ({:.2f} GB materialised, {:.1e} of the magnitude from '
+              'the kernel)'.format(BATCH, q, order, smi, entry['ms'], ['%.4f' % t for t in runs], bound_ms, bound_by,
+                                   bound_ms / entry['ms'], entry['plain_ms'],
+                                   entry['library_ms'] and round(entry['library_ms'], 4),
+                                   4e-9 * BATCH * q * order, lib_rel))
+        del x, c, w, y, wy, got
+    cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES = saved
 
     rates = {}
-    for batch in (BATCH, BIG_BATCH):
-        fixed = chains(names, batch, seed=1, device=cuda)
-        with torch.no_grad():
-            forward_ms = time_cuda(lambda: fn(fixed), 50 if batch == BATCH else 20)
-        rates[batch] = batch / forward_ms * 1e3
-        line = 'phase 4: logpost at B={} on {!r}: {:.4f} ms a call, {:.0f} evals/s'.format(
-            batch, smi, forward_ms, rates[batch])
-        if batch == BATCH:
-            backward_ms = time_cuda(lambda: fn(fixed)[0].sum().backward(), 20)  # gradients accumulate; harmless
-            line += '; with gradient {:.4f} ms, {:.0f} evals/s'.format(backward_ms, batch / backward_ms * 1e3)
-        print(line)
-        del fixed
+    for label, function, varied, batches in (('config 1', fn, names, (BATCH, BIG_BATCH)),
+                                             ('config 4', jfn, jnames, (BATCH, JOINT_BIG_BATCH))):
+        for batch in batches:
+            fixed = chains(varied, batch, seed=1, device=cuda)
+            with torch.no_grad():
+                forward_ms = time_cuda(lambda: function(fixed), 20 if batch == BATCH else 10)
+            rates[label, batch] = batch / forward_ms * 1e3
+            line = 'phase 4: {} logpost at B={} on {!r}: {:.4f} ms a call, {:.0f} evals/s'.format(
+                label, batch, smi, forward_ms, rates[label, batch])
+            if batch == BATCH:
+                backward_ms = time_cuda(lambda: function(fixed)[0].sum().backward(), 10)  # gradients accumulate; harmless
+                rates[label, batch, 'gradient'] = batch / backward_ms * 1e3
+                line += '; with gradient {:.4f} ms, {:.0f} evals/s'.format(backward_ms, batch / backward_ms * 1e3)
+            print(line)
+            del fixed
+    print('all phases took {:.1f} s'.format(time.perf_counter() - started))
 
+    fs = timed['per-row', BATCH, FS_NQUERY]
+    main_grad = grad_timed[FS_NQUERY]
     print(json.dumps({'kernels': [{
         'name': 'clenshaw', 'route': 'cuda', 'source': 'desilike_tpu_torch/csrc/clenshaw.cu',
-        'replaces': 'desilike_tpu/ops/pallas_kernels.py:30', 'launches': launches,
-        'launches_forward': launches_forward, 'launches_with_gradient': launches,
-        'queries_per_thread': main['geometry'].k, 'max_abs_err': max_abs_err,
-        'ms': main['ms'], 'plain_ms': plain_ms, 'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
-        'share_of_bound': main['bound_ms'] / main['ms'], 'library_ms': None,
-        'ms_per_row': timed['per-row', BATCH]['ms'], 'ms_65536': timed['shared', BIG_BATCH]['ms'],
-        'bound_ms_65536': timed['shared', BIG_BATCH]['bound_ms'], 'host_ms': wrapper_host_ms,
-        'geometry': main['geometry']._asdict(), 'evals_per_s': {str(b): r for b, r in rates.items()}}]}))
+        'replaces': 'desilike_tpu/ops/pallas_kernels.py:30', 'launches': launches4[0],
+        'launches_forward': forward4[0], 'launches_with_gradient': launches4[0],
+        'launches_config1_forward': forward1[0], 'launches_config1_with_gradient': launches1[0],
+        'queries_per_thread': main_shape['geometry'].k, 'max_abs_err': max_abs_err,
+        'ms': main_shape['ms'], 'plain_ms': plain_ms, 'bound_ms': main_shape['bound_ms'],
+        'bound_by': main_shape['bound_by'], 'share_of_bound': main_shape['bound_ms'] / main_shape['ms'],
+        'library_ms': None, 'ms_per_row': timed['per-row', BATCH, NQUERY]['ms'],
+        'ms_per_row_288': fs['ms'], 'bound_ms_per_row_288': fs['bound_ms'],
+        'ms_65536': timed['shared', BIG_BATCH, NQUERY]['ms'],
+        'bound_ms_65536': timed['shared', BIG_BATCH, NQUERY]['bound_ms'], 'host_ms': wrapper_host_ms,
+        'geometry': main_shape['geometry']._asdict()}, {
+        'name': 'clenshaw_coeff_grad', 'route': 'cuda', 'source': 'desilike_tpu_torch/csrc/clenshaw_coeff_grad.cu',
+        'replaces': 'desilike_tpu/ops/pallas_kernels.py:30', 'launches': launches4[1],
+        'launches_forward': forward4[1], 'launches_with_gradient': launches4[1], 'max_abs_err': grad_abs_err,
+        'max_rel_err': grad_rel, 'ms': main_grad['ms'], 'plain_ms': main_grad['plain_ms'],
+        'bound_ms': main_grad['bound_ms'], 'bound_by': main_grad['bound_by'],
+        'share_of_bound': main_grad['bound_ms'] / main_grad['ms'], 'library_ms': main_grad['library_ms'],
+        'ms_560': grad_timed[NQUERY]['ms'], 'bound_ms_560': grad_timed[NQUERY]['bound_ms'],
+        'plain_ms_560': grad_timed[NQUERY]['plain_ms'], 'library_ms_560': grad_timed[NQUERY]['library_ms'],
+        'geometry': main_grad['geometry']._asdict()}],
+        'evals_per_s': {' '.join(str(part) for part in key): rate for key, rate in rates.items()}}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
                                              'count': torch.cuda.device_count()}}))
 
 
 if __name__ == '__main__':
-    main()
+    main(kernels_only=sys.argv[1:] == ['--kernels-only'])

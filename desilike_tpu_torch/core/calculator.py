@@ -9,8 +9,10 @@ tracing step.
 
 Dependencies are discovered implicitly: any Calculator instance in
 ``self.__dict__`` after initialize, unless ``self.requires`` is set
-explicitly. Namespaces and the state snapshots that emulators read wait
-for ROADMAP A5 and A14.
+explicitly. ``namespace='LRG'`` prefixes the node's parameter names
+(``LRG.b1``) and passes to the sub-calculators it creates, unless one sets
+``_propagate_namespace = False``. The state snapshots that emulators read
+wait for ROADMAP A14.
 
 Host tables reach the per-evaluation path through :meth:`Calculator.const`,
 which casts a numpy attribute to the dtype and device of the current
@@ -38,10 +40,10 @@ class InitConfig(dict):
 
     def __init__(self, calculator, kwargs):
         params = kwargs.pop('params', None)
-        if kwargs.pop('namespace', None):
-            raise NotImplementedError('namespaces come with the two-tracer likelihood (ROADMAP A5)')
+        namespace = kwargs.pop('namespace', None)
         super().__init__(kwargs)
         self._calculator = calculator
+        self._namespace = namespace
         self._params = None
         self._param_updates = []
         if params is not None:
@@ -88,6 +90,7 @@ class RuntimeInfo(object):
         self.initialized = False
         self.requires = None      # list of Calculator, discovered or explicit
         self.params = ParameterCollection()
+        self.namespace = ''
         self.name = calculator.__class__.__name__
         self.device = device      # explicit device request, or None
 
@@ -107,6 +110,12 @@ class RuntimeInfo(object):
                     params.set(param)
         for updates in calc.init._param_updates:
             params.update(updates, basename=True)
+        if calc.init._namespace:
+            self.namespace = calc.init._namespace
+            for param in params:
+                if not param.namespace:
+                    param.update(namespace=self.namespace)
+            params = ParameterCollection(list(params))  # re-key after rename
         self.params = params
         calc.params = params  # let initialize() inspect/modify
         self.requires = None  # re-discover on each (re-)initialization
@@ -136,6 +145,12 @@ class RuntimeInfo(object):
             requires = list(explicit)
         self.requires = requires
         for req in self.requires:
+            # the namespace passes to sub-calculators created implicitly
+            # (template -> apeffect); nodes meant to be shared across
+            # namespaces opt out
+            if self.namespace and not req.init._namespace and getattr(req, '_propagate_namespace', True):
+                req.init._namespace = self.namespace
+                req.runtime_info.initialized = False
             req.runtime_info.initialize()
         self.initialized = True
         calc.init._updated = False

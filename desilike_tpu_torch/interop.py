@@ -11,39 +11,63 @@ wait for ROADMAP A12.
 
 import numpy as np
 
-from .theories.power_template import BasePowerSpectrumTemplate
-from .observables.window import WindowedPowerSpectrumMultipoles
-
 STATE_KEYS = ('pk_dd_fid', 'pknow_dd_fid', 'flatdata', 'wmatrix', 'whiten', 'static_J')
-"""Template tables on the template's k grid, the flat data vector, the
-window matrix, the whitening factor L (L^T L = C^-1) and the static design
-matrix J (nsolved, ndata) of the solved parameters."""
+"""Template tables on the template's k grid, the window matrix, the flat data
+vector, the whitening factor L (L^T L = C^-1) and the static design matrix J
+(nstatic, ndata) of the solved parameters that have one, in the solved
+order. With one observable the first, second and fourth are stored under
+these names; with several, once per observable as ``pk_dd_fid.0``,
+``pk_dd_fid.1``, ... in the likelihood's order of observables (the
+template and window of that observable), while ``flatdata``, ``whiten`` and
+``static_J`` are the joint ones."""
+
+_PER_OBSERVABLE = ('pk_dd_fid', 'pknow_dd_fid', 'wmatrix')
+
+
+def state_keys(nobservables):
+    """The names of the arrays that :func:`state_from_numpy` reads for a
+    likelihood over ``nobservables`` observables."""
+    if nobservables == 1:
+        return list(STATE_KEYS)
+    return ['{}.{:d}'.format(key, i) for i in range(nobservables) for key in _PER_OBSERVABLE] \
+        + [key for key in STATE_KEYS if key not in _PER_OBSERVABLE]
+
+
+def _checked(name, new, current):
+    new = np.array(new, dtype='f8')
+    if new.shape != np.shape(current):
+        raise ValueError('{}: shape {} does not match the likelihood\'s {}'.format(name, new.shape, np.shape(current)))
+    return new
 
 
 def state_from_numpy(likelihood, arrays):
-    """Load ``arrays`` (a mapping with ``STATE_KEYS``) into the built
-    single-observable likelihood ``likelihood``; shapes must match."""
-    if len(likelihood.observables) != 1:
-        raise NotImplementedError('state loading for several observables comes with the joint '
-                                  'likelihood of ROADMAP A5')
+    """Load ``arrays`` (a mapping with the names of :func:`state_keys`) into
+    the built likelihood ``likelihood``; shapes must match."""
+    observables = likelihood.observables
+    suffixes = [''] if len(observables) == 1 else ['.{:d}'.format(i) for i in range(len(observables))]
+    loaded = []
+    for observable, suffix in zip(observables, suffixes):
+        window = observable.wmatrix
+        template = window.theory.template
+        loaded.append((window, template,
+                       _checked('wmatrix' + suffix, arrays['wmatrix' + suffix], window.wmatrix),
+                       _checked('pk_dd_fid' + suffix, arrays['pk_dd_fid' + suffix], template.pk_dd_fid),
+                       _checked('pknow_dd_fid' + suffix, arrays['pknow_dd_fid' + suffix], template.pknow_dd_fid)))
+    flatdata = _checked('flatdata', arrays['flatdata'], likelihood.flatdata)
+    whiten = _checked('whiten', arrays['whiten'], likelihood._whiten)
     pipe = likelihood.pipeline
-    (template,) = [c for c in pipe.calculators if isinstance(c, BasePowerSpectrumTemplate)]
-    (window,) = [c for c in pipe.calculators if isinstance(c, WindowedPowerSpectrumMultipoles)]
-    (observable,) = likelihood.observables
-    new = {key: np.array(arrays[key], dtype='f8') for key in STATE_KEYS}
-    current = {'pk_dd_fid': template.pk_dd_fid, 'pknow_dd_fid': template.pknow_dd_fid,
-               'flatdata': likelihood.flatdata, 'wmatrix': window.wmatrix, 'whiten': likelihood._whiten}
-    for key, value in current.items():
-        if new[key].shape != np.shape(value):
-            raise ValueError('{}: shape {} does not match the likelihood\'s {}'.format(
-                key, new[key].shape, np.shape(value)))
-    expected_J = (len(pipe.solved_params), likelihood.size)
-    if new['static_J'].shape != expected_J:
-        raise ValueError('static_J: shape {} does not match {}'.format(new['static_J'].shape, expected_J))
-    template.set_fiducial_tables(new['pk_dd_fid'], new['pknow_dd_fid'])
-    window.wmatrix = new['wmatrix']
-    observable.flatdata = likelihood.flatdata = new['flatdata']
-    likelihood._whiten = new['whiten']
-    likelihood._static_J = new['static_J']
+    nstatic = len(likelihood._static_linear_indices(pipe, pipe.solved_params))
+    static_J = _checked('static_J', arrays['static_J'], np.empty((nstatic, likelihood.size)))
+    for window, template, wmatrix, pk_dd, pknow_dd in loaded:
+        template.set_fiducial_tables(pk_dd, pknow_dd)
+        window.wmatrix = wmatrix
+    start = 0
+    for observable in observables:
+        stop = start + len(observable.flatdata)
+        observable.flatdata = flatdata[start:stop]
+        start = stop
+    likelihood.flatdata = flatdata
+    likelihood._whiten = whiten
+    likelihood._static_J = static_J
     likelihood.__dict__.pop('_logpost_fn', None)  # built on the old state
     return likelihood

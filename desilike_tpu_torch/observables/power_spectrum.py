@@ -5,7 +5,7 @@ theory P_l(k) against a flat data vector, which ``data={...}`` generates from
 the theory itself (a host-side float64 evaluation). Measured data vectors
 and their loaders, covariances attached to the observable (from mocks,
 with the Hartlap/Percival factors) and the ``transform='cubic'``
-Gaussianization wait for ROADMAP A5, A8 and A12.
+Gaussianization wait for ROADMAP A8 and A12.
 """
 
 from ..core import Calculator, Pipeline

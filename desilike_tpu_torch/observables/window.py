@@ -88,8 +88,8 @@ class WindowedPowerSpectrumMultipoles(Calculator):
             raise NotImplementedError('window options {} (output grids given as k, shot noise, external '
                                       'windows, fiber collisions, systematic templates) are ROADMAP A12'.format(unsupported))
         if klim is None or theory is None:
-            raise NotImplementedError('pass klim= and theory=: the default grids and the default Kaiser '
-                                      'theory are ROADMAP A5 and A12')
+            raise NotImplementedError('pass klim= and theory=: the default grids and the default theory '
+                                      'are ROADMAP A12')
         self.theory = theory
         self.ells = tuple(sorted(klim.keys()))
         self.kedges, self.k = [], []

@@ -2,9 +2,11 @@
 
 Counterpart of ``desilike_tpu/ops/chebyshev.py`` (``ChebyshevLogInterp``).
 A smooth-plus-oscillatory table y(k) is represented by a Chebyshev series
-in normalized ln k: the fit (table grid -> cubic node values -> ln ->
-static DCT matrix) is host-side float64 numpy, run once at initialization;
-queries are evaluated by the Clenshaw recurrence through
+in normalized ln k. The fit (table grid -> cubic node values -> ln ->
+static DCT matrix) runs host-side in float64 numpy for fiducial tables,
+once at initialization, and as two ``torch.matmul`` on the evaluation's
+device for tables that change with the chain (ShapeFit), differentiable.
+Queries are evaluated by the Clenshaw recurrence through
 :func:`desilike_tpu_torch.ops.cuda_kernels.clenshaw` (the hand-written
 kernel on the card, the plain recurrence on the CPU). The static-grid
 design-matrix path (``evaluation_matrix`` / ``evaluate_static``) waits for
@@ -82,10 +84,24 @@ class ChebyshevLogInterp:
         C = 2. / self.order * np.cos(np.outer(np.arange(self.order), theta[::-1]))
         C[0] /= 2.
         self._C = C
+        self._matrices = {}
 
     def coeffs(self, values):
-        """values (..., nk) on the table grid -> coefficients (..., order),
-        host-side float64 numpy."""
+        """values (..., nk) on the table grid -> coefficients (..., order).
+
+        A numpy array is fitted host-side in float64. A tensor (per-chain
+        tables, (B, nk)) is fitted in its own dtype on its own device by two
+        matrix products, and the fit is differentiable."""
+        if isinstance(values, torch.Tensor):
+            key = (values.dtype, values.device)
+            if key not in self._matrices:  # transposed once: (nk, order) and (order, order)
+                self._matrices[key] = tuple(torch.as_tensor(np.ascontiguousarray(m.T), dtype=key[0], device=key[1])
+                                            for m in (self._A, self._C))
+            At, Ct = self._matrices[key]
+            nodes = values @ At
+            if self.log_values:
+                nodes = torch.log(nodes)
+            return nodes @ Ct
         nodes = np.einsum('on,...n->...o', self._A, np.asarray(values, dtype='f8'))
         if self.log_values:
             nodes = np.log(nodes)
@@ -102,6 +118,9 @@ class ChebyshevLogInterp:
         lnk = torch.log(k)
         x = torch.clamp((lnk - self.lo) / (self.hi - self.lo) * 2. - 1., -1., 1.)
         if coeffs.ndim == 2:
+            if x.ndim < 2 or x.shape[0] != coeffs.shape[0]:
+                raise ValueError('per-row coefficients {} need k with as many rows, got {}'.format(
+                    tuple(coeffs.shape), tuple(x.shape)))
             x2 = x.reshape(coeffs.shape[0], -1)
         else:
             x2 = x.reshape(x.shape[0], -1) if x.ndim > 1 else x.reshape(1, -1)

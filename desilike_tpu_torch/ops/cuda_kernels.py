@@ -6,15 +6,23 @@ Counterpart of ``desilike_tpu/ops/pallas_kernels.py``. Each kernel has:
   CUDA tensor, launches the kernel or raises (no fallback);
 - the plain PyTorch version in this module, which is the CPU path and the
   oracle the kernel is checked against on the card;
-- a launch counter (``CLENSHAW_LAUNCHES``), increased only where the kernel
-  is launched.
+- a launch counter (``CLENSHAW_LAUNCHES``, ``COEFF_GRAD_LAUNCHES``),
+  increased only where the kernel is launched.
+
+Two kernels: the Clenshaw series (:func:`clenshaw`, forward, and its
+x-gradient by the same kernel on the derivative series) and its gradient
+with respect to the coefficients (:func:`clenshaw_coeff_grad`), which
+:func:`clenshaw` reaches in its backward pass when the coefficients require
+a gradient (ShapeFit's per-chain tables).
 
 The CUDA sources live in ``desilike_tpu_torch/csrc``. At first use they are
-compiled with ``nvcc`` for ``sm_90a`` into a plain-C shared library under
+compiled with ``nvcc`` for ``sm_90a`` (one process a source, started
+together) and linked into a plain-C shared library under
 ``desilike_tpu_torch/build/``, named by a hash of the sources and flags (an
-edit rebuilds it), and loaded with ``ctypes``. The Clenshaw kernel's launch
-geometry is computed here (:func:`clenshaw_geometry`), so that the CPU tests
-can check that it covers every query once.
+edit rebuilds it), and loaded with ``ctypes``. The kernels' launch
+geometries are computed here (:func:`clenshaw_geometry`,
+:func:`coeff_grad_geometry`), so that the CPU tests can check that they
+cover every query once.
 """
 
 import collections
@@ -30,16 +38,20 @@ import time
 import torch
 
 CLENSHAW_LAUNCHES = 0
-"""Launches of the CUDA Clenshaw kernel (forward and backward) since the last reset."""
+"""Launches of the CUDA Clenshaw kernel (the series, and the derivative series of its x-gradient)
+since the last reset."""
+
+COEFF_GRAD_LAUNCHES = 0
+"""Launches of the CUDA coefficient-gradient kernel since the last reset."""
 
 LAST_GEOMETRY = None
 """The :class:`ClenshawGeometry` of the last launch of the Clenshaw kernel."""
 
 _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCES = (os.path.join(_PACKAGE_DIR, 'csrc', 'clenshaw.cu'),)
+_SOURCES = tuple(os.path.join(_PACKAGE_DIR, 'csrc', name) for name in ('clenshaw.cu', 'clenshaw_coeff_grad.cu'))
 BUILD_DIR = os.path.join(_PACKAGE_DIR, 'build')
-_NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3', '-shared',
-               '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+_NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3', '-Xcompiler', '-fPIC',
+               '-Xptxas', '-v')
 
 QUERIES_PER_THREAD = 4
 """K, the queries a thread of the Clenshaw kernel evaluates by default."""
@@ -185,21 +197,31 @@ def library():
     log = ''
     if not os.path.isfile(target):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        # build beside the target and rename: concurrent processes never load a partial file
-        fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *_NVCC_FLAGS, '-o', tmp, *_SOURCES]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError('building the CUDA kernels failed:\n{}\n{}{}'.format(
-                ' '.join(cmd), proc.stdout, proc.stderr))
-        os.replace(tmp, target)
-        log = proc.stdout + proc.stderr
+        # in a directory of its own, then renamed: concurrent processes never load a partial file
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            nvcc = _nvcc()
+            objects = [os.path.join(tmp, os.path.basename(path) + '.o') for path in _SOURCES]
+            cmds = [[nvcc, *_NVCC_FLAGS, '-c', '-o', obj, path] for obj, path in zip(objects, _SOURCES)]
+            procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                     for cmd in cmds]  # one nvcc a source, all started together
+            cmds.append([nvcc, '-shared', '-o', os.path.join(tmp, 'lib.so'), *objects])
+            outputs = [proc.communicate()[0] for proc in procs]
+            codes = [proc.returncode for proc in procs]
+            if not any(codes):
+                link = subprocess.run(cmds[-1], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                outputs.append(link.stdout)
+                codes.append(link.returncode)
+            if any(codes):
+                raise RuntimeError('building the CUDA kernels failed:\n{}'.format('\n'.join(
+                    '{}\n{}'.format(' '.join(cmd), out) for cmd, out in zip(cmds, outputs))))
+            os.replace(cmds[-1][3], target)
+        log = ''.join(outputs)
     lib = ctypes.CDLL(target)
     lib.clenshaw_f32.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 12
                                  + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
     lib.clenshaw_f32.restype = ctypes.c_int
+    lib.clenshaw_coeff_grad_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.clenshaw_coeff_grad_f32.restype = ctypes.c_int
     BUILD_INFO.update(path=target, seconds=time.perf_counter() - t0, log=log)
     _LIBRARY = lib
     return lib
@@ -290,9 +312,112 @@ def _launch_clenshaw(x, coeffs, log_values, queries_per_thread=None, max_grid=MA
     return out
 
 
+CoeffGradGeometry = collections.namedtuple('CoeffGradGeometry', ['nq', 'warps', 'grid', 'smem', 'idle'])
+CoeffGradGeometry.__doc__ = """Launch geometry of the coefficient-gradient kernel (see
+``csrc/clenshaw_coeff_grad.cu``). One warp a row: warp w of the launch (``grid`` blocks of
+``warps`` warps) takes rows w, w + grid x warps, ...; within a row, lane l of column tile t takes
+queries 32 nq t + l + 32 n (n < nq). smem: dynamic shared memory in bytes (shared coefficients: a
+partial gradient per warp). idle: the share of the query slots (rows x tiles x 32 nq) that hold no
+query."""
+
+_COEFF_GRAD_NQS = (1, 9, 18)  # the queries a lane the kernel is compiled for: Q <= 32, 288 and 560 without tiles
+_COEFF_GRAD_CHUNK = 16        # degrees reduced together
+_COEFF_GRAD_SHARED_GRID = 1056  # shared coefficients: most blocks (8 an SM), each ends with `order` atomics
+
+
+@functools.lru_cache(maxsize=256)
+def coeff_grad_geometry(rows, q, order, per_row, max_grid=MAX_GRID):
+    """Launch geometry of the coefficient-gradient kernel for x (rows, q).
+
+    nq is the smallest compiled value that holds a row in one column tile
+    (ceil(q / 32) queries a lane), else the largest; blocks hold 8 warps
+    (8 rows), fewer for few rows or where 48 KB of shared memory do not hold
+    as many partial gradients of ``order`` (shared coefficients). Returns a
+    :class:`CoeffGradGeometry`."""
+    need = -(-q // 32)
+    nq = next((n for n in _COEFF_GRAD_NQS if n >= need), _COEFF_GRAD_NQS[-1])
+    warps = min(8, rows)
+    smem = 0
+    if not per_row:
+        padded = _round_up(order, _COEFF_GRAD_CHUNK)
+        warps = min(warps, _SMEM_BYTES // (4 * padded))
+        smem = 4 * padded * warps
+        max_grid = min(max_grid, _COEFF_GRAD_SHARED_GRID)
+    grid = min(-(-rows // warps), max_grid)
+    tiles = -(-q // (32 * nq))
+    return CoeffGradGeometry(nq, warps, grid, smem, 1. - q / (tiles * 32 * nq))
+
+
+def clenshaw_coeff_grad_reference(x, w, order, per_row=True):
+    """Plain PyTorch gradient of the series with respect to its coefficients
+    (the kernel's oracle and CPU path): gc[b, j] = sum_q w[b, q] T_j(x[b, q])
+    by the forward recurrence T_{j+1} = 2 x T_j - T_{j-1}, carried as
+    U_j = w T_j; summed over b too unless ``per_row``.
+
+    x, w : (B, Q); returns (B, order), or (order,) for shared coefficients.
+    """
+    two_x = 2. * x
+    ua, ub = w, w * x
+    columns = []
+    for _ in range(order):
+        columns.append(ua.sum(-1))
+        ua, ub = ub, two_x * ub - ua
+    gc = torch.stack(columns, dim=-1)
+    return gc if per_row else gc.sum(0)
+
+
+def _launch_coeff_grad(x, grad_y, y, order, per_row, max_grid=MAX_GRID):
+    global COEFF_GRAD_LAUNCHES
+    tensors = [x, grad_y] + ([] if y is None else [y])
+    if x.device.type != 'cuda':
+        raise ValueError('the CUDA coefficient-gradient kernel needs a CUDA tensor, got one on {}'.format(x.device))
+    for t in tensors:
+        if t.device != x.device or t.dtype != torch.float32 or t.shape != x.shape or not t.is_contiguous():
+            raise ValueError('the CUDA coefficient-gradient kernel takes contiguous float32 tensors of one shape '
+                             'on one device, got {} {} on {} beside x {} on {}'.format(
+                                 t.dtype, tuple(t.shape), t.device, tuple(x.shape), x.device))
+    if x.ndim != 2:
+        raise ValueError('expected x (B, Q), got {}'.format(tuple(x.shape)))
+    if not 1 <= order <= _MAX_ORDER:
+        raise ValueError('order {} outside [1, {}]: a partial gradient must fit 48 KB of shared memory'.format(
+            order, _MAX_ORDER))
+    rows, q = x.shape
+    # the kernel adds into the shared gradient, and writes every entry of the per-row one
+    gc = torch.empty((rows, order), dtype=x.dtype, device=x.device) if per_row else \
+        torch.zeros(order, dtype=x.dtype, device=x.device)
+    if x.numel() == 0:
+        return gc.zero_()
+    geometry = coeff_grad_geometry(rows, q, order, bool(per_row), max_grid)
+    lib = library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.clenshaw_coeff_grad_f32(x.data_ptr(), grad_y.data_ptr(), None if y is None else y.data_ptr(),
+                                          gc.data_ptr(), rows, q, order, int(bool(per_row)), geometry.nq,
+                                          geometry.warps, geometry.grid, stream)
+    if err != 0:
+        raise RuntimeError('CUDA coefficient-gradient kernel launch failed with cudaError {:d}'.format(err))
+    COEFF_GRAD_LAUNCHES += 1
+    return gc
+
+
+def clenshaw_coeff_grad(x, w, order, per_row=True):
+    """gc[b, j] = sum_q w[b, q] T_j(x[b, q]) for j < order: the gradient of a
+    Chebyshev series at x (B, Q) with respect to its coefficients, given the
+    gradient w (B, Q) with respect to the series. Returns (B, order), or
+    (order,) summed over b for shared coefficients (``per_row`` False). A CPU
+    tensor takes :func:`clenshaw_coeff_grad_reference`; a CUDA tensor
+    launches the kernel or raises."""
+    if x.device.type == 'cpu':
+        return clenshaw_coeff_grad_reference(x, w, order, per_row)
+    return _launch_coeff_grad(x, w, None, order, per_row)
+
+
 class _Clenshaw(torch.autograd.Function):
-    """The kernel with its x-gradient: the same kernel evaluates the
-    derivative series S'(x), and dy/dx = S'(x) (times y when log_values)."""
+    """The kernel with its gradients. In x: the same kernel evaluates the
+    derivative series S'(x) (on per-row derivative coefficients where the
+    coefficients are per-row), and dy/dx = S'(x) (times y when log_values).
+    In the coefficients: the coefficient-gradient kernel on grad_y (times y
+    when log_values, taken inside the kernel)."""
 
     @staticmethod
     def forward(ctx, x, coeffs, log_values):
@@ -304,10 +429,16 @@ class _Clenshaw(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_y):
         x, coeffs, y = ctx.saved_tensors
-        dslope = _launch_clenshaw(x, clenshaw_derivative_coeffs(coeffs).contiguous(), False)
-        if ctx.log_values:
-            dslope = dslope * y
-        return grad_y * dslope, None, None
+        grad_x = grad_coeffs = None
+        if ctx.needs_input_grad[0]:
+            dslope = _launch_clenshaw(x, clenshaw_derivative_coeffs(coeffs).contiguous(), False)
+            if ctx.log_values:
+                dslope = dslope * y
+            grad_x = grad_y * dslope
+        if ctx.needs_input_grad[1]:
+            grad_coeffs = _launch_coeff_grad(x, grad_y.contiguous(), y if ctx.log_values else None,
+                                             coeffs.shape[-1], coeffs.ndim == 2)
+        return grad_x, grad_coeffs, None
 
 
 def clenshaw(x, coeffs, log_values=True):
@@ -317,11 +448,9 @@ def clenshaw(x, coeffs, log_values=True):
     coeffs : (order,) shared by all rows, or (B, order)
     Returns (B, Q) series values (exp'd if log_values). A CPU tensor takes
     :func:`clenshaw_reference`; a CUDA tensor launches the kernel or raises.
-    Differentiable in x on both paths.
+    Differentiable in x and in the coefficients on both paths: on the CPU by
+    autograd through the plain recurrence, on the card by the kernels.
     """
     if x.device.type == 'cpu':
         return clenshaw_reference(x, coeffs, log_values)
-    if coeffs.requires_grad:
-        raise NotImplementedError('the coefficient gradient of the CUDA Clenshaw kernel is not '
-                                  'implemented (ROADMAP A5: ShapeFit varies the table)')
     return _Clenshaw.apply(x, coeffs, bool(log_values))

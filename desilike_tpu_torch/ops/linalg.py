@@ -1,9 +1,11 @@
-"""Linear-algebra helpers: whitening and a checked Cholesky.
+"""Linear-algebra helpers: whitening and checked Cholesky factorizations.
 
 Counterpart of ``desilike_tpu/ops/linalg.py``. The unrolled small-matrix
-Cholesky there (``chol_small``) was a TPU workaround for LAPACK custom
-calls under ``vmap``; here ``torch.linalg.cholesky_ex`` takes its place,
-and a matrix that is not positive definite raises instead of being clipped.
+Cholesky there (``chol_small``, ``chol_solve_small``, ``chol_logdet_small``)
+was a TPU workaround for LAPACK custom calls under ``vmap``; here
+``torch.linalg.cholesky_ex`` and ``torch.cholesky_solve`` take its place,
+batched over the chains, and a matrix that is not positive definite is
+reported (``info``) or raises instead of being clipped.
 """
 
 import numpy as np
@@ -27,3 +29,17 @@ def cholesky(matrix):
     if bool((info != 0).any()):
         raise ValueError('matrix is not positive definite (cholesky_ex info {})'.format(info.tolist()))
     return factor
+
+
+def cholesky_equilibrated(matrix):
+    """Jacobi-equilibrated Cholesky of a batch (..., n, n) of symmetric
+    positive-definite matrices M: with s = 1 / sqrt(diag M), factors
+    diag(s) M diag(s), whose condition number is that of the correlation
+    matrix. Returns (L, s, info): M^-1 b = s * cholesky_solve(s * b, L),
+    logdet M = 2 sum(log diag L) - 2 sum(log s), and ``info`` (..., int) is
+    nonzero where a matrix is not positive definite. Nothing here
+    synchronises with the host: the caller reads ``info`` where it can
+    afford to."""
+    scale = torch.rsqrt(torch.diagonal(matrix, dim1=-2, dim2=-1))
+    factor, info = torch.linalg.cholesky_ex(matrix * scale[..., :, None] * scale[..., None, :])
+    return factor, scale, info

@@ -3,8 +3,8 @@
 Counterpart of ``desilike_tpu/parameters/parameter.py``. Parameters are
 host-side metadata only; the evaluated quantities are plain dicts
 ``{name: (B,) tensor}``. ``Deriv`` and sampling from the reference
-distribution, wildcard selection (``select``) and namespaces wait for the
-samplers, emulators and the joint likelihood (ROADMAP A5, A7, A14).
+distribution and wildcard selection (``select``) wait for the samplers and
+emulators (ROADMAP A7, A14).
 
 Solved statuses:
   '.best'  — plug in the analytic best-fit,

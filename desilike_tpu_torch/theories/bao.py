@@ -15,13 +15,8 @@ import re
 import numpy as np
 import torch
 
-from .base import BaseTheoryPowerSpectrumMultipoles, WedgesMixin
+from .base import BaseTheoryPowerSpectrumMultipoles, WedgesMixin, _col
 from .power_template import BAOPowerSpectrumTemplate
-
-
-def _col(value):
-    """(B,) parameter -> (B, 1, 1), to broadcast against (B, nk, nmu) grids."""
-    return value[..., None, None]
 
 
 class BaseBAOWigglesPowerSpectrumMultipoles(BaseTheoryPowerSpectrumMultipoles, WedgesMixin):

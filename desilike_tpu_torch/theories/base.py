@@ -14,6 +14,12 @@ from ..core import Calculator
 from ..ops.legendre import weights_mu, multipole_weights, to_poles
 
 
+def _col(value):
+    """(B,) parameter -> (B, 1, 1), to broadcast against (B, nk, nmu) grids;
+    a plain number stays as it is."""
+    return value[..., None, None] if isinstance(value, torch.Tensor) else value
+
+
 def ap_k_mu(k, mu, qpar=1., qper=1.):
     """Alcock-Paczynski remap of (k, mu), Beutler 2016 eqs. 44-45.
 

@@ -1,25 +1,39 @@
-"""Freeze the JAX package's config-1 BAO likelihood for the PyTorch port.
+"""Freeze the JAX package's likelihoods for the PyTorch port.
 
-Builds ``__graft_entry__._build_likelihood()`` at full width with
-``desilike_tpu`` on the CPU and writes ``tests/data/torch_port_bao_reference.npz``:
+Builds a configuration at full width with ``desilike_tpu`` on the CPU and
+writes its reference file under ``tests/data``:
+
+- ``bao``: config 1, ``__graft_entry__._build_likelihood()`` ->
+  ``torch_port_bao_reference.npz``;
+- ``joint``: config 4, ``bench.build_likelihood()`` (two tracers, full shape
+  + BAO, four observables) -> ``torch_port_joint_reference.npz``.
+
+Each file holds:
 
 - the host state that ``desilike_tpu_torch.interop.state_from_numpy`` loads
-  (``pk_dd_fid``, ``pknow_dd_fid``, ``flatdata``, ``wmatrix``, ``whiten``,
-  ``static_J``);
-- 16 parameter points from ``np.random.default_rng(0)`` (``names``,
-  ``points``, one row per point);
-- the JAX log-posterior at each point (``logpost``) and its gradient with
-  respect to the varied parameters (``grad``, same layout as ``points``);
+  (``interop.state_keys``): the template tables ``pk_dd_fid`` and
+  ``pknow_dd_fid`` and the window ``wmatrix`` (with several observables once
+  per observable, as ``pk_dd_fid.0``, ``pk_dd_fid.1``, ...), and the joint
+  ``flatdata``, ``whiten`` and ``static_J`` (the design rows of the solved
+  parameters that have a static one, in the solved order);
+- 16 parameter points from ``np.random.default_rng(0)``, exact in float32
+  (``names``, ``points``, one row per point), and ``solved_names``;
+- the JAX log-posterior at each point (``logpost``), its gradient with
+  respect to the varied parameters (``grad``, same layout as ``points``) and
+  the best-fit solved parameters (``solved``, one column per solved name);
 - the same, with the JAX package in float64 (x64 mode, its own float64
   initialization), computed in a child process so that x64 never leaks
-  into the float32 run (``logpost_x64``, ``grad_x64``). The float32 values
-  differ from these by the package's own float32 error.
+  into the float32 run (``logpost_x64``, ``grad_x64``, ``solved_x64``). The
+  float32 values differ from these by the package's own float32 error.
 
-The machine with the card has no JAX: ``chip_smoke.py`` reads this file
-with numpy alone, and ``tests/test_torch_bao_likelihood.py`` recomputes
-some points with the live JAX package so that the file cannot go stale.
+The machine with the card has no JAX: ``chip_smoke.py`` reads these files
+with numpy alone, and ``tests/test_torch_bao_likelihood.py`` and
+``tests/test_torch_joint_likelihood.py`` recompute some points with the live
+JAX package so that the files cannot go stale.
 
-Run from the repository root: ``JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py``.
+Run from the repository root:
+``JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py [bao|joint]``
+(both when no name is given).
 """
 
 import os
@@ -30,79 +44,97 @@ import tempfile
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-OUTPUT = os.path.join(ROOT, 'tests', 'data', 'torch_port_bao_reference.npz')
+OUTPUTS = {name: os.path.join(ROOT, 'tests', 'data', 'torch_port_{}_reference.npz'.format(name))
+           for name in ('bao', 'joint')}
 NPOINTS = 16
+
+# centers and half-widths of the points, by basename: inside the priors and
+# away from their edges (so no clip is active); b1 is centered on the value
+# the tracer's data were generated with
+WIDTHS = {'qpar': 0.04, 'qper': 0.04, 'b1': 0.3, 'dbeta': 0.1, 'df': 0.1, 'dm': 0.05}
+CENTERS = {'qpar': 1., 'qper': 1., 'dbeta': 1., 'df': 1., 'dm': 0.}
+B1 = {'': 2., 'LRG': 2., 'LRGbao': 2., 'ELG': 1.3, 'ELGbao': 1.3}
 
 
 def reference_points(names, npoints=NPOINTS, seed=0):
-    """Points around the fiducial (qpar, qper, b1, dbeta), inside the priors
-    and away from their edges (so no clip is active)."""
+    """Points around the fiducial, one column per varied name."""
     rng = np.random.default_rng(seed)
-    center = {'qpar': 1., 'qper': 1., 'b1': 2., 'dbeta': 1.}
-    width = {'qpar': 0.04, 'qper': 0.04, 'b1': 0.3, 'dbeta': 0.1}
-    return np.column_stack([center[n] + width[n] * rng.uniform(-1., 1., npoints) for n in names])
+    columns = []
+    for name in names:
+        namespace, _, basename = name.rpartition('.')
+        center = B1[namespace] if basename == 'b1' else CENTERS[basename]
+        columns.append(center + WIDTHS[basename] * rng.uniform(-1., 1., npoints))
+    return np.column_stack(columns)
 
 
-def evaluate(names, points):
-    """JAX log-posterior and its gradient at ``points`` (in the package's
-    current dtype), and the built likelihood."""
+def build_jax_likelihood(config):
+    if config == 'bao':
+        import __graft_entry__
+        return __graft_entry__._build_likelihood()
+    import bench
+    return bench.build_likelihood()
+
+
+def evaluate(config, names=None, points=None):
+    """JAX log-posterior, its gradient and the solved parameters at
+    ``points`` (in the package's current dtype; by default the reference
+    points of the configuration's varied parameters, rounded to float32),
+    and the built likelihood."""
     import jax
     import jax.numpy as jnp
-    import __graft_entry__
 
-    like = __graft_entry__._build_likelihood()
+    like = build_jax_likelihood(config)
     logpost = like.logpost_fn(jit=False)
-    names = like.pipeline.varied_params.names() if names is None else names
+    if names is None:
+        names = like.pipeline.varied_params.names()
+        points = reference_points(names).astype('f4')
+    solved_names = like.pipeline.solved_params.names()
 
     def scalar(theta):
-        return logpost(dict(zip(names, theta)))[0]
+        value, aux = logpost(dict(zip(names, theta)))
+        return value, jnp.stack([aux['solved'][name] for name in solved_names])
 
-    theta = jnp.asarray(points)
-    values = jax.jit(jax.vmap(scalar))(theta)
-    grads = jax.jit(jax.vmap(jax.grad(scalar)))(theta)
-    return like, names, np.asarray(values, dtype='f8'), np.asarray(grads, dtype='f8')
+    (values, solved), grads = jax.jit(jax.vmap(jax.value_and_grad(scalar, has_aux=True)))(jnp.asarray(points))
+    return like, names, np.asarray(points, dtype='f8'), [np.asarray(a, dtype='f8') for a in (values, grads, solved)]
 
 
-def evaluate_x64(names, points):
+def evaluate_x64(config, names, points):
     """Run :func:`evaluate` in float64 in a child process."""
     env = dict(os.environ, JAX_PLATFORMS='cpu', JAX_ENABLE_X64='1', DESILIKE_TPU_X64='1')
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, 'x64.npz')
         np.savez(path, names=np.array(names), points=points)
-        subprocess.run([sys.executable, os.path.abspath(__file__), '--x64', path], env=env, check=True)
+        subprocess.run([sys.executable, os.path.abspath(__file__), '--x64', config, path], env=env, check=True)
         out = np.load(path)
-        return out['logpost'], out['grad']
+        return out['logpost'], out['grad'], out['solved']
 
 
-def build_reference():
+def build_reference(config):
     import jax
     jax.config.update('jax_platforms', 'cpu')
-    names = ['qpar', 'qper', 'b1', 'dbeta']
-    points = reference_points(names).astype('f4').astype('f8')  # exact in float32
-    like, varied, values, grads = evaluate(None, points.astype('f4'))
-    if varied != names:
-        raise RuntimeError('config 1 varies {}, expected {}'.format(varied, names))
-    values_x64, grads_x64 = evaluate_x64(names, points)
+    like, names, points, (values, grads, solved) = evaluate(config)  # points exact in float32
+    values_x64, grads_x64, solved_x64 = evaluate_x64(config, names, points)
     pipe = like.pipeline
 
-    template = [c for c in pipe.calculators if type(c).__name__ == 'BAOPowerSpectrumTemplate'][0]
-    observable = like.observables[0]
     psolved = pipe.solved_params
     solved_names = psolved.names()
     static_idx = like._static_linear_indices(pipe, psolved, like.likelihoods)
-    if len(static_idx) != len(solved_names):
-        raise RuntimeError('config 1 should marginalize only static-linear parameters')
     (static_J,) = like._compute_static_J(pipe, solved_names, static_idx, like.likelihoods)
-    return dict(
-        pk_dd_fid=np.asarray(template.pk_dd_fid, dtype='f8'),
-        pknow_dd_fid=np.asarray(template.pknow_dd_fid, dtype='f8'),
+    arrays = dict(
         flatdata=np.asarray(like.flatdata, dtype='f8'),
-        wmatrix=np.asarray(observable.wmatrix.wmatrix, dtype='f8'),
         whiten=np.asarray(like._whiten, dtype='f8'),
         static_J=np.asarray(static_J, dtype='f8'),
-        names=np.array(names),
+        names=np.array(names), solved_names=np.array(solved_names),
         points=points,
-        logpost=values, grad=grads, logpost_x64=values_x64, grad_x64=grads_x64)
+        logpost=values, grad=grads, solved=solved,
+        logpost_x64=values_x64, grad_x64=grads_x64, solved_x64=solved_x64)
+    suffixes = [''] if len(like.observables) == 1 else ['.{:d}'.format(i) for i in range(len(like.observables))]
+    for observable, suffix in zip(like.observables, suffixes):
+        template = observable.wmatrix.theory.template
+        arrays['pk_dd_fid' + suffix] = np.asarray(template.pk_dd_fid, dtype='f8')
+        arrays['pknow_dd_fid' + suffix] = np.asarray(template.pknow_dd_fid, dtype='f8')
+        arrays['wmatrix' + suffix] = np.asarray(observable.wmatrix.wmatrix, dtype='f8')
+    return arrays
 
 
 if __name__ == '__main__':
@@ -110,10 +142,10 @@ if __name__ == '__main__':
     if sys.argv[1:2] == ['--x64']:
         import jax
         jax.config.update('jax_platforms', 'cpu')
-        data = np.load(sys.argv[2])
-        _, _, values, grads = evaluate(list(data['names']), data['points'])
-        np.savez(sys.argv[2], logpost=values, grad=grads)
+        data = np.load(sys.argv[3])
+        _, _, _, (values, grads, solved) = evaluate(sys.argv[2], list(data['names']), data['points'])
+        np.savez(sys.argv[3], logpost=values, grad=grads, solved=solved)
         sys.exit(0)
-    arrays = build_reference()
-    np.savez_compressed(OUTPUT, **arrays)
-    print('wrote {} ({:d} bytes)'.format(OUTPUT, os.path.getsize(OUTPUT)))
+    for config in sys.argv[1:] or list(OUTPUTS):
+        np.savez_compressed(OUTPUTS[config], **build_reference(config))
+        print('wrote {} ({:d} bytes)'.format(OUTPUTS[config], os.path.getsize(OUTPUTS[config])))

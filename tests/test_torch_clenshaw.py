@@ -238,3 +238,131 @@ def test_cuda_device_request_raises_without_cuda():
     else:
         with pytest.raises(RuntimeError, match='cuda'):
             config.device('cuda')
+
+
+# --- the Chebyshev fit on the device and the coefficient gradient ---
+
+def _shapefit_tables(nrows=5, seed=7):
+    """Per-chain tables (B, nk): the ln pk table tilted as ShapeFit does, float32."""
+    rng = np.random.default_rng(seed)
+    pk = linear.pk_lin(background.resolve(), KGRID, 0.8)
+    lnkkp = np.log(KGRID / 0.03)
+    dm = rng.uniform(-0.1, 0.1, size=(nrows, 1))
+    return (pk * np.exp(dm / 0.6 * np.tanh(0.6 * lnkkp))).astype('f4')
+
+
+@pytest.mark.parametrize('log_values', [True, False], ids=['log', 'linear'])
+def test_device_fit_matches_jax_coeffs(log_values):
+    """coeffs() on a tensor of per-chain tables (two matmuls in float32)
+    against the JAX package's coeffs() on the same float32 tables: both sum
+    2000 and then 202 float32 products in another order, so they agree to
+    1e-5 of the largest coefficient (measured 6e-7); and against the host
+    float64 fit, to the same level."""
+    tables = _shapefit_tables()
+    port = ChebyshevLogInterp(KGRID, log_values=log_values)
+    got = port.coeffs(torch.from_numpy(tables))
+    assert got.dtype == torch.float32 and got.shape == (5, port.order)
+    expected = np.asarray(JaxChebyshevLogInterp(KGRID, log_values=log_values).coeffs(jnp.asarray(tables)))
+    scale = np.abs(expected).max()
+    np.testing.assert_allclose(got.numpy(), expected, rtol=0., atol=1e-5 * scale)
+    np.testing.assert_allclose(got.numpy(), port.coeffs(tables.astype('f8')), rtol=0., atol=1e-5 * scale)
+
+
+def test_device_fit_is_differentiable():
+    """The gradient of a lookup through the fit, with respect to the table,
+    in float64: autograd against central differences."""
+    port = ChebyshevLogInterp(KGRID)
+    tables = torch.from_numpy(_shapefit_tables(2).astype('f8')).requires_grad_(True)
+    k = torch.tensor([[0.02, 0.1], [0.05, 0.2]], dtype=torch.float64)
+    port.evaluate(port.coeffs(tables), k).sum().backward()
+    i, eps = 1200, 1e-3
+    with torch.no_grad():
+        step = torch.zeros_like(tables)
+        step[0, i] = eps * tables[0, i]
+        diff = (port.evaluate(port.coeffs(tables + step), k).sum()
+                - port.evaluate(port.coeffs(tables - step), k).sum()) / (2. * step[0, i])
+    np.testing.assert_allclose(tables.grad[0, i].item(), diff.item(), rtol=1e-5)
+
+
+@pytest.mark.parametrize('shared', [True, False], ids=['shared', 'per_row'])
+@pytest.mark.parametrize('log_values', [True, False], ids=['exp', 'series'])
+def test_coeff_grad_reference_matches_jax_grad(tables, shared, log_values):
+    """clenshaw_coeff_grad_reference (the forward T_j recurrence, float32)
+    against jax.grad of the JAX package's evaluate with respect to the
+    coefficients (autodiff of its backward recurrence, float32), and against
+    autograd through the port's plain series in float64. The two float32
+    recurrences differ by ~2e-5 of the gradient's magnitude at order 202, so
+    1e-4 against JAX; 5e-5 against float64 (measured 6e-6)."""
+    cheb, coeffs, x = tables[0], _coeffs(tables, shared), tables[3]
+    k = np.exp((x.astype('f8') + 1.) / 2. * (cheb.hi - cheb.lo) + cheb.lo).astype('f4')
+    grad_y = np.random.default_rng(8).normal(size=x.shape).astype('f4')
+    ref = JaxChebyshevLogInterp(KGRID, log_values=log_values)
+
+    def loss(c):
+        evaluate = ref.evaluate if shared else jax.vmap(ref.evaluate)
+        return (evaluate(c, jnp.asarray(k)) * grad_y).sum()
+
+    expected = np.asarray(jax.grad(loss)(jnp.asarray(coeffs)))
+    # the queries as the port's evaluate() normalizes them, so that both differentiate at the same x
+    lnk = torch.log(torch.from_numpy(k))
+    xt = torch.clamp((lnk - cheb.lo) / (cheb.hi - cheb.lo) * 2. - 1., -1., 1.)
+    w = torch.from_numpy(grad_y)
+    if log_values:
+        w = w * clenshaw_reference(xt, torch.from_numpy(coeffs), True)
+    got = cuda_kernels.clenshaw_coeff_grad_reference(xt, w, cheb.order, per_row=not shared).numpy()
+    assert got.shape == coeffs.shape
+    scale = np.abs(expected).max()
+    np.testing.assert_allclose(got, expected, rtol=0., atol=1e-4 * scale)
+
+    c64 = torch.from_numpy(coeffs.astype('f8')).requires_grad_(True)
+    (clenshaw_reference(xt.double(), c64, log_values) * torch.from_numpy(grad_y).double()).sum().backward()
+    np.testing.assert_allclose(got, c64.grad.numpy(), rtol=0., atol=5e-5 * scale)
+
+
+def test_cpu_coeff_grad_takes_plain_version(tables):
+    """On the CPU the wrapper takes the plain version and launches nothing;
+    clenshaw() differentiates through the plain recurrence by autograd, and
+    the two gradients agree (float64: to rounding)."""
+    coeffs, x = torch.from_numpy(tables[2]).double(), torch.from_numpy(tables[3]).double()
+    w = torch.from_numpy(np.random.default_rng(9).normal(size=tuple(x.shape)))
+    before = cuda_kernels.COEFF_GRAD_LAUNCHES
+    got = cuda_kernels.clenshaw_coeff_grad(x, w, coeffs.shape[-1])
+    assert torch.equal(got, cuda_kernels.clenshaw_coeff_grad_reference(x, w, coeffs.shape[-1]))
+    c = coeffs.clone().requires_grad_(True)
+    (clenshaw(x, c, log_values=False) * w).sum().backward()
+    assert cuda_kernels.COEFF_GRAD_LAUNCHES == before
+    np.testing.assert_allclose(got.numpy(), c.grad.numpy(), rtol=0., atol=1e-12 * float(c.grad.abs().max()))
+    with pytest.raises(ValueError, match='CUDA tensor'):
+        cuda_kernels.clenshaw_coeff_grad(torch.empty((2, 3), device='meta'), torch.empty((2, 3), device='meta'), 5)
+
+
+@pytest.mark.parametrize('rows', [1, 56, 4096, 70000])
+@pytest.mark.parametrize('q', [1, 3, 288, 290, 560, 561, 1200])
+@pytest.mark.parametrize('per_row', [False, True], ids=['shared', 'per_row'])
+def test_coeff_grad_geometry_covers_every_query_once(rows, q, per_row):
+    """The coefficient-gradient kernel's geometry, computed in Python: by the
+    index arithmetic of csrc/clenshaw_coeff_grad.cu every row is walked by
+    one warp and every query of a row is held by one (column tile, lane,
+    slot), with a grid stride too; nq is a compiled value, blocks hold 1 to 8
+    warps, shared memory stays within 48 KB, and the main path's Q = 288
+    idles no slot (Q = 560: 1/36)."""
+    order = 202
+    for max_grid in (cuda_kernels.MAX_GRID, 7):
+        g = cuda_kernels.coeff_grad_geometry(rows, q, order, per_row, max_grid)
+        assert g.nq in cuda_kernels._COEFF_GRAD_NQS and 1 <= g.warps <= 8 and 1 <= g.grid <= max_grid
+        assert g.smem == (0 if per_row else 4 * 208 * g.warps) and g.smem <= 48 * 1024
+        # rows: warp w of block b starts at b warps + w and strides by grid x warps
+        start = (np.arange(g.grid)[:, None] * g.warps + np.arange(g.warps)[None, :]).ravel()
+        stride = g.grid * g.warps
+        walked = np.concatenate([np.arange(s, rows, stride) for s in start])
+        np.testing.assert_array_equal(np.sort(walked), np.arange(rows))
+        # queries of a row: column tile t, lane l, slot n -> 32 nq t + l + 32 n
+        tiles = -(-q // (32 * g.nq))
+        qq = (32 * g.nq * np.arange(tiles)[:, None, None] + np.arange(32)[None, :, None]
+              + 32 * np.arange(g.nq)[None, None, :]).ravel()
+        np.testing.assert_array_equal(np.sort(qq[qq < q]), np.arange(q))
+        assert g.idle == pytest.approx(1. - q / qq.size)
+    if q == 288:
+        assert g.nq == 9 and g.idle == 0.
+    if q == 560:
+        assert g.nq == 18 and g.idle == pytest.approx(1. / 36.)

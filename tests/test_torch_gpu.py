@@ -13,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import build_likelihood, case_label, check_kernel_case, kernel_cases
+from chip_smoke import (build_joint_likelihood, build_likelihood, case_inputs, case_label, check_coeff_grad_case,
+                        check_kernel_case, coeff_grad_cases, kernel_cases)
 from desilike_tpu_torch.cosmology import background, linear
 from desilike_tpu_torch.ops import cuda_kernels
 from desilike_tpu_torch.ops.chebyshev import ChebyshevLogInterp
@@ -99,8 +100,8 @@ def test_kernel_rejects_bad_inputs(cuda, coeffs):
         clenshaw(x.double(), coeffs.double())
     with pytest.raises(ValueError, match='contiguous'):
         clenshaw(torch.zeros((560, 4), device=cuda).t(), coeffs)
-    with pytest.raises(NotImplementedError, match='A5'):
-        clenshaw(x, coeffs.clone().requires_grad_(True))
+    with pytest.raises(ValueError, match='one shape'):
+        cuda_kernels._launch_coeff_grad(x, x[:, :8].contiguous(), None, 202, True)
     with pytest.raises(ValueError, match='48 KB'):
         clenshaw(x, torch.ones(12289, device=cuda))
     with pytest.raises(ValueError, match='queries_per_thread'):
@@ -138,3 +139,60 @@ def test_logpost_on_card_matches_cpu(cuda):
     (lp, g), (lp_cpu, g_cpu) = results
     np.testing.assert_allclose(lp, lp_cpu, rtol=0., atol=2e-3)
     assert (np.linalg.norm(g - g_cpu, axis=-1) / np.linalg.norm(g_cpu, axis=-1)).max() < 5e-4
+
+
+@pytest.mark.parametrize('case', coeff_grad_cases(), ids=case_label)
+def test_coeff_grad_cases_match_reference(cuda, case):
+    """The coefficient-gradient kernel over the shapes chip_smoke.py checks
+    (the main-path shapes, ragged Q, orders 1 to 320, per-row and shared, with
+    and without exp, 70000 rows, a grid stride, column tiles) against its plain
+    version: 1e-4 of the gradient's magnitude (another summation order over a
+    float32 forward recurrence)."""
+    before = cuda_kernels.COEFF_GRAD_LAUNCHES
+    check_coeff_grad_case(case, cuda)
+    assert cuda_kernels.COEFF_GRAD_LAUNCHES == before + 1
+
+
+def test_backward_with_per_row_coefficients(cuda):
+    """The full backward of the series at the full-shape lookups' shape
+    (4096, 288, 202), per-row coefficients: x-gradient (the forward kernel
+    on per-row derivative coefficients) and coefficient gradient (its own
+    kernel) against autograd through the plain recurrence."""
+    x, c = case_inputs(dict(rows=4096, q=288, order=202, per_row=True, log_values=True), cuda)
+    weight = torch.tensor(np.random.default_rng(4).normal(size=tuple(x.shape)), dtype=torch.float32, device=cuda)
+    grads = []
+    before = (cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES)
+    for function in (clenshaw, clenshaw_reference):
+        xg, cg = x.clone().requires_grad_(True), c.clone().requires_grad_(True)
+        (function(xg, cg) * weight).sum().backward()
+        grads.append((xg.grad, cg.grad))
+    assert (cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES) == (before[0] + 2, before[1] + 1)
+    for got, expected in zip(*grads):
+        torch.testing.assert_close(got, expected, rtol=0., atol=1e-4 * float(expected.abs().max()))
+
+
+def test_joint_logpost_on_card_matches_cpu(cuda):
+    """Config 4 on the card, where a likelihood built with no device runs
+    (both kernels, forward and backward), against the port's CPU plain path,
+    both float32, at 4 frozen points; tolerances of chip_smoke.py."""
+    from chip_smoke import JOINT_X64_ATOL, JOINT_X64_GRAD_RTOL
+    reference = np.load(os.path.join(os.path.dirname(__file__), 'data', 'torch_port_joint_reference.npz'))
+    names = list(reference['names'])
+    results = []
+    for device in (None, 'cpu'):  # no device: the card
+        like = build_joint_likelihood(device)
+        values = {n: torch.tensor(reference['points'][:4, i], dtype=torch.float32, device=like.pipeline.device,
+                                  requires_grad=True) for i, n in enumerate(names)}
+        before = (cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES)
+        logpost, _ = like.logpost_fn()(values)
+        logpost.sum().backward()
+        launched = (cuda_kernels.CLENSHAW_LAUNCHES - before[0], cuda_kernels.COEFF_GRAD_LAUNCHES - before[1])
+        assert like.pipeline.device.type == (device or 'cuda')
+        # forward: 3 lookups a BAO observable, 1 a full-shape one (8); backward: 2 and 1 more (6), and the
+        # coefficient gradient of each ShapeFit table
+        assert launched == ((14, 2) if device is None else (0, 0))
+        grad = torch.stack([values[n].grad for n in names], dim=-1)
+        results.append((logpost.detach().cpu().numpy(), grad.cpu().numpy()))
+    (lp, g), (lp_cpu, g_cpu) = results
+    np.testing.assert_allclose(lp, lp_cpu, rtol=0., atol=JOINT_X64_ATOL)
+    assert (np.linalg.norm(g - g_cpu, axis=-1) / np.linalg.norm(g_cpu, axis=-1)).max() < JOINT_X64_GRAD_RTOL
