@@ -6,8 +6,9 @@ log-posterior of ``__graft_entry__._build_likelihood`` and the batched
 config-4 joint two-tracer full-shape + BAO log-posterior of
 ``bench.build_likelihood``, each with its gradient.
 
-1. the card (nvidia-smi name and power limit), torch and CUDA versions, and
-   the kernel library's build time;
+1. the card (nvidia-smi name and power limit), torch and CUDA versions, the
+   kernel library's build time, ptxas's registers, and the blocks of each
+   coefficient-gradient instance an SM holds;
 2. the kernels against their plain PyTorch versions. The Clenshaw series
    (:func:`kernel_cases`): the main-path shapes (B in {1, 4096}, Q = 560,
    the template's order 202), ragged Q in {1, 3, 561} at orders {1, 2, 3,
@@ -18,9 +19,11 @@ config-4 joint two-tracer full-shape + BAO log-posterior of
    4096. The coefficient gradient (:func:`coeff_grad_cases`): B in {1,
    4096} x Q in {288, 560} at order 202, per-row and shared, with and
    without exp, ragged Q in {1, 3, 561} at orders {1, 2, 3, 203, 320}, 70000
-   rows (also walked with a grid stride); and the full backward of the series
-   (x and coefficients) against autograd through the plain version at
-   (4096, 288, 202) per-row;
+   rows (also walked with a grid stride), and the prefetching path's cases:
+   4097 rows (not a multiple of the persistent grid's teams), 70000 x 288 on
+   7 blocks (each team walks many rows), an unaligned x (no prefetch); and
+   the full backward of the series (x and coefficients) against autograd
+   through the plain version at (4096, 288, 202) per-row;
 3. the likelihoods at full width. Config 1: log-posterior and gradient over
    B = 4096 seeded chains (finite, through the kernel; launches counted
    forward and with the gradient), the frozen JAX values of
@@ -262,7 +265,7 @@ def check_kernel_case(case, device):
 def coeff_grad_cases():
     """The shapes at which the coefficient-gradient kernel is held against
     its plain version: dicts of rows, q, order, per_row, log_values, and
-    optionally max_grid."""
+    optionally offset (x a view at that storage offset) and max_grid."""
     cases = []
     for rows in (1, BATCH):
         for q in (FS_NQUERY, NQUERY):
@@ -276,7 +279,12 @@ def coeff_grad_cases():
     for per_row in (True, False):
         cases.append(dict(rows=70000, q=561, order=ORDER, per_row=per_row, log_values=False))
         cases.append(dict(rows=70000, q=3, order=ORDER, per_row=per_row, log_values=True, max_grid=7))
-    cases.append(dict(rows=56, q=1200, order=ORDER, per_row=True, log_values=False))  # three column tiles
+    cases.append(dict(rows=56, q=1200, order=ORDER, per_row=True, log_values=False))  # five column tiles
+    # the prefetching path: rows not a multiple of the teams, one team walking many rows, no prefetch
+    cases.append(dict(rows=BATCH + 1, q=FS_NQUERY, order=ORDER, per_row=True, log_values=True))
+    cases.append(dict(rows=70000, q=FS_NQUERY, order=ORDER, per_row=True, log_values=True, max_grid=7))
+    cases.append(dict(rows=BATCH, q=FS_NQUERY, order=ORDER, per_row=True, log_values=True, offset=1))
+    cases.append(dict(rows=56, q=100, order=ORDER, per_row=True, log_values=True))  # 9 queries a lane, prefetched
     return cases
 
 
@@ -285,7 +293,8 @@ def check_coeff_grad_case(case, device):
     of :func:`case_inputs`, a seeded grad_y, y from the plain series when
     exp'd) and hold it against clenshaw_coeff_grad_reference; returns (max
     abs err, err relative to the gradient's max, geometry). Raises if they
-    disagree beyond COEFF_GRAD_RTOL."""
+    disagree beyond COEFF_GRAD_RTOL, or if the launch did not prefetch where
+    it should (per-row, Q a multiple of 4, aligned x) or did elsewhere."""
     import torch
     from desilike_tpu_torch.ops import cuda_kernels
     x, c = case_inputs(case, device)
@@ -295,16 +304,45 @@ def check_coeff_grad_case(case, device):
                                           max_grid=case.get('max_grid', cuda_kernels.MAX_GRID))
     expected = cuda_kernels.clenshaw_coeff_grad_reference(x, grad_y if y is None else grad_y * y, case['order'],
                                                           case['per_row'])
+    geometry = cuda_kernels.LAST_COEFF_GRAD_GEOMETRY
     torch.cuda.synchronize()
     if got.shape != expected.shape:
         raise AssertionError('coefficient gradient has shape {} for {}'.format(tuple(got.shape), case_label(case)))
+    if geometry.prefetch != (case['per_row'] and case['q'] % 4 == 0 and not case.get('offset')):
+        raise AssertionError('{} launched with prefetch {}'.format(case_label(case), geometry.prefetch))
     err = float((got - expected).abs().max())
     rel = err / float(expected.abs().max())
     if not rel <= COEFF_GRAD_RTOL:
         raise AssertionError('kernel disagrees with clenshaw_coeff_grad_reference at {}: {:.3e} of the '
                              'magnitude'.format(case_label(case), rel))
-    return err, rel, cuda_kernels.coeff_grad_geometry(case['rows'], case['q'], case['order'], case['per_row'],
-                                                      case.get('max_grid', cuda_kernels.MAX_GRID))
+    return err, rel, geometry
+
+
+def coeff_grad_occupancy(rows=BATCH, order=ORDER):
+    """{label: (ptxas registers or None, blocks an SM holds)} for every
+    compiled instance of the coefficient-gradient kernel, at the geometry of
+    ``rows`` rows of a Q it serves in one tile (per-row with and without
+    prefetch, and shared); the registers come from this process's build log."""
+    import re
+    from desilike_tpu_torch.ops import cuda_kernels
+    registers, name = {}, None
+    for line in cuda_kernels.BUILD_INFO['log'].splitlines():
+        match = re.search(r'clenshaw_coeff_grad_kernelILi(\d+)ELb([01])ELb([01])E', line)
+        if match and 'Compiling entry function' in line:
+            name = tuple(int(v) for v in match.groups())
+        match = re.search(r'Used (\d+) registers', line)
+        if match and name is not None:
+            registers[name], name = int(match.group(1)), None
+    result = {}
+    for nq in cuda_kernels._COEFF_GRAD_NQS:
+        for per_row, aligned, label in ((True, True, 'per-row prefetch'), (True, False, 'per-row'),
+                                        (False, True, 'shared')):
+            g = cuda_kernels.coeff_grad_geometry(rows, cuda_kernels.COEFF_GRAD_LANES * nq, order, per_row,
+                                                 aligned=aligned)
+            result['NQ={} {} ({} warps, {} B)'.format(nq, label, g.warps, g.smem)] = (
+                registers.get((nq, int(per_row), int(g.prefetch))),
+                cuda_kernels.coeff_grad_resident_blocks(g.nq, per_row, g.prefetch, g.warps, g.smem))
+    return result
 
 
 def coeff_grad_bound_ms(rows, q, order, per_row):
@@ -450,6 +488,10 @@ def main(kernels_only=False):
     ptxas = [line.strip() for line in cuda_kernels.BUILD_INFO['log'].splitlines() if 'registers' in line or 'spill' in line]
     print('phase 1: card {!r}; torch {}, CUDA {}; kernel library built and loaded in {:.2f} s; ptxas: {}'.format(
         smi, torch.__version__, torch.version.cuda, cuda_kernels.BUILD_INFO['seconds'], ' | '.join(ptxas)))
+    resident = coeff_grad_occupancy()
+    print('phase 1: coefficient-gradient instances, ptxas registers and blocks an SM holds (occupancy calculator) '
+          'on {} SMs: {}'.format(torch.cuda.get_device_properties(0).multi_processor_count, ', '.join(
+              '{}: {} registers, {} blocks'.format(label, regs, blocks) for label, (regs, blocks) in resident.items())))
     print(smi)
 
     # --- phase 2: the kernels against their plain versions ---
@@ -494,9 +536,10 @@ def main(kernels_only=False):
     for case in coeff_grad_cases():
         err, rel, geometry = check_coeff_grad_case(case, cuda)
         grad_abs_err, grad_rel = max(grad_abs_err, err), max(grad_rel, rel)
-        print('phase 2: coefficient gradient {}: max abs err {:.3e}, relative to max {:.3e}; NQ={} {} blocks of {} '
-              'warps, idle {:.3f}'.format(case_label(case), err, rel, geometry.nq, geometry.grid, geometry.warps,
-                                          geometry.idle))
+        print('phase 2: coefficient gradient {}: max abs err {:.3e}, relative to max {:.3e}; NQ={} {} tile(s), '
+              'prefetch {}, {} blocks of {} warps, idle {:.3f}'.format(
+                  case_label(case), err, rel, geometry.nq, geometry.tiles, geometry.prefetch,
+                  geometry.grid, geometry.warps, geometry.idle))
     print('phase 2: {} coefficient-gradient cases agree with clenshaw_coeff_grad_reference: max abs err {:.3e}, '
           'relative {:.3e} (tol {:.0e})'.format(len(coeff_grad_cases()), grad_abs_err, grad_rel, COEFF_GRAD_RTOL))
     # the full backward of the series at the full-shape lookups' shape: x and per-row coefficients
@@ -639,7 +682,7 @@ def main(kernels_only=False):
         runs = [time_graph(kernel_call) for _ in range(2)]
         bound_ms, bound_by = coeff_grad_bound_ms(BATCH, q, order, True)
         entry = grad_timed[q] = dict(ms=float(np.mean(runs)), bound_ms=bound_ms, bound_by=bound_by,
-                                     geometry=cuda_kernels.coeff_grad_geometry(BATCH, q, order, True))
+                                     geometry=cuda_kernels.LAST_COEFF_GRAD_GEOMETRY)  # that of the launches timed
         wy = w * y
         entry['plain_ms'] = time_cuda(lambda: clenshaw_coeff_grad_reference(x, wy, order), 3, warmup=1)
         got = kernel_call()
@@ -705,7 +748,8 @@ def main(kernels_only=False):
         'share_of_bound': main_grad['bound_ms'] / main_grad['ms'], 'library_ms': main_grad['library_ms'],
         'ms_560': grad_timed[NQUERY]['ms'], 'bound_ms_560': grad_timed[NQUERY]['bound_ms'],
         'plain_ms_560': grad_timed[NQUERY]['plain_ms'], 'library_ms_560': grad_timed[NQUERY]['library_ms'],
-        'geometry': main_grad['geometry']._asdict()}],
+        'geometry': main_grad['geometry']._asdict(), 'geometry_560': grad_timed[NQUERY]['geometry']._asdict(),
+        'resident_blocks': resident}],
         'evals_per_s': {' '.join(str(part) for part in key): rate for key, rate in rates.items()}}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
                                              'count': torch.cuda.device_count()}}))

@@ -47,6 +47,9 @@ COEFF_GRAD_LAUNCHES = 0
 LAST_GEOMETRY = None
 """The :class:`ClenshawGeometry` of the last launch of the Clenshaw kernel."""
 
+LAST_COEFF_GRAD_GEOMETRY = None
+"""The :class:`CoeffGradGeometry` of the last launch of the coefficient-gradient kernel."""
+
 _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCES = tuple(os.path.join(_PACKAGE_DIR, 'csrc', name) for name in ('clenshaw.cu', 'clenshaw_coeff_grad.cu'))
 BUILD_DIR = os.path.join(_PACKAGE_DIR, 'build')
@@ -220,8 +223,10 @@ def library():
     lib.clenshaw_f32.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 12
                                  + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
     lib.clenshaw_f32.restype = ctypes.c_int
-    lib.clenshaw_coeff_grad_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.clenshaw_coeff_grad_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     lib.clenshaw_coeff_grad_f32.restype = ctypes.c_int
+    lib.clenshaw_coeff_grad_occupancy.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    lib.clenshaw_coeff_grad_occupancy.restype = ctypes.c_int
     BUILD_INFO.update(path=target, seconds=time.perf_counter() - t0, log=log)
     _LIBRARY = lib
     return lib
@@ -312,40 +317,81 @@ def _launch_clenshaw(x, coeffs, log_values, queries_per_thread=None, max_grid=MA
     return out
 
 
-CoeffGradGeometry = collections.namedtuple('CoeffGradGeometry', ['nq', 'warps', 'grid', 'smem', 'idle'])
+CoeffGradGeometry = collections.namedtuple(
+    'CoeffGradGeometry', ['nq', 'warps', 'grid', 'smem', 'prefetch', 'tiles', 'idle'])
 CoeffGradGeometry.__doc__ = """Launch geometry of the coefficient-gradient kernel (see
-``csrc/clenshaw_coeff_grad.cu``). One warp a row: warp w of the launch (``grid`` blocks of
-``warps`` warps) takes rows w, w + grid x warps, ...; within a row, lane l of column tile t takes
-queries 32 nq t + l + 32 n (n < nq). smem: dynamic shared memory in bytes (shared coefficients: a
-partial gradient per warp). idle: the share of the query slots (rows x tiles x 32 nq) that hold no
-query."""
+``csrc/clenshaw_coeff_grad.cu``). A team of 16 lanes (half a warp) a row: team t of the launch
+(``grid`` blocks of ``warps`` warps, teams numbered block by block and warp by warp, T = grid x
+warps x 2 of them) takes rows t, t + T, ..., and within each the ``tiles`` column tiles of 16 nq
+queries, in order: lane l of tile s holds queries 16 nq s + l + 16 n (n < nq). prefetch: each
+team loads its first (row, tile) directly and copies each next one into shared memory while it
+computes the one before (per-row coefficients whose rows are a multiple of 16 bytes). smem:
+dynamic shared memory of a block in bytes (the teams' prefetch buffers, or for shared
+coefficients a partial gradient per warp). idle: the share of the query slots (rows x tiles x
+16 nq) that hold no query."""
 
-_COEFF_GRAD_NQS = (1, 9, 18)  # the queries a lane the kernel is compiled for: Q <= 32, 288 and 560 without tiles
+COEFF_GRAD_LANES = 16         # a team of the coefficient-gradient kernel: the lanes a row
+_COEFF_GRAD_NQS = (1, 9, 18)  # the queries a lane it is compiled for: Q <= 16, 144, and tiles of 288
 _COEFF_GRAD_CHUNK = 16        # degrees reduced together
 _COEFF_GRAD_SHARED_GRID = 1056  # shared coefficients: most blocks (8 an SM), each ends with `order` atomics
 
 
+def coeff_grad_buffer_floats(nq):
+    """Floats of a team's prefetch buffer (``buffer_floats`` in the CUDA source): x, grad_y and y
+    of a tile, padded to 16 more than a multiple of 32 so that the two teams of a warp read on
+    other banks."""
+    return _round_up(3 * COEFF_GRAD_LANES * nq, 32) + 16
+
+
 @functools.lru_cache(maxsize=256)
-def coeff_grad_geometry(rows, q, order, per_row, max_grid=MAX_GRID):
+def coeff_grad_geometry(rows, q, order, per_row, sms=None, resident=None, max_grid=MAX_GRID, aligned=True):
     """Launch geometry of the coefficient-gradient kernel for x (rows, q).
 
-    nq is the smallest compiled value that holds a row in one column tile
-    (ceil(q / 32) queries a lane), else the largest; blocks hold 8 warps
-    (8 rows), fewer for few rows or where 48 KB of shared memory do not hold
-    as many partial gradients of ``order`` (shared coefficients). Returns a
-    :class:`CoeffGradGeometry`."""
-    need = -(-q // 32)
-    nq = next((n for n in _COEFF_GRAD_NQS if n >= need), _COEFF_GRAD_NQS[-1])
-    warps = min(8, rows)
-    smem = 0
+    nq is the smallest compiled value that holds a row in one tile
+    (ceil(q / 16) queries a lane), else the largest (tiles of 288
+    queries). Blocks hold 8 warps, fewer for few rows or where 48
+    KB of shared memory do not hold as many partial gradients of ``order``
+    (shared coefficients). Per-row coefficients prefetch where q is a
+    multiple of 4 and the arrays are 16-byte ``aligned``. The grid is one
+    block for each 8 warps' worth of rows, capped by ``max_grid`` and, given
+    the card's ``sms`` and the blocks of this instance an SM holds
+    (``resident``), by sms x resident: persistent blocks whose teams walk
+    the rows past it. Returns a :class:`CoeffGradGeometry`."""
+    lanes = COEFF_GRAD_LANES
+    nq = next((n for n in _COEFF_GRAD_NQS if n * lanes >= q), _COEFF_GRAD_NQS[-1])
+    teams = 32 // lanes
+    warps = min(8, -(-rows // teams))
+    prefetch = bool(per_row and aligned and q % 4 == 0)
+    smem = 4 * coeff_grad_buffer_floats(nq) * teams * warps if prefetch else 0
     if not per_row:
         padded = _round_up(order, _COEFF_GRAD_CHUNK)
         warps = min(warps, _SMEM_BYTES // (4 * padded))
         smem = 4 * padded * warps
         max_grid = min(max_grid, _COEFF_GRAD_SHARED_GRID)
-    grid = min(-(-rows // warps), max_grid)
-    tiles = -(-q // (32 * nq))
-    return CoeffGradGeometry(nq, warps, grid, smem, 1. - q / (tiles * 32 * nq))
+    grid = min(-(-rows // (warps * teams)), max_grid)
+    if sms is not None and resident is not None:
+        grid = min(grid, sms * resident)
+    tiles = -(-q // (lanes * nq))
+    return CoeffGradGeometry(nq, warps, grid, smem, prefetch, tiles, 1. - q / (tiles * lanes * nq))
+
+
+@functools.lru_cache(maxsize=64)
+def coeff_grad_resident_blocks(nq, per_row, prefetch, warps, smem):
+    """Blocks of this instance of the coefficient-gradient kernel that one SM
+    of the current card holds at once (the CUDA occupancy calculator); raises
+    if the call fails or none fits."""
+    blocks = ctypes.c_int(0)
+    err = library().clenshaw_coeff_grad_occupancy(int(per_row), nq, int(prefetch), warps, smem, ctypes.byref(blocks))
+    if err != 0 or blocks.value < 1:
+        raise RuntimeError('coefficient-gradient kernel (nq {}, per_row {}, prefetch {}, {} warps, {} B of dynamic '
+                           'shared memory): occupancy query gave cudaError {:d} and {} blocks an SM'.format(
+                               nq, per_row, prefetch, warps, smem, err, blocks.value))
+    return blocks.value
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def clenshaw_coeff_grad_reference(x, w, order, per_row=True):
@@ -367,7 +413,7 @@ def clenshaw_coeff_grad_reference(x, w, order, per_row=True):
 
 
 def _launch_coeff_grad(x, grad_y, y, order, per_row, max_grid=MAX_GRID):
-    global COEFF_GRAD_LAUNCHES
+    global COEFF_GRAD_LAUNCHES, LAST_COEFF_GRAD_GEOMETRY
     tensors = [x, grad_y] + ([] if y is None else [y])
     if x.device.type != 'cuda':
         raise ValueError('the CUDA coefficient-gradient kernel needs a CUDA tensor, got one on {}'.format(x.device))
@@ -387,16 +433,23 @@ def _launch_coeff_grad(x, grad_y, y, order, per_row, max_grid=MAX_GRID):
         torch.zeros(order, dtype=x.dtype, device=x.device)
     if x.numel() == 0:
         return gc.zero_()
-    geometry = coeff_grad_geometry(rows, q, order, bool(per_row), max_grid)
+    per_row = bool(per_row)
+    aligned = all(t.data_ptr() % 16 == 0 for t in tensors)
     lib = library()
     with torch.cuda.device(x.device):
+        # the instance first, then the grid from the blocks of it that the card's SMs hold
+        g = coeff_grad_geometry(rows, q, order, per_row, max_grid=max_grid, aligned=aligned)
+        resident = coeff_grad_resident_blocks(g.nq, per_row, g.prefetch, g.warps, g.smem)
+        geometry = coeff_grad_geometry(rows, q, order, per_row, _sm_count(x.device.index), resident, max_grid,
+                                       aligned=aligned)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.clenshaw_coeff_grad_f32(x.data_ptr(), grad_y.data_ptr(), None if y is None else y.data_ptr(),
-                                          gc.data_ptr(), rows, q, order, int(bool(per_row)), geometry.nq,
-                                          geometry.warps, geometry.grid, stream)
+                                          gc.data_ptr(), rows, q, order, int(per_row), geometry.nq,
+                                          int(geometry.prefetch), geometry.warps, geometry.smem, geometry.grid, stream)
     if err != 0:
         raise RuntimeError('CUDA coefficient-gradient kernel launch failed with cudaError {:d}'.format(err))
     COEFF_GRAD_LAUNCHES += 1
+    LAST_COEFF_GRAD_GEOMETRY = geometry
     return gc
 
 

@@ -53,7 +53,7 @@ def build(source, directory, name):
     """nvcc ``source`` with the port's flags into ``directory``; (library, path, nvcc's output)."""
     from desilike_tpu_torch.ops import cuda_kernels
     target = os.path.join(directory, 'lib{}.so'.format(name))
-    cmd = [cuda_kernels._nvcc(), *cuda_kernels._NVCC_FLAGS, '-o', target, source]
+    cmd = [cuda_kernels._nvcc(), *cuda_kernels._NVCC_FLAGS, '-shared', '-o', target, source]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError('building {} failed:\n{}{}'.format(source, proc.stdout, proc.stderr))
@@ -144,9 +144,13 @@ def _count(ops):
     return counts
 
 
-def loop_counts(sass):
+def loop_counts(sass, marker='LDS', most_ffma=False):
     """{function: counts} for the innermost loop of the recurrence (the
-    shortest backward branch over shared loads and FFMAs) of each function in
+    shortest backward branch over at least 8 FFMAs and an instruction whose
+    mnemonic starts with ``marker`` (a prefix or a tuple of them): the shared
+    loads of the Clenshaw kernel; with ``most_ffma``
+    the one with the most FFMAs, then the shortest, which passes over the
+    compiler's loops around a shuffle in a divergent warp) of each function in
     ``cuobjdump -sass`` output: instructions by mnemonic, the loop's SASS
     text, and the static counts of the rest of the function (``outside``,
     by mnemonic, with ``f64`` the double-precision ones, which the row
@@ -177,12 +181,13 @@ def loop_counts(sass):
             if begin > index:
                 continue
             ops = [t.split()[0] for t in instructions[begin:index + 1]]
-            if any(op.startswith('LDS') for op in ops) and sum(op.startswith('FFMA') for op in ops) >= 8 \
-                    and (best is None or len(ops) < len(best[1])):
-                best = ((begin, index + 1), ops, texts[begin:index + 1])
+            ffma = sum(op.startswith('FFMA') for op in ops)
+            key = (-ffma if most_ffma else 0, len(ops))
+            if any(op.startswith(marker) for op in ops) and ffma >= 8 and (best is None or key < best[3]):
+                best = ((begin, index + 1), ops, texts[begin:index + 1], key)
         if best is None:
             continue
-        (begin, end), ops, text = best
+        (begin, end), ops, text, _ = best
         rest = [t.split()[0] for t in instructions[:begin] + instructions[end:]]
         rest = [op for op in rest if not op.startswith('NOP')]
         outside = _count(rest)

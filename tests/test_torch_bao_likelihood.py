@@ -318,8 +318,7 @@ def test_reference_file_matches_live_jax():
         return logpost(dict(zip(names, theta)))[0]
 
     theta = jnp.asarray(REFERENCE['points'][:4], dtype=jnp.float32)
-    values = np.asarray(jax.jit(jax.vmap(scalar))(theta))
-    grads = np.asarray(jax.jit(jax.vmap(jax.grad(scalar)))(theta))
+    values, grads = map(np.asarray, jax.jit(jax.vmap(jax.value_and_grad(scalar)))(theta))  # one compile
     # same package and dtype: only a different XLA build could move the
     # float32 rounding, which is bounded by the tolerance stated above
     assert_matches(values, grads, REFERENCE['logpost'][:4], REFERENCE['grad'][:4], JAX_F32_ATOL, JAX_F32_GRAD_RTOL)

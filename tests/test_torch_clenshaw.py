@@ -302,7 +302,8 @@ def test_coeff_grad_reference_matches_jax_grad(tables, shared, log_values):
         evaluate = ref.evaluate if shared else jax.vmap(ref.evaluate)
         return (evaluate(c, jnp.asarray(k)) * grad_y).sum()
 
-    expected = np.asarray(jax.grad(loss)(jnp.asarray(coeffs)))
+    # compiled: eagerly, the transpose of each of the 202 coefficient slices would compile on its own
+    expected = np.asarray(jax.jit(jax.grad(loss))(jnp.asarray(coeffs)))
     # the queries as the port's evaluate() normalizes them, so that both differentiate at the same x
     lnk = torch.log(torch.from_numpy(k))
     xt = torch.clamp((lnk - cheb.lo) / (cheb.hi - cheb.lo) * 2. - 1., -1., 1.)
@@ -336,33 +337,82 @@ def test_cpu_coeff_grad_takes_plain_version(tables):
         cuda_kernels.clenshaw_coeff_grad(torch.empty((2, 3), device='meta'), torch.empty((2, 3), device='meta'), 5)
 
 
-@pytest.mark.parametrize('rows', [1, 56, 4096, 70000])
-@pytest.mark.parametrize('q', [1, 3, 288, 290, 560, 561, 1200])
+def _coeff_grad_walk(g, rows, q):
+    """The units (row, tile) that the launch ``g`` computes and copies, by
+    the index arithmetic of csrc/clenshaw_coeff_grad.cu: team t (of T =
+    grid x warps x 2, half a warp each) walks rows t, t + T, ..., each tile
+    by tile; the loop runs as often for both teams of a warp as for its first
+    team. A prefetching team loads its unit 0 directly and calls
+    copy_next(k), which copies unit k + 1 where it exists and its row is <
+    rows, before the loop (k = 0) and in the iteration of each unit k >= 1.
+    Returns the units computed and copied (row x tiles + tile), and, by team
+    and unit, which were copied and which computed."""
+    teams = g.grid * g.warps * 2
+    first = np.arange(g.grid * g.warps) * 2  # each warp's first team
+    units = np.where(first < rows, -(-(rows - first) // teams) * g.tiles, 0)
+    team = (first[:, None] + np.arange(2)[None, :]).ravel()
+    units = np.repeat(units, 2)
+    k = np.arange(units.max(initial=0) + 1)[None, :]
+    row = team[:, None] + (k // g.tiles) * teams
+    unit = row * g.tiles + k % g.tiles
+    active = k < units[:, None]
+    live = active & (row < rows)
+    calls = (k == 0) | ((k >= 1) & active)  # copy_next(k): before the loop, then in iterations 1, 2, ...
+    issued = np.zeros_like(live)  # issued[:, k]: unit k copied, by copy_next(k - 1)
+    issued[:, 1:] = calls[:, :-1] & (k[:, 1:] < units[:, None]) & (row[:, 1:] < rows)
+    return unit[live], unit[issued], issued, live
+
+
+@pytest.mark.parametrize('rows', [1, 15, 4096, 4097, 70000])
+@pytest.mark.parametrize('q', [1, 3, 288, 560, 561, 1200])
 @pytest.mark.parametrize('per_row', [False, True], ids=['shared', 'per_row'])
-def test_coeff_grad_geometry_covers_every_query_once(rows, q, per_row):
-    """The coefficient-gradient kernel's geometry, computed in Python: by the
-    index arithmetic of csrc/clenshaw_coeff_grad.cu every row is walked by
-    one warp and every query of a row is held by one (column tile, lane,
-    slot), with a grid stride too; nq is a compiled value, blocks hold 1 to 8
-    warps, shared memory stays within 48 KB, and the main path's Q = 288
-    idles no slot (Q = 560: 1/36)."""
-    order = 202
+@pytest.mark.parametrize('sms', [132, 1])
+def test_coeff_grad_geometry_covers_every_query_once(rows, q, per_row, sms):
+    """The coefficient-gradient kernel's geometry, computed in Python, and
+    its index arithmetic simulated (``_coeff_grad_walk``): teams of half a
+    warp, a persistent grid of sms x resident blocks (2 an SM here; the
+    card's occupancy on the card) and a cap of 7 blocks. Every row is
+    computed once, tile by tile; every query of a tile is held by one (lane,
+    slot) and copied by one 16-byte granule of one lane; a prefetching launch
+    loads each team's first unit directly and copies every later unit it
+    computes once, while the unit before it computes, and nothing past the
+    last row. nq is a compiled value, blocks hold 1 to 8 warps, dynamic
+    shared memory stays within 48 KB (within 227 KB with the prefetch
+    buffers, which are 16-byte aligned and put the two teams of a warp on
+    other banks), and the main path's Q = 288 idles no slot (Q = 560: two
+    tiles of 288, 1/36)."""
+    order, resident, lanes = 202, 2, cuda_kernels.COEFF_GRAD_LANES
     for max_grid in (cuda_kernels.MAX_GRID, 7):
-        g = cuda_kernels.coeff_grad_geometry(rows, q, order, per_row, max_grid)
-        assert g.nq in cuda_kernels._COEFF_GRAD_NQS and 1 <= g.warps <= 8 and 1 <= g.grid <= max_grid
-        assert g.smem == (0 if per_row else 4 * 208 * g.warps) and g.smem <= 48 * 1024
-        # rows: warp w of block b starts at b warps + w and strides by grid x warps
-        start = (np.arange(g.grid)[:, None] * g.warps + np.arange(g.warps)[None, :]).ravel()
-        stride = g.grid * g.warps
-        walked = np.concatenate([np.arange(s, rows, stride) for s in start])
-        np.testing.assert_array_equal(np.sort(walked), np.arange(rows))
-        # queries of a row: column tile t, lane l, slot n -> 32 nq t + l + 32 n
-        tiles = -(-q // (32 * g.nq))
-        qq = (32 * g.nq * np.arange(tiles)[:, None, None] + np.arange(32)[None, :, None]
-              + 32 * np.arange(g.nq)[None, None, :]).ravel()
+        g = cuda_kernels.coeff_grad_geometry(rows, q, order, per_row, sms, resident, max_grid)
+        assert g.nq in cuda_kernels._COEFF_GRAD_NQS and 1 <= g.warps <= 8
+        assert g.warps == min(8, -(-rows // 2), 48 * 1024 // (4 * 208) if not per_row else 8)
+        assert g.grid == min(-(-rows // (2 * g.warps)), max_grid, sms * resident, 1056 if not per_row else max_grid)
+        assert g.prefetch == (per_row and q % 4 == 0)
+        assert not cuda_kernels.coeff_grad_geometry(rows, q, order, per_row, sms, resident, max_grid,
+                                                    aligned=False).prefetch
+        floats = cuda_kernels.coeff_grad_buffer_floats(g.nq)
+        if g.prefetch:
+            assert floats >= 3 * lanes * g.nq and floats % 4 == 0 and floats % 32 == 16
+            assert g.smem == 4 * floats * 2 * g.warps <= 227 * 1024 - 21504  # beside the static fold tiles
+        else:
+            assert g.smem == (0 if per_row else 4 * 208 * g.warps) <= 48 * 1024
+        computed, prefetched, issued, live = _coeff_grad_walk(g, rows, q)
+        np.testing.assert_array_equal(np.sort(computed), np.arange(rows * g.tiles))
+        if g.prefetch:  # unit 0 loaded directly, each later one copied once, just before it is computed
+            assert not issued[:, 0].any()
+            np.testing.assert_array_equal(issued[:, 1:], live[:, 1:])
+            assert prefetched.size == 0 or prefetched.max() < rows * g.tiles
+        # queries of a tile: lane l, slot n -> 16 nq s + l + 16 n; copies: 16-byte granule i -> lane i % 16
+        width = lanes * g.nq
+        qq = (width * np.arange(g.tiles)[:, None, None] + np.arange(lanes)[None, :, None]
+              + lanes * np.arange(g.nq)[None, None, :]).ravel()
         np.testing.assert_array_equal(np.sort(qq[qq < q]), np.arange(q))
         assert g.idle == pytest.approx(1. - q / qq.size)
-    if q == 288:
-        assert g.nq == 9 and g.idle == 0.
-    if q == 560:
-        assert g.nq == 18 and g.idle == pytest.approx(1. / 36.)
+        if g.prefetch:  # lane l of a team copies the granules l, l + 16, ... of the tile's floats
+            copied = np.concatenate([width * s + 4 * np.arange(l, min(width, q - width * s) // 4, lanes)[:, None]
+                                     + np.arange(4)[None, :] for s in range(g.tiles) for l in range(lanes)], axis=None)
+            np.testing.assert_array_equal(np.sort(copied), np.arange(q))
+        if q == 288:
+            assert g.nq == 18 and g.tiles == 1 and g.idle == 0.
+        if q == 560:
+            assert g.nq == 18 and g.tiles == 2 and g.idle == pytest.approx(1. / 36.)
