@@ -4,7 +4,8 @@ Drives the port's main paths on the card, at full width, through the
 hand-written CUDA kernels, and checks them: the batched config-1 BAO
 log-posterior of ``__graft_entry__._build_likelihood`` and the batched
 config-4 joint two-tracer full-shape + BAO log-posterior of
-``bench.build_likelihood``, each with its gradient.
+``bench.build_likelihood``, each with its gradient, and the gradient
+samplers (ChEES, NUTS) over config 4.
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions, the
    kernel library's build time, ptxas's registers, and the blocks of each
@@ -23,7 +24,10 @@ config-4 joint two-tracer full-shape + BAO log-posterior of
    4097 rows (not a multiple of the persistent grid's teams), 70000 x 288 on
    7 blocks (each team walks many rows), an unaligned x (no prefetch); and
    the full backward of the series (x and coefficients) against autograd
-   through the plain version at (4096, 288, 202) per-row;
+   through the plain version at (4096, 288, 202) per-row; and the
+   derivatives of the Functions that launch them (:func:`check_derivatives`:
+   ``torch.func.jvp``, ``jacfwd``, ``vmap`` and double backward) at
+   (4096, 288, 202) per-row and (4096, 560, 202) shared;
 3. the likelihoods at full width. Config 1: log-posterior and gradient over
    B = 4096 seeded chains (finite, through the kernel; launches counted
    forward and with the gradient), the frozen JAX values of
@@ -34,7 +38,12 @@ config-4 joint two-tracer full-shape + BAO log-posterior of
    kernels launched, the 30 solved parameters in ``aux['solved']``), the
    frozen JAX values of ``tests/data/torch_port_joint_reference.npz``, the
    card against the CPU plain path at 4 points, and the ``kaiser`` and
-   ``eft_kaiser`` golden vectors;
+   ``eft_kaiser`` golden vectors; one chain of B = 4096 forced to fail
+   (the others bit-identical, it reads -inf); the synchronising CUDA calls
+   of one forward call (``torch.cuda.set_sync_debug_mode``); the samplers'
+   start-point Hessian diagonal on the card against the CPU plain path and
+   the frozen JAX x64 values of ``tests/data/torch_port_hessian_reference.npz``
+   (launches counted);
 4. times (reported, not gated): the Clenshaw kernel's device time from
    CUDA-graph replay of 50 launches at (4096, 560, 202) shared and per-row,
    (4096, 288, 202) per-row and (65536, 560, 202) shared, the coefficient
@@ -43,10 +52,18 @@ config-4 joint two-tracer full-shape + BAO log-posterior of
    nearest library call to the coefficient gradient
    (``torch.special.chebyshev_polynomial_t`` over (B, Q, order), then an
    einsum); and log-posterior evaluations per second, config 1 at B = 4096
-   and 65536, config 4 at B = 4096 (forward and with the gradient) and 32768.
+   and 65536, config 4 at B = 4096 (forward and with the gradient) and 32768;
+   the kernels at the Hessian's shapes (18 rows);
+5. the samplers on config 4 (:func:`run_samplers`): ChEES over B = 4096
+   chains (24 warmup and 8 sampling iterations, at most 32 leapfrog steps),
+   then NUTS over 64 chains (max_depth 5), each with the launch counters
+   set to 0 just before and read just after; iterations/s, chain-gradient
+   evaluations/s, launches a leapfrog step, step size, trajectory length,
+   acceptance, leaves and host reads an iteration.
 
-Any failure raises (exit code 1). The last two lines of standard output are
-a JSON object describing the kernels, then ``{"ok": true, "device": ...}``.
+Any failure raises (exit code 1). The last three lines of standard output
+are a JSON object describing the kernels, one with the samplers' numbers,
+then ``{"ok": true, "device": ...}``.
 Needs one CUDA device and no network; imports nothing of JAX.
 
 Run from the repository root: ``python3 chip_smoke.py`` (``--kernels-only``
@@ -83,6 +100,13 @@ COEFF_GRAD_RTOL = 1e-4  # of the gradient's magnitude: sums of up to 561 (per-ro
 # terms of ~1e4): measured 5.4e-2 and 2.0e-3, with the JAX host state 6.2e-2 and 5.8e-4.
 JOINT_X64_ATOL, JOINT_X64_GRAD_RTOL = 2e-2, 5e-4
 JOINT_F32_ATOL, JOINT_F32_GRAD_RTOL = 0.15, 1e-2
+# derivatives through the kernels against the same transforms of the plain recurrence, of the result's
+# magnitude: first derivatives (jvp, jacfwd, vmap) as the forward kernel (1e-6 measured on an H100); second
+# ones run the derivative series of the derivative series, whose terms grow as (2 j)^2 c_j (2.3e-5 there)
+SECOND_RTOL = 1e-4
+HESSIAN_RTOL = 1e-4  # the start-point Hessian's diagonal, of its largest entry: float32 against x64 (5e-6 on an H100)
+SAMPLER_BATCH = BATCH  # ChEES chains on config 4
+HESSIAN_ROWS = 18  # the start-point Hessian's batch: one copy of the point a varied parameter of config 4
 
 
 def build_likelihood(device):
@@ -171,6 +195,105 @@ def check_close(label, got, expected, atol, grad=None, expected_grad=None, grad_
     print(line)
     if not ok:
         raise AssertionError(line)
+
+
+def check_derivatives(case, device):
+    """The derivatives of the Functions that launch the kernels (``_Clenshaw``
+    and, in the coefficients, ``_ClenshawCoeffGrad``) at ``case``'s shape, x
+    and coefficients of :func:`case_inputs`, against the same transforms of
+    clenshaw_reference: ``torch.func.jvp`` in x and in c, ``jacfwd`` in x and
+    in c on a (4, 16) slice, ``vmap`` over a leading batch of 3 (of x, and of
+    x and c), double backward (d2/dx2 and d2/(dx dc), through both
+    Functions), ``torch.func.hessian`` in x and in c of a scalar on the
+    slice, and ``vmap`` of ``torch.func.grad`` in c over the batch of 3.
+    Returns {label: error relative to the plain result's magnitude}; raises
+    beyond KERNEL_RTOL for first derivatives, COEFF_GRAD_RTOL for the
+    coefficient gradient and SECOND_RTOL for second derivatives."""
+    import torch
+    from torch.func import grad, hessian, jacfwd, jvp, vmap
+    from desilike_tpu_torch.ops.cuda_kernels import _Clenshaw, clenshaw_reference
+    x, c = case_inputs(case, device)
+    rng = np.random.default_rng(6)
+
+    def normal(shape, scale=1.):
+        return torch.tensor(scale * rng.normal(size=tuple(shape)), dtype=torch.float32, device=device)
+
+    def kernel(x, c):
+        return _Clenshaw.apply(x, c, True)
+
+    def rel(got, expected):
+        return float((got - expected).abs().max() / expected.abs().max())
+
+    def both(transform):
+        return rel(transform(kernel), transform(clenshaw_reference))
+
+    dx, dc = normal(x.shape), normal(c.shape, 1e-3) / (1. + torch.arange(c.shape[-1], device=device))
+    errors = {'jvp_x': both(lambda f: jvp(f, (x, c), (dx, torch.zeros_like(c)))[1]),
+              'jvp_c': both(lambda f: jvp(f, (x, c), (torch.zeros_like(x), dc))[1])}
+    xs, cs = x[:4, :16].contiguous(), c[:4].contiguous() if case['per_row'] else c
+    errors['jacfwd_x'] = both(lambda f: jacfwd(f)(xs, cs))
+    errors['jacfwd_c'] = both(lambda f: jacfwd(f, argnums=1)(xs, cs))
+    x3 = (x + normal((3,) + tuple(x.shape), 1e-3)).clamp(-1., 1.)
+    c3 = c + normal((3,) + tuple(c.shape), 1e-4)
+    errors['vmap_x'] = both(lambda f: vmap(f, in_dims=(0, None))(x3, c))
+    errors['vmap_xc'] = both(lambda f: vmap(f)(x3, c3))
+    w, v = normal(x.shape), normal(x.shape)
+    second = []
+    for function in (kernel, clenshaw_reference):
+        xg, cg = x.clone().requires_grad_(True), c.clone().requires_grad_(True)
+        gx, gc = torch.autograd.grad((function(xg, cg) * w).sum(), (xg, cg), create_graph=True)
+        dxx = torch.autograd.grad((gx * v).sum(), xg, retain_graph=True)[0]  # d2/dx2 along v
+        dxc = torch.autograd.grad((gc * gc).sum(), xg)[0]  # through the coefficient gradient's x-derivative
+        second.append((dxx, dxc))
+    errors['d2_dx2'] = rel(second[0][0], second[1][0])
+    errors['d2_dxdc'] = rel(second[0][1], second[1][1])
+    # torch.func.hessian (forward over reverse) of a scalar on the slice: the jvp and the vmap rules of
+    # both Functions, the coefficient gradient's jvp launching both kernels
+    ws, w3 = normal(xs.shape), normal(x3.shape)
+
+    def scalar(f):
+        return lambda x, c: (f(x, c) * ws).sum()
+    errors['d2_hessian_x'] = both(lambda f: hessian(scalar(f))(xs, cs))
+    errors['d2_hessian_c'] = both(lambda f: hessian(scalar(f), argnums=1)(xs, cs))
+    # the coefficient gradient under vmap, at the full shape over a leading batch of 3
+    errors['vmap_grad_c'] = both(lambda f: vmap(grad(lambda x, c, w: (f(x, c) * w).sum(), argnums=1))(x3, c3, w3))
+    if device.type == 'cuda':
+        torch.cuda.synchronize()
+    tolerance = dict(vmap_grad_c=COEFF_GRAD_RTOL)
+    bad = {k: e for k, e in errors.items()
+           if not e <= tolerance.get(k, SECOND_RTOL if k.startswith('d2') else KERNEL_RTOL)}
+    if bad:
+        raise AssertionError('derivatives through the kernels disagree with the plain version at {}: {}'.format(
+            case_label(case), bad))
+    return errors
+
+
+class fail_chain(object):
+    """Context in which chain ``index`` of every config-4 evaluation of
+    ``likelihood`` has non-finite per-chain design rows (its full-shape
+    theory's ``solved_power_basis``), so that its solved parameters cannot
+    be factored."""
+
+    def __init__(self, likelihood, index):
+        self.theory = next(obs.wmatrix.theory for obs in likelihood.observables
+                           if hasattr(obs.wmatrix.theory, 'solved_power_basis'))
+        self.index = index
+
+    def __enter__(self):
+        import torch
+        basis = self.theory.solved_power_basis
+
+        def failing(basename):
+            out = basis(basename)
+            mask = (torch.arange(out.shape[0], device=out.device) == self.index).reshape(
+                (-1,) + (1,) * (out.ndim - 1))
+            return torch.where(mask, torch.full_like(out, float('inf')), out)
+
+        self.theory.solved_power_basis = failing
+        return self
+
+    def __exit__(self, *exc):
+        del self.theory.solved_power_basis
 
 
 def kernel_cases():
@@ -467,6 +590,168 @@ def drive(fn, values):
     return logpost, grad, forward, (cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES)
 
 
+def check_failed_chain(likelihood, fn, values, index=BATCH // 3):
+    """Config 4 with chain ``index`` forced to fail (:class:`fail_chain`):
+    raises unless every other chain's log-posterior, gradient and solved
+    parameters are bit-identical to the batch without it, and the failed
+    chain reads -inf with a finite gradient and ``aux['solved_info']`` -1
+    there and 0 elsewhere."""
+    import torch
+
+    def evaluate():
+        leaves = {n: v.detach().clone().requires_grad_(True) for n, v in values.items()}
+        logpost, aux = fn(leaves)
+        logpost.sum().backward()
+        grad = torch.stack([v.grad for v in leaves.values()], dim=-1)
+        return logpost.detach(), grad, aux
+
+    logpost, grad, aux = evaluate()
+    with fail_chain(likelihood, index):
+        failed, failed_grad, failed_aux = evaluate()
+    others = torch.arange(logpost.shape[0], device=logpost.device) != index
+    identical = bool(torch.equal(failed[others], logpost[others])) and all(
+        bool(torch.equal(failed_aux['solved'][n][others], aux['solved'][n][others])) for n in aux['solved'])
+    grad_identical = bool(torch.equal(failed_grad[others], grad[others]))
+    grad_finite = bool(torch.isfinite(failed_grad[index]).all())
+    info = failed_aux['solved_info']
+    print('phase 3: config 4 with chain {} of {} forced to fail: the others bit-identical {} (gradient {}), the '
+          'failed chain reads {} with a finite gradient {} (max |grad| {:.3g}), solved_info {} there and nonzero '
+          'at {} chain(s)'.format(index, logpost.shape[0], identical, grad_identical, float(failed[index]),
+                                  grad_finite, float(failed_grad[index].abs().max()), int(info[index]),
+                                  int((info != 0).sum())))
+    if not (identical and grad_identical and grad_finite and float(failed[index]) == -np.inf
+            and int(info[index]) == -1 and int((info != 0).sum()) == 1 and bool((aux['solved_info'] == 0).all())):
+        raise AssertionError('one failed chain changed the others, or did not read -inf with a finite gradient')
+
+
+def count_host_syncs(fn, values):
+    """The synchronising CUDA calls of one forward call of ``fn``, as
+    ``torch.cuda.set_sync_debug_mode('warn')`` reports them, each at the
+    innermost frame of this repository that made it: prints and returns
+    {file:line: count}."""
+    import collections
+    import traceback
+    import warnings
+    import torch
+    places = collections.Counter()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if 'synchroniz' in str(message):
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if f.filename.startswith(ROOT) and not f.filename.endswith('chip_smoke.py')]
+            frame = frames[-1] if frames else None
+            places['{}:{}'.format(os.path.relpath(frame.filename, ROOT), frame.lineno) if frame else
+                   '{}:{}'.format(filename, lineno)] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter('always')
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            with torch.no_grad():
+                fn(values)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    print('phase 3: config 4: one forward call at B={} made {} synchronising CUDA call(s){}'.format(
+        BATCH, sum(places.values()), ': ' + ', '.join('{} x{}'.format(k, v) for k, v in sorted(places.items()))
+        if places else ''))
+    return dict(places)
+
+
+def check_start_hessian(joint, joint_cpu):
+    """The samplers' start-point Hessian of config 4's log-density in their
+    unconstrained space at the point of ``tests/data/torch_port_hessian_reference.npz``:
+    on the card (launches counted) against the CPU plain path and against
+    the frozen JAX x64 values, the diagonal within HESSIAN_RTOL of its
+    largest entry. Returns ((Clenshaw, coefficient-gradient) launches, errors)."""
+    import torch
+    from desilike_tpu_torch.ops import cuda_kernels
+    from desilike_tpu_torch.samplers import NUTSSampler
+    frozen = np.load(os.path.join(ROOT, 'tests', 'data', 'torch_port_hessian_reference.npz'))
+    diagonals = {}
+    for label, likelihood in (('card', joint), ('cpu', joint_cpu)):
+        sampler = NUTSSampler(likelihood, nchains=1)
+        u = torch.tensor(frozen['u'], dtype=torch.float32, device=sampler.device)[None]
+        cuda_kernels.CLENSHAW_LAUNCHES = cuda_kernels.COEFF_GRAD_LAUNCHES = 0
+        sampler.initial_mass(u)
+        if label == 'card':
+            torch.cuda.synchronize()
+            launches = (cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES)
+        diagonals[label] = torch.diagonal(sampler.start_hessian).cpu().numpy().astype('f8')
+    expected = np.diag(frozen['hessian'])
+    scale = np.abs(expected).max()
+    errors = {'card_vs_cpu': float(np.abs(diagonals['card'] - diagonals['cpu']).max() / scale),
+              'card_vs_jax_x64': float(np.abs(diagonals['card'] - expected).max() / scale),
+              'cpu_vs_jax_x64': float(np.abs(diagonals['cpu'] - expected).max() / scale)}
+    print('phase 3: config 4: start-point Hessian diagonal (18 copies, double backward) on the card: launches '
+          'Clenshaw {}, coefficient gradient {}; of max |diag| {:.4g}: card vs CPU {:.2e}, card vs JAX x64 {:.2e}, '
+          'CPU vs JAX x64 {:.2e} (tol {:.0e})'.format(launches[0], launches[1], scale, errors['card_vs_cpu'],
+                                                     errors['card_vs_jax_x64'], errors['cpu_vs_jax_x64'],
+                                                     HESSIAN_RTOL))
+    if not (max(errors.values()) <= HESSIAN_RTOL and min(launches) > 0):
+        raise AssertionError('the start-point Hessian disagrees, or did not run through both kernels')
+    return launches, errors
+
+
+def run_samplers(joint, smi):
+    """Phase 5: ChEES at SAMPLER_BATCH chains and NUTS at 64 chains (max_depth
+    5) on config 4 on the card, each with the launch counters set to 0 just
+    before and read just after. Raises unless every recorded log-posterior is
+    finite and ChEES's acceptance lies in (0.2, 0.99). Returns the numbers."""
+    import torch
+    from desilike_tpu_torch.ops import cuda_kernels
+    from desilike_tpu_torch.samplers import ChEESSampler, NUTSSampler
+    out = {}
+    for name, make, run in (
+            ('chees', lambda: ChEESSampler(joint, nchains=SAMPLER_BATCH, max_leapfrog=32, seed=1),
+             dict(nsteps=8, nwarmup=24)),
+            ('nuts', lambda: NUTSSampler(joint, nchains=64, max_depth=5, seed=2), dict(nsteps=4, nwarmup=8))):
+        torch.cuda.synchronize()
+        cuda_kernels.CLENSHAW_LAUNCHES = cuda_kernels.COEFF_GRAD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        sampler = make()
+        chain = sampler.run(**run)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = (cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES)
+        d = sampler.diagnostics
+        evaluations = sampler.gradient_evaluations
+        entry = out[name] = dict(
+            chains=sampler.nchains, nwarmup=run['nwarmup'], nsteps=run['nsteps'], seconds=seconds,
+            iterations=d['iterations'], iterations_per_s=d['iterations'] / seconds,
+            gradient_evaluations=evaluations, chain_gradient_evaluations_per_s=sampler.nchains * evaluations / seconds,
+            launches_clenshaw=launches[0], launches_coeff_grad=launches[1],
+            launches_per_gradient_evaluation=[l / max(evaluations, 1) for l in launches],
+            host_reads=d['host_reads'], host_reads_per_iteration=d['host_reads'] / d['iterations'],
+            logposterior_finite=bool(np.isfinite(chain['logposterior']).all()), shape=list(chain.shape))
+        if name == 'chees':
+            entry.update(step_size=d['step_size'], trajectory_length=d['trajectory_length'],
+                         acceptance_rate=d['acceptance_rate'], leapfrogs=d['leapfrogs'],
+                         leapfrogs_per_iteration=d['leapfrogs'] / d['iterations'])
+        else:
+            entry.update(leaves=d['leaves'], leaves_per_iteration=d['leaves'] / d['iterations'],
+                         divergence_rate=d['divergence_rate'], step_size=float(np.median(d['step_size'])))
+        print('phase 5: {} on config 4 on {!r}: {}'.format(name, smi, json.dumps(entry)))
+        if not entry['logposterior_finite'] or min(launches) <= 0:
+            raise AssertionError('{}: a recorded log-posterior is not finite, or a kernel was not launched'.format(name))
+        if name == 'chees' and not 0.2 < entry['acceptance_rate'] < 0.99:
+            raise AssertionError('ChEES acceptance {} outside (0.2, 0.99)'.format(entry['acceptance_rate']))
+    # the launches of one leapfrog step: one batched log-density and its gradient
+    sampler = ChEESSampler(joint, nchains=SAMPLER_BATCH)
+    lg = sampler._logdens_grad()
+    u = torch.tensor(sampler._unconstrain(np.stack([np.full(SAMPLER_BATCH, p.value) for p in sampler.varied_params],
+                                                   axis=-1)), dtype=torch.float32, device=sampler.device)
+    torch.cuda.synchronize()
+    cuda_kernels.CLENSHAW_LAUNCHES = cuda_kernels.COEFF_GRAD_LAUNCHES = 0
+    lg(u)
+    torch.cuda.synchronize()
+    out['launches_chees_step'] = [cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES]
+    print('phase 5: kernel launches a leapfrog step (Clenshaw, coefficient gradient): {}'.format(
+        out['launches_chees_step']))
+    return out
+
+
 def main(kernels_only=False):
     import torch
     if not torch.cuda.is_available():
@@ -558,6 +843,14 @@ def main(kernels_only=False):
           'autograd through the plain version (tol 1e-4)'.format(case_label(case), rel_x, rel_c))
     if not (rel_x <= 1e-4 and rel_c <= COEFF_GRAD_RTOL):
         raise AssertionError('the backward of the series disagrees with autograd of clenshaw_reference')
+    derivative_errors = {}
+    for case in (dict(rows=BATCH, q=FS_NQUERY, order=ORDER, per_row=True, log_values=True),
+                 dict(rows=BATCH, q=NQUERY, order=ORDER, per_row=False, log_values=True)):
+        errors = derivative_errors[case_label(case)] = check_derivatives(case, cuda)
+        print('phase 2: derivatives through the kernels at {} against the plain version, of the magnitude: {} '
+              '(tol {:.0e} for the first derivatives, {:.0e} for the second)'.format(
+                  case_label(case), ', '.join('{} {:.2e}'.format(k, e) for k, e in errors.items()), KERNEL_RTOL,
+                  SECOND_RTOL))
     if kernels_only:
         print('phases 1 and 2 took {:.1f} s'.format(time.perf_counter() - started))
         return
@@ -633,9 +926,13 @@ def main(kernels_only=False):
                 JOINT_F32_ATOL, g, joint_reference['grad'], JOINT_F32_GRAD_RTOL)
     check_close('phase 3: config 4: card, own host state vs JAX float64 (x64) at 16 points', lp,
                 joint_reference['logpost_x64'], JOINT_X64_ATOL, g, joint_reference['grad_x64'], JOINT_X64_GRAD_RTOL)
-    lp_cpu, g_cpu = at_points(build_joint_likelihood('cpu'), jnames, jpoints[:4])
+    joint_cpu = build_joint_likelihood('cpu')
+    lp_cpu, g_cpu = at_points(joint_cpu, jnames, jpoints[:4])
     check_close('phase 3: config 4: card vs the port\'s CPU plain path at 4 points', lp[:4], lp_cpu, JOINT_X64_ATOL,
                 g[:4], g_cpu, JOINT_X64_GRAD_RTOL)
+    check_failed_chain(joint, jfn, jvalues)
+    host_syncs = count_host_syncs(jfn, jvalues)
+    launches_hessian, hessian_errors = check_start_hessian(joint, joint_cpu)
     theory_golden('phase 3', KaiserTracerPowerSpectrumMultipoles(
         ells=(0, 2, 4), k=k29, template=ShapeFitPowerSpectrumTemplate(z=0.8)), golden, 'kaiser')
     theory_golden('phase 3', EFTLikeKaiserTracerPowerSpectrumMultipoles(
@@ -646,7 +943,9 @@ def main(kernels_only=False):
     saved = (cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES)
     timed = {}
     for label, rows, q, per_row in (('shared', BATCH, NQUERY, False), ('per-row', BATCH, NQUERY, True),
-                                    ('per-row', BATCH, FS_NQUERY, True), ('shared', BIG_BATCH, NQUERY, False)):
+                                    ('per-row', BATCH, FS_NQUERY, True), ('shared', BIG_BATCH, NQUERY, False),
+                                    ('shared', HESSIAN_ROWS, NQUERY, False), ('per-row', HESSIAN_ROWS, NQUERY, True),
+                                    ('per-row', HESSIAN_ROWS, FS_NQUERY, True)):
         case = dict(rows=rows, q=q, order=order, per_row=per_row, log_values=True)
         x, c = case_inputs(case, cuda, seed=2)
         runs = [time_graph(lambda: clenshaw(x, c)) for _ in range(2)]
@@ -705,6 +1004,18 @@ def main(kernels_only=False):
                                    entry['library_ms'] and round(entry['library_ms'], 4),
                                    4e-9 * BATCH * q * order, lib_rel))
         del x, c, w, y, wy, got
+    # the coefficient gradient at the start-point Hessian's shape
+    x, c = case_inputs(dict(rows=HESSIAN_ROWS, q=FS_NQUERY, order=order, per_row=True, log_values=True), cuda, seed=2)
+    w = torch.tensor(np.random.default_rng(5).normal(size=tuple(x.shape)), dtype=torch.float32, device=cuda)
+    with torch.no_grad():
+        y = clenshaw(x, c)
+    runs = [time_graph(lambda: cuda_kernels._launch_coeff_grad(x, w, y, order, True)) for _ in range(2)]
+    bound_ms, bound_by = coeff_grad_bound_ms(HESSIAN_ROWS, FS_NQUERY, order, True)
+    grad_timed['hessian'] = dict(ms=float(np.mean(runs)), bound_ms=bound_ms, bound_by=bound_by)
+    print('phase 4: coefficient gradient {}x{} order {} per-row on {!r}: device time {:.4f} ms a launch (CUDA-graph '
+          'replay, runs {}); bound {:.4f} ms ({})'.format(HESSIAN_ROWS, FS_NQUERY, order, smi, grad_timed['hessian']['ms'],
+                                                         ['%.4f' % t for t in runs], bound_ms, bound_by))
+    del x, c, w, y
     cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES = saved
 
     rates = {}
@@ -723,7 +1034,11 @@ def main(kernels_only=False):
                 line += '; with gradient {:.4f} ms, {:.0f} evals/s'.format(backward_ms, batch / backward_ms * 1e3)
             print(line)
             del fixed
-    print('all phases took {:.1f} s'.format(time.perf_counter() - started))
+    # --- phase 5: the samplers on config 4 ---
+    t5 = time.perf_counter()
+    samplers = run_samplers(joint, smi)
+    samplers['seconds'] = time.perf_counter() - t5
+    print('phase 5 took {:.1f} s; all phases took {:.1f} s'.format(samplers['seconds'], time.perf_counter() - started))
 
     fs = timed['per-row', BATCH, FS_NQUERY]
     main_grad = grad_timed[FS_NQUERY]
@@ -739,7 +1054,12 @@ def main(kernels_only=False):
         'ms_per_row_288': fs['ms'], 'bound_ms_per_row_288': fs['bound_ms'],
         'ms_65536': timed['shared', BIG_BATCH, NQUERY]['ms'],
         'bound_ms_65536': timed['shared', BIG_BATCH, NQUERY]['bound_ms'], 'host_ms': wrapper_host_ms,
-        'geometry': main_shape['geometry']._asdict()}, {
+        'geometry': main_shape['geometry']._asdict(), 'launches_chees_step': samplers['launches_chees_step'][0],
+        'launches_hessian': launches_hessian[0], 'derivative_errors': derivative_errors,
+        'hessian_errors': hessian_errors, 'ms_hessian': {'{} {}'.format(label, q): timed[label, HESSIAN_ROWS, q]['ms']
+                                                        for label, rows, q in timed if rows == HESSIAN_ROWS},
+        'bound_ms_hessian': {'{} {}'.format(label, q): timed[label, HESSIAN_ROWS, q]['bound_ms']
+                             for label, rows, q in timed if rows == HESSIAN_ROWS}}, {
         'name': 'clenshaw_coeff_grad', 'route': 'cuda', 'source': 'desilike_tpu_torch/csrc/clenshaw_coeff_grad.cu',
         'replaces': 'desilike_tpu/ops/pallas_kernels.py:30', 'launches': launches4[1],
         'launches_forward': forward4[1], 'launches_with_gradient': launches4[1], 'max_abs_err': grad_abs_err,
@@ -749,8 +1069,12 @@ def main(kernels_only=False):
         'ms_560': grad_timed[NQUERY]['ms'], 'bound_ms_560': grad_timed[NQUERY]['bound_ms'],
         'plain_ms_560': grad_timed[NQUERY]['plain_ms'], 'library_ms_560': grad_timed[NQUERY]['library_ms'],
         'geometry': main_grad['geometry']._asdict(), 'geometry_560': grad_timed[NQUERY]['geometry']._asdict(),
-        'resident_blocks': resident}],
-        'evals_per_s': {' '.join(str(part) for part in key): rate for key, rate in rates.items()}}))
+        'resident_blocks': resident, 'launches_chees_step': samplers['launches_chees_step'][1],
+        'launches_hessian': launches_hessian[1], 'ms_hessian_288': grad_timed['hessian']['ms'],
+        'bound_ms_hessian_288': grad_timed['hessian']['bound_ms']}],
+        'evals_per_s': {' '.join(str(part) for part in key): rate for key, rate in rates.items()},
+        'host_syncs_forward': host_syncs}))
+    print(json.dumps({'samplers': samplers, 'card': smi}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
                                              'count': torch.cuda.device_count()}}))
 

@@ -5,7 +5,9 @@ single-tracer BAO likelihood and the joint two-tracer full-shape + BAO
 likelihood: calculator graph with namespaces, host-side fiducial cosmology,
 BAO and ShapeFit templates, damped-wiggle and (EFT-like) Kaiser theories,
 windowed observables, analytic covariance and the Gaussian likelihood with
-analytic marginalization over static and per-chain linear bases.
+analytic marginalization over static and per-chain linear bases; and the
+gradient samplers over it (``samplers``: ChEES, NUTS, HMC, MCLMC) with
+their chains and diagnostics (``samples``).
 Per-evaluation compute runs on a batch of chains, in float32, on the CUDA
 card unless the caller asks for the CPU by name (``device='cpu'``); the
 Chebyshev lookups and their gradients run through hand-written CUDA kernels

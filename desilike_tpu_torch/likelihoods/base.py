@@ -21,7 +21,9 @@ on the host in float64 (raising if it is not positive definite), and with
 static rows only the per-evaluation work is a batched triangular solve.
 Per-chain rows add the Schur complement of that block, one small matrix
 (4 x 4 for two tracers' counterterms) per chain, equilibrated and factored
-in float32 with ``torch.linalg.cholesky_ex`` (its ``info`` is checked). The
+in float32 with ``torch.linalg.cholesky_ex``; a chain whose matrix does not
+factor reads -inf, as the reference's clipped pivots give a value for every
+chain (its ``info`` is returned in ``aux``, not read on the host). The
 ``jax.linearize`` path for non-linear solved parameters, ``.prec`` folding
 and ``SumLikelihood`` wait for ROADMAP A8, the Percival/Hartlap factors for
 A12.
@@ -124,11 +126,13 @@ class BaseLikelihood(Calculator):
         posterior hessian 'solved_hessian', (nsolved, nsolved) when every
         design row is static and (B, nsolved, nsolved) otherwise.
 
-        With per-chain rows the function ends with one host synchronisation:
-        it reads the ``info`` of the batched Cholesky of the Schur complement
-        and raises if any chain's matrix is not positive definite. It comes
-        after every kernel of the call is enqueued, so it costs the overlap
-        of the next call's host work with this call's device work.
+        With per-chain rows, a chain whose rows are not finite or whose Schur
+        complement is not positive definite reads a log-likelihood of -inf,
+        with a finite gradient, and leaves every other chain as it would be
+        without it; ``aux['solved_info']`` (B,) holds, per chain, 0, the
+        order of the leading minor that failed (``cholesky_ex``'s ``info``),
+        or -1 for rows, or a factor, that are not finite. Nothing here reads it on the
+        host: the caller checks it after the call where it needs to.
         """
         pipe = self.pipeline
         device, dtype = pipe.device, config.get_dtype()
@@ -218,6 +222,12 @@ class BaseLikelihood(Calculator):
                 Ja = torch.stack([sum(theory.solved_power_basis(basename).flatten(-2) @ matrix
                                       for theory, matrix in terms)
                                   for basename, terms in zip(basenames, plan_t)], dim=-2)
+                # a chain whose rows are not finite, or whose Schur complement does
+                # not factor, reads -inf; its rows, matrix and right-hand side are
+                # masked before the ops that would make NaN, so that no NaN reaches
+                # its gradient, and every op is per chain: the others are untouched
+                finite = torch.isfinite(Ja).all(-1).all(-1)
+                Ja = torch.where(finite[..., None, None], Ja, torch.zeros_like(Ja))
                 ga = g_prior[..., aidx_t] - (Ja @ d[..., None])[..., 0]
                 JaJa = Ja @ Ja.mT
                 S = JaJa + torch.diag_embed(prec_t[aidx_t].expand(ga.shape))
@@ -228,7 +238,15 @@ class BaseLikelihood(Calculator):
                     solved_static = solve_static(torch.cat([gs, C.mT], dim=-1))  # A^-1 [gs, C^T]
                     S = S - C @ solved_static[..., 1:]
                     rhs = ga - (C @ solved_static[..., :1])[..., 0]
-                La, scale_a, info = cholesky_equilibrated(S)
+                with torch.no_grad():
+                    factor, _, info = cholesky_equilibrated(S)
+                    finite = finite & torch.isfinite(torch.diagonal(factor, dim1=-2, dim2=-1)).all(-1)
+                    info = torch.where(finite, info, torch.full_like(info, -1))
+                    solved_ok = info == 0
+                eye = torch.eye(na, dtype=S.dtype, device=S.device)
+                S = torch.where(solved_ok[..., None, None], S, eye)
+                rhs = torch.where(solved_ok[..., None], rhs, torch.zeros_like(rhs))
+                La, scale_a, _ = cholesky_equilibrated(S)
                 dxa = scale_a * torch.cholesky_solve((rhs * scale_a)[..., None], La)[..., 0]
                 logdet_chain = 0.
                 if marg_idx.size:
@@ -247,14 +265,15 @@ class BaseLikelihood(Calculator):
                     hessian[..., sidx_t[:, None], aidx_t] = -C.mT
             x = s0 + dx
             loglike = -0.5 * (residual * residual).sum(-1) - 0.5 * (logdet + logdet_chain)
+            if na:
+                loglike = torch.where(solved_ok, loglike, torch.full_like(loglike, -np.inf))
             logprior = pipe.logprior(full)
             for i, prior in solved_priors:
                 logprior = logprior + prior.logpdf(x[..., i])
             aux = dict(derived, loglikelihood=loglike, logprior=logprior,
                        solved=dict(zip(names, x.unbind(-1))), solved_hessian=hessian)
-            if na and bool((info != 0).any()):  # the one host synchronisation, after everything is enqueued
-                raise ValueError('the solved parameters\' hessian is not negative definite for {:d} chain(s) '
-                                 '(cholesky_ex info {})'.format(int((info != 0).sum()), info[info != 0][:8].tolist()))
+            if na:
+                aux['solved_info'] = info
             return loglike + logprior, aux
 
         return fn

@@ -465,33 +465,182 @@ def clenshaw_coeff_grad(x, w, order, per_row=True):
     return _launch_coeff_grad(x, w, None, order, per_row)
 
 
+def _series(x, coeffs, log_values):
+    """The series at x with no autograd of its own: the kernel on a CUDA
+    tensor (which raises on a non-contiguous one), the plain recurrence on a
+    CPU one."""
+    if x.device.type == 'cpu':
+        return clenshaw_reference(x, coeffs, log_values)
+    return _launch_clenshaw(x, coeffs, log_values)
+
+
+def _coeff_grad(x, w, y, order, per_row):
+    """sum_q w y T_j(x) (y None: 1) with no autograd of its own: the kernel
+    (y folded in at load) on a CUDA tensor, the plain version on a CPU one."""
+    if x.device.type == 'cpu':
+        return clenshaw_coeff_grad_reference(x, w if y is None else w * y, order, per_row)
+    return _launch_coeff_grad(x.contiguous(), w.contiguous(), None if y is None else y.contiguous(), order, per_row)
+
+
+@functools.lru_cache(maxsize=16)
+def _derivative_adjoint(order, dtype, device):
+    """M with M[j, k] = D[k, j], where D is the linear map
+    :func:`clenshaw_derivative_coeffs` (T'_j = sum_k D[k, j] T_k): the
+    adjoint that carries a gradient in the derivative series' coefficients
+    back to the series' own. Exact: its entries are integers below 2 order."""
+    return clenshaw_derivative_coeffs(torch.eye(order, dtype=torch.float64)).to(dtype=dtype, device=device)
+
+
+def _batch_rows(info, in_dims, *tensors):
+    """For a ``vmap`` rule: move each batched tensor's vmapped dimension to the
+    front and expand the others to it, then fold it into the rows, so that
+    (V, B, ...) becomes (V B, ...). None stays None."""
+    out = []
+    for tensor, dim in zip(tensors, in_dims):
+        if tensor is None:
+            out.append(None)
+            continue
+        tensor = tensor.movedim(dim, 0) if dim is not None else tensor.expand(info.batch_size, *tensor.shape)
+        out.append(tensor.reshape(-1, *tensor.shape[2:]))
+    return out
+
+
+def _unbatched_rows(x, x_dim):
+    """Rows of the (B, Q) x that a vmapped slice sees."""
+    return x.shape[0] if x_dim is None else x.movedim(x_dim, 0).shape[1]
+
+
 class _Clenshaw(torch.autograd.Function):
-    """The kernel with its gradients. In x: the same kernel evaluates the
-    derivative series S'(x) (on per-row derivative coefficients where the
-    coefficients are per-row), and dy/dx = S'(x) (times y when log_values).
-    In the coefficients: the coefficient-gradient kernel on grad_y (times y
-    when log_values, taken inside the kernel)."""
+    """y = S_c(x) = sum_j c_j T_j(x), exp'd if ``log_values``, through the
+    kernel on a CUDA tensor and the plain recurrence on a CPU one, with every
+    derivative built from this Function and :class:`_ClenshawCoeffGrad`, so
+    that it is itself differentiable, to any order and in both modes:
+
+    - in x: dy/dx = S_{D c}(x) (times y if ``log_values``), D c the
+      derivative series' coefficients (:func:`clenshaw_derivative_coeffs`);
+    - in c: sum_q w y T_j(x) (:class:`_ClenshawCoeffGrad`);
+    - forward mode: dy = (S_{D c}(x) dx + S_{dc}(x)) (times y), since the
+      series is linear in c;
+    - ``vmap``: the vmapped dimension folds into the rows (per-row
+      coefficients where either is batched)."""
 
     @staticmethod
-    def forward(ctx, x, coeffs, log_values):
-        y = _launch_clenshaw(x, coeffs, log_values)
-        ctx.save_for_backward(x, coeffs, y)
+    def forward(x, coeffs, log_values):
+        return _series(x, coeffs, log_values)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, coeffs, log_values = inputs
+        ctx.save_for_backward(x, coeffs, output)
+        ctx.save_for_forward(x, coeffs, output)
         ctx.log_values = log_values
-        return y
 
     @staticmethod
     def backward(ctx, grad_y):
         x, coeffs, y = ctx.saved_tensors
         grad_x = grad_coeffs = None
         if ctx.needs_input_grad[0]:
-            dslope = _launch_clenshaw(x, clenshaw_derivative_coeffs(coeffs).contiguous(), False)
-            if ctx.log_values:
-                dslope = dslope * y
-            grad_x = grad_y * dslope
+            slope = _Clenshaw.apply(x, clenshaw_derivative_coeffs(coeffs), False)
+            grad_x = grad_y * (slope * y if ctx.log_values else slope)
         if ctx.needs_input_grad[1]:
-            grad_coeffs = _launch_coeff_grad(x, grad_y.contiguous(), y if ctx.log_values else None,
-                                             coeffs.shape[-1], coeffs.ndim == 2)
+            grad_coeffs = _ClenshawCoeffGrad.apply(x, grad_y, y if ctx.log_values else None, coeffs.shape[-1],
+                                                   coeffs.ndim == 2)
         return grad_x, grad_coeffs, None
+
+    @staticmethod
+    def jvp(ctx, dx, dcoeffs, _):
+        x, coeffs, y = ctx.saved_tensors
+        dy = None
+        if dx is not None:
+            dy = _Clenshaw.apply(x, clenshaw_derivative_coeffs(coeffs), False) * dx
+        if dcoeffs is not None:
+            term = _Clenshaw.apply(x, dcoeffs.contiguous(), False)
+            dy = term if dy is None else dy + term
+        return dy * y if ctx.log_values else dy
+
+    @staticmethod
+    def vmap(info, in_dims, x, coeffs, log_values):
+        x_dim, c_dim, _ = in_dims
+        rows = _unbatched_rows(x, x_dim)
+        if c_dim is not None:
+            coeffs = coeffs.movedim(c_dim, 0)
+            if coeffs.ndim == 2:  # a shared row a slice: one for each of the slice's rows of x
+                coeffs = coeffs[:, None, :].expand(info.batch_size, rows, coeffs.shape[-1])
+            c_dim = 0
+        elif coeffs.ndim == 2:  # the same per-row coefficients in every slice
+            coeffs, c_dim = coeffs.expand(info.batch_size, *coeffs.shape), 0
+        if c_dim is None:  # shared coefficients, batched x
+            (xb,) = _batch_rows(info, (x_dim,), x)
+            y = _Clenshaw.apply(xb, coeffs, log_values)
+        else:
+            xb, cb = _batch_rows(info, (x_dim, c_dim), x, coeffs)
+            y = _Clenshaw.apply(xb, cb, log_values)
+        return y.reshape(info.batch_size, rows, y.shape[-1]), 0
+
+
+class _ClenshawCoeffGrad(torch.autograd.Function):
+    """gc[b, j] = sum_q w[b, q] y[b, q] T_j(x[b, q]) (y None: 1), summed over
+    b too unless ``per_row``: the gradient of the series in its coefficients,
+    through the coefficient-gradient kernel (y folded in at load) on a CUDA
+    tensor and its plain version on a CPU one. Its own derivatives use the
+    series (:class:`_Clenshaw`), with g the cotangent of gc and S_g(x) =
+    sum_j g_j T_j(x):
+
+    - backward: d/dw = y S_g(x), d/dy = w S_g(x), d/dx = w y S_{D g}(x);
+    - forward mode: gc(x, d(w y)) + D^T gc(x, w y dx), D^T the adjoint of
+      :func:`clenshaw_derivative_coeffs`;
+    - ``vmap``: the vmapped dimension folds into the rows; a shared gradient
+      is summed over each slice's rows."""
+
+    @staticmethod
+    def forward(x, w, y, order, per_row):
+        return _coeff_grad(x, w, y, order, per_row)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, y, order, per_row = inputs
+        ctx.save_for_backward(x, w, y)
+        ctx.save_for_forward(x, w, y)
+        ctx.order, ctx.per_row = order, per_row
+
+    @staticmethod
+    def backward(ctx, grad_gc):
+        x, w, y = ctx.saved_tensors
+        grad_x = grad_w = grad_y = None
+        series = _Clenshaw.apply(x, grad_gc.contiguous(), False) if any(ctx.needs_input_grad[1:3]) else None
+        if ctx.needs_input_grad[0]:
+            weight = w if y is None else w * y
+            grad_x = weight * _Clenshaw.apply(x, clenshaw_derivative_coeffs(grad_gc), False)
+        if ctx.needs_input_grad[1]:
+            grad_w = series if y is None else series * y
+        if y is not None and ctx.needs_input_grad[2]:
+            grad_y = series * w
+        return grad_x, grad_w, grad_y, None, None
+
+    @staticmethod
+    def jvp(ctx, dx, dw, dy, _order, _per_row):
+        x, w, y = ctx.saved_tensors
+        dweight = None
+        if dw is not None:
+            dweight = dw if y is None else dw * y
+        if dy is not None and y is not None:
+            dweight = dy * w if dweight is None else dweight + dy * w
+        dgc = None
+        if dweight is not None:
+            dgc = _ClenshawCoeffGrad.apply(x, dweight, None, ctx.order, ctx.per_row)
+        if dx is not None:
+            weight = w if y is None else w * y
+            inner = _ClenshawCoeffGrad.apply(x, weight * dx, None, ctx.order, ctx.per_row)
+            term = inner @ _derivative_adjoint(ctx.order, inner.dtype, inner.device).T
+            dgc = term if dgc is None else dgc + term
+        return dgc
+
+    @staticmethod
+    def vmap(info, in_dims, x, w, y, order, per_row):
+        rows = _unbatched_rows(x, in_dims[0])
+        xb, wb, yb = _batch_rows(info, in_dims[:3], x, w, y)
+        gc = _ClenshawCoeffGrad.apply(xb, wb, yb, order, True).reshape(info.batch_size, rows, order)
+        return (gc if per_row else gc.sum(1)), 0
 
 
 def clenshaw(x, coeffs, log_values=True):

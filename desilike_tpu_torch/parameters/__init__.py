@@ -1,2 +1,3 @@
 from .prior import Prior
 from .parameter import Parameter, ParameterCollection
+from .samples import Samples

@@ -2,9 +2,7 @@
 
 Counterpart of ``desilike_tpu/parameters/parameter.py``. Parameters are
 host-side metadata only; the evaluated quantities are plain dicts
-``{name: (B,) tensor}``. ``Deriv`` and sampling from the reference
-distribution and wildcard selection (``select``) wait for the samplers and
-emulators (ROADMAP A7, A14).
+``{name: (B,) tensor}``. ``Deriv`` waits for the emulators (ROADMAP A14).
 
 Solved statuses:
   '.best'  — plug in the analytic best-fit,
@@ -16,9 +14,11 @@ Solved statuses:
 import re
 
 import numpy as np
+import torch
 
 from ..utils import BaseClass, find_names
 from .prior import Prior
+from .. import config
 
 
 _ALLOWED_SOLVED = ('.best', '.marg', '.auto', '.prec')
@@ -135,6 +135,11 @@ class Parameter(BaseClass):
             return re.findall(r'\{([^\}]+)\}', self.derived)
         return []
 
+    @property
+    def input(self):
+        """Whether the parameter is an input to the pipeline (sampled or fixed-in)."""
+        return not (self.derived is True or (isinstance(self.derived, str) and self.depends))
+
     def clone(self, **kwargs):
         state = self.__getstate__()
         state.update(kwargs)
@@ -163,6 +168,15 @@ class Parameter(BaseClass):
     def __repr__(self):
         status = 'derived' if self.derived is True else (self.derived if isinstance(self.derived, str) else ('fixed' if self.fixed else 'varied'))
         return "Parameter('{}', value={}, {})".format(self.name, self.value, status)
+
+    def sample_ref(self, generator, shape=(), device=None):
+        """Draws from the reference distribution, else the prior, else the
+        value repeated (see :meth:`Prior.sample`)."""
+        dist = self.ref if self.ref is not None else self.prior
+        if dist is None:
+            device = generator.device if device is None else device
+            return torch.full(tuple(shape), self.value, dtype=config.get_dtype(), device=device)
+        return dist.sample(generator, shape, device=device)
 
     def __eq__(self, other):
         if isinstance(other, str):
@@ -223,11 +237,62 @@ class ParameterCollection(BaseClass):
     def __len__(self):
         return len(self._params)
 
-    def names(self):
+    def names(self, **kwargs):
+        if kwargs:
+            return [p.name for p in self.select(**kwargs)]
         return list(self._params.keys())
 
-    def basenames(self):
+    def basenames(self, **kwargs):
+        if kwargs:
+            return [p.basename for p in self.select(**kwargs)]
         return [p.basename for p in self]
+
+    def index(self, name):
+        return list(self._params).index(getattr(name, 'name', name))
+
+    def copy(self):
+        return ParameterCollection(self)
+
+    def params(self, **kwargs):
+        """Selected parameters as a collection (the reference's name for :meth:`select`)."""
+        return self.select(**kwargs)
+
+    def select(self, name=None, basename=None, varied=None, fixed=None, derived=None,
+               solved=None, input=None, depends=None):
+        """Sub-collection matching the given criteria (wildcards allowed)."""
+        params = list(self)
+        if name is not None:
+            names = find_names([p.name for p in params], name)
+            params = [p for p in params if p.name in names]
+        if basename is not None:
+            names = find_names([p.basename for p in params], basename)
+            params = [p for p in params if p.basename in names]
+        if varied is not None:
+            params = ([p for p in params if p.varied and not p.solved] if varied
+                      else [p for p in params if not p.varied or p.solved])
+        if fixed is not None:
+            params = [p for p in params if p.fixed == bool(fixed)]
+        if derived is not None:
+            if isinstance(derived, bool):
+                params = [p for p in params if (p.derived is True) == derived]
+            else:
+                params = [p for p in params if p.derived == derived]
+        if solved is not None:
+            params = [p for p in params if p.solved == bool(solved)]
+        if input is not None:
+            params = [p for p in params if p.input == bool(input)]
+        if depends is not None:
+            params = [p for p in params if bool(p.depends) == bool(depends)]
+        return ParameterCollection(params)
+
+    def __eq__(self, other):
+        return isinstance(other, ParameterCollection) and self.names() == other.names()
+
+    def __getstate__(self):
+        return {'params': [p.__getstate__() for p in self]}
+
+    def __setstate__(self, state):
+        self.__init__([Parameter(**s) for s in state['params']])
 
     def update(self, other=None, basename=False, **kwargs):
         """Merge another collection (or name->config dict with wildcards)."""

@@ -1,15 +1,18 @@
 """Prior / reference distributions with batched torch ``logpdf``.
 
-Counterpart of ``desilike_tpu/parameters/prior.py``. Sampling and the
-prior transforms (``sample``, ``ppf``) wait for the samplers (ROADMAP A7,
-A15).
+Counterpart of ``desilike_tpu/parameters/prior.py``. Draws come from a
+``torch.Generator`` (``sample``); the prior transform ``ppf`` waits for the
+nested sampler (ROADMAP A15).
 """
+
+import math
 
 import numpy as np
 import torch
 from scipy import stats
 
 from ..utils import BaseClass
+from .. import config
 
 
 class Prior(BaseClass):
@@ -80,6 +83,38 @@ class Prior(BaseClass):
             core = -torch.log(x) + self._lognorm
         inside = (x >= lo) & (x <= hi)
         return torch.where(inside, core, torch.full_like(core, -np.inf))
+
+    def sample(self, generator, shape=(), device=None, dtype=None):
+        """Draws of shape ``shape`` from ``generator`` (a ``torch.Generator``,
+        whose device the draws are made on unless ``device`` is given), in
+        ``dtype`` (default: the compute dtype). A normal truncated at finite
+        limits is drawn by the inverse error function within +-10 sigma, as
+        ``jax.random.truncated_normal`` does."""
+        device = generator.device if device is None else torch.device(device)
+        dtype = config.get_dtype() if dtype is None else dtype
+        shape = tuple(shape) if isinstance(shape, (tuple, list)) else (int(shape),)
+        lo, hi = self.limits
+
+        def uniform():
+            return torch.rand(shape, generator=generator, device=device, dtype=dtype)
+
+        if self.dist == 'uniform':
+            if not np.isfinite([lo, hi]).all():
+                raise ValueError('cannot sample improper uniform prior')
+            return lo + (hi - lo) * uniform()
+        if self.dist == 'norm':
+            if np.isfinite([lo, hi]).any():
+                a = max((lo - self.loc) / self.scale, -10.)
+                b = min((hi - self.loc) / self.scale, 10.)
+                ea, eb = (math.erf(v / math.sqrt(2.)) for v in (a, b))
+                z = np.sqrt(2.) * torch.special.erfinv(ea + (eb - ea) * uniform())
+                return self.loc + self.scale * z.clamp(a, b)
+            return self.loc + self.scale * torch.randn(shape, generator=generator, device=device, dtype=dtype)
+        if self.dist == 'expon':
+            return self.loc - self.scale * torch.log1p(-uniform())
+        if self.dist == 'loguniform':
+            return lo * (hi / lo) ** uniform()
+        raise ValueError(self.dist)
 
     @property
     def std(self):

@@ -6,7 +6,19 @@ writes its reference file under ``tests/data``:
 - ``bao``: config 1, ``__graft_entry__._build_likelihood()`` ->
   ``torch_port_bao_reference.npz``;
 - ``joint``: config 4, ``bench.build_likelihood()`` (two tracers, full shape
-  + BAO, four observables) -> ``torch_port_joint_reference.npz``.
+  + BAO, four observables) -> ``torch_port_joint_reference.npz``;
+- ``hessian``: config 4's log-density in the gradient samplers' unconstrained
+  space (``NUTSSampler._logdens_grad``: the logit transform of the bounded
+  parameters and its log-Jacobian), its gradient and its Hessian, in
+  float64 (x64), at the unconstrained image of the first reference point ->
+  ``torch_port_hessian_reference.npz`` (``names``, ``point``, ``u``,
+  ``logdens``, ``grad``, ``hessian``). The Hessian is the central
+  difference, with step 1e-4 in u, of the JAX package's x64 gradient, one
+  jitted batch of 37 points (~10 min on an 8-core CPU, mostly the gradient's compile):
+  ``jax.hessian`` of the same function did not compile within 50 min on the
+  CPU. Its error is of order 1e-8 of its largest entry (the asymmetry of
+  the differences, measured: 7e-9). The samplers set their initial mass
+  from this Hessian's diagonal.
 
 Each file holds:
 
@@ -32,8 +44,8 @@ with numpy alone, and ``tests/test_torch_bao_likelihood.py`` and
 JAX package so that the files cannot go stale.
 
 Run from the repository root:
-``JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py [bao|joint]``
-(both when no name is given).
+``JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py [bao|joint|hessian]``
+(all three when no name is given).
 """
 
 import os
@@ -45,8 +57,9 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUTPUTS = {name: os.path.join(ROOT, 'tests', 'data', 'torch_port_{}_reference.npz'.format(name))
-           for name in ('bao', 'joint')}
+           for name in ('bao', 'joint', 'hessian')}
 NPOINTS = 16
+HESSIAN_STEP = 1e-4  # central differences of the x64 gradient in the unconstrained space
 
 # centers and half-widths of the points, by basename: inside the priors and
 # away from their edges (so no clip is active); b1 is centered on the value
@@ -137,8 +150,41 @@ def build_reference(config):
     return arrays
 
 
+def build_hessian_reference():
+    """Config 4's unconstrained log-density, gradient and Hessian at the first
+    reference point, computed in float64 in a child process."""
+    env = dict(os.environ, JAX_PLATFORMS='cpu', JAX_ENABLE_X64='1', DESILIKE_TPU_X64='1')
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'hessian.npz')
+        subprocess.run([sys.executable, os.path.abspath(__file__), '--x64-hessian', path], env=env, check=True)
+        return dict(np.load(path))
+
+
+def evaluate_hessian(path):
+    import jax
+    import jax.numpy as jnp
+    from desilike_tpu.samplers import NUTSSampler
+
+    like = build_jax_likelihood('joint')
+    sampler = NUTSSampler(like, nchains=1)
+    names = sampler.names
+    point = reference_points(names)[0].astype('f4').astype('f8')
+    u = np.asarray(sampler._unconstrain(point))
+    step = HESSIAN_STEP * np.eye(len(u))
+    logdens, grad = jax.jit(jax.vmap(sampler._logdens_grad()))(jnp.asarray(np.concatenate([u[None], u + step, u - step])))
+    grad = np.asarray(grad)
+    hessian = (grad[1:1 + len(u)] - grad[1 + len(u):]) / (2. * HESSIAN_STEP)
+    np.savez(path, names=np.array(names), point=point, u=u, logdens=np.asarray(logdens)[0], grad=grad[0],
+             hessian=hessian)
+
+
 if __name__ == '__main__':
     sys.path.insert(0, ROOT)
+    if sys.argv[1:2] == ['--x64-hessian']:
+        import jax
+        jax.config.update('jax_platforms', 'cpu')
+        evaluate_hessian(sys.argv[2])
+        sys.exit(0)
     if sys.argv[1:2] == ['--x64']:
         import jax
         jax.config.update('jax_platforms', 'cpu')
@@ -147,5 +193,6 @@ if __name__ == '__main__':
         np.savez(sys.argv[3], logpost=values, grad=grads, solved=solved)
         sys.exit(0)
     for config in sys.argv[1:] or list(OUTPUTS):
-        np.savez_compressed(OUTPUTS[config], **build_reference(config))
+        arrays = build_hessian_reference() if config == 'hessian' else build_reference(config)
+        np.savez_compressed(OUTPUTS[config], **arrays)
         print('wrote {} ({:d} bytes)'.format(OUTPUTS[config], os.path.getsize(OUTPUTS[config])))

@@ -226,14 +226,3 @@ def test_namespace_does_not_pass_to_shared_nodes():
 
     pipe = Pipeline(Root(shared=Shared(), namespace='X', device='cpu'))
     assert sorted(pipe.params.names()) == ['X.a', 'X.b', 'h']
-
-
-@pytest.mark.parametrize('kwargs, match', [(dict(with_now='wallish2018'), 'peakaverage'), (dict(only_now=True), 'only_now')])
-def test_unported_template_options_raise(kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
-        ShapeFitPowerSpectrumTemplate(z=0.8, **kwargs).runtime_info.initialize()
-
-
-def test_pt_without_template_raises():
-    with pytest.raises(NotImplementedError, match='A11'):
-        Pipeline(KaiserTracerPowerSpectrumMultipoles(ells=(0, 2), k=K, device='cpu'))

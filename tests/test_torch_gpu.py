@@ -13,8 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (build_joint_likelihood, build_likelihood, case_inputs, case_label, check_coeff_grad_case,
-                        check_kernel_case, coeff_grad_cases, kernel_cases)
+from chip_smoke import (build_joint_likelihood, build_likelihood, case_inputs, case_label, chains, check_coeff_grad_case,
+                        check_derivatives, check_failed_chain, check_kernel_case, coeff_grad_cases, kernel_cases)
 from desilike_tpu_torch.cosmology import background, linear
 from desilike_tpu_torch.ops import cuda_kernels
 from desilike_tpu_torch.ops.chebyshev import ChebyshevLogInterp
@@ -196,3 +196,36 @@ def test_joint_logpost_on_card_matches_cpu(cuda):
     (lp, g), (lp_cpu, g_cpu) = results
     np.testing.assert_allclose(lp, lp_cpu, rtol=0., atol=JOINT_X64_ATOL)
     assert (np.linalg.norm(g - g_cpu, axis=-1) / np.linalg.norm(g_cpu, axis=-1)).max() < JOINT_X64_GRAD_RTOL
+
+
+@pytest.mark.parametrize('case', [dict(rows=4096, q=288, order=202, per_row=True, log_values=True),
+                                  dict(rows=4096, q=560, order=202, per_row=False, log_values=True)], ids=case_label)
+def test_derivatives_through_the_kernels(cuda, case):
+    """torch.func.jvp (x, c), jacfwd (x, c) on a (4, 16) slice, vmap over a
+    leading 3 (x; x and c) and double backward (d2/dx2, d2/(dx dc)) through
+    the Functions that launch the kernels, against the same transforms of
+    the plain recurrence; tolerances of chip_smoke.py."""
+    before = (cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES)
+    check_derivatives(case, cuda)
+    assert cuda_kernels.CLENSHAW_LAUNCHES > before[0] and cuda_kernels.COEFF_GRAD_LAUNCHES > before[1]
+
+
+def test_failed_chain_on_card(cuda):
+    """Config 4 on the card with one chain forced to fail: the others' values
+    and gradients stay bit-identical, the failed one reads -inf with a finite
+    gradient, nothing raises."""
+    like = build_joint_likelihood(None)
+    names = like.pipeline.varied_params.names()
+    check_failed_chain(like, like.logpost_fn(), chains(names, 64, seed=0, device=cuda), index=5)
+
+
+def test_chees_on_config1(cuda):
+    """Five ChEES iterations over 256 chains of config 1 on the card, through the kernel."""
+    from desilike_tpu_torch.samplers import ChEESSampler
+    sampler = ChEESSampler(build_likelihood(None), nchains=256, seed=3)
+    before = cuda_kernels.CLENSHAW_LAUNCHES
+    chain = sampler.run(nsteps=5, nwarmup=0)
+    assert chain.shape == (5, 256)
+    assert np.isfinite(chain['logposterior']).all()
+    assert cuda_kernels.CLENSHAW_LAUNCHES > before
+    assert sampler.diagnostics['leapfrogs'] >= 5

@@ -129,13 +129,21 @@ def test_batch_rows_match_single_evaluations(own_likelihood):
 
 
 def test_not_positive_definite_raises(own_likelihood):
-    """A chain whose Schur complement is not positive definite must not pass
-    silently: NaN parameters poison it, and cholesky_ex's info is read."""
+    """A chain whose Schur complement cannot be factored must not pass
+    silently, nor stop the other chains: NaN parameters poison it, it reads
+    -inf, ``aux['solved_info']`` flags it for the caller to check after the
+    call (nothing is read on the host inside it), and the other chain keeps
+    the value it has in a batch without the NaN."""
     fn = own_likelihood.logpost_fn()
     values = {n: torch.tensor(REFERENCE['points'][:2, i], dtype=torch.float32) for i, n in enumerate(NAMES)}
+    values['LRG.dm'] = torch.tensor([0., 0.])
+    clean, clean_aux = fn(values)
     values['LRG.dm'] = torch.tensor([0., float('nan')])
-    with pytest.raises(ValueError, match='not negative definite for 1 chain'):
-        fn(values)
+    logpost, aux = fn(values)
+    assert clean_aux['solved_info'].tolist() == [0, 0]
+    assert aux['solved_info'][0] == 0 and aux['solved_info'][1] != 0
+    assert logpost[1] == -np.inf
+    assert torch.equal(logpost[0], clean[0])
 
 
 def test_unsolvable_parameters_raise():
