@@ -2,10 +2,11 @@
 
 Drives the port's main paths on the card, at full width, through the
 hand-written CUDA kernels, and checks them: the batched config-1 BAO
-log-posterior of ``__graft_entry__._build_likelihood`` and the batched
+log-posterior of ``__graft_entry__._build_likelihood``, the batched
 config-4 joint two-tracer full-shape + BAO log-posterior of
-``bench.build_likelihood``, each with its gradient, and the gradient
-samplers (ChEES, NUTS) over config 4.
+``bench.build_likelihood`` and the batched config-3 1-loop EPT full-shape
+log-posterior of ``scripts/bench_ept.py``, each with its gradient, and the
+gradient samplers (ChEES, NUTS) over config 4, ChEES over config 3.
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions, the
    kernel library's build time, ptxas's registers, and the blocks of each
@@ -24,8 +25,10 @@ samplers (ChEES, NUTS) over config 4.
    4097 rows (not a multiple of the persistent grid's teams), 70000 x 288 on
    7 blocks (each team walks many rows), an unaligned x (no prefetch); and
    the full backward of the series (x and coefficients) against autograd
-   through the plain version at (4096, 288, 202) per-row; and the
-   derivatives of the Functions that launch them (:func:`check_derivatives`:
+   through the plain version at (4096, 288, 202) per-row; both kernels at
+   config 3's shapes (:func:`ept_cases`: (B, 288, 105) series and (B, 288,
+   320) exp'd, per-row, B in {4096, 32768}); and the derivatives of the
+   Functions that launch them (:func:`check_derivatives`:
    ``torch.func.jvp``, ``jacfwd``, ``vmap`` and double backward) at
    (4096, 288, 202) per-row and (4096, 560, 202) shared;
 3. the likelihoods at full width. Config 1: log-posterior and gradient over
@@ -43,7 +46,12 @@ samplers (ChEES, NUTS) over config 4.
    of one forward call (``torch.cuda.set_sync_debug_mode``); the samplers'
    start-point Hessian diagonal on the card against the CPU plain path and
    the frozen JAX x64 values of ``tests/data/torch_port_hessian_reference.npz``
-   (launches counted);
+   (launches counted). Config 3 (:func:`check_config3`): log-posterior and
+   gradient at B = 4096 and 32768 (launches and peak device memory, forward
+   and with the gradient), the frozen JAX values of
+   ``tests/data/torch_port_ept_reference.npz``, the card against the CPU
+   plain path at 4 points, and the ``ept``, ``ept_resum`` and
+   ``ept_physical`` golden vectors;
 4. times (reported, not gated): the Clenshaw kernel's device time from
    CUDA-graph replay of 50 launches at (4096, 560, 202) shared and per-row,
    (4096, 288, 202) per-row and (65536, 560, 202) shared, the coefficient
@@ -52,11 +60,15 @@ samplers (ChEES, NUTS) over config 4.
    nearest library call to the coefficient gradient
    (``torch.special.chebyshev_polynomial_t`` over (B, Q, order), then an
    einsum); and log-posterior evaluations per second, config 1 at B = 4096
-   and 65536, config 4 at B = 4096 (forward and with the gradient) and 32768;
-   the kernels at the Hessian's shapes (18 rows);
-5. the samplers on config 4 (:func:`run_samplers`): ChEES over B = 4096
-   chains (24 warmup and 8 sampling iterations, at most 32 leapfrog steps),
-   then NUTS over 64 chains (max_depth 5), each with the launch counters
+   and 65536, config 4 at B = 4096 (forward and with the gradient) and 32768,
+   config 3 at B = 4096 and 32768 (forward and with the gradient); the
+   kernels at the Hessian's shapes (18 rows) and at config 3's
+   (:func:`time_ept_kernels`, beside their bounds, plain versions and, for
+   the coefficient gradient, the library call);
+5. the samplers (:func:`run_samplers`): on config 4 ChEES over B = 4096
+   chains (24 warmup and 8 sampling iterations, at most 32 leapfrog steps)
+   and NUTS over 64 chains (max_depth 5); on config 3 ChEES over B = 4096
+   chains (24 + 8 iterations, at most 16 leapfrog steps); each with the launch counters
    set to 0 just before and read just after; iterations/s, chain-gradient
    evaluations/s, launches a leapfrog step, step size, trajectory length,
    acceptance, leaves and host reads an iteration.
@@ -85,6 +97,10 @@ JOINT_BIG_BATCH = 32768  # the batch the JAX package's bench uses for config 4
 NQUERY = 560  # BAO lookups: 56 k bins x 10 mu nodes per chain
 FS_NQUERY = 288  # full-shape lookups: 36 k bins x 8 mu nodes per chain
 ORDER = 202  # the templates' Chebyshev order
+EPT_BIG_BATCH = 32768  # the batch the JAX package's EPT bench uses for config 3
+EPT_ORDER = 320  # config 3's template order (1200 points from 1e-4 to 20)
+EPT_WORK_ORDER = 105  # config 3's loop tables on the working grid (96 points)
+EPT_SAMPLER_LEAPFROG = 16  # most leapfrog steps of ChEES on config 3 in phase 5
 KGRID = np.geomspace(1e-4, 1., 2000)  # the config-1 template grid
 FP32_FLOPS = 67e12   # published H100 SXM FP32 rate outside the tensor cores, at 700 W
 HBM_BYTES = 3.35e12  # published H100 SXM memory rate
@@ -100,6 +116,11 @@ COEFF_GRAD_RTOL = 1e-4  # of the gradient's magnitude: sums of up to 561 (per-ro
 # terms of ~1e4): measured 5.4e-2 and 2.0e-3, with the JAX host state 6.2e-2 and 5.8e-4.
 JOINT_X64_ATOL, JOINT_X64_GRAD_RTOL = 2e-2, 5e-4
 JOINT_F32_ATOL, JOINT_F32_GRAD_RTOL = 0.15, 1e-2
+# config 3 against the frozen JAX values at 16 points, at config 4's limits: on the CPU the port is within
+# 1.9e-3 of x64 on the log-posterior and 7.4e-5 of the gradient's norm (1.5e-2 and 3.6e-4 from the JAX
+# package's float32 values), and within 2e-10 and 2e-12 in float64
+EPT_X64_ATOL, EPT_X64_GRAD_RTOL = JOINT_X64_ATOL, JOINT_X64_GRAD_RTOL
+EPT_F32_ATOL, EPT_F32_GRAD_RTOL = JOINT_F32_ATOL, JOINT_F32_GRAD_RTOL
 # derivatives through the kernels against the same transforms of the plain recurrence, of the result's
 # magnitude: first derivatives (jvp, jacfwd, vmap) as the forward kernel (1e-6 measured on an H100); second
 # ones run the derivative series of the derivative series, whose terms grow as (2 j)^2 c_j (2.3e-5 there)
@@ -157,13 +178,32 @@ def build_joint_likelihood(device):
     return like
 
 
+def build_ept_likelihood(device):
+    """Config 3 in the port, with the calls of the JAX package's EPT bench
+    (``scripts/bench_ept.py``): ShapeFit template, IR-resummed 1-loop EPT
+    multipoles (0, 2, 4), counterterms and stochastic terms marginalized;
+    ``device=None``: the card."""
+    from desilike_tpu_torch import (EPTTracerPowerSpectrumMultipoles, ShapeFitPowerSpectrumTemplate,
+                                    TracerPowerSpectrumMultipolesObservable, BoxFootprint,
+                                    ObservablesGaussianLikelihood)
+    theory = EPTTracerPowerSpectrumMultipoles(ells=(0, 2, 4), template=ShapeFitPowerSpectrumTemplate(z=0.8))
+    theory.init.params = {'ct*': dict(derived='.marg'), 'sn*': dict(derived='.marg')}
+    observable = TracerPowerSpectrumMultipolesObservable(
+        data={'b1': 2.0}, klim={ell: (0.02, 0.2, 0.005) for ell in (0, 2, 4)}, theory=theory)
+    like = ObservablesGaussianLikelihood(observables=[observable], footprints=[BoxFootprint(volume=2e9, nbar=5e-4)],
+                                         device=device)
+    like.pipeline
+    return like
+
+
 def chains(names, batch, seed, device):
     """Seeded parameter batch around the fiducial, inside the priors; b1 is
     centered on the value the tracer's data were generated with."""
     import torch
     rng = np.random.default_rng(seed)
-    center = {'qpar': 1., 'qper': 1., 'dbeta': 1., 'df': 1., 'dm': 0.}
-    width = {'qpar': 0.04, 'qper': 0.04, 'b1': 0.3, 'dbeta': 0.1, 'df': 0.1, 'dm': 0.05}
+    center = {'qpar': 1., 'qper': 1., 'dbeta': 1., 'df': 1., 'dm': 0., 'b2': 0., 'bs': 0., 'b3nl': 0.}
+    width = {'qpar': 0.04, 'qper': 0.04, 'b1': 0.3, 'dbeta': 0.1, 'df': 0.1, 'dm': 0.05, 'b2': 0.5, 'bs': 0.5,
+             'b3nl': 0.5}
     values = {}
     for name in names:
         namespace, _, basename = name.rpartition('.')
@@ -320,7 +360,16 @@ def kernel_cases():
         for k in (2, 8):
             cases.append(dict(rows=BATCH, q=NQUERY, order=202, per_row=per_row, log_values=True, k=k))
     cases.append(dict(rows=56, q=1, order=202, per_row=False, log_values=True))  # the kobs lookup
+    cases += ept_cases()
     return cases
+
+
+def ept_cases():
+    """Config 3's launches: the loop tables' series at (B, 288, 105) and the
+    template's exp'd lookups at (B, 288, 320), one coefficient row a chain,
+    at B = 4096 and 32768."""
+    return [dict(rows=rows, q=FS_NQUERY, order=order, per_row=True, log_values=log_values)
+            for rows in (BATCH, EPT_BIG_BATCH) for order, log_values in ((EPT_WORK_ORDER, False), (EPT_ORDER, True))]
 
 
 def case_label(case):
@@ -408,6 +457,7 @@ def coeff_grad_cases():
     cases.append(dict(rows=70000, q=FS_NQUERY, order=ORDER, per_row=True, log_values=True, max_grid=7))
     cases.append(dict(rows=BATCH, q=FS_NQUERY, order=ORDER, per_row=True, log_values=True, offset=1))
     cases.append(dict(rows=56, q=100, order=ORDER, per_row=True, log_values=True))  # 9 queries a lane, prefetched
+    cases += ept_cases()
     return cases
 
 
@@ -468,13 +518,13 @@ def coeff_grad_occupancy(rows=BATCH, order=ORDER):
     return result
 
 
-def coeff_grad_bound_ms(rows, q, order, per_row):
+def coeff_grad_bound_ms(rows, q, order, per_row, with_y=True):
     """Least time of the H100 for the coefficient gradient: 3 FLOP (an FFMA
-    and an FADD) a (query, degree) at the FP32 rate, or x, w and y once and
-    the gradient once at the memory rate, whichever is larger. Returns (ms,
-    'operations' or 'bytes')."""
+    and an FADD) a (query, degree) at the FP32 rate, or x, w and y (if
+    ``with_y``) once and the gradient once at the memory rate, whichever is
+    larger. Returns (ms, 'operations' or 'bytes')."""
     flops = 3. * rows * q * order
-    nbytes = 4. * (3 * rows * q + (rows if per_row else 1) * order)
+    nbytes = 4. * ((3 if with_y else 2) * rows * q + (rows if per_row else 1) * order)
     ops_ms, bytes_ms = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
     return (ops_ms, 'operations') if ops_ms >= bytes_ms else (bytes_ms, 'bytes')
 
@@ -542,6 +592,53 @@ def host_ms(fn, calls=200):
     return elapsed / calls * 1e3
 
 
+def time_ept_kernels(smi, device):
+    """Phase 4 at config 3's shapes (:func:`ept_cases`): each kernel's device
+    time by CUDA-graph replay beside its bound, its plain version's time, and
+    for the coefficient gradient (with y for the exp'd lookups, as the
+    backward launches it) the nearest library call's. Returns {label: numbers}."""
+    import torch
+    from desilike_tpu_torch.ops import cuda_kernels
+    out = {}
+    for case in ept_cases():
+        rows, q, order, log_values = case['rows'], case['q'], case['order'], case['log_values']
+        x, c = case_inputs(case, device, seed=2)
+        w = torch.tensor(np.random.default_rng(5).normal(size=tuple(x.shape)), dtype=torch.float32, device=device)
+        with torch.no_grad():
+            y = cuda_kernels.clenshaw(x, c, log_values) if log_values else None
+        wy = w if y is None else w * y
+        entry = out['{}x{} order {}'.format(rows, q, order)] = {}
+        entry['ms'] = float(np.mean([time_graph(lambda: cuda_kernels.clenshaw(x, c, log_values)) for _ in range(2)]))
+        entry['bound_ms'], entry['bound_by'] = clenshaw_bound_ms(rows, q, order, True)
+        entry['plain_ms'] = time_cuda(lambda: cuda_kernels.clenshaw_reference(x, c, log_values), 3, warmup=1)
+        entry['grad_ms'] = float(np.mean([time_graph(lambda: cuda_kernels._launch_coeff_grad(x, w, y, order, True))
+                                          for _ in range(2)]))
+        entry['grad_bound_ms'], entry['grad_bound_by'] = coeff_grad_bound_ms(rows, q, order, True, y is not None)
+        entry['grad_plain_ms'] = time_cuda(lambda: cuda_kernels.clenshaw_coeff_grad_reference(x, wy, order), 3,
+                                           warmup=1)
+
+        def library_call():  # every T_j(x) materialised, then a contraction
+            degrees = torch.arange(order, device=device)
+            return torch.einsum('bq,bqj->bj', wy, torch.special.chebyshev_polynomial_t(x[..., None], degrees))
+
+        try:  # a yardstick only, used nowhere in the port
+            entry['grad_library_ms'] = time_cuda(library_call, 3, warmup=1)
+        except torch.cuda.OutOfMemoryError as exc:
+            entry['grad_library_ms'] = None
+            print('phase 4: chebyshev_polynomial_t + einsum could not run at {}x{} order {}: {}'.format(
+                rows, q, order, str(exc)[:300]))
+        print('phase 4: config-3 shape {}x{} order {} per-row {} on {!r}: Clenshaw {:.4f} ms a launch (CUDA-graph '
+              'replay), bound {:.4f} ms ({}), {:.1%} of it, plain version {:.4f} ms; coefficient gradient {:.4f} ms, '
+              'bound {:.4f} ms ({}), {:.1%} of it, plain version {:.4f} ms, chebyshev_polynomial_t + einsum {} '
+              'ms'.format(rows, q, order, 'exp' if log_values else 'series', smi, entry['ms'], entry['bound_ms'],
+                          entry['bound_by'], entry['bound_ms'] / entry['ms'], entry['plain_ms'], entry['grad_ms'],
+                          entry['grad_bound_ms'], entry['grad_bound_by'], entry['grad_bound_ms'] / entry['grad_ms'],
+                          entry['grad_plain_ms'], entry['grad_library_ms'] and round(entry['grad_library_ms'], 4)))
+        del x, c, w, y, wy
+    torch.cuda.empty_cache()
+    return out
+
+
 def theory_golden(label, theory, golden, name):
     """Evaluate ``theory`` (built with no device: the card) at the golden
     parameter values it takes and hold its multipoles against the golden
@@ -549,7 +646,8 @@ def theory_golden(label, theory, golden, name):
     from desilike_tpu_torch import Pipeline
     # the parameter values of tests/test_golden.py
     values = {'qpar': 1.02, 'qper': 0.98, 'b1': 1.8, 'sigmapar': 9., 'sigmaper': 6., 'sigmas': 2., 'dbeta': 1.1,
-              'df': 1.05, 'dm': 0.02, 'sn0': 500., 'ct0_2': 10., 'ct2_2': 5.}
+              'df': 1.05, 'dm': 0.02, 'sn0': 500., 'ct0_2': 10., 'ct2_2': 5., 'b2': 0.5, 'bs': -0.2,
+              'b1p': 1.3, 'b2p': 0.5, 'bsp': -0.3, 'alpha0p': 1.5, 'alpha2p': -0.8, 'sn0p': 0.6, 'sn2p': -0.2}
     pipe = Pipeline(theory)
     allowed = set(pipe.params.basenames())
     pipe.evaluate({key: value for key, value in values.items() if key in allowed})
@@ -694,11 +792,95 @@ def check_start_hessian(joint, joint_cpu):
     return launches, errors
 
 
-def run_samplers(joint, smi):
+def check_config3(golden):
+    """Phase 3, config 3 (the 1-loop EPT full-shape likelihood) on the card:
+    log-posterior and gradient over B = 4096 and 32768 seeded chains (finite,
+    the 6 solved parameters in ``aux['solved']``, both kernels launched,
+    counted forward and with the gradient, the peak of device memory each),
+    the frozen JAX values of ``tests/data/torch_port_ept_reference.npz`` at
+    16 points (the port's own host state and the JAX package's), the card
+    against the port's CPU path at 4 points, and the ``ept``, ``ept_resum``
+    and ``ept_physical`` golden vectors. Returns (likelihood, its logpost_fn,
+    the numbers)."""
+    import torch
+    from desilike_tpu_torch import EPTTracerPowerSpectrumMultipoles, ShapeFitPowerSpectrumTemplate
+    from desilike_tpu_torch.interop import state_from_numpy
+    from desilike_tpu_torch.ops import cuda_kernels
+    reference = np.load(os.path.join(ROOT, 'tests', 'data', 'torch_port_ept_reference.npz'))
+    t0 = time.perf_counter()
+    ept = build_ept_likelihood(None)  # no device: the card
+    pipe = ept.pipeline
+    names, solved = pipe.varied_params.names(), pipe.solved_params.names()
+    out = dict(build_s=time.perf_counter() - t0, launches={}, max_memory_gib={})
+    if names != list(reference['names']) or solved != list(reference['solved_names']) or ept.size != 108:
+        raise AssertionError('config 3 varies {} and solves {} over {} data'.format(names, solved, ept.size))
+    fn = ept.logpost_fn()
+    if pipe.device.type != 'cuda':
+        raise AssertionError('a likelihood built with no device evaluates on {}'.format(pipe.device))
+    for batch in (BATCH, EPT_BIG_BATCH):
+        values = chains(names, batch, seed=0, device=pipe.device)
+        runs = {}
+        for mode in ('forward', 'with gradient'):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cuda_kernels.CLENSHAW_LAUNCHES = cuda_kernels.COEFF_GRAD_LAUNCHES = 0
+            if mode == 'forward':
+                with torch.no_grad():
+                    logpost, aux = fn(values)
+                grad = None
+            else:
+                logpost, grad = logpost_and_grad(fn, values)
+            torch.cuda.synchronize()
+            runs[mode] = (logpost, grad)
+            out['launches'][mode, batch] = (cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES)
+            out['max_memory_gib'][mode, batch] = torch.cuda.max_memory_allocated() / 2 ** 30
+        logpost, grad = runs['with gradient']
+        forward, backward = out['launches']['forward', batch], out['launches']['with gradient', batch]
+        finite = bool(torch.isfinite(logpost).all() and torch.isfinite(grad).all()
+                      and torch.isfinite(runs['forward'][0]).all())
+        print('phase 3: config 3: logpost and gradient over B={} chains on {}: shape {}, gradient {}, all finite {}, '
+              'mean logpost {:.4f}; launches forward: Clenshaw {}, coefficient gradient {}; with the gradient: '
+              'Clenshaw {}, coefficient gradient {}; peak device memory {:.2f} GiB forward, {:.2f} GiB with the '
+              'gradient; {} data, {} varied, {} solved'.format(
+                  batch, logpost.device, tuple(logpost.shape), tuple(grad.shape), finite, float(logpost.mean()),
+                  forward[0], forward[1], backward[0], backward[1], out['max_memory_gib']['forward', batch],
+                  out['max_memory_gib']['with gradient', batch], ept.size, len(names), len(solved)))
+        if (logpost.shape != (batch,) or grad.shape != (batch, 8) or not finite or forward[0] <= 0
+                or backward[0] <= forward[0] or forward[1] != 0 or backward[1] <= 0):
+            raise AssertionError('config 3 main path failed at B={}'.format(batch))
+        if list(aux['solved']) != solved or len(solved) != 6 or aux['solved_hessian'].shape != (batch, 6, 6) \
+                or not all(bool(torch.isfinite(v).all()) and v.shape == (batch,) for v in aux['solved'].values()):
+            raise AssertionError('config 3: aux[\'solved\'] does not hold the 6 solved parameters')
+        del values, runs, logpost, grad, aux
+    points = reference['points']
+    lp, g = at_points(state_from_numpy(build_ept_likelihood('cuda'), reference), names, points)
+    check_close('phase 3: config 3: card, JAX host state vs JAX float32 at 16 points', lp, reference['logpost'],
+                EPT_F32_ATOL, g, reference['grad'], EPT_F32_GRAD_RTOL)
+    lp, g = at_points(ept, names, points)
+    check_close('phase 3: config 3: card, own host state vs JAX float32 at 16 points', lp, reference['logpost'],
+                EPT_F32_ATOL, g, reference['grad'], EPT_F32_GRAD_RTOL)
+    check_close('phase 3: config 3: card, own host state vs JAX float64 (x64) at 16 points', lp,
+                reference['logpost_x64'], EPT_X64_ATOL, g, reference['grad_x64'], EPT_X64_GRAD_RTOL)
+    lp_cpu, g_cpu = at_points(build_ept_likelihood('cpu'), names, points[:4])
+    check_close('phase 3: config 3: card vs the port\'s CPU plain path at 4 points', lp[:4], lp_cpu, EPT_X64_ATOL,
+                g[:4], g_cpu, EPT_X64_GRAD_RTOL)
+    k29 = np.linspace(0.02, 0.3, 29)
+    for name, kwargs in (('ept', dict(resum=None)), ('ept_resum', {}),
+                         ('ept_physical', dict(prior_basis='physical', tracer='LRG'))):
+        theory_golden('phase 3', EPTTracerPowerSpectrumMultipoles(
+            ells=(0, 2), k=k29, template=ShapeFitPowerSpectrumTemplate(z=0.8), **kwargs), golden, name)
+    return ept, fn, out
+
+
+def run_samplers(joint, ept, smi):
     """Phase 5: ChEES at SAMPLER_BATCH chains and NUTS at 64 chains (max_depth
-    5) on config 4 on the card, each with the launch counters set to 0 just
-    before and read just after. Raises unless every recorded log-posterior is
-    finite and ChEES's acceptance lies in (0.2, 0.99). Returns the numbers."""
+    5) on config 4, and ChEES at SAMPLER_BATCH chains on config 3 (24 warmup
+    and 8 sampling iterations, at most 16 leapfrog steps: with 8 warmup
+    iterations the dual averaging has not settled, and the step size it
+    leaves accepts nothing), on the card, each
+    with the launch counters set to 0 just before and read just after.
+    Raises unless every recorded log-posterior is finite, both kernels were
+    launched and ChEES's acceptance lies in (0.2, 0.99). Returns the numbers."""
     import torch
     from desilike_tpu_torch.ops import cuda_kernels
     from desilike_tpu_torch.samplers import ChEESSampler, NUTSSampler
@@ -706,7 +888,9 @@ def run_samplers(joint, smi):
     for name, make, run in (
             ('chees', lambda: ChEESSampler(joint, nchains=SAMPLER_BATCH, max_leapfrog=32, seed=1),
              dict(nsteps=8, nwarmup=24)),
-            ('nuts', lambda: NUTSSampler(joint, nchains=64, max_depth=5, seed=2), dict(nsteps=4, nwarmup=8))):
+            ('nuts', lambda: NUTSSampler(joint, nchains=64, max_depth=5, seed=2), dict(nsteps=4, nwarmup=8)),
+            ('chees_config3', lambda: ChEESSampler(ept, nchains=SAMPLER_BATCH, max_leapfrog=EPT_SAMPLER_LEAPFROG,
+                                                   seed=3), dict(nsteps=8, nwarmup=24))):
         torch.cuda.synchronize()
         cuda_kernels.CLENSHAW_LAUNCHES = cuda_kernels.COEFF_GRAD_LAUNCHES = 0
         t0 = time.perf_counter()
@@ -725,30 +909,33 @@ def run_samplers(joint, smi):
             launches_per_gradient_evaluation=[l / max(evaluations, 1) for l in launches],
             host_reads=d['host_reads'], host_reads_per_iteration=d['host_reads'] / d['iterations'],
             logposterior_finite=bool(np.isfinite(chain['logposterior']).all()), shape=list(chain.shape))
-        if name == 'chees':
+        if name.startswith('chees'):
             entry.update(step_size=d['step_size'], trajectory_length=d['trajectory_length'],
                          acceptance_rate=d['acceptance_rate'], leapfrogs=d['leapfrogs'],
                          leapfrogs_per_iteration=d['leapfrogs'] / d['iterations'])
         else:
             entry.update(leaves=d['leaves'], leaves_per_iteration=d['leaves'] / d['iterations'],
                          divergence_rate=d['divergence_rate'], step_size=float(np.median(d['step_size'])))
-        print('phase 5: {} on config 4 on {!r}: {}'.format(name, smi, json.dumps(entry)))
+        print('phase 5: {} on config {} on {!r}: {}'.format(name, 3 if name.endswith('config3') else 4, smi,
+                                                          json.dumps(entry)))
         if not entry['logposterior_finite'] or min(launches) <= 0:
             raise AssertionError('{}: a recorded log-posterior is not finite, or a kernel was not launched'.format(name))
-        if name == 'chees' and not 0.2 < entry['acceptance_rate'] < 0.99:
-            raise AssertionError('ChEES acceptance {} outside (0.2, 0.99)'.format(entry['acceptance_rate']))
+        if name.startswith('chees') and not 0.2 < entry['acceptance_rate'] < 0.99:
+            raise AssertionError('{} acceptance {} outside (0.2, 0.99)'.format(name, entry['acceptance_rate']))
     # the launches of one leapfrog step: one batched log-density and its gradient
-    sampler = ChEESSampler(joint, nchains=SAMPLER_BATCH)
-    lg = sampler._logdens_grad()
-    u = torch.tensor(sampler._unconstrain(np.stack([np.full(SAMPLER_BATCH, p.value) for p in sampler.varied_params],
-                                                   axis=-1)), dtype=torch.float32, device=sampler.device)
-    torch.cuda.synchronize()
-    cuda_kernels.CLENSHAW_LAUNCHES = cuda_kernels.COEFF_GRAD_LAUNCHES = 0
-    lg(u)
-    torch.cuda.synchronize()
-    out['launches_chees_step'] = [cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES]
-    print('phase 5: kernel launches a leapfrog step (Clenshaw, coefficient gradient): {}'.format(
-        out['launches_chees_step']))
+    for key, likelihood in (('launches_chees_step', joint), ('launches_chees_step_config3', ept)):
+        sampler = ChEESSampler(likelihood, nchains=SAMPLER_BATCH)
+        lg = sampler._logdens_grad()
+        u = torch.tensor(sampler._unconstrain(np.stack([np.full(SAMPLER_BATCH, p.value)
+                                                        for p in sampler.varied_params], axis=-1)),
+                         dtype=torch.float32, device=sampler.device)
+        torch.cuda.synchronize()
+        cuda_kernels.CLENSHAW_LAUNCHES = cuda_kernels.COEFF_GRAD_LAUNCHES = 0
+        lg(u)
+        torch.cuda.synchronize()
+        out[key] = [cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES]
+        print('phase 5: kernel launches a leapfrog step on config {} (Clenshaw, coefficient gradient): {}'.format(
+            3 if key.endswith('config3') else 4, out[key]))
     return out
 
 
@@ -937,6 +1124,8 @@ def main(kernels_only=False):
         ells=(0, 2, 4), k=k29, template=ShapeFitPowerSpectrumTemplate(z=0.8)), golden, 'kaiser')
     theory_golden('phase 3', EFTLikeKaiserTracerPowerSpectrumMultipoles(
         ells=(0, 2), k=k29, template=ShapeFitPowerSpectrumTemplate(z=0.8)), golden, 'eft_kaiser')
+    ept, efn, config3 = check_config3(golden)
+    enames = ept.pipeline.varied_params.names()
     print('phases 1 to 3 took {:.1f} s'.format(time.perf_counter() - started))
 
     # --- phase 4: times (reported, not gated) ---
@@ -1016,11 +1205,13 @@ def main(kernels_only=False):
           'replay, runs {}); bound {:.4f} ms ({})'.format(HESSIAN_ROWS, FS_NQUERY, order, smi, grad_timed['hessian']['ms'],
                                                          ['%.4f' % t for t in runs], bound_ms, bound_by))
     del x, c, w, y
+    ept_timed = time_ept_kernels(smi, cuda)
     cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES = saved
 
     rates = {}
     for label, function, varied, batches in (('config 1', fn, names, (BATCH, BIG_BATCH)),
-                                             ('config 4', jfn, jnames, (BATCH, JOINT_BIG_BATCH))):
+                                             ('config 4', jfn, jnames, (BATCH, JOINT_BIG_BATCH)),
+                                             ('config 3', efn, enames, (BATCH, EPT_BIG_BATCH))):
         for batch in batches:
             fixed = chains(varied, batch, seed=1, device=cuda)
             with torch.no_grad():
@@ -1028,19 +1219,22 @@ def main(kernels_only=False):
             rates[label, batch] = batch / forward_ms * 1e3
             line = 'phase 4: {} logpost at B={} on {!r}: {:.4f} ms a call, {:.0f} evals/s'.format(
                 label, batch, smi, forward_ms, rates[label, batch])
-            if batch == BATCH:
-                backward_ms = time_cuda(lambda: function(fixed)[0].sum().backward(), 10)  # gradients accumulate; harmless
+            if batch == BATCH or label == 'config 3':
+                # gradients accumulate; harmless
+                backward_ms = time_cuda(lambda: function(fixed)[0].sum().backward(), 10 if batch == BATCH else 3)
                 rates[label, batch, 'gradient'] = batch / backward_ms * 1e3
                 line += '; with gradient {:.4f} ms, {:.0f} evals/s'.format(backward_ms, batch / backward_ms * 1e3)
             print(line)
             del fixed
+            torch.cuda.empty_cache()
     # --- phase 5: the samplers on config 4 ---
     t5 = time.perf_counter()
-    samplers = run_samplers(joint, smi)
+    samplers = run_samplers(joint, ept, smi)
     samplers['seconds'] = time.perf_counter() - t5
     print('phase 5 took {:.1f} s; all phases took {:.1f} s'.format(samplers['seconds'], time.perf_counter() - started))
 
     fs = timed['per-row', BATCH, FS_NQUERY]
+    launches3 = config3['launches']['with gradient', BATCH]
     main_grad = grad_timed[FS_NQUERY]
     print(json.dumps({'kernels': [{
         'name': 'clenshaw', 'route': 'cuda', 'source': 'desilike_tpu_torch/csrc/clenshaw.cu',
@@ -1059,7 +1253,10 @@ def main(kernels_only=False):
         'hessian_errors': hessian_errors, 'ms_hessian': {'{} {}'.format(label, q): timed[label, HESSIAN_ROWS, q]['ms']
                                                         for label, rows, q in timed if rows == HESSIAN_ROWS},
         'bound_ms_hessian': {'{} {}'.format(label, q): timed[label, HESSIAN_ROWS, q]['bound_ms']
-                             for label, rows, q in timed if rows == HESSIAN_ROWS}}, {
+                             for label, rows, q in timed if rows == HESSIAN_ROWS},
+        'launches_config3': launches3[0], 'launches_chees_step_config3': samplers['launches_chees_step_config3'][0],
+        **{key + '_config3': {label: entry[key] for label, entry in ept_timed.items()}
+           for key in ('ms', 'bound_ms', 'plain_ms')}}, {
         'name': 'clenshaw_coeff_grad', 'route': 'cuda', 'source': 'desilike_tpu_torch/csrc/clenshaw_coeff_grad.cu',
         'replaces': 'desilike_tpu/ops/pallas_kernels.py:30', 'launches': launches4[1],
         'launches_forward': forward4[1], 'launches_with_gradient': launches4[1], 'max_abs_err': grad_abs_err,
@@ -1071,9 +1268,16 @@ def main(kernels_only=False):
         'geometry': main_grad['geometry']._asdict(), 'geometry_560': grad_timed[NQUERY]['geometry']._asdict(),
         'resident_blocks': resident, 'launches_chees_step': samplers['launches_chees_step'][1],
         'launches_hessian': launches_hessian[1], 'ms_hessian_288': grad_timed['hessian']['ms'],
-        'bound_ms_hessian_288': grad_timed['hessian']['bound_ms']}],
+        'bound_ms_hessian_288': grad_timed['hessian']['bound_ms'],
+        'launches_config3': launches3[1], 'launches_chees_step_config3': samplers['launches_chees_step_config3'][1],
+        **{key + '_config3': {label: entry['grad_' + key] for label, entry in ept_timed.items()}
+           for key in ('ms', 'bound_ms', 'plain_ms', 'library_ms')}}],
         'evals_per_s': {' '.join(str(part) for part in key): rate for key, rate in rates.items()},
-        'host_syncs_forward': host_syncs}))
+        'host_syncs_forward': host_syncs,
+        'config3': {'build_s': config3['build_s'],
+                    'launches': {'{} {}'.format(*key): value for key, value in config3['launches'].items()},
+                    'max_memory_gib': {'{} {}'.format(*key): value
+                                       for key, value in config3['max_memory_gib'].items()}}}))
     print(json.dumps({'samplers': samplers, 'card': smi}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
                                              'count': torch.cuda.device_count()}}))

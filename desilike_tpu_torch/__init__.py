@@ -1,13 +1,15 @@
 """desilike_tpu_torch: the PyTorch / CUDA port of desilike_tpu for NVIDIA Hopper.
 
 A second package beside ``desilike_tpu`` (the JAX reference). It ports the
-single-tracer BAO likelihood and the joint two-tracer full-shape + BAO
-likelihood: calculator graph with namespaces, host-side fiducial cosmology,
-BAO and ShapeFit templates, damped-wiggle and (EFT-like) Kaiser theories,
-windowed observables, analytic covariance and the Gaussian likelihood with
-analytic marginalization over static and per-chain linear bases; and the
-gradient samplers over it (``samplers``: ChEES, NUTS, HMC, MCLMC) with
-their chains and diagnostics (``samples``).
+single-tracer BAO likelihood, the joint two-tracer full-shape + BAO
+likelihood and the 1-loop EPT full-shape likelihood: calculator graph with
+namespaces, host-side fiducial cosmology, BAO and ShapeFit templates,
+damped-wiggle, (EFT-like) Kaiser and 1-loop EPT theories (FFTLog one-loop
+tables, IR resummation, both prior bases), windowed observables, analytic
+covariance and the Gaussian likelihood with analytic marginalization over
+static and per-chain linear bases; and the gradient samplers over it
+(``samplers``: ChEES, NUTS, HMC, MCLMC) with their chains and diagnostics
+(``samples``).
 Per-evaluation compute runs on a batch of chains, in float32, on the CUDA
 card unless the caller asks for the CPU by name (``device='cpu'``); the
 Chebyshev lookups and their gradients run through hand-written CUDA kernels
@@ -22,6 +24,7 @@ from .parameters import Parameter, ParameterCollection, Prior
 from .core import Calculator, Pipeline
 from .theories import (DampedBAOWigglesTracerPowerSpectrumMultipoles, BAOPowerSpectrumTemplate,
                        ShapeFitPowerSpectrumTemplate, KaiserTracerPowerSpectrumMultipoles,
-                       EFTLikeKaiserTracerPowerSpectrumMultipoles)
+                       EFTLikeKaiserTracerPowerSpectrumMultipoles, EPTTracerPowerSpectrumMultipoles,
+                       EPTTracerCorrelationFunctionMultipoles)
 from .observables import TracerPowerSpectrumMultipolesObservable, BoxFootprint
 from .likelihoods import ObservablesGaussianLikelihood

@@ -8,9 +8,10 @@ once at initialization, and as two ``torch.matmul`` on the evaluation's
 device for tables that change with the chain (ShapeFit), differentiable.
 Queries are evaluated by the Clenshaw recurrence through
 :func:`desilike_tpu_torch.ops.cuda_kernels.clenshaw` (the hand-written
-kernel on the card, the plain recurrence on the CPU). The static-grid
-design-matrix path (``evaluation_matrix`` / ``evaluate_static``) waits for
-the EPT slice (ROADMAP A9).
+kernel on the card, the plain recurrence on the CPU). Fixed evaluation
+points (the 1-loop integrands' grids) take the static design matrix
+instead: ``evaluation_matrix`` builds T_j(x(k)) host-side in float64 and
+``evaluate_static`` is one ``torch.matmul`` on the device.
 """
 
 import numpy as np
@@ -125,3 +126,22 @@ class ChebyshevLogInterp:
         else:
             x2 = x.reshape(x.shape[0], -1) if x.ndim > 1 else x.reshape(1, -1)
         return clenshaw(x2.contiguous(), coeffs, self.log_values).reshape(x.shape)
+
+    def evaluation_matrix(self, k):
+        """Static (npts, order) design matrix T_j(x(k)) for fixed evaluation
+        points k (host-side float64 numpy), for :meth:`evaluate_static`."""
+        lnk = np.log(np.asarray(k, dtype='f8')).ravel()
+        x = np.clip((lnk - self.lo) / (self.hi - self.lo) * 2. - 1., -1., 1.)
+        theta = np.arccos(x)
+        return np.cos(np.outer(theta, np.arange(self.order)))
+
+    def evaluate_static(self, coeffs, matrix):
+        """coeffs (..., order), matrix (npts, order), tensors of one dtype on
+        one device, the matrix from :meth:`evaluation_matrix` (a calculator
+        keeps it as a device constant, :meth:`Calculator.const`) -> y (...,
+        npts) at the matrix's points: one matrix product, exp'd if
+        ``log_values``."""
+        out = torch.matmul(coeffs, matrix.mT)
+        if self.log_values:
+            out = torch.exp(out)
+        return out

@@ -5,3 +5,4 @@ from .bao import (BaseBAOWigglesPowerSpectrumMultipoles, DampedBAOWigglesPowerSp
 from .full_shape import (BasePTPowerSpectrumMultipoles, KaiserPowerSpectrumMultipoles,
                          BaseTracerPowerSpectrumMultipoles, KaiserTracerPowerSpectrumMultipoles,
                          EFTLikeKaiserTracerPowerSpectrumMultipoles)
+from .ept import EPTTracerPowerSpectrumMultipoles, EPTTracerCorrelationFunctionMultipoles

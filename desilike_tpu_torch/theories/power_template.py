@@ -85,6 +85,16 @@ class BasePowerSpectrumTemplate(Calculator):
             cached = self._cheb_cache[name] = (table, self._cheb.coeffs(table))
         return cached[1]
 
+    def pk_dd_coeffs(self):
+        """Chebyshev coefficients of the current pk_dd, (order,) or (B,
+        order): pair with ``self._cheb.evaluate_static`` for static grids."""
+        return self._cheb_coeffs('pk_dd')
+
+    def pknow_dd_coeffs(self):
+        """Chebyshev coefficients of the current no-wiggle pk (the wiggle /
+        no-wiggle split that IR resummation reads)."""
+        return self._cheb_coeffs('pknow_dd')
+
     def pk_dd_interp(self, k):
         """pk_dd at k (any shape; (B, nk, nmu) for AP-remapped queries)."""
         return self._cheb.evaluate(self._cheb_coeffs('pk_dd'), k)
@@ -94,7 +104,9 @@ class BasePowerSpectrumTemplate(Calculator):
 
     def f_of_k(self, k):
         """Growth rate at (AP-remapped) k: the scalar f. The scale-dependent
-        branch of the JAX package needs its eh99 engine (ROADMAP A11)."""
+        growth of the eh99 engine raises (ROADMAP A11)."""
+        if getattr(getattr(self, 'cosmo', None), 'engine', None) == 'eh99':
+            raise NotImplementedError('the scale-dependent growth rate of the eh99 engine is ROADMAP A11')
         return self.f
 
     @property

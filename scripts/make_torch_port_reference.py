@@ -7,6 +7,10 @@ writes its reference file under ``tests/data``:
   ``torch_port_bao_reference.npz``;
 - ``joint``: config 4, ``bench.build_likelihood()`` (two tracers, full shape
   + BAO, four observables) -> ``torch_port_joint_reference.npz``;
+- ``ept``: config 3, ``scripts/bench_ept.build()`` (the 1-loop EPT
+  full-shape likelihood: ShapeFit template, IR-resummed EPT multipoles
+  (0, 2, 4), counterterms and stochastic terms marginalized) ->
+  ``torch_port_ept_reference.npz``;
 - ``hessian``: config 4's log-density in the gradient samplers' unconstrained
   space (``NUTSSampler._logdens_grad``: the logit transform of the bounded
   parameters and its log-Jacobian), its gradient and its Hessian, in
@@ -44,8 +48,8 @@ with numpy alone, and ``tests/test_torch_bao_likelihood.py`` and
 JAX package so that the files cannot go stale.
 
 Run from the repository root:
-``JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py [bao|joint|hessian]``
-(all three when no name is given).
+``JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py [bao|joint|ept|hessian]``
+(all four when no name is given).
 """
 
 import os
@@ -57,15 +61,16 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUTPUTS = {name: os.path.join(ROOT, 'tests', 'data', 'torch_port_{}_reference.npz'.format(name))
-           for name in ('bao', 'joint', 'hessian')}
+           for name in ('bao', 'joint', 'ept', 'hessian')}
 NPOINTS = 16
 HESSIAN_STEP = 1e-4  # central differences of the x64 gradient in the unconstrained space
 
 # centers and half-widths of the points, by basename: inside the priors and
 # away from their edges (so no clip is active); b1 is centered on the value
 # the tracer's data were generated with
-WIDTHS = {'qpar': 0.04, 'qper': 0.04, 'b1': 0.3, 'dbeta': 0.1, 'df': 0.1, 'dm': 0.05}
-CENTERS = {'qpar': 1., 'qper': 1., 'dbeta': 1., 'df': 1., 'dm': 0.}
+WIDTHS = {'qpar': 0.04, 'qper': 0.04, 'b1': 0.3, 'dbeta': 0.1, 'df': 0.1, 'dm': 0.05,
+          'b2': 0.5, 'bs': 0.5, 'b3nl': 0.5}
+CENTERS = {'qpar': 1., 'qper': 1., 'dbeta': 1., 'df': 1., 'dm': 0., 'b2': 0., 'bs': 0., 'b3nl': 0.}
 B1 = {'': 2., 'LRG': 2., 'LRGbao': 2., 'ELG': 1.3, 'ELGbao': 1.3}
 
 
@@ -84,6 +89,12 @@ def build_jax_likelihood(config):
     if config == 'bao':
         import __graft_entry__
         return __graft_entry__._build_likelihood()
+    if config == 'ept':
+        import importlib.util
+        spec = importlib.util.spec_from_file_location('bench_ept', os.path.join(ROOT, 'scripts', 'bench_ept.py'))
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        return module.build()
     import bench
     return bench.build_likelihood()
 

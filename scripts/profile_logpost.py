@@ -1,19 +1,24 @@
 """Where a log-posterior call spends its time on one CUDA card.
 
-Builds config 1 or config 4 of ``chip_smoke.py`` on the card and, for the
+Builds config 1, 3 or 4 of ``chip_smoke.py`` on the card and, for the
 forward call and for the call with its gradient, at each batch of seeded
 chains:
 
 - times the call on the host's clock (10 calls ending in a synchronise);
 - runs ``torch.profiler`` over 5 calls and reports, a call: the CUDA kernels
   launched, the device-busy time (the sum of the kernels' durations), the
-  share of the wall time the card is idle, and the kernels that take the
-  most device time, by name.
+  share of the wall time the card is idle, the kernels that take the
+  most device time, by name, the device time by kind of kernel (GEMM,
+  cuFFT, the Clenshaw kernels, MAGMA, reductions, the rest elementwise),
+  and by the operator that launched it with its input shapes; for config 3
+  also the shares of the FFTLog quadratic forms (B6: the products with a
+  130-wide operand) and of the static landing and radial pieces (B7: the
+  products with a 25056- or 256-wide operand), forward and backward.
 
 Prints one JSON line per (mode, batch), each with the card's name and power
 limit, and writes them to ``--out`` if given.
 
-    python3 scripts/profile_logpost.py [--config 1|4] [--batches 4096 32768] [--out FILE]
+    python3 scripts/profile_logpost.py [--config 1|3|4] [--batches 4096 32768] [--out FILE]
 """
 
 import argparse
@@ -25,9 +30,33 @@ import sys
 import time
 
 
+KINDS = (('clenshaw', ('clenshaw',)), ('gemm', ('gemm', 'xmma', 'cutlass', 'gemv', 'dot_kernel')),
+         ('cufft', ('fft',)), ('magma', ('magma', 'trsm', 'trsv', 'potrf', 'displace', 'batch_')),
+         ('reduction', ('reduce',)))
+
+
+def kind(kernel):
+    """The kind of a CUDA kernel, from its name; 'elementwise' for the rest."""
+    name = kernel.lower()
+    return next((label for label, patterns in KINDS if any(p in name for p in patterns)), 'elementwise')
+
+
+def loop_stage(shapes):
+    """Config 3's 1-loop stage of a matrix-product operator, from its input
+    shapes: 'B6' (a 130-wide operand: the FFTLog quadratic forms), 'B7' (a
+    25056-wide operand, the static landing, or a 256-wide one, the radial
+    P13 and P(kr)^2 pieces), else None."""
+    dims = {d for shape in shapes for d in shape}
+    if 130 in dims:
+        return 'B6'
+    if 25056 in dims or 256 in dims:
+        return 'B7'
+    return None
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
-    parser.add_argument('--config', type=int, choices=(1, 4), default=4)
+    parser.add_argument('--config', type=int, choices=(1, 3, 4), default=4)
     parser.add_argument('--batches', type=int, nargs='+', default=[4096, 32768])
     parser.add_argument('--out', default=None, help='file the JSON lines are also written to')
     args = parser.parse_args()
@@ -39,7 +68,8 @@ def main():
     import chip_smoke
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    like = (chip_smoke.build_likelihood if args.config == 1 else chip_smoke.build_joint_likelihood)(None)
+    like = {1: chip_smoke.build_likelihood, 3: chip_smoke.build_ept_likelihood,
+            4: chip_smoke.build_joint_likelihood}[args.config](None)
     fn = like.logpost_fn()
     names = like.pipeline.varied_params.names()
     lines = []
@@ -65,22 +95,47 @@ def main():
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) / 10 * 1e3
             calls = 5
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.reset_peak_memory_stats()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
                 for _ in range(calls):
                     call()
                 torch.cuda.synchronize()
             kernels = collections.Counter()
             busy_us = collections.Counter()
+            kinds = collections.Counter()
             for event in prof.events():
                 if event.device_type == torch.autograd.DeviceType.CUDA:
+                    us = event.device_time if hasattr(event, 'device_time') else event.cuda_time
                     kernels[event.name] += 1
-                    busy_us[event.name] += event.device_time if hasattr(event, 'device_time') else event.cuda_time
+                    busy_us[event.name] += us
+                    kinds[kind(event.name)] += us
             device_ms = sum(busy_us.values()) / calls * 1e-3
+            ops, stages = [], collections.Counter()
+            for average in prof.key_averages(group_by_input_shape=True):
+                if average.device_type != torch.autograd.DeviceType.CPU:  # the kernels themselves: counted above
+                    continue
+                us = getattr(average, 'self_device_time_total', None)
+                us = average.self_cuda_time_total if us is None else us
+                if us <= 0:
+                    continue
+                shapes = [tuple(shape) for shape in (average.input_shapes or []) if shape]
+                ops.append((us, average.key, shapes))
+                stage = loop_stage(shapes) if args.config == 3 and any(
+                    k in average.key for k in ('mm', 'matmul', 'mv', 'dot')) else None
+                if stage:
+                    stages[stage] += us
+            ops.sort(key=lambda op: -op[0])
             line = {'config': args.config, 'mode': mode, 'batch': batch, 'card': smi, 'wall_ms': wall_ms,
                     'evals_per_s': batch / wall_ms * 1e3, 'kernels_a_call': sum(kernels.values()) / calls,
                     'device_busy_ms': device_ms, 'idle_share': 1. - device_ms / wall_ms,
+                    'max_memory_gib': torch.cuda.max_memory_allocated() / 2 ** 30,
+                    'kinds_ms_a_call': {k: us / calls * 1e-3 for k, us in kinds.most_common()},
                     'top': [{'name': name[:80], 'launches_a_call': kernels[name] / calls,
-                             'device_ms_a_call': us / calls * 1e-3} for name, us in busy_us.most_common(12)]}
+                             'device_ms_a_call': us / calls * 1e-3} for name, us in busy_us.most_common(12)],
+                    'top_ops': [{'op': key, 'shapes': str(shapes)[:160], 'device_ms_a_call': us / calls * 1e-3}
+                                for us, key, shapes in ops[:15]]}
+            if args.config == 3:
+                line['loop_stages_ms_a_call'] = {k: us / calls * 1e-3 for k, us in stages.items()}
             lines.append(json.dumps(line))
             print(lines[-1], flush=True)
     if args.out:

@@ -198,6 +198,34 @@ def test_joint_logpost_on_card_matches_cpu(cuda):
     assert (np.linalg.norm(g - g_cpu, axis=-1) / np.linalg.norm(g_cpu, axis=-1)).max() < JOINT_X64_GRAD_RTOL
 
 
+def test_ept_logpost_on_card_matches_cpu(cuda):
+    """Config 3 on the card, where a likelihood built with no device runs
+    (both kernels at orders 105 and 320, forward and backward), against the
+    port's CPU plain path, both float32, at 4 frozen points; tolerances of
+    chip_smoke.py."""
+    from chip_smoke import build_ept_likelihood, EPT_X64_ATOL, EPT_X64_GRAD_RTOL
+    reference = np.load(os.path.join(os.path.dirname(__file__), 'data', 'torch_port_ept_reference.npz'))
+    names = list(reference['names'])
+    results = []
+    for device in (None, 'cpu'):  # no device: the card
+        like = build_ept_likelihood(device)
+        values = {n: torch.tensor(reference['points'][:4, i], dtype=torch.float32, device=like.pipeline.device,
+                                  requires_grad=True) for i, n in enumerate(names)}
+        before = (cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES)
+        logpost, _ = like.logpost_fn()(values)
+        logpost.sum().backward()
+        launched = (cuda_kernels.CLENSHAW_LAUNCHES - before[0], cuda_kernels.COEFF_GRAD_LAUNCHES - before[1])
+        assert like.pipeline.device.type == (device or 'cuda')
+        # forward: the three loop tables' series (order 105) and the two template lookups (order 320);
+        # backward: each one's x-gradient series and its coefficient gradient
+        assert launched == ((10, 5) if device is None else (0, 0))
+        grad = torch.stack([values[n].grad for n in names], dim=-1)
+        results.append((logpost.detach().cpu().numpy(), grad.cpu().numpy()))
+    (lp, g), (lp_cpu, g_cpu) = results
+    np.testing.assert_allclose(lp, lp_cpu, rtol=0., atol=EPT_X64_ATOL)
+    assert (np.linalg.norm(g - g_cpu, axis=-1) / np.linalg.norm(g_cpu, axis=-1)).max() < EPT_X64_GRAD_RTOL
+
+
 @pytest.mark.parametrize('case', [dict(rows=4096, q=288, order=202, per_row=True, log_values=True),
                                   dict(rows=4096, q=560, order=202, per_row=False, log_values=True)], ids=case_label)
 def test_derivatives_through_the_kernels(cuda, case):

@@ -8,9 +8,12 @@ file holds fewer tests than ``tests/test_bindings.py``: pytest-xdist's
 time by when it starts.
 """
 
+import types
+
 import pytest
 
-from desilike_tpu_torch import Pipeline, ShapeFitPowerSpectrumTemplate, KaiserTracerPowerSpectrumMultipoles
+from desilike_tpu_torch import (Pipeline, ShapeFitPowerSpectrumTemplate, KaiserTracerPowerSpectrumMultipoles,
+                                EPTTracerPowerSpectrumMultipoles, EPTTracerCorrelationFunctionMultipoles)
 from test_golden import K
 
 
@@ -20,6 +23,23 @@ def test_unported_template_options_raise(kwargs, match):
         ShapeFitPowerSpectrumTemplate(z=0.8, **kwargs).runtime_info.initialize()
 
 
-def test_pt_without_template_raises():
+@pytest.mark.parametrize('cls', [KaiserTracerPowerSpectrumMultipoles, EPTTracerPowerSpectrumMultipoles])
+def test_pt_without_template_raises(cls):
+    """The default DirectPowerSpectrumTemplate waits for the cosmology (A11)."""
     with pytest.raises(NotImplementedError, match='A11'):
-        Pipeline(KaiserTracerPowerSpectrumMultipoles(ells=(0, 2), k=K, device='cpu'))
+        Pipeline(cls(ells=(0, 2), k=K, device='cpu'))
+
+
+def test_ept_correlation_function_raises():
+    with pytest.raises(NotImplementedError, match='A10'):
+        Pipeline(EPTTracerCorrelationFunctionMultipoles(template=ShapeFitPowerSpectrumTemplate(z=0.8), device='cpu'))
+
+
+def test_eh99_scale_dependent_growth_raises():
+    """A template on the eh99 engine has a scale-dependent f(k), which the
+    EPT and Kaiser theories read through ``f_of_k``: it waits for A11."""
+    template = ShapeFitPowerSpectrumTemplate(z=0.8, device='cpu')
+    template.runtime_info.initialize()
+    template.cosmo = types.SimpleNamespace(engine='eh99')
+    with pytest.raises(NotImplementedError, match='eh99.*A11'):
+        template.f_of_k(K)
