@@ -5,7 +5,9 @@ hand-written CUDA kernels, and checks them: the batched config-1 BAO
 log-posterior of ``__graft_entry__._build_likelihood``, the batched
 config-4 joint two-tracer full-shape + BAO log-posterior of
 ``bench.build_likelihood`` and the batched config-3 1-loop EPT full-shape
-log-posterior of ``scripts/bench_ept.py``, each with its gradient, and the
+log-posterior of ``scripts/bench_ept.py`` and the batched config-xi BAO
+log-posterior in configuration space (config 1's likelihood on xi
+multipoles, :func:`build_xi_likelihood`), each with its gradient, and the
 gradient samplers (ChEES, NUTS) over config 4, ChEES over config 3.
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions, the
@@ -27,7 +29,9 @@ gradient samplers (ChEES, NUTS) over config 4, ChEES over config 3.
    the full backward of the series (x and coefficients) against autograd
    through the plain version at (4096, 288, 202) per-row; both kernels at
    config 3's shapes (:func:`ept_cases`: (B, 288, 105) series and (B, 288,
-   320) exp'd, per-row, B in {4096, 32768}); and the derivatives of the
+   320) exp'd, per-row, B in {4096, 32768}); the series at config xi's
+   (:func:`xi_cases`: (B, 3000, 230) shared, exp'd, B in {4096, 65536},
+   and the (300, 1) lookup) and its x-gradient at B = 4096; and the derivatives of the
    Functions that launch them (:func:`check_derivatives`:
    ``torch.func.jvp``, ``jacfwd``, ``vmap`` and double backward) at
    (4096, 288, 202) per-row and (4096, 560, 202) shared;
@@ -51,7 +55,12 @@ gradient samplers (ChEES, NUTS) over config 4, ChEES over config 3.
    and with the gradient), the frozen JAX values of
    ``tests/data/torch_port_ept_reference.npz``, the card against the CPU
    plain path at 4 points, and the ``ept``, ``ept_resum`` and
-   ``ept_physical`` golden vectors;
+   ``ept_physical`` golden vectors. Config xi (:func:`check_config_xi`): the
+   same at B = 4096 and 65536, its frozen values in
+   ``tests/data/torch_port_xi_reference.npz``, the start-point Hessian
+   diagonal through the rfft/irfft pair, the ``damped_bao_xi`` golden
+   vector, and ``ept_xi`` and ``ept_xi_resum`` against the JAX package's x64
+   vectors;
 4. times (reported, not gated): the Clenshaw kernel's device time from
    CUDA-graph replay of 50 launches at (4096, 560, 202) shared and per-row,
    (4096, 288, 202) per-row and (65536, 560, 202) shared, the coefficient
@@ -61,10 +70,12 @@ gradient samplers (ChEES, NUTS) over config 4, ChEES over config 3.
    (``torch.special.chebyshev_polynomial_t`` over (B, Q, order), then an
    einsum); and log-posterior evaluations per second, config 1 at B = 4096
    and 65536, config 4 at B = 4096 (forward and with the gradient) and 32768,
-   config 3 at B = 4096 and 32768 (forward and with the gradient); the
-   kernels at the Hessian's shapes (18 rows) and at config 3's
-   (:func:`time_ept_kernels`, beside their bounds, plain versions and, for
-   the coefficient gradient, the library call);
+   config 3 at B = 4096 and 32768 and config xi at B = 4096 and 65536 (both
+   forward and with the gradient); the kernels at the Hessian's shapes (18
+   rows), at config 3's (:func:`time_ept_kernels`, beside their bounds,
+   plain versions and, for the coefficient gradient, the library call) and
+   at config xi's (:func:`time_xi_kernel`, beside its bound, plain version
+   and, at B = 4096, ``chebyshev_polynomial_t`` + einsum + exp);
 5. the samplers (:func:`run_samplers`): on config 4 ChEES over B = 4096
    chains (24 warmup and 8 sampling iterations, at most 32 leapfrog steps)
    and NUTS over 64 chains (max_depth 5); on config 3 ChEES over B = 4096
@@ -101,6 +112,8 @@ EPT_BIG_BATCH = 32768  # the batch the JAX package's EPT bench uses for config 3
 EPT_ORDER = 320  # config 3's template order (1200 points from 1e-4 to 20)
 EPT_WORK_ORDER = 105  # config 3's loop tables on the working grid (96 points)
 EPT_SAMPLER_LEAPFROG = 16  # most leapfrog steps of ChEES on config 3 in phase 5
+XI_NQUERY = 3000  # config xi's lookups: the P(k) model's 300 k x 10 mu nodes a chain
+XI_ORDER = 230  # config xi's template order (2000 points from 1e-4 to 1.2)
 KGRID = np.geomspace(1e-4, 1., 2000)  # the config-1 template grid
 FP32_FLOPS = 67e12   # published H100 SXM FP32 rate outside the tensor cores, at 700 W
 HBM_BYTES = 3.35e12  # published H100 SXM memory rate
@@ -126,6 +139,15 @@ EPT_F32_ATOL, EPT_F32_GRAD_RTOL = JOINT_F32_ATOL, JOINT_F32_GRAD_RTOL
 # ones run the derivative series of the derivative series, whose terms grow as (2 j)^2 c_j (2.3e-5 there)
 SECOND_RTOL = 1e-4
 HESSIAN_RTOL = 1e-4  # the start-point Hessian's diagonal, of its largest entry: float32 against x64 (5e-6 on an H100)
+# config xi against the frozen JAX values at 16 points, at config 1's limits: on the CPU the port is within 1.0e-4 of
+# x64 on the log-posterior and 8.3e-5 of the gradient's norm, and 3.8e-4 and 2.7e-4 from the JAX package's float32
+# values (4.4e-4 and 2.6e-4 from its own x64 ones); in float64 within 1.8e-12 and 6.2e-13
+XI_X64_ATOL, XI_X64_GRAD_RTOL = 2e-3, 5e-4
+XI_F32_ATOL, XI_F32_GRAD_RTOL = 5e-2, 1e-2
+# the xi theories with a shot noise at the golden sn0 = 500 (a constant 5e6 in the P(k) monopole), in float32, of their
+# largest value from the JAX package's x64 vectors: the P(k) node's own float32 rounding (1.3e-4 to 2.7e-4 on the CPU);
+# the JAX package's float32 goldens are 1.1e-2 to 4.2e-2 from them (tests/test_torch_xi.py)
+SHOT_NOISE_F32_RTOL = 1e-3
 SAMPLER_BATCH = BATCH  # ChEES chains on config 4
 HESSIAN_ROWS = 18  # the start-point Hessian's batch: one copy of the point a varied parameter of config 4
 
@@ -191,6 +213,27 @@ def build_ept_likelihood(device):
     observable = TracerPowerSpectrumMultipolesObservable(
         data={'b1': 2.0}, klim={ell: (0.02, 0.2, 0.005) for ell in (0, 2, 4)}, theory=theory)
     like = ObservablesGaussianLikelihood(observables=[observable], footprints=[BoxFootprint(volume=2e9, nbar=5e-4)],
+                                         device=device)
+    like.pipeline
+    return like
+
+
+def build_xi_likelihood(device):
+    """Config xi in the port: config 1 (:func:`build_likelihood`) in
+    configuration space, as a user builds it. Damped BAO xi multipoles (0, 2)
+    from the P(k) model on k = geomspace(1e-4, 0.6, 300) x 10 mu nodes by
+    FFTLog, over 48-152 Mpc/h in 4 Mpc/h bins (52 data), the broadband
+    al{0,2}_{-2,-1,0} marginalized, the xi-xi Gaussian covariance;
+    ``device=None``: the card."""
+    from desilike_tpu_torch import (DampedBAOWigglesTracerCorrelationFunctionMultipoles, BAOPowerSpectrumTemplate,
+                                    TracerCorrelationFunctionMultipolesObservable, BoxFootprint,
+                                    ObservablesGaussianLikelihood)
+    template = BAOPowerSpectrumTemplate(z=0.8, apmode='qparqper')
+    theory = DampedBAOWigglesTracerCorrelationFunctionMultipoles(ells=(0, 2), template=template)
+    theory.init.params = {'al*': dict(derived='.marg')}
+    obs = TracerCorrelationFunctionMultipolesObservable(data={'qpar': 1.0, 'qper': 1.0, 'b1': 2.0},
+                                                        slim={0: (48., 152., 4.), 2: (48., 152., 4.)}, theory=theory)
+    like = ObservablesGaussianLikelihood(observables=[obs], footprints=[BoxFootprint(volume=2e9, nbar=5e-4)],
                                          device=device)
     like.pipeline
     return like
@@ -360,7 +403,7 @@ def kernel_cases():
         for k in (2, 8):
             cases.append(dict(rows=BATCH, q=NQUERY, order=202, per_row=per_row, log_values=True, k=k))
     cases.append(dict(rows=56, q=1, order=202, per_row=False, log_values=True))  # the kobs lookup
-    cases += ept_cases()
+    cases += ept_cases() + xi_cases()
     return cases
 
 
@@ -370,6 +413,15 @@ def ept_cases():
     at B = 4096 and 32768."""
     return [dict(rows=rows, q=FS_NQUERY, order=order, per_row=True, log_values=log_values)
             for rows in (BATCH, EPT_BIG_BATCH) for order, log_values in ((EPT_WORK_ORDER, False), (EPT_ORDER, True))]
+
+
+def xi_cases():
+    """Config xi's launches: the template's exp'd lookups at the AP-remapped
+    (B, 3000) with shared coefficients of order 230 (a coefficient tail of 2
+    in the last chunk of 4), B = 4096 and 65536, and the (300, 1) lookup at
+    the observed k."""
+    return [dict(rows=rows, q=XI_NQUERY, order=XI_ORDER, per_row=False, log_values=True)
+            for rows in (BATCH, BIG_BATCH)] + [dict(rows=300, q=1, order=XI_ORDER, per_row=False, log_values=True)]
 
 
 def case_label(case):
@@ -639,10 +691,13 @@ def time_ept_kernels(smi, device):
     return out
 
 
-def theory_golden(label, theory, golden, name):
+def theory_golden(label, theory, golden, name, x64=None):
     """Evaluate ``theory`` (built with no device: the card) at the golden
-    parameter values it takes and hold its multipoles against the golden
-    vector ``name`` at the tolerance of the JAX package's golden test."""
+    parameter values it takes and hold its multipoles (``theory.get()``)
+    against the golden vector ``name`` at the tolerance of the JAX package's
+    golden test; with ``x64`` (the JAX package's float64 vector) against that
+    within SHOT_NOISE_F32_RTOL of its largest value instead, and print the
+    distance of both float32 vectors from it."""
     from desilike_tpu_torch import Pipeline
     # the parameter values of tests/test_golden.py
     values = {'qpar': 1.02, 'qper': 0.98, 'b1': 1.8, 'sigmapar': 9., 'sigmaper': 6., 'sigmas': 2., 'dbeta': 1.1,
@@ -651,14 +706,23 @@ def theory_golden(label, theory, golden, name):
     pipe = Pipeline(theory)
     allowed = set(pipe.params.basenames())
     pipe.evaluate({key: value for key, value in values.items() if key in allowed})
-    if theory.power.device.type != 'cuda':
-        raise AssertionError('a theory built with no device evaluates on {}'.format(theory.power.device))
-    got = theory.power[0].cpu().numpy().astype('f8')
+    output = theory.get()
+    if output.device.type != 'cuda':
+        raise AssertionError('a theory built with no device evaluates on {}'.format(output.device))
+    got = output[0].cpu().numpy().astype('f8')
     ref = golden[name]
     err = float(np.abs(got - ref).max() / np.abs(ref).max())
-    print('{}: {} theory on the card (built with no device) vs golden: max err relative to max {:.3e} '
-          '(tol 2e-5 + 2e-5 rtol)'.format(label, name, err))
-    np.testing.assert_allclose(got, ref, atol=2e-5 * np.max(np.abs(ref)), rtol=2e-5)
+    if x64 is None:
+        print('{}: {} theory on the card (built with no device) vs golden: max err relative to max {:.3e} '
+              '(tol 2e-5 + 2e-5 rtol)'.format(label, name, err))
+        np.testing.assert_allclose(got, ref, atol=2e-5 * np.max(np.abs(ref)), rtol=2e-5)
+        return
+    err64 = float(np.abs(got - x64).max() / np.abs(x64).max())
+    print('{}: {} theory on the card (built with no device) vs JAX x64: max err relative to max {:.3e} (tol {:.0e}); '
+          'vs the float32 golden {:.3e}, which is {:.3e} from JAX x64'.format(
+              label, name, err64, SHOT_NOISE_F32_RTOL, err, float(np.abs(ref - x64).max() / np.abs(x64).max())))
+    if not err64 <= SHOT_NOISE_F32_RTOL:
+        raise AssertionError('{} on the card is {:.3e} from JAX x64'.format(name, err64))
 
 
 def at_points(likelihood, names, rows):
@@ -722,8 +786,8 @@ def check_failed_chain(likelihood, fn, values, index=BATCH // 3):
         raise AssertionError('one failed chain changed the others, or did not read -inf with a finite gradient')
 
 
-def count_host_syncs(fn, values):
-    """The synchronising CUDA calls of one forward call of ``fn``, as
+def count_host_syncs(fn, values, label='config 4'):
+    """The synchronising CUDA calls of one forward call of ``fn`` (``label``'s), as
     ``torch.cuda.set_sync_debug_mode('warn')`` reports them, each at the
     innermost frame of this repository that made it: prints and returns
     {file:line: count}."""
@@ -751,22 +815,26 @@ def count_host_syncs(fn, values):
                 fn(values)
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    print('phase 3: config 4: one forward call at B={} made {} synchronising CUDA call(s){}'.format(
-        BATCH, sum(places.values()), ': ' + ', '.join('{} x{}'.format(k, v) for k, v in sorted(places.items()))
-        if places else ''))
+    print('phase 3: {}: one forward call at B={} made {} synchronising CUDA call(s){}'.format(
+        label, next(iter(values.values())).shape[0], sum(places.values()),
+        ': ' + ', '.join('{} x{}'.format(k, v) for k, v in sorted(places.items())) if places else ''))
     return dict(places)
 
 
-def check_start_hessian(joint, joint_cpu):
-    """The samplers' start-point Hessian of config 4's log-density in their
-    unconstrained space at the point of ``tests/data/torch_port_hessian_reference.npz``:
-    on the card (launches counted) against the CPU plain path and against
-    the frozen JAX x64 values, the diagonal within HESSIAN_RTOL of its
-    largest entry. Returns ((Clenshaw, coefficient-gradient) launches, errors)."""
+def check_start_hessian(joint, joint_cpu, config='config 4', frozen=None, expect_coeff_grad=True):
+    """The samplers' start-point Hessian of ``config``'s log-density in their
+    unconstrained space at the frozen point (``u``, ``hessian``: for config
+    4 those of ``tests/data/torch_port_hessian_reference.npz``): on the card
+    (launches counted) against the CPU plain path and against the frozen JAX
+    x64 values, the diagonal within HESSIAN_RTOL of its largest entry. The
+    Clenshaw kernel must launch; the coefficient-gradient kernel must launch
+    if and only if ``expect_coeff_grad`` (coefficients that vary by chain).
+    Returns ((Clenshaw, coefficient-gradient) launches, errors)."""
     import torch
     from desilike_tpu_torch.ops import cuda_kernels
     from desilike_tpu_torch.samplers import NUTSSampler
-    frozen = np.load(os.path.join(ROOT, 'tests', 'data', 'torch_port_hessian_reference.npz'))
+    if frozen is None:
+        frozen = np.load(os.path.join(ROOT, 'tests', 'data', 'torch_port_hessian_reference.npz'))
     diagonals = {}
     for label, likelihood in (('card', joint), ('cpu', joint_cpu)):
         sampler = NUTSSampler(likelihood, nchains=1)
@@ -782,13 +850,13 @@ def check_start_hessian(joint, joint_cpu):
     errors = {'card_vs_cpu': float(np.abs(diagonals['card'] - diagonals['cpu']).max() / scale),
               'card_vs_jax_x64': float(np.abs(diagonals['card'] - expected).max() / scale),
               'cpu_vs_jax_x64': float(np.abs(diagonals['cpu'] - expected).max() / scale)}
-    print('phase 3: config 4: start-point Hessian diagonal (18 copies, double backward) on the card: launches '
+    print('phase 3: {}: start-point Hessian diagonal ({} copies, double backward) on the card: launches '
           'Clenshaw {}, coefficient gradient {}; of max |diag| {:.4g}: card vs CPU {:.2e}, card vs JAX x64 {:.2e}, '
-          'CPU vs JAX x64 {:.2e} (tol {:.0e})'.format(launches[0], launches[1], scale, errors['card_vs_cpu'],
-                                                     errors['card_vs_jax_x64'], errors['cpu_vs_jax_x64'],
-                                                     HESSIAN_RTOL))
-    if not (max(errors.values()) <= HESSIAN_RTOL and min(launches) > 0):
-        raise AssertionError('the start-point Hessian disagrees, or did not run through both kernels')
+          'CPU vs JAX x64 {:.2e} (tol {:.0e})'.format(config, len(expected), launches[0], launches[1], scale,
+                                                     errors['card_vs_cpu'], errors['card_vs_jax_x64'],
+                                                     errors['cpu_vs_jax_x64'], HESSIAN_RTOL))
+    if not (max(errors.values()) <= HESSIAN_RTOL and launches[0] > 0 and (launches[1] > 0) == expect_coeff_grad):
+        raise AssertionError('the start-point Hessian disagrees, or did not run through the kernels')
     return launches, errors
 
 
@@ -870,6 +938,137 @@ def check_config3(golden):
         theory_golden('phase 3', EPTTracerPowerSpectrumMultipoles(
             ells=(0, 2), k=k29, template=ShapeFitPowerSpectrumTemplate(z=0.8), **kwargs), golden, name)
     return ept, fn, out
+
+
+def check_config_xi(golden):
+    """Phase 3, config xi (config 1 in configuration space) on the card:
+    log-posterior and gradient over B = 4096 and 65536 seeded chains (finite,
+    the 6 broadband terms in ``aux['solved']``, the Clenshaw kernel launched
+    and the coefficient gradient not, counted forward and with the gradient,
+    the peak of device memory each), the frozen JAX values of
+    ``tests/data/torch_port_xi_reference.npz`` at 16 points (the port's own
+    host state and the JAX package's), the card against the port's CPU path
+    at 4 points, the start-point Hessian diagonal (double backward through
+    the rfft/irfft pair) against the CPU and the frozen JAX x64 values, and
+    the ``damped_bao_xi``, ``ept_xi`` and ``ept_xi_resum`` golden vectors
+    from theories built with no device (the last two, whose shot noise
+    leaves the JAX package's float32 goldens 1.1e-2 and 2.8e-2 from its own
+    x64 values, against the x64 vectors of the reference file). Returns
+    (likelihood, its logpost_fn, the numbers)."""
+    import torch
+    from desilike_tpu_torch import (DampedBAOWigglesTracerCorrelationFunctionMultipoles, BAOPowerSpectrumTemplate,
+                                    EPTTracerCorrelationFunctionMultipoles, ShapeFitPowerSpectrumTemplate)
+    from desilike_tpu_torch.interop import state_from_numpy
+    from desilike_tpu_torch.ops import cuda_kernels
+    reference = np.load(os.path.join(ROOT, 'tests', 'data', 'torch_port_xi_reference.npz'))
+    t0 = time.perf_counter()
+    xi = build_xi_likelihood(None)  # no device: the card
+    pipe = xi.pipeline
+    names, solved = pipe.varied_params.names(), pipe.solved_params.names()
+    out = dict(build_s=time.perf_counter() - t0, launches={}, max_memory_gib={})
+    theory = xi.observables[0].wmatrix.theory
+    if names != list(reference['names']) or solved != list(reference['solved_names']) or xi.size != 52 \
+            or theory.template._cheb.order != XI_ORDER or theory.kin.size * theory.power.mu.size != XI_NQUERY:
+        raise AssertionError('config xi varies {} and solves {} over {} data'.format(names, solved, xi.size))
+    fn = xi.logpost_fn()
+    if pipe.device.type != 'cuda':
+        raise AssertionError('a likelihood built with no device evaluates on {}'.format(pipe.device))
+    for batch in (BATCH, BIG_BATCH):
+        values = chains(names, batch, seed=0, device=pipe.device)
+        runs = {}
+        for mode in ('forward', 'with gradient'):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cuda_kernels.CLENSHAW_LAUNCHES = cuda_kernels.COEFF_GRAD_LAUNCHES = 0
+            if mode == 'forward':
+                with torch.no_grad():
+                    logpost, aux = fn(values)
+                grad = None
+            else:
+                logpost, grad = logpost_and_grad(fn, values)
+            torch.cuda.synchronize()
+            runs[mode] = (logpost, grad)
+            out['launches'][mode, batch] = (cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES)
+            out['max_memory_gib'][mode, batch] = torch.cuda.max_memory_allocated() / 2 ** 30
+        logpost, grad = runs['with gradient']
+        forward, backward = out['launches']['forward', batch], out['launches']['with gradient', batch]
+        finite = bool(torch.isfinite(logpost).all() and torch.isfinite(grad).all()
+                      and torch.isfinite(runs['forward'][0]).all())
+        print('phase 3: config xi: logpost and gradient over B={} chains on {}: shape {}, gradient {}, all finite {}, '
+              'mean logpost {:.4f}; launches forward: Clenshaw {}, coefficient gradient {}; with the gradient: '
+              'Clenshaw {}, coefficient gradient {}; peak device memory {:.2f} GiB forward, {:.2f} GiB with the '
+              'gradient; {} data, {} varied, {} solved'.format(
+                  batch, logpost.device, tuple(logpost.shape), tuple(grad.shape), finite, float(logpost.mean()),
+                  forward[0], forward[1], backward[0], backward[1], out['max_memory_gib']['forward', batch],
+                  out['max_memory_gib']['with gradient', batch], xi.size, len(names), len(solved)))
+        if (logpost.shape != (batch,) or grad.shape != (batch, 4) or not finite or forward[0] <= 0
+                or backward[0] <= forward[0] or forward[1] != 0 or backward[1] != 0):
+            raise AssertionError('config xi main path failed at B={}'.format(batch))
+        if list(aux['solved']) != solved or len(solved) != 6 or aux['solved_hessian'].shape != (6, 6) \
+                or not all(bool(torch.isfinite(v).all()) and v.shape == (batch,) for v in aux['solved'].values()):
+            raise AssertionError('config xi: aux[\'solved\'] does not hold the 6 solved parameters')
+        out['host_syncs', batch] = count_host_syncs(fn, values, 'config xi')
+        del values, runs, logpost, grad, aux
+    torch.cuda.empty_cache()
+    points = reference['points']
+    lp, g = at_points(state_from_numpy(build_xi_likelihood('cuda'), reference), names, points)
+    check_close('phase 3: config xi: card, JAX host state vs JAX float32 at 16 points', lp, reference['logpost'],
+                XI_F32_ATOL, g, reference['grad'], XI_F32_GRAD_RTOL)
+    lp, g = at_points(xi, names, points)
+    check_close('phase 3: config xi: card, own host state vs JAX float32 at 16 points', lp, reference['logpost'],
+                XI_F32_ATOL, g, reference['grad'], XI_F32_GRAD_RTOL)
+    check_close('phase 3: config xi: card, own host state vs JAX float64 (x64) at 16 points', lp,
+                reference['logpost_x64'], XI_X64_ATOL, g, reference['grad_x64'], XI_X64_GRAD_RTOL)
+    xi_cpu = build_xi_likelihood('cpu')
+    lp_cpu, g_cpu = at_points(xi_cpu, names, points[:4])
+    check_close('phase 3: config xi: card vs the port\'s CPU plain path at 4 points', lp[:4], lp_cpu, XI_X64_ATOL,
+                g[:4], g_cpu, XI_X64_GRAD_RTOL)
+    out['launches_hessian'], out['hessian_errors'] = check_start_hessian(
+        xi, xi_cpu, 'config xi', {'u': reference['hessian_u'], 'hessian': reference['hessian']},
+        expect_coeff_grad=False)  # the BAO template's coefficients do not vary by chain
+    s = np.linspace(40., 140., 26)
+    theory_golden('phase 3', DampedBAOWigglesTracerCorrelationFunctionMultipoles(
+        ells=(0, 2), s=s, template=BAOPowerSpectrumTemplate(z=0.8)), golden, 'damped_bao_xi')
+    for name, kwargs in (('ept_xi', dict(resum=None)), ('ept_xi_resum', {})):
+        theory_golden('phase 3', EPTTracerCorrelationFunctionMultipoles(
+            ells=(0, 2), s=s, template=ShapeFitPowerSpectrumTemplate(z=0.8), **kwargs), golden, name,
+            x64=reference[name + '_x64'])
+    return xi, fn, out
+
+
+def time_xi_kernel(smi, device):
+    """Phase 4 at config xi's shapes (:func:`xi_cases`' two batches): the
+    Clenshaw kernel's device time by CUDA-graph replay beside its bound, its
+    plain version's time, and at B = 4096 the nearest library call's
+    (``torch.special.chebyshev_polynomial_t`` over (B, Q, order), an einsum
+    with the coefficients, then exp: 2.8 G elements; at 65536 it would need
+    45 G). Returns {label: numbers}."""
+    import torch
+    from desilike_tpu_torch.ops import cuda_kernels
+    out = {}
+    for case in xi_cases()[:2]:
+        rows, q, order = case['rows'], case['q'], case['order']
+        x, c = case_inputs(case, device, seed=2)
+        entry = out['{}x{} order {}'.format(rows, q, order)] = {}
+        runs = [time_graph(lambda: cuda_kernels.clenshaw(x, c)) for _ in range(2)]
+        entry['ms'], entry['runs'] = float(np.mean(runs)), runs
+        entry['bound_ms'], entry['bound_by'] = clenshaw_bound_ms(rows, q, order, False)
+        entry['plain_ms'] = time_cuda(lambda: cuda_kernels.clenshaw_reference(x, c), 3, warmup=1)
+
+        def library_call():  # every T_j(x) materialised, then a contraction and exp
+            degrees = torch.arange(order, device=device)
+            return torch.exp(torch.einsum('bqj,j->bq', torch.special.chebyshev_polynomial_t(x[..., None], degrees), c))
+
+        entry['library_ms'] = time_cuda(library_call, 3, warmup=1) if rows == BATCH else None
+        print('phase 4: config-xi shape {}x{} order {} shared exp on {!r}: Clenshaw {:.4f} ms a launch (CUDA-graph '
+              'replay, runs {}), bound {:.4f} ms ({}), {:.1%} of it, plain version {:.4f} ms, '
+              'chebyshev_polynomial_t + einsum + exp {} ms'.format(
+                  rows, q, order, smi, entry['ms'], ['%.4f' % t for t in runs], entry['bound_ms'], entry['bound_by'],
+                  entry['bound_ms'] / entry['ms'], entry['plain_ms'],
+                  entry['library_ms'] and round(entry['library_ms'], 4)))
+        del x, c
+        torch.cuda.empty_cache()
+    return out
 
 
 def run_samplers(joint, ept, smi):
@@ -1001,6 +1200,19 @@ def main(kernels_only=False):
             batch, rel))
         if not rel <= 1e-4:
             raise AssertionError('kernel x-gradient disagrees with autograd of clenshaw_reference')
+    # the x-gradient at config xi's lookups: (4096, 3000) shared, order 230, exp'd
+    x, c = case_inputs(xi_cases()[0], cuda)
+    weight = torch.tensor(np.random.default_rng(4).normal(size=tuple(x.shape)), dtype=torch.float32, device=cuda)
+    xk, xr = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    (clenshaw(xk, c) * weight).sum().backward()
+    (clenshaw_reference(xr, c) * weight).sum().backward()
+    torch.cuda.synchronize()
+    rel = float((xk.grad - xr.grad).abs().max() / xr.grad.abs().max())
+    print('phase 2: {} x-gradient through the kernel vs autograd of the plain version: max err relative to max '
+          '{:.3e} (tol {:.0e})'.format(case_label(xi_cases()[0]), rel, KERNEL_RTOL))
+    if not rel <= KERNEL_RTOL:
+        raise AssertionError('kernel x-gradient disagrees with autograd of clenshaw_reference at config xi\'s shape')
+    del x, c, weight, xk, xr
     print('phase 2: {} kernel cases agree with clenshaw_reference: max abs err {:.3e}, relative {:.3e} (tol {:.0e})'.format(
         len(kernel_cases()), max_abs_err, max_rel, KERNEL_RTOL))
 
@@ -1126,6 +1338,8 @@ def main(kernels_only=False):
         ells=(0, 2), k=k29, template=ShapeFitPowerSpectrumTemplate(z=0.8)), golden, 'eft_kaiser')
     ept, efn, config3 = check_config3(golden)
     enames = ept.pipeline.varied_params.names()
+    xi, xfn, config_xi = check_config_xi(golden)
+    xnames = xi.pipeline.varied_params.names()
     print('phases 1 to 3 took {:.1f} s'.format(time.perf_counter() - started))
 
     # --- phase 4: times (reported, not gated) ---
@@ -1206,12 +1420,14 @@ def main(kernels_only=False):
                                                          ['%.4f' % t for t in runs], bound_ms, bound_by))
     del x, c, w, y
     ept_timed = time_ept_kernels(smi, cuda)
+    xi_timed = time_xi_kernel(smi, cuda)
     cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES = saved
 
     rates = {}
     for label, function, varied, batches in (('config 1', fn, names, (BATCH, BIG_BATCH)),
                                              ('config 4', jfn, jnames, (BATCH, JOINT_BIG_BATCH)),
-                                             ('config 3', efn, enames, (BATCH, EPT_BIG_BATCH))):
+                                             ('config 3', efn, enames, (BATCH, EPT_BIG_BATCH)),
+                                             ('config xi', xfn, xnames, (BATCH, BIG_BATCH))):
         for batch in batches:
             fixed = chains(varied, batch, seed=1, device=cuda)
             with torch.no_grad():
@@ -1219,7 +1435,7 @@ def main(kernels_only=False):
             rates[label, batch] = batch / forward_ms * 1e3
             line = 'phase 4: {} logpost at B={} on {!r}: {:.4f} ms a call, {:.0f} evals/s'.format(
                 label, batch, smi, forward_ms, rates[label, batch])
-            if batch == BATCH or label == 'config 3':
+            if batch == BATCH or label in ('config 3', 'config xi'):
                 # gradients accumulate; harmless
                 backward_ms = time_cuda(lambda: function(fixed)[0].sum().backward(), 10 if batch == BATCH else 3)
                 rates[label, batch, 'gradient'] = batch / backward_ms * 1e3
@@ -1256,7 +1472,12 @@ def main(kernels_only=False):
                              for label, rows, q in timed if rows == HESSIAN_ROWS},
         'launches_config3': launches3[0], 'launches_chees_step_config3': samplers['launches_chees_step_config3'][0],
         **{key + '_config3': {label: entry[key] for label, entry in ept_timed.items()}
-           for key in ('ms', 'bound_ms', 'plain_ms')}}, {
+           for key in ('ms', 'bound_ms', 'plain_ms')},
+        'launches_config_xi': config_xi['launches']['with gradient', BATCH][0],
+        'launches_config_xi_forward': config_xi['launches']['forward', BATCH][0],
+        'launches_hessian_config_xi': config_xi['launches_hessian'][0],
+        **{key + '_config_xi': {label: entry[key] for label, entry in xi_timed.items()}
+           for key in ('ms', 'bound_ms', 'plain_ms', 'library_ms')}}, {
         'name': 'clenshaw_coeff_grad', 'route': 'cuda', 'source': 'desilike_tpu_torch/csrc/clenshaw_coeff_grad.cu',
         'replaces': 'desilike_tpu/ops/pallas_kernels.py:30', 'launches': launches4[1],
         'launches_forward': forward4[1], 'launches_with_gradient': launches4[1], 'max_abs_err': grad_abs_err,
@@ -1274,10 +1495,12 @@ def main(kernels_only=False):
            for key in ('ms', 'bound_ms', 'plain_ms', 'library_ms')}}],
         'evals_per_s': {' '.join(str(part) for part in key): rate for key, rate in rates.items()},
         'host_syncs_forward': host_syncs,
-        'config3': {'build_s': config3['build_s'],
-                    'launches': {'{} {}'.format(*key): value for key, value in config3['launches'].items()},
-                    'max_memory_gib': {'{} {}'.format(*key): value
-                                       for key, value in config3['max_memory_gib'].items()}}}))
+        **{name: {'build_s': numbers['build_s'],
+                  'launches': {'{} {}'.format(*key): value for key, value in numbers['launches'].items()},
+                  'max_memory_gib': {'{} {}'.format(*key): value for key, value in numbers['max_memory_gib'].items()}}
+           for name, numbers in (('config3', config3), ('config_xi', config_xi))},
+        'hessian_errors_config_xi': config_xi['hessian_errors'],
+        'host_syncs_forward_config_xi': {batch: config_xi['host_syncs', batch] for batch in (BATCH, BIG_BATCH)}}))
     print(json.dumps({'samplers': samplers, 'card': smi}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
                                              'count': torch.cuda.device_count()}}))

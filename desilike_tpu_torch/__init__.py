@@ -2,11 +2,12 @@
 
 A second package beside ``desilike_tpu`` (the JAX reference). It ports the
 single-tracer BAO likelihood, the joint two-tracer full-shape + BAO
-likelihood and the 1-loop EPT full-shape likelihood: calculator graph with
-namespaces, host-side fiducial cosmology, BAO and ShapeFit templates,
-damped-wiggle, (EFT-like) Kaiser and 1-loop EPT theories (FFTLog one-loop
-tables, IR resummation, both prior bases), windowed observables, analytic
-covariance and the Gaussian likelihood with analytic marginalization over
+likelihood, the 1-loop EPT full-shape likelihood and the
+correlation-function BAO likelihood: calculator graph with namespaces,
+host-side fiducial cosmology, BAO and ShapeFit templates, damped-wiggle,
+(EFT-like) Kaiser and 1-loop EPT theories (FFTLog one-loop tables, IR
+resummation, both prior bases) in P(k) and, by the FFTLog Hankel transform,
+in xi(s), windowed observables, analytic covariance and the Gaussian likelihood with analytic marginalization over
 static and per-chain linear bases; and the gradient samplers over it
 (``samplers``: ChEES, NUTS, HMC, MCLMC) with their chains and diagnostics
 (``samples``).
@@ -25,6 +26,9 @@ from .core import Calculator, Pipeline
 from .theories import (DampedBAOWigglesTracerPowerSpectrumMultipoles, BAOPowerSpectrumTemplate,
                        ShapeFitPowerSpectrumTemplate, KaiserTracerPowerSpectrumMultipoles,
                        EFTLikeKaiserTracerPowerSpectrumMultipoles, EPTTracerPowerSpectrumMultipoles,
-                       EPTTracerCorrelationFunctionMultipoles)
-from .observables import TracerPowerSpectrumMultipolesObservable, BoxFootprint
+                       DampedBAOWigglesCorrelationFunctionMultipoles, DampedBAOWigglesTracerCorrelationFunctionMultipoles,
+                       KaiserTracerCorrelationFunctionMultipoles,
+                       EFTLikeKaiserTracerCorrelationFunctionMultipoles, EPTTracerCorrelationFunctionMultipoles)
+from .observables import (TracerPowerSpectrumMultipolesObservable, TracerCorrelationFunctionMultipolesObservable,
+                          BoxFootprint)
 from .likelihoods import ObservablesGaussianLikelihood

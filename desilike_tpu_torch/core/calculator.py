@@ -185,18 +185,18 @@ class Calculator(BaseClass):
     def get(self):
         return self
 
-    def const(self, name):
+    def const(self, name, dtype=None):
         """Host attribute ``name`` (numpy) as a tensor of the current
-        evaluation's dtype and device; cached until the attribute is
-        reassigned."""
+        evaluation's dtype (or ``dtype``) and device; cached until the
+        attribute is reassigned."""
         value = getattr(self, name)
         cache = self.__dict__.setdefault('_const_cache', {})
         entry = cache.get(name)
         if entry is None or entry[0] is not value:
             entry = cache[name] = (value, {})
-        key = (self.dtype, self.device)
+        key = (dtype or self.dtype, self.device)
         if key not in entry[1]:
-            entry[1][key] = torch.as_tensor(np.asarray(value), dtype=self.dtype, device=self.device)
+            entry[1][key] = torch.as_tensor(np.asarray(value), dtype=key[0], device=self.device)
         return entry[1][key]
 
     @property

@@ -4,7 +4,10 @@
 likelihood, as numpy arrays, into a built port likelihood, so that both
 compute with identical tables. That separates "the per-evaluation compute
 agrees" from "the host initialization agrees". The arrays are those that
-``scripts/make_torch_port_reference.py`` writes: ``STATE_KEYS``. The other
+``scripts/make_torch_port_reference.py`` writes: ``STATE_KEYS``. A
+correlation-function observable carries the same ones: its window matrix
+(onto the theory's s grid) and the tables of the template under its
+theory's P(k) node. The other
 readers of the JAX package's ``interop.py`` (measured data, window files)
 wait for ROADMAP A12.
 """

@@ -155,7 +155,8 @@ class BaseLikelihood(Calculator):
         left = [n for i, n in enumerate(names) if i not in sidx and i not in aidx]
         if left:
             raise NotImplementedError('solved parameters {} have neither a static design matrix nor an analytic '
-                                      'basis: the linearize path is ROADMAP A8'.format(left))
+                                      'basis (a correlation-function theory has none for its power node\'s '
+                                      'counterterms): the linearize path is ROADMAP A8'.format(left))
         if aidx and 0 < marg_idx.size < nsolved:
             raise NotImplementedError("'.best' and '.marg' solved parameters mixed with per-chain design rows")
         ns, na = len(sidx), len(aidx)

@@ -1,9 +1,8 @@
-"""Footprints and analytic Gaussian covariance of power-spectrum multipoles.
+"""Footprints and analytic Gaussian covariance of multipole observables.
 
 Counterpart of ``desilike_tpu/observables/covariance.py``: host-side
-float64 numpy, assembled once at initialization. The pk-pk branch is
-ported; cut-sky footprints and the xi-xi / pk-xi branches wait for the
-correlation-function path (ROADMAP A10).
+float64 numpy, assembled once at initialization, for the pk-pk, xi-xi and
+pk-xi blocks. Cut-sky footprints wait for ROADMAP A12.
 """
 
 import numpy as np
@@ -11,6 +10,7 @@ import torch
 from scipy import special
 
 from ..utils import BaseClass, is_sequence
+from ..ops.legendre import trapz_weights
 
 
 def integral_legendre_product(ells):
@@ -60,9 +60,10 @@ class BoxFootprint(BaseFootprint):
 
 
 class ObservablesCovarianceMatrix(BaseClass):
-    """Analytic Gaussian covariance for power-spectrum multipole observables:
-    evaluate the observables' theories at given parameters (host float64),
-    then assemble per-bin covariances."""
+    """Analytic Gaussian covariance for power-spectrum and correlation-function
+    multipole observables: evaluate the observables' theories at given
+    parameters (host float64), then assemble per-bin covariances from the
+    pk multipoles (the pk node under a xi-from-pk theory)."""
 
     def __init__(self, observables, footprints=None, theories=None, resolution=3):
         if not is_sequence(observables):
@@ -87,7 +88,8 @@ class ObservablesCovarianceMatrix(BaseClass):
             pipe = Pipeline(obs)
             pipe.host_evaluate(params)
             if self.theories[io] is None:
-                # last calculator exposing (k, power tensor): the pk multipoles node
+                # last calculator exposing (k, power tensor): the pk multipoles node, also under
+                # a xi-from-pk theory (whose ``power`` is that node)
                 theory = None
                 for calc in pipe.calculators[::-1]:
                     power = getattr(calc, 'power', None)
@@ -106,39 +108,29 @@ class ObservablesCovarianceMatrix(BaseClass):
         self.covariance = np.block(blocks)
         return self.covariance
 
+    @staticmethod
+    def _obs_kind(obs):
+        return 'xi' if hasattr(obs.wmatrix, 'sedges') else 'pk'
+
+    @staticmethod
+    def _obs_size(obs):
+        grids = obs.wmatrix.s if hasattr(obs.wmatrix, 'sedges') else obs.wmatrix.k
+        return sum(len(g) for g in grids)
+
     def _run(self, io1, io2):
         obs1, obs2 = self.observables[io1], self.observables[io2]
         fp1, fp2 = self.footprints[io1], self.footprints[io2]
-        th1, th2 = self.theories[io1], self.theories[io2]
         if io1 != io2 and (fp1 is not fp2):
             # different tracers: no cross-covariance
-            return np.zeros((sum(len(k) for k in obs1.wmatrix.k), sum(len(k) for k in obs2.wmatrix.k)))
-        volume = float((fp1 & fp2).volume)
-
-        def make_pk(theory, footprint):
-            k = np.asarray(theory.k)
-            power = theory.power.detach().cpu().numpy().reshape(-1, len(theory.ells), len(k))[0]
-            ells = tuple(theory.ells)
-            sn = float(footprint.shotnoise)
-
-            def pk(kq, ell):
-                return np.interp(kq, k, power[ells.index(ell)] + (ell == 0) * sn)
-            pk.ells = ells
-            return pk
-
-        pk1, pk2 = make_pk(th1, fp1), make_pk(th2, fp2)
-
-        def sigma_k(ell1, ell2, kq):
-            pref = (2 * ell1 + 1) * (2 * ell2 + 1) / volume
-            out = 0.
-            for la in pk1.ells:
-                for lb in pk2.ells:
-                    out += pk1(kq, la) * pk2(kq, lb) * integral_legendre_product((la, lb, ell1, ell2))
-            return pref * out
-
-        def bin_volume(lo, hi):
-            return 4. / 3. * np.pi * (hi ** 3 - lo ** 3)
-
+            return np.zeros((self._obs_size(obs1), self._obs_size(obs2)))
+        kinds = (self._obs_kind(obs1), self._obs_kind(obs2))
+        if kinds == ('xi', 'pk'):
+            return self._run_cross(io2, io1).T
+        if kinds == ('pk', 'xi'):
+            return self._run_cross(io1, io2)
+        if kinds == ('xi', 'xi'):
+            return self._run_xi(io1, io2)
+        sigma_k = self._sigma_k_fn(io1, io2)
         cov_rows = []
         for ill1, ell1 in enumerate(obs1.wmatrix.ells):
             row_blocks = []
@@ -152,9 +144,114 @@ class ObservablesCovarianceMatrix(BaseClass):
                         if lo >= hi:
                             continue
                         kq = np.linspace(lo, hi, self.resolution + 2)[1:-1]
-                        block[i1, i2] = (2. * np.pi) ** 3 * bin_volume(lo, hi) \
-                            / (bin_volume(lo1, hi1) * bin_volume(lo2, hi2)) \
+                        block[i1, i2] = (2. * np.pi) ** 3 * _bin_volume(lo, hi) \
+                            / (_bin_volume(lo1, hi1) * _bin_volume(lo2, hi2)) \
                             * np.sum(kq ** 2 * sigma_k(ell1, ell2, kq)) / np.sum(kq ** 2)
                 row_blocks.append(block)
             cov_rows.append(row_blocks)
         return np.block(cov_rows)
+
+    def _sigma_k_fn(self, io1, io2, remove_zero_lag=False):
+        """sigma_k(ell1, ell2, k): the Gaussian covariance of the pk
+        multipoles (shot noise included) of observables io1 and io2 per unit
+        k-space volume, from their pk theories at the evaluated parameters;
+        without the zero-lag shot-noise product if ``remove_zero_lag``."""
+        fp1, fp2 = self.footprints[io1], self.footprints[io2]
+        volume = float((fp1 & fp2).volume)
+
+        def make_pk(theory, footprint):
+            k = np.asarray(theory.k)
+            power = theory.power.detach().cpu().numpy().reshape(-1, len(theory.ells), len(k))[0]
+            ells = tuple(theory.ells)
+            sn = float(footprint.shotnoise)
+
+            def pk(kq, ell):
+                return np.interp(kq, k, power[ells.index(ell)] + (ell == 0) * sn)
+            pk.ells = ells
+            pk.shotnoise = sn
+            return pk
+
+        pk1, pk2 = make_pk(self.theories[io1], fp1), make_pk(self.theories[io2], fp2)
+
+        def sigma_k(ell1, ell2, kq):
+            pref = (2 * ell1 + 1) * (2 * ell2 + 1) / volume
+            out = 0.
+            for la in pk1.ells:
+                for lb in pk2.ells:
+                    zero_lag = remove_zero_lag * (la == 0) * (lb == 0) * pk1.shotnoise * pk2.shotnoise
+                    out += (pk1(kq, la) * pk2(kq, lb) - zero_lag) * integral_legendre_product((la, lb, ell1, ell2))
+            return pref * out
+        sigma_k.shotnoises = (pk1.shotnoise, pk2.shotnoise)
+        sigma_k.volume = volume
+        return sigma_k
+
+    def _run_xi(self, io1, io2):
+        """xi-xi Gaussian covariance:
+        C = Re(i^(l1+l2)) / (2 pi^2) int k^2 dk sigma_k(k) w_l1(k) w_l2(k)
+        with w_l the bin-averaged spherical Bessel weights, plus the
+        bin-overlap shot-noise term."""
+        obs1, obs2 = self.observables[io1], self.observables[io2]
+        sigma_k = self._sigma_k_fn(io1, io2, remove_zero_lag=True)
+        k1 = np.asarray(self.theories[io1].k)
+        k2 = np.asarray(self.theories[io2].k)
+        kq = k1[(k1 >= max(k1.min(), k2.min())) & (k1 <= min(k1.max(), k2.max()))]
+        wk = trapz_weights(kq)
+
+        def bessel_weight(ell, lo, hi):
+            s = np.linspace(lo, hi, self.resolution + 2)[1:-1]
+            return np.sum(s[:, None] ** 2 * special.spherical_jn(ell, s[:, None] * kq), axis=0) / np.sum(s ** 2)
+
+        cov_rows = []
+        for ill1, ell1 in enumerate(obs1.wmatrix.ells):
+            row = []
+            edges1 = obs1.wmatrix.sedges[ill1]
+            for ill2, ell2 in enumerate(obs2.wmatrix.ells):
+                edges2 = obs2.wmatrix.sedges[ill2]
+                sig = sigma_k(ell1, ell2, kq)
+                sign = np.sign(np.real(1j ** (ell1 + ell2)))
+                w2 = np.array([bessel_weight(ell2, lo, hi) for (lo, hi) in edges2])
+                w1 = np.array([bessel_weight(ell1, lo, hi) for (lo, hi) in edges1])
+                block = sign / (2. * np.pi ** 2) * np.einsum('ak,bk,k->ab', w1, w2, kq ** 2 * wk * sig)
+                # shot-noise contribution on overlapping bins
+                sn_amp = (integral_legendre_product((0, 0, ell1, ell2))
+                          * sigma_k.shotnoises[0] * sigma_k.shotnoises[1]
+                          * (2 * ell1 + 1) * (2 * ell2 + 1) / sigma_k.volume)
+                for i1, (lo1, hi1) in enumerate(edges1):
+                    for i2, (lo2, hi2) in enumerate(edges2):
+                        lo, hi = max(lo1, lo2), min(hi1, hi2)
+                        if lo < hi:
+                            block[i1, i2] += sign * _bin_volume(lo, hi) / (
+                                _bin_volume(lo1, hi1) * _bin_volume(lo2, hi2)) * sn_amp
+                row.append(block)
+            cov_rows.append(row)
+        return np.block(cov_rows)
+
+    def _run_cross(self, io_pk, io_xi):
+        """pk-xi cross covariance."""
+        obs_pk, obs_xi = self.observables[io_pk], self.observables[io_xi]
+        sigma_k = self._sigma_k_fn(io_pk, io_xi)
+
+        def get_integ_points(lo, hi):
+            return np.linspace(lo, hi, self.resolution + 2)[1:-1]
+
+        cov_rows = []
+        for ill1, ell1 in enumerate(obs_pk.wmatrix.ells):
+            row = []
+            edges_k = obs_pk.wmatrix.kedges[ill1]
+            for ill2, ell2 in enumerate(obs_xi.wmatrix.ells):
+                edges_s = obs_xi.wmatrix.sedges[ill2]
+                block = np.zeros((len(edges_k), len(edges_s)))
+                for i1, (klo, khi) in enumerate(edges_k):
+                    kq = get_integ_points(klo, khi)
+                    sig = sigma_k(ell1, ell2, kq)
+                    for i2, (slo, shi) in enumerate(edges_s):
+                        s = get_integ_points(slo, shi)
+                        w = np.sum(s[:, None] ** 2 * special.spherical_jn(ell2, s[:, None] * kq), axis=0) / np.sum(s ** 2)
+                        block[i1, i2] = np.sign(np.real(1j ** ell2)) * np.sum(kq ** 2 * sig * w) / np.sum(kq ** 2)
+                row.append(block)
+            cov_rows.append(row)
+        return np.block(cov_rows)
+
+
+def _bin_volume(lo, hi):
+    return 4. / 3. * np.pi * (hi ** 3 - lo ** 3)

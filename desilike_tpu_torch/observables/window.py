@@ -1,9 +1,10 @@
 """Window-matrix convolution of theory multipoles.
 
 Counterpart of ``desilike_tpu/observables/window.py`` on the continuous
-bin-integration path (``wmatrix=None`` or ``{'resolution': n}``): the
+bin-integration path (P(k): ``wmatrix=None`` or ``{'resolution': n}``;
+xi(s): resolution 3, or the window of measured RR(s, mu) pair counts): the
 matrix is assembled host-side in float64, and the per-evaluation path is
-one batched matmul, flat theory (B, nell * nkin) -> (B, nflat). Output
+one batched matmul, flat theory (B, nell * nin) -> (B, nflat). Output
 grids given as k centers, shot-noise subtraction, external window formats,
 explicit (kin, matrix) windows, fiber collisions and systematic templates
 wait for ROADMAP A12.
@@ -69,6 +70,65 @@ def window_matrix_bininteg(list_edges, resolution=1):
     return xin, np.block(rows)  # (sum nbins, nells * nin)
 
 
+def window_matrix_RR(soutedges, sedges, muedges, wcounts, ellsin=(0, 2, 4), resolution=1):
+    r"""xi window matrix from measured RR(s, mu) pair counts: incomplete or
+    non-uniform mu coverage of the random pairs weights the Legendre
+    projection, mixing input multipoles.
+
+    Parameters
+    ----------
+    soutedges : dict ell -> (nout, 2) output bin edges
+    sedges : RR s-edges, (ns+1,) or (ns, 2)
+    muedges : mu-edges, (nmu+1,)
+    wcounts : (ns, nmu) RR weighted pair counts
+    ellsin : input theory multipoles
+    resolution : bin-integration points per fine RR bin
+
+    Returns (sin, matrix with shape (sum_l nout_l, nellsin * nsin)).
+    """
+    from numpy.polynomial.legendre import Legendre
+    sedges = np.asarray(sedges, dtype='f8')
+    if sedges.ndim == 1:
+        sedges = np.column_stack([sedges[:-1], sedges[1:]])
+    muedges = np.asarray(muedges, dtype='f8')
+    wcounts = np.asarray(wcounts, dtype='f8')
+    ns = len(sedges)
+    sin, binm = window_matrix_bininteg([sedges], resolution=resolution)  # (ns, nsin)
+    blocks = []
+    for ellout, edges_out in soutedges.items():
+        edges_out = np.asarray(edges_out, dtype='f8')
+        if edges_out.ndim == 1:
+            edges_out = np.column_stack([edges_out[:-1], edges_out[1:]])
+        start = np.flatnonzero(np.isclose(sedges[:, 0], edges_out[0, 0]))
+        if not start.size:
+            raise ValueError('output edges start {} not found in RR s-edges'.format(edges_out[0, 0]))
+        start = int(start[0])
+        factor = int(np.rint((edges_out[0, 1] - edges_out[0, 0]) / (sedges[start, 1] - sedges[start, 0])))
+        if factor < 1:
+            raise ValueError('RR s-resolution is coarser than the requested output binning')
+        nout = len(edges_out)
+        row = []
+        for ellin in ellsin:
+            integ = (Legendre.basis(ellout) * Legendre.basis(ellin)).integ()
+            legint = integ(muedges[1:]) - integ(muedges[:-1])       # per mu bin
+            # per-fine-bin mu-average coefficient, grouped by output bin: the
+            # shares wc_f / sum_f wc_f carry the RR s-profile within an output
+            # bin as the fine-bin weight (volumetric for uniform randoms)
+            M = np.zeros((ns, nout))
+            for iout in range(nout):
+                iin = start + factor * iout
+                wc = wcounts[iin:iin + factor]                       # (factor, nmu)
+                wcmu = wc.sum(axis=0)
+                nonzero = wcmu != 0.
+                frac = wc / np.where(nonzero, wcmu, 1.)
+                covered = np.sum(nonzero * np.diff(muedges))
+                M[iin:iin + factor, iout] = (2. * ellout + 1.) * np.einsum('fm,m->f', frac, nonzero * legint) \
+                    / (covered if covered > 0. else 1.)
+            row.append(M.T @ binm)                                   # (nout, nsin)
+        blocks.append(row)
+    return sin, np.block(blocks)
+
+
 class WindowedPowerSpectrumMultipoles(Calculator):
     """Window-convolved theory P_l(k).
 
@@ -116,3 +176,62 @@ class WindowedPowerSpectrumMultipoles(Calculator):
 
     def get(self):
         return self.flatpower
+
+
+class WindowedCorrelationFunctionMultipoles(Calculator):
+    """Window-convolved (binned) theory xi_l(s).
+
+    Parameters
+    ----------
+    slim : dict ell -> (smin, smax[, step])
+        Output limits and binning per multipole (step 4 by default).
+    s, ells : output s centers and multipoles, instead of ``slim``.
+    wmatrix : {'sedges', 'muedges', 'wcounts'[, 'ellsin', 'resolution']}, optional
+        The window of measured RR(s, mu) pair counts (:func:`window_matrix_RR`);
+        otherwise bin integration at resolution 3.
+    theory : theory xi multipoles calculator
+    """
+
+    def initialize(self, slim=None, s=None, ells=None, theory=None, wmatrix=None, fiber_collisions=None,
+                   systematic_templates=None):
+        if fiber_collisions is not None or systematic_templates is not None:
+            raise NotImplementedError('window options fiber_collisions= and systematic_templates= are ROADMAP A12')
+        if theory is None:
+            from ..theories.bao import DampedBAOWigglesTracerCorrelationFunctionMultipoles
+            theory = DampedBAOWigglesTracerCorrelationFunctionMultipoles()
+        self.theory = theory
+        if slim is not None:
+            self.ells = tuple(sorted(slim.keys()))
+            self.sedges, self.s = [], []
+            for ell in self.ells:
+                lim = slim[ell]
+                step = lim[2] if len(lim) > 2 else 4.
+                edges = np.arange(lim[0], lim[1] + step / 2., step)
+                self.sedges.append(np.column_stack([edges[:-1], edges[1:]]))
+                self.s.append((edges[:-1] + edges[1:]) / 2.)
+        else:
+            if s is None:
+                s = np.linspace(20., 150., 33)
+            self.ells = tuple(ells) if ells is not None else (0, 2)
+            self.s = [np.asarray(s, dtype='f8')] * len(self.ells)
+            self.sedges = []
+            for ss in self.s:
+                edges = np.concatenate([[ss[0] - (ss[1] - ss[0]) / 2.], (ss[1:] + ss[:-1]) / 2.,
+                                        [ss[-1] + (ss[-1] - ss[-2]) / 2.]])
+                self.sedges.append(np.column_stack([edges[:-1], edges[1:]]))
+        if isinstance(wmatrix, dict) and 'wcounts' in wmatrix:
+            self.ellsin = tuple(wmatrix.get('ellsin', (0, 2, 4)))
+            self.sin, self.wmatrix = window_matrix_RR(dict(zip(self.ells, self.sedges)), wmatrix['sedges'],
+                                                      wmatrix['muedges'], wmatrix['wcounts'], ellsin=self.ellsin,
+                                                      resolution=int(wmatrix.get('resolution', 1)))
+        else:
+            self.ellsin = self.ells
+            self.sin, self.wmatrix = window_matrix_bininteg(self.sedges, resolution=3)
+        self.theory.init.update(s=self.sin, ells=self.ellsin)
+
+    def calculate(self, **params):
+        corr = self.theory.corr
+        self.flatcorr = corr.reshape(corr.shape[:-2] + (-1,)) @ self.const('wmatrix').T
+
+    def get(self):
+        return self.flatcorr

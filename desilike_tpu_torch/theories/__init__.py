@@ -1,8 +1,17 @@
-from .base import APEffect, BaseTheoryPowerSpectrumMultipoles, WedgesMixin, ap_k_mu
+from .base import (APEffect, BaseTheoryPowerSpectrumMultipoles, BaseTheoryCorrelationFunctionMultipoles,
+                   BaseTheoryCorrelationFunctionFromPowerSpectrumMultipoles, WedgesMixin, ap_k_mu, ap_s_mu)
 from .power_template import BasePowerSpectrumTemplate, BAOPowerSpectrumTemplate, ShapeFitPowerSpectrumTemplate
 from .bao import (BaseBAOWigglesPowerSpectrumMultipoles, DampedBAOWigglesPowerSpectrumMultipoles,
-                  BaseBAOWigglesTracerPowerSpectrumMultipoles, DampedBAOWigglesTracerPowerSpectrumMultipoles)
+                  BaseBAOWigglesTracerPowerSpectrumMultipoles, DampedBAOWigglesTracerPowerSpectrumMultipoles,
+                  BaseBAOWigglesCorrelationFunctionMultipoles, DampedBAOWigglesCorrelationFunctionMultipoles,
+                  SimpleBAOWigglesCorrelationFunctionMultipoles, ResummedBAOWigglesCorrelationFunctionMultipoles,
+                  FlexibleBAOWigglesCorrelationFunctionMultipoles, BaseBAOWigglesTracerCorrelationFunctionMultipoles,
+                  DampedBAOWigglesTracerCorrelationFunctionMultipoles,
+                  SimpleBAOWigglesTracerCorrelationFunctionMultipoles,
+                  ResummedBAOWigglesTracerCorrelationFunctionMultipoles,
+                  FlexibleBAOWigglesTracerCorrelationFunctionMultipoles)
 from .full_shape import (BasePTPowerSpectrumMultipoles, KaiserPowerSpectrumMultipoles,
                          BaseTracerPowerSpectrumMultipoles, KaiserTracerPowerSpectrumMultipoles,
-                         EFTLikeKaiserTracerPowerSpectrumMultipoles)
+                         EFTLikeKaiserTracerPowerSpectrumMultipoles, BaseTracerCorrelationFunctionMultipoles,
+                         KaiserTracerCorrelationFunctionMultipoles, EFTLikeKaiserTracerCorrelationFunctionMultipoles)
 from .ept import EPTTracerPowerSpectrumMultipoles, EPTTracerCorrelationFunctionMultipoles

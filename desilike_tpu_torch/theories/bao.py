@@ -1,13 +1,15 @@
-"""BAO theory models: damped wiggles + broadband power spectrum multipoles.
+"""BAO theory models: damped wiggles + broadband, power spectrum and
+correlation function multipoles.
 
 Counterpart of ``desilike_tpu/theories/bao.py`` for the damped-wiggle model
 (the 'standard' propagator form and the Howlett et al. 2023 family) and its
-tracer wrapper with the 'power'/'power3' broadband. Per evaluation: AP-remap
-(k, mu) over the chain batch -> Chebyshev lookups of the fiducial pk and
-no-wiggle pk (the Clenshaw kernel) -> damped wiggle combination -> Legendre
-projection -> broadband ``(B, nb) @ (nb, nell * nk)``. The simple,
-resummed and flexible models, spline broadband kernels and the xi models
-wait for ROADMAP A10 and A11.
+tracer wrappers: in P(k) with the 'power'/'power3' broadband, in xi(s) with
+the s^-2, s^-1, s^0 broadband. Per evaluation: AP-remap (k, mu) over the
+chain batch -> Chebyshev lookups of the fiducial pk and no-wiggle pk (the
+Clenshaw kernel) -> damped wiggle combination -> Legendre projection ->
+(xi only: the static landing, the FFTLog transform and the interpolation
+onto s) -> broadband ``(B, nb) @ (nb, nell * n)``. The simple, resummed and
+flexible models and the spline broadband kernels wait for ROADMAP A11.
 """
 
 import re
@@ -15,7 +17,8 @@ import re
 import numpy as np
 import torch
 
-from .base import BaseTheoryPowerSpectrumMultipoles, WedgesMixin, _col
+from .base import BaseTheoryPowerSpectrumMultipoles, BaseTheoryCorrelationFunctionFromPowerSpectrumMultipoles, \
+    WedgesMixin, _col
 from .power_template import BAOPowerSpectrumTemplate
 
 
@@ -205,3 +208,122 @@ class BaseBAOWigglesTracerPowerSpectrumMultipoles(BaseTheoryPowerSpectrumMultipo
 
 class DampedBAOWigglesTracerPowerSpectrumMultipoles(BaseBAOWigglesTracerPowerSpectrumMultipoles):
     _pt_cls = DampedBAOWigglesPowerSpectrumMultipoles
+
+
+class BaseBAOWigglesCorrelationFunctionMultipoles(BaseTheoryCorrelationFunctionFromPowerSpectrumMultipoles):
+    """Wiggle-only BAO xi_l(s), no broadband: the FFTLog transform of the
+    wiggle P_l(k) model ``_pt_power_cls``, which holds the model parameters."""
+
+    _pt_power_cls = None  # set by subclasses
+
+    @classmethod
+    def _params(cls, init):
+        params = BaseBAOWigglesTracerPowerSpectrumMultipoles._params(init)
+        return {name: cfg for name, cfg in params.items() if not name.startswith('al')}
+
+    def initialize(self, s=None, ells=(0, 2), **kwargs):
+        super().initialize(s=s, power=self._pt_power_cls(), ells=ells, **kwargs)
+        self._set_broadband()
+        # the model parameters move to the power node: this node keeps the broadband
+        for param in list(self.params):
+            if param.basename not in self._broadband_names and param.derived is not True:
+                self.power.init.params.set(param)
+                del self.params[param.name]
+        self.power.runtime_info.initialized = False
+
+    def _set_broadband(self):
+        self._broadband_names = []
+
+
+class DampedBAOWigglesCorrelationFunctionMultipoles(BaseBAOWigglesCorrelationFunctionMultipoles):
+    """xi counterpart of :class:`DampedBAOWigglesPowerSpectrumMultipoles`."""
+
+    _pt_power_cls = DampedBAOWigglesPowerSpectrumMultipoles
+
+
+class BaseBAOWigglesTracerCorrelationFunctionMultipoles(BaseBAOWigglesCorrelationFunctionMultipoles):
+    """BAO xi_l(s) with the broadband al{ell}_{n} s^n, n in (-2, -1, 0), per
+    multipole: the broadband coefficients enter linearly with a static basis."""
+
+    _pt_power_cls = DampedBAOWigglesPowerSpectrumMultipoles
+    _static_linear_solved = ('al*',)
+
+    @classmethod
+    def _params(cls, init):
+        params = super()._params(init)
+        for ell in tuple(init.get('ells', (0, 2))):
+            for pow in range(-2, 1):
+                params['al{:d}_{:d}'.format(ell, pow)] = dict(
+                    value=0., ref=dict(limits=[-1e-2, 1e-2]), delta=0.002,
+                    latex='a_{{{:d},{:d}}}'.format(ell, pow))
+        return params
+
+    def _set_broadband(self):
+        """Classify the al{ell}_{n} parameters per multipole and stack their
+        static basis into one (nb, nell * ns) design matrix."""
+        self.broadband_orders = {}
+        for param in list(self.params):
+            match = re.match(r'al(\d+)_(-?\d+)', param.basename)
+            if match:
+                ell, pow = int(match.group(1)), int(match.group(2))
+                if ell in self.ells:
+                    self.broadband_orders.setdefault(ell, {})[param.basename] = pow
+                else:
+                    del self.params[param.name]
+        self._broadband_names, rows = [], []
+        for ill, ell in enumerate(self.ells):
+            for name, pow in self.broadband_orders.get(ell, {}).items():
+                row = np.zeros((len(self.ells), len(self.s)))
+                row[ill] = self.s ** pow
+                rows.append(row.ravel())
+                self._broadband_names.append(name)
+        self.broadband_design = np.array(rows).reshape(len(rows), len(self.ells) * len(self.s))
+
+    def calculate(self, **params):
+        corr = self.get_corr(self.power.power)
+        if self._broadband_names:
+            coeffs = torch.stack([params[name] for name in self._broadband_names], dim=-1)
+            corr = corr + (coeffs @ self.const('broadband_design')).reshape(corr.shape)
+        self.corr = corr
+
+
+class DampedBAOWigglesTracerCorrelationFunctionMultipoles(BaseBAOWigglesTracerCorrelationFunctionMultipoles):
+    _pt_power_cls = DampedBAOWigglesPowerSpectrumMultipoles
+
+
+class _RemainingBAOModel(object):
+    """The simple, resummed and flexible BAO models, in P(k) and xi(s), are
+    ported with the remaining theories."""
+
+    _params = None
+
+    def initialize(self, *args, **kwargs):
+        raise NotImplementedError('{}: the simple, resummed and flexible BAO models are ROADMAP A11'.format(
+            type(self).__name__))
+
+
+class SimpleBAOWigglesCorrelationFunctionMultipoles(_RemainingBAOModel, BaseBAOWigglesCorrelationFunctionMultipoles):
+    pass
+
+
+class ResummedBAOWigglesCorrelationFunctionMultipoles(_RemainingBAOModel, BaseBAOWigglesCorrelationFunctionMultipoles):
+    pass
+
+
+class FlexibleBAOWigglesCorrelationFunctionMultipoles(_RemainingBAOModel, BaseBAOWigglesCorrelationFunctionMultipoles):
+    pass
+
+
+class SimpleBAOWigglesTracerCorrelationFunctionMultipoles(_RemainingBAOModel,
+                                                          BaseBAOWigglesTracerCorrelationFunctionMultipoles):
+    pass
+
+
+class ResummedBAOWigglesTracerCorrelationFunctionMultipoles(_RemainingBAOModel,
+                                                            BaseBAOWigglesTracerCorrelationFunctionMultipoles):
+    pass
+
+
+class FlexibleBAOWigglesTracerCorrelationFunctionMultipoles(_RemainingBAOModel,
+                                                            BaseBAOWigglesTracerCorrelationFunctionMultipoles):
+    pass

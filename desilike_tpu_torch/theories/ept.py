@@ -26,8 +26,9 @@ integrals of P_nw against the fiducial sound horizon, loops run on the
 LO-resummed input, and the tree term carries the full mu-dependent damping
 with the leading-order wiggle correction (1 + k^2 Sigma_tot^2).
 
+The correlation-function multipoles are the FFTLog transform of these.
 The default ``DirectPowerSpectrumTemplate`` waits for ROADMAP A11 (pass
-``template=``), the correlation-function multipoles for A10.
+``template=``).
 """
 
 import re
@@ -39,6 +40,7 @@ from ..ops.spt import OneLoopIntegrals
 from ..ops.spt_fftlog import FFTLogOneLoop, SIGMA_V2_Q
 from ..ops.chebyshev import ChebyshevLogInterp
 from .base import BaseTheoryPowerSpectrumMultipoles, WedgesMixin, _col
+from .full_shape import BaseTracerCorrelationFunctionMultipoles
 
 
 def physical_stochastic_settings(tracer=None):
@@ -444,10 +446,8 @@ class EPTTracerPowerSpectrumMultipoles(BaseTheoryPowerSpectrumMultipoles, Wedges
         return self.power
 
 
-class EPTTracerCorrelationFunctionMultipoles(BaseTheoryPowerSpectrumMultipoles):
-    """1-loop EPT tracer xi_l(s): the FFTLog Hankel transform of the pk model
-    waits for the correlation-function path (ROADMAP A10)."""
+class EPTTracerCorrelationFunctionMultipoles(BaseTracerCorrelationFunctionMultipoles):
+    """1-loop EPT tracer xi_l(s): the FFTLog transform of the EPT P_l(k)
+    multipoles on k = geomspace(1e-4, 0.6, 300), resummed or not."""
 
-    def initialize(self, **kwargs):
-        raise NotImplementedError('the EPT correlation-function multipoles need the FFTLog Hankel transform '
-                                  'and the xi path: ROADMAP A10')
+    _power_cls = EPTTracerPowerSpectrumMultipoles

@@ -8,8 +8,9 @@ with a ShapeFit template) -> Legendre projection of pk_dd, pk_dt, pk_tt ->
 bias combination -> counterterms ``(B, nct) x (nell, nk, nct)`` times pk11
 and stochastic terms. The bias/counterterm structure stays explicitly
 linear, which is what the analytic marginalization uses. The
-correlation-function classes and ``SimpleTracerPowerSpectrumMultipoles``
-wait for ROADMAP A10 and A11.
+correlation-function classes are the FFTLog transforms of these P(k)
+multipoles (:class:`BaseTheoryCorrelationFunctionFromPowerSpectrumMultipoles`).
+``SimpleTracerPowerSpectrumMultipoles`` waits for ROADMAP A11.
 """
 
 import re
@@ -17,7 +18,8 @@ import re
 import numpy as np
 import torch
 
-from .base import BaseTheoryPowerSpectrumMultipoles, WedgesMixin, _col
+from .base import BaseTheoryPowerSpectrumMultipoles, BaseTheoryCorrelationFunctionFromPowerSpectrumMultipoles, \
+    WedgesMixin, _col
 
 
 class BasePTPowerSpectrumMultipoles(BaseTheoryPowerSpectrumMultipoles, WedgesMixin):
@@ -167,3 +169,21 @@ class EFTLikeKaiserTracerPowerSpectrumMultipoles(KaiserTracerPowerSpectrumMultip
         if self.stochastic_params:
             sn = torch.stack([params[name] for name in self.stochastic_params], dim=-1)
             self.power = self.power + torch.einsum('bc,clk->blk', sn, self.const('stochastic_matrix')) / self.nd
+
+
+class BaseTracerCorrelationFunctionMultipoles(BaseTheoryCorrelationFunctionFromPowerSpectrumMultipoles):
+    """Tracer xi_l(s) from the matching tracer P_l(k) ``_power_cls``, which
+    holds the parameters; ``template=`` and the other options go to it."""
+
+    _power_cls = KaiserTracerPowerSpectrumMultipoles
+
+    def initialize(self, s=None, ells=(0, 2, 4), **kwargs):
+        super().initialize(s=s, power=self._power_cls(), ells=ells, **kwargs)
+
+
+class KaiserTracerCorrelationFunctionMultipoles(BaseTracerCorrelationFunctionMultipoles):
+    _power_cls = KaiserTracerPowerSpectrumMultipoles
+
+
+class EFTLikeKaiserTracerCorrelationFunctionMultipoles(BaseTracerCorrelationFunctionMultipoles):
+    _power_cls = EFTLikeKaiserTracerPowerSpectrumMultipoles

@@ -11,6 +11,15 @@ writes its reference file under ``tests/data``:
   full-shape likelihood: ShapeFit template, IR-resummed EPT multipoles
   (0, 2, 4), counterterms and stochastic terms marginalized) ->
   ``torch_port_ept_reference.npz``;
+- ``xi``: config xi, config 1's likelihood in configuration space
+  (:func:`build_xi_likelihood`: damped BAO xi multipoles (0, 2) over 48-152
+  Mpc/h in 4 Mpc/h bins, broadband ``al*`` marginalized, the xi-xi Gaussian
+  covariance) -> ``torch_port_xi_reference.npz``, with besides (see
+  :func:`xi_extras`) the start-point Hessian of its samplers' log-density,
+  its xi-xi covariance and the covariance of config 1's P(k) observable
+  beside its xi observable on one footprint (pk-pk, pk-xi, xi-xi), and the
+  xi theory vectors at the golden parameters, all in float64 (x64), and the
+  Kaiser and EFT-like Kaiser xi vectors in float32;
 - ``hessian``: config 4's log-density in the gradient samplers' unconstrained
   space (``NUTSSampler._logdens_grad``: the logit transform of the bounded
   parameters and its log-Jacobian), its gradient and its Hessian, in
@@ -48,8 +57,8 @@ with numpy alone, and ``tests/test_torch_bao_likelihood.py`` and
 JAX package so that the files cannot go stale.
 
 Run from the repository root:
-``JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py [bao|joint|ept|hessian]``
-(all four when no name is given).
+``JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py [bao|joint|ept|xi|hessian]``
+(all five when no name is given).
 """
 
 import os
@@ -61,7 +70,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUTPUTS = {name: os.path.join(ROOT, 'tests', 'data', 'torch_port_{}_reference.npz'.format(name))
-           for name in ('bao', 'joint', 'ept', 'hessian')}
+           for name in ('bao', 'joint', 'ept', 'xi', 'hessian')}
 NPOINTS = 16
 HESSIAN_STEP = 1e-4  # central differences of the x64 gradient in the unconstrained space
 
@@ -85,10 +94,108 @@ def reference_points(names, npoints=NPOINTS, seed=0):
     return np.column_stack(columns)
 
 
+# the parameter values of tests/test_golden.py that the xi theories take, and its s grid
+GOLDEN_VALUES = {'qpar': 1.02, 'qper': 0.98, 'b1': 1.8, 'sigmapar': 9., 'sigmaper': 6., 'sigmas': 2., 'dbeta': 1.1,
+                 'df': 1.05, 'dm': 0.02, 'sn0': 500., 'ct0_2': 10., 'ct2_2': 5., 'b2': 0.5, 'bs': -0.2}
+GOLDEN_S = np.linspace(40., 140., 26)
+
+
+def build_xi_likelihood(pk_observable=False):
+    """Config xi in the JAX package: ``__graft_entry__._build_likelihood``
+    in configuration space. With ``pk_observable``, returns (config 1's P(k)
+    observable, the xi observable, their footprint) instead."""
+    from desilike_tpu.theories import (DampedBAOWigglesTracerCorrelationFunctionMultipoles, BAOPowerSpectrumTemplate,
+                                       DampedBAOWigglesTracerPowerSpectrumMultipoles)
+    from desilike_tpu.observables import (TracerCorrelationFunctionMultipolesObservable,
+                                          TracerPowerSpectrumMultipolesObservable, BoxFootprint)
+    from desilike_tpu.likelihoods import ObservablesGaussianLikelihood
+    theory = DampedBAOWigglesTracerCorrelationFunctionMultipoles(
+        ells=(0, 2), template=BAOPowerSpectrumTemplate(z=0.8, apmode='qparqper'))
+    theory.init.params = {'al*': dict(derived='.marg')}
+    observable = TracerCorrelationFunctionMultipolesObservable(
+        data={'qpar': 1.0, 'qper': 1.0, 'b1': 2.0}, slim={0: (48., 152., 4.), 2: (48., 152., 4.)}, theory=theory)
+    footprint = BoxFootprint(volume=2e9, nbar=5e-4)
+    if pk_observable:
+        pk_theory = DampedBAOWigglesTracerPowerSpectrumMultipoles(
+            ells=(0, 2), template=BAOPowerSpectrumTemplate(z=0.8, apmode='qparqper'))
+        pk = TracerPowerSpectrumMultipolesObservable(
+            data={'qpar': 1.0, 'qper': 1.0, 'b1': 2.0}, klim={0: (0.02, 0.3, 0.005), 2: (0.02, 0.3, 0.005)},
+            theory=pk_theory)
+        return pk, observable, footprint
+    return ObservablesGaussianLikelihood(observables=[observable], footprints=[footprint])
+
+
+def golden_xi_theories():
+    """{name: (xi theory, built as tests/test_golden.py builds the goldens)}:
+    the three xi goldens and the Kaiser and EFT-like Kaiser xi multipoles."""
+    from desilike_tpu.theories import (DampedBAOWigglesTracerCorrelationFunctionMultipoles, BAOPowerSpectrumTemplate,
+                                       ShapeFitPowerSpectrumTemplate, EPTTracerCorrelationFunctionMultipoles,
+                                       KaiserTracerCorrelationFunctionMultipoles,
+                                       EFTLikeKaiserTracerCorrelationFunctionMultipoles)
+    return {
+        'damped_bao_xi': DampedBAOWigglesTracerCorrelationFunctionMultipoles(
+            ells=(0, 2), s=GOLDEN_S, template=BAOPowerSpectrumTemplate(z=0.8)),
+        'ept_xi': EPTTracerCorrelationFunctionMultipoles(
+            ells=(0, 2), s=GOLDEN_S, template=ShapeFitPowerSpectrumTemplate(z=0.8), resum=None),
+        'ept_xi_resum': EPTTracerCorrelationFunctionMultipoles(
+            ells=(0, 2), s=GOLDEN_S, template=ShapeFitPowerSpectrumTemplate(z=0.8)),
+        'kaiser_xi': KaiserTracerCorrelationFunctionMultipoles(
+            ells=(0, 2, 4), s=GOLDEN_S, template=ShapeFitPowerSpectrumTemplate(z=0.8)),
+        'eft_kaiser_xi': EFTLikeKaiserTracerCorrelationFunctionMultipoles(
+            ells=(0, 2), s=GOLDEN_S, template=ShapeFitPowerSpectrumTemplate(z=0.8))}
+
+
+def xi_theory_vectors(names):
+    """The xi multipoles of :func:`golden_xi_theories` ``names`` at the golden
+    parameter values, in the package's current dtype, as float64 numpy."""
+    from desilike_tpu.core import Pipeline
+    out = {}
+    for name, theory in golden_xi_theories().items():
+        if name in names:
+            pipe = Pipeline(theory)
+            allowed = set(pipe.params.basenames())
+            pipe.evaluate({key: value for key, value in GOLDEN_VALUES.items() if key in allowed})
+            out[name] = np.asarray(theory.corr, dtype='f8')
+    return out
+
+
+def xi_extras(path):
+    """Config xi's float64 (x64) extras, written to ``path``: the
+    samplers' start-point log-density, gradient and Hessian (central
+    differences of the x64 gradient, step HESSIAN_STEP in u) at the first
+    reference point; the xi-xi covariance; the covariance of config 1's
+    P(k) observable and the xi observable on one footprint; and the xi
+    theory vectors at the golden parameters."""
+    import jax
+    import jax.numpy as jnp
+    from desilike_tpu.samplers import NUTSSampler
+    from desilike_tpu.observables.covariance import ObservablesCovarianceMatrix
+
+    like = build_xi_likelihood()
+    sampler = NUTSSampler(like, nchains=1)
+    names = sampler.names
+    point = reference_points(names)[0].astype('f4').astype('f8')
+    u = np.asarray(sampler._unconstrain(point))
+    step = HESSIAN_STEP * np.eye(len(u))
+    logdens, grad = jax.jit(jax.vmap(sampler._logdens_grad()))(jnp.asarray(np.concatenate([u[None], u + step, u - step])))
+    grad = np.asarray(grad)
+    pk, xi, footprint = build_xi_likelihood(pk_observable=True)
+    arrays = dict(hessian_names=np.array(names), hessian_point=point, hessian_u=u,
+                  hessian_logdens=np.asarray(logdens)[0], hessian_grad=grad[0],
+                  hessian=(grad[1:1 + len(u)] - grad[1 + len(u):]) / (2. * HESSIAN_STEP),
+                  covariance_xi=np.asarray(like.covariance, dtype='f8'),
+                  covariance_pk_xi=np.asarray(ObservablesCovarianceMatrix([pk, xi], footprints=footprint)(), dtype='f8'))
+    for name, vector in xi_theory_vectors(list(golden_xi_theories())).items():
+        arrays[name + '_x64'] = vector
+    np.savez(path, **arrays)
+
+
 def build_jax_likelihood(config):
     if config == 'bao':
         import __graft_entry__
         return __graft_entry__._build_likelihood()
+    if config == 'xi':
+        return build_xi_likelihood()
     if config == 'ept':
         import importlib.util
         spec = importlib.util.spec_from_file_location('bench_ept', os.path.join(ROOT, 'scripts', 'bench_ept.py'))
@@ -158,17 +265,26 @@ def build_reference(config):
         arrays['pk_dd_fid' + suffix] = np.asarray(template.pk_dd_fid, dtype='f8')
         arrays['pknow_dd_fid' + suffix] = np.asarray(template.pknow_dd_fid, dtype='f8')
         arrays['wmatrix' + suffix] = np.asarray(observable.wmatrix.wmatrix, dtype='f8')
+    if config == 'xi':
+        arrays.update(xi_theory_vectors(['kaiser_xi', 'eft_kaiser_xi']))
+        arrays.update(run_x64('--x64-xi-extras'))
     return arrays
+
+
+def run_x64(mode):
+    """Run this script with ``mode`` (a child mode that writes one .npz) in
+    float64 in a child process; returns its arrays."""
+    env = dict(os.environ, JAX_PLATFORMS='cpu', JAX_ENABLE_X64='1', DESILIKE_TPU_X64='1')
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'x64.npz')
+        subprocess.run([sys.executable, os.path.abspath(__file__), mode, path], env=env, check=True)
+        return dict(np.load(path))
 
 
 def build_hessian_reference():
     """Config 4's unconstrained log-density, gradient and Hessian at the first
     reference point, computed in float64 in a child process."""
-    env = dict(os.environ, JAX_PLATFORMS='cpu', JAX_ENABLE_X64='1', DESILIKE_TPU_X64='1')
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, 'hessian.npz')
-        subprocess.run([sys.executable, os.path.abspath(__file__), '--x64-hessian', path], env=env, check=True)
-        return dict(np.load(path))
+    return run_x64('--x64-hessian')
 
 
 def evaluate_hessian(path):
@@ -195,6 +311,11 @@ if __name__ == '__main__':
         import jax
         jax.config.update('jax_platforms', 'cpu')
         evaluate_hessian(sys.argv[2])
+        sys.exit(0)
+    if sys.argv[1:2] == ['--x64-xi-extras']:
+        import jax
+        jax.config.update('jax_platforms', 'cpu')
+        xi_extras(sys.argv[2])
         sys.exit(0)
     if sys.argv[1:2] == ['--x64']:
         import jax

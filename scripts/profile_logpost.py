@@ -1,24 +1,33 @@
 """Where a log-posterior call spends its time on one CUDA card.
 
-Builds config 1, 3 or 4 of ``chip_smoke.py`` on the card and, for the
+Builds config 1, 3, 4 or xi of ``chip_smoke.py`` on the card and, for the
 forward call and for the call with its gradient, at each batch of seeded
 chains:
 
 - times the call on the host's clock (10 calls ending in a synchronise);
 - runs ``torch.profiler`` over 5 calls and reports, a call: the CUDA kernels
   launched, the device-busy time (the sum of the kernels' durations), the
-  share of the wall time the card is idle, the kernels that take the
+  share of the wall time the card is idle, the host's time in each CUDA
+  runtime call, the card's largest idle gaps between two kernels (with the
+  kernels around them), the kernels that take the
   most device time, by name, the device time by kind of kernel (GEMM,
   cuFFT, the Clenshaw kernels, MAGMA, reductions, the rest elementwise),
   and by the operator that launched it with its input shapes; for config 3
   also the shares of the FFTLog quadratic forms (B6: the products with a
   130-wide operand) and of the static landing and radial pieces (B7: the
-  products with a 25056- or 256-wide operand), forward and backward.
+  products with a 25056- or 256-wide operand), forward and backward; for
+  config xi the device time by stage (``xi_stages_ms_a_call``): the
+  Clenshaw kernel, the landing GEMM (a 1105-wide operand), cuFFT, the
+  product onto s (a 78-wide operand), the window and solve (the matrix
+  products with a 156-, 52- or 6-wide operand: window, whitening and
+  design matrices; and MAGMA), the other matrix products, and the
+  elementwise rest (reductions included); the products by the device time
+  of the operators that launched them, the rest by kind of kernel.
 
 Prints one JSON line per (mode, batch), each with the card's name and power
 limit, and writes them to ``--out`` if given.
 
-    python3 scripts/profile_logpost.py [--config 1|3|4] [--batches 4096 32768] [--out FILE]
+    python3 scripts/profile_logpost.py [--config 1|3|4|xi] [--batches 4096 32768] [--out FILE]
 """
 
 import argparse
@@ -54,9 +63,26 @@ def loop_stage(shapes):
     return None
 
 
+def xi_stage(shapes):
+    """Config xi's stage of a matrix-product operator, from its input shapes:
+    'landing' (a 1105-wide operand: the landing of pk onto the FFTLog grid
+    up to the last k of the P(k) model), 'onto_s' (a 78-wide one: the
+    interpolation onto the window's s, and the tail's term), 'window_solve'
+    (a 156-, 52- or 6-wide one: the window, whitening and design matrices),
+    else 'other_gemm'."""
+    dims = {d for shape in shapes for d in shape}
+    if 1105 in dims:
+        return 'landing'
+    if 78 in dims:
+        return 'onto_s'
+    if dims & {156, 52, 6}:
+        return 'window_solve'
+    return 'other_gemm'
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
-    parser.add_argument('--config', type=int, choices=(1, 3, 4), default=4)
+    parser.add_argument('--config', choices=('1', '3', '4', 'xi'), default='4')
     parser.add_argument('--batches', type=int, nargs='+', default=[4096, 32768])
     parser.add_argument('--out', default=None, help='file the JSON lines are also written to')
     args = parser.parse_args()
@@ -68,8 +94,8 @@ def main():
     import chip_smoke
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    like = {1: chip_smoke.build_likelihood, 3: chip_smoke.build_ept_likelihood,
-            4: chip_smoke.build_joint_likelihood}[args.config](None)
+    like = {'1': chip_smoke.build_likelihood, '3': chip_smoke.build_ept_likelihood,
+            '4': chip_smoke.build_joint_likelihood, 'xi': chip_smoke.build_xi_likelihood}[args.config](None)
     fn = like.logpost_fn()
     names = like.pipeline.varied_params.names()
     lines = []
@@ -103,13 +129,21 @@ def main():
             kernels = collections.Counter()
             busy_us = collections.Counter()
             kinds = collections.Counter()
+            runtime_us = collections.Counter()
+            spans = []
             for event in prof.events():
                 if event.device_type == torch.autograd.DeviceType.CUDA:
                     us = event.device_time if hasattr(event, 'device_time') else event.cuda_time
                     kernels[event.name] += 1
                     busy_us[event.name] += us
                     kinds[kind(event.name)] += us
+                    spans.append((event.time_range.start, event.time_range.end, event.name))
+                elif event.name.startswith('cuda'):  # the host's CUDA runtime calls
+                    runtime_us[event.name] += event.time_range.elapsed_us()
             device_ms = sum(busy_us.values()) / calls * 1e-3
+            # the card's idle gaps between consecutive kernels, largest first, with the kernels around them
+            spans.sort()
+            gaps = sorted(((b[0] - a[1], a[2], b[2]) for a, b in zip(spans, spans[1:])), reverse=True)
             ops, stages = [], collections.Counter()
             for average in prof.key_averages(group_by_input_shape=True):
                 if average.device_type != torch.autograd.DeviceType.CPU:  # the kernels themselves: counted above
@@ -120,8 +154,8 @@ def main():
                     continue
                 shapes = [tuple(shape) for shape in (average.input_shapes or []) if shape]
                 ops.append((us, average.key, shapes))
-                stage = loop_stage(shapes) if args.config == 3 and any(
-                    k in average.key for k in ('mm', 'matmul', 'mv', 'dot')) else None
+                product = any(k in average.key for k in ('mm', 'matmul', 'mv', 'dot', 'einsum', 'linear'))
+                stage = {'3': loop_stage, 'xi': xi_stage}.get(args.config, lambda _: None)(shapes) if product else None
                 if stage:
                     stages[stage] += us
             ops.sort(key=lambda op: -op[0])
@@ -133,9 +167,19 @@ def main():
                     'top': [{'name': name[:80], 'launches_a_call': kernels[name] / calls,
                              'device_ms_a_call': us / calls * 1e-3} for name, us in busy_us.most_common(12)],
                     'top_ops': [{'op': key, 'shapes': str(shapes)[:160], 'device_ms_a_call': us / calls * 1e-3}
-                                for us, key, shapes in ops[:15]]}
-            if args.config == 3:
+                                for us, key, shapes in ops[:15]],
+                    'host_runtime_ms_a_call': {k: us / calls * 1e-3 for k, us in runtime_us.most_common(8)},
+                    'largest_gaps': [{'ms': us * 1e-3, 'after': before[:60], 'before': after[:60]}
+                                     for us, before, after in gaps[:8]]}
+            if args.config == '3':
                 line['loop_stages_ms_a_call'] = {k: us / calls * 1e-3 for k, us in stages.items()}
+            if args.config == 'xi':
+                # the matrix products by stage (device time of the operators that launched them), MAGMA
+                # beside the window and solve; the kinds of kernel for the rest
+                line['xi_stages_ms_a_call'] = dict(
+                    {k: us / calls * 1e-3 for k, us in stages.items()}, magma=kinds['magma'] / calls * 1e-3,
+                    clenshaw=kinds['clenshaw'] / calls * 1e-3, cufft=kinds['cufft'] / calls * 1e-3,
+                    elementwise=(kinds['elementwise'] + kinds['reduction']) / calls * 1e-3)
             lines.append(json.dumps(line))
             print(lines[-1], flush=True)
     if args.out:

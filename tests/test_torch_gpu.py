@@ -226,6 +226,53 @@ def test_ept_logpost_on_card_matches_cpu(cuda):
     assert (np.linalg.norm(g - g_cpu, axis=-1) / np.linalg.norm(g_cpu, axis=-1)).max() < EPT_X64_GRAD_RTOL
 
 
+def test_xi_logpost_on_card_matches_cpu(cuda):
+    """Config xi on the card, where a likelihood built with no device runs
+    (the kernel at (B, 3000, 230) shared, forward and backward; the rfft/irfft
+    pair), against the port's CPU plain path, both float32, at 4 frozen
+    points, and the JAX x64 values; tolerances of chip_smoke.py."""
+    from chip_smoke import build_xi_likelihood, XI_X64_ATOL, XI_X64_GRAD_RTOL
+    reference = np.load(os.path.join(os.path.dirname(__file__), 'data', 'torch_port_xi_reference.npz'))
+    names = list(reference['names'])
+    results = []
+    for device in (None, 'cpu'):  # no device: the card
+        like = build_xi_likelihood(device)
+        values = {n: torch.tensor(reference['points'][:4, i], dtype=torch.float32, device=like.pipeline.device,
+                                  requires_grad=True) for i, n in enumerate(names)}
+        before = (cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES)
+        logpost, _ = like.logpost_fn()(values)
+        logpost.sum().backward()
+        launched = (cuda_kernels.CLENSHAW_LAUNCHES - before[0], cuda_kernels.COEFF_GRAD_LAUNCHES - before[1])
+        assert like.pipeline.device.type == (device or 'cuda')
+        # forward: pk and the no-wiggle pk at the AP-remapped (k, mu), the no-wiggle pk at the observed k;
+        # backward: the x-gradient series of the first two; the template's coefficients are constant
+        assert launched == ((5, 0) if device is None else (0, 0))
+        grad = torch.stack([values[n].grad for n in names], dim=-1)
+        results.append((logpost.detach().cpu().numpy(), grad.cpu().numpy()))
+    (lp, g), (lp_cpu, g_cpu) = results
+    for expected, expected_grad in ((lp_cpu, g_cpu), (reference['logpost_x64'][:4], reference['grad_x64'][:4])):
+        np.testing.assert_allclose(lp, expected, rtol=0., atol=XI_X64_ATOL)
+        assert (np.linalg.norm(g - expected_grad, axis=-1) / np.linalg.norm(expected_grad, axis=-1)).max() \
+            < XI_X64_GRAD_RTOL
+
+
+def test_xi_goldens_on_card(cuda):
+    """The xi theories built with no device run on the card: ``damped_bao_xi``
+    against its golden vector, ``ept_xi`` against the JAX x64 vector
+    (chip_smoke.theory_golden)."""
+    from chip_smoke import theory_golden
+    from desilike_tpu_torch import (DampedBAOWigglesTracerCorrelationFunctionMultipoles, BAOPowerSpectrumTemplate,
+                                    EPTTracerCorrelationFunctionMultipoles, ShapeFitPowerSpectrumTemplate)
+    golden = np.load(os.path.join(os.path.dirname(__file__), 'data', 'golden_theories.npz'))
+    reference = np.load(os.path.join(os.path.dirname(__file__), 'data', 'torch_port_xi_reference.npz'))
+    s = np.linspace(40., 140., 26)
+    theory_golden('card', DampedBAOWigglesTracerCorrelationFunctionMultipoles(
+        ells=(0, 2), s=s, template=BAOPowerSpectrumTemplate(z=0.8)), golden, 'damped_bao_xi')
+    theory_golden('card', EPTTracerCorrelationFunctionMultipoles(
+        ells=(0, 2), s=s, template=ShapeFitPowerSpectrumTemplate(z=0.8), resum=None), golden, 'ept_xi',
+        x64=reference['ept_xi_x64'])
+
+
 @pytest.mark.parametrize('case', [dict(rows=4096, q=288, order=202, per_row=True, log_values=True),
                                   dict(rows=4096, q=560, order=202, per_row=False, log_values=True)], ids=case_label)
 def test_derivatives_through_the_kernels(cuda, case):

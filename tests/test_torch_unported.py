@@ -1,20 +1,29 @@
-"""Options of the port's full-shape theories that are not ported yet raise
-``NotImplementedError`` naming what is missing or its ROADMAP item. The
-theories themselves are held against the JAX package in
-``tests/test_torch_full_shape.py``; these cases live apart so that that
-file holds fewer tests than ``tests/test_bindings.py``: pytest-xdist's
-``--dist loadfile`` hands out the files with more tests first, and
-``tests/test_bindings.py``, the longest file, sets the tier-1 run's wall
-time by when it starts.
+"""Options of the port's theories, observables and likelihood that are not
+ported yet raise ``NotImplementedError`` naming what is missing or its
+ROADMAP item. The modules themselves are held against the JAX package in
+``tests/test_torch_full_shape.py``, ``tests/test_torch_xi.py`` and the
+likelihood files; these cases live apart so that those files hold fewer
+tests than ``tests/test_bindings.py``: pytest-xdist's ``--dist loadfile``
+hands out the files with more tests first, and ``tests/test_bindings.py``,
+the longest file, sets the tier-1 run's wall time by when it starts. The
+cases here take well under a second each.
 """
 
 import types
 
+import numpy as np
 import pytest
 
-from desilike_tpu_torch import (Pipeline, ShapeFitPowerSpectrumTemplate, KaiserTracerPowerSpectrumMultipoles,
-                                EPTTracerPowerSpectrumMultipoles, EPTTracerCorrelationFunctionMultipoles)
+from desilike_tpu_torch import (Pipeline, ShapeFitPowerSpectrumTemplate, BAOPowerSpectrumTemplate,
+                                KaiserTracerPowerSpectrumMultipoles, EPTTracerPowerSpectrumMultipoles,
+                                DampedBAOWigglesTracerCorrelationFunctionMultipoles,
+                                EFTLikeKaiserTracerCorrelationFunctionMultipoles,
+                                TracerCorrelationFunctionMultipolesObservable, BoxFootprint,
+                                ObservablesGaussianLikelihood)
+from desilike_tpu_torch import theories
 from test_golden import K
+
+SLIM = {0: (48., 152., 4.), 2: (48., 152., 4.)}
 
 
 @pytest.mark.parametrize('kwargs, match', [(dict(with_now='wallish2018'), 'peakaverage'), (dict(only_now=True), 'only_now')])
@@ -30,11 +39,6 @@ def test_pt_without_template_raises(cls):
         Pipeline(cls(ells=(0, 2), k=K, device='cpu'))
 
 
-def test_ept_correlation_function_raises():
-    with pytest.raises(NotImplementedError, match='A10'):
-        Pipeline(EPTTracerCorrelationFunctionMultipoles(template=ShapeFitPowerSpectrumTemplate(z=0.8), device='cpu'))
-
-
 def test_eh99_scale_dependent_growth_raises():
     """A template on the eh99 engine has a scale-dependent f(k), which the
     EPT and Kaiser theories read through ``f_of_k``: it waits for A11."""
@@ -43,3 +47,44 @@ def test_eh99_scale_dependent_growth_raises():
     template.cosmo = types.SimpleNamespace(engine='eh99')
     with pytest.raises(NotImplementedError, match='eh99.*A11'):
         template.f_of_k(K)
+
+
+@pytest.mark.parametrize('name', ['SimpleBAOWigglesCorrelationFunctionMultipoles',
+                                  'ResummedBAOWigglesCorrelationFunctionMultipoles',
+                                  'FlexibleBAOWigglesCorrelationFunctionMultipoles',
+                                  'SimpleBAOWigglesTracerCorrelationFunctionMultipoles',
+                                  'ResummedBAOWigglesTracerCorrelationFunctionMultipoles',
+                                  'FlexibleBAOWigglesTracerCorrelationFunctionMultipoles'])
+def test_remaining_bao_correlation_functions_raise(name):
+    """The simple, resummed and flexible BAO xi models wait for their P(k)
+    models (A11)."""
+    with pytest.raises(NotImplementedError, match='A11'):
+        Pipeline(getattr(theories, name)(template=BAOPowerSpectrumTemplate(z=0.8), device='cpu'))
+
+
+def test_solved_counterterms_through_xi_raise():
+    """A correlation-function theory has no analytic basis for its power
+    node's counterterms, so solving ct* through xi needs the linearize path
+    (A8); the stochastic terms keep their static design matrix."""
+    theory = EFTLikeKaiserTracerCorrelationFunctionMultipoles(ells=(0, 2), template=ShapeFitPowerSpectrumTemplate(z=0.8))
+    observable = TracerCorrelationFunctionMultipolesObservable(data={'b1': 2.}, slim=SLIM, theory=theory)
+    like = ObservablesGaussianLikelihood(observables=[observable], footprints=[BoxFootprint(volume=2e9, nbar=5e-4)],
+                                         device='cpu')
+    # the parameters live on the xi node's P(k) node: solve them on the pipeline
+    like.pipeline.params.update({'ct*': dict(derived='.marg'), 'sn*': dict(derived='.marg')}, basename=True)
+    assert like.pipeline.solved_params.names() == ['sn0', 'ct0_2', 'sn0_2', 'ct2_2', 'sn2_2']
+    with pytest.raises(NotImplementedError, match=r"\['ct0_2', 'ct2_2'\].*correlation-function.*A8"):
+        like.logpost_fn()
+
+
+@pytest.mark.parametrize('kwargs', [dict(fiber_collisions=object()), dict(systematic_templates={'syst': np.ones(52)}),
+                                    dict(data=np.zeros(52)), dict(covariance=np.eye(52))],
+                         ids=['fiber_collisions', 'systematic_templates', 'array_data', 'covariance'])
+def test_unported_xi_observable_options_raise(kwargs):
+    """Fiber collisions, systematic templates, measured data vectors and
+    covariances attached to the observable wait for A12."""
+    theory = DampedBAOWigglesTracerCorrelationFunctionMultipoles(ells=(0, 2), template=BAOPowerSpectrumTemplate(z=0.8))
+    observable = TracerCorrelationFunctionMultipolesObservable(slim=SLIM, theory=theory, device='cpu',
+                                                               **dict(dict(data={'b1': 2.}), **kwargs))
+    with pytest.raises(NotImplementedError, match='A12'):
+        observable.runtime_info.initialize()
