@@ -7,8 +7,12 @@ config-4 joint two-tracer full-shape + BAO log-posterior of
 ``bench.build_likelihood`` and the batched config-3 1-loop EPT full-shape
 log-posterior of ``scripts/bench_ept.py`` and the batched config-xi BAO
 log-posterior in configuration space (config 1's likelihood on xi
-multipoles, :func:`build_xi_likelihood`), each with its gradient, and the
-gradient samplers (ChEES, NUTS) over config 4, ChEES over config 3.
+multipoles, :func:`build_xi_likelihood`) and the batched config-3xi
+log-posterior (config 3's theory on xi multipoles, its counterterms solved
+by the linearize path, :func:`build_ept_xi_likelihood`), each with its
+gradient; the Fisher forecast of config xi and the sum of its compressed
+likelihood with config 3; and the gradient samplers (ChEES, NUTS) over
+config 4, ChEES over config 3.
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions, the
    kernel library's build time, ptxas's registers, and the blocks of each
@@ -31,9 +35,11 @@ gradient samplers (ChEES, NUTS) over config 4, ChEES over config 3.
    config 3's shapes (:func:`ept_cases`: (B, 288, 105) series and (B, 288,
    320) exp'd, per-row, B in {4096, 32768}); the series at config xi's
    (:func:`xi_cases`: (B, 3000, 230) shared, exp'd, B in {4096, 65536},
-   and the (300, 1) lookup) and its x-gradient at B = 4096; and the derivatives of the
+   and the (300, 1) lookup) and its x-gradient at B = 4096; both kernels at
+   config 3xi's (:func:`ept_xi_cases`); and the derivatives of the
    Functions that launch them (:func:`check_derivatives`:
-   ``torch.func.jvp``, ``jacfwd``, ``vmap`` and double backward) at
+   ``torch.func.jvp``, ``jacfwd``, ``vmap``, double backward and reverse
+   mode over ``vmap`` of ``jvp``) at
    (4096, 288, 202) per-row and (4096, 560, 202) shared;
 3. the likelihoods at full width. Config 1: log-posterior and gradient over
    B = 4096 seeded chains (finite, through the kernel; launches counted
@@ -60,7 +66,11 @@ gradient samplers (ChEES, NUTS) over config 4, ChEES over config 3.
    ``tests/data/torch_port_xi_reference.npz``, the start-point Hessian
    diagonal through the rfft/irfft pair, the ``damped_bao_xi`` golden
    vector, and ``ept_xi`` and ``ept_xi_resum`` against the JAX package's x64
-   vectors;
+   vectors. Config 3xi (:func:`check_config_3xi`): the same at B = 4096 and
+   at EPT_XI_BIG_BATCH (wall and device milliseconds a call), its frozen JAX x64 values and solved
+   counterterms in ``tests/data/torch_port_marg_reference.npz``, the CPU
+   path at 4 points. The Fisher of config xi and the sum
+   (:func:`check_fisher_and_sum`) against the same file;
 4. times (reported, not gated): the Clenshaw kernel's device time from
    CUDA-graph replay of 50 launches at (4096, 560, 202) shared and per-row,
    (4096, 288, 202) per-row and (65536, 560, 202) shared, the coefficient
@@ -75,7 +85,10 @@ gradient samplers (ChEES, NUTS) over config 4, ChEES over config 3.
    rows), at config 3's (:func:`time_ept_kernels`, beside their bounds,
    plain versions and, for the coefficient gradient, the library call) and
    at config xi's (:func:`time_xi_kernel`, beside its bound, plain version
-   and, at B = 4096, ``chebyshev_polynomial_t`` + einsum + exp);
+   and, at B = 4096, ``chebyshev_polynomial_t`` + einsum + exp) and at config
+   3xi's (:func:`time_ept_kernels` over :func:`ept_xi_cases`); the nearest
+   library call to the series (:func:`library_series_ms`) at configs 1, 4
+   and 3's shapes too;
 5. the samplers (:func:`run_samplers`): on config 4 ChEES over B = 4096
    chains (24 warmup and 8 sampling iterations, at most 32 leapfrog steps)
    and NUTS over 64 chains (max_depth 5); on config 3 ChEES over B = 4096
@@ -114,6 +127,9 @@ EPT_WORK_ORDER = 105  # config 3's loop tables on the working grid (96 points)
 EPT_SAMPLER_LEAPFROG = 16  # most leapfrog steps of ChEES on config 3 in phase 5
 XI_NQUERY = 3000  # config xi's lookups: the P(k) model's 300 k x 10 mu nodes a chain
 XI_ORDER = 230  # config xi's template order (2000 points from 1e-4 to 1.2)
+EPT_XI_NQUERY = 2400  # config 3xi's lookups: the EPT P(k) model's 300 k x 8 mu nodes a chain
+EPT_XI_WORK_ORDER = 205  # config 3xi's loop tables on the working grid (to 1.7 x 0.6 h/Mpc)
+EPT_XI_BIG_BATCH = 16384  # config 3xi's large batch: the largest power of two that fits with the gradient (not 32768)
 KGRID = np.geomspace(1e-4, 1., 2000)  # the config-1 template grid
 FP32_FLOPS = 67e12   # published H100 SXM FP32 rate outside the tensor cores, at 700 W
 HBM_BYTES = 3.35e12  # published H100 SXM memory rate
@@ -148,6 +164,11 @@ XI_F32_ATOL, XI_F32_GRAD_RTOL = 5e-2, 1e-2
 # largest value from the JAX package's x64 vectors: the P(k) node's own float32 rounding (1.3e-4 to 2.7e-4 on the CPU);
 # the JAX package's float32 goldens are 1.1e-2 to 4.2e-2 from them (tests/test_torch_xi.py)
 SHOT_NOISE_F32_RTOL = 1e-3
+# config 3xi against the frozen JAX x64 values at 16 points: config 3's limits; on the CPU the port is within 6e-3 of
+# the log-posterior and 1.8e-4 of the gradient's norm, its loop tables in float64 (8e-4 with them in float32; the JAX
+# package's own float32 values are 7.4e-2 and 5.1e-3 away); the solved counterterms within 1e-3 of their prior width
+SOLVED_RTOL = 1e-3
+FISHER_RTOL = 1e-3  # config xi's Fisher matrix against JAX x64: |dF_ij| <= FISHER_RTOL sqrt(F_ii F_jj)
 SAMPLER_BATCH = BATCH  # ChEES chains on config 4
 HESSIAN_ROWS = 18  # the start-point Hessian's batch: one copy of the point a varied parameter of config 4
 
@@ -239,14 +260,38 @@ def build_xi_likelihood(device):
     return like
 
 
+def build_ept_xi_likelihood(device, ells=(0, 2, 4), step=4.):
+    """Config 3xi in the port: config 3's theory (:func:`build_ept_likelihood`)
+    in configuration space, as a user builds it. IR-resummed 1-loop EPT xi
+    multipoles ``ells`` (full width: (0, 2, 4)) of the ShapeFit template at z
+    = 0.8 by FFTLog, over s = 30-150 Mpc/h in ``step`` Mpc/h bins (full
+    width: 4, 30 bins a multipole, 90 data), ``data={'b1': 2.0}``, the xi-xi
+    Gaussian covariance. The counterterms ``ct*`` are solved on the pipeline
+    (they live on the xi node's P(k) node), by the linearize path: their xi
+    node exposes no analytic basis. The stochastic terms stay varied, as the
+    xi theory leaves them (a constant shot noise does not move xi at s > 0);
+    10 varied, 3 solved. ``device=None``: the card."""
+    from desilike_tpu_torch import (EPTTracerCorrelationFunctionMultipoles, ShapeFitPowerSpectrumTemplate,
+                                    TracerCorrelationFunctionMultipolesObservable, BoxFootprint,
+                                    ObservablesGaussianLikelihood)
+    theory = EPTTracerCorrelationFunctionMultipoles(ells=ells, template=ShapeFitPowerSpectrumTemplate(z=0.8))
+    observable = TracerCorrelationFunctionMultipolesObservable(
+        data={'b1': 2.0}, slim={ell: (30., 150., step) for ell in ells}, theory=theory)
+    like = ObservablesGaussianLikelihood(observables=[observable], footprints=[BoxFootprint(volume=2e9, nbar=5e-4)],
+                                         device=device)
+    like.pipeline.params.update({'ct*': dict(derived='.marg')}, basename=True)
+    return like
+
+
 def chains(names, batch, seed, device):
     """Seeded parameter batch around the fiducial, inside the priors; b1 is
     centered on the value the tracer's data were generated with."""
     import torch
     rng = np.random.default_rng(seed)
-    center = {'qpar': 1., 'qper': 1., 'dbeta': 1., 'df': 1., 'dm': 0., 'b2': 0., 'bs': 0., 'b3nl': 0.}
+    center = {'qpar': 1., 'qper': 1., 'dbeta': 1., 'df': 1., 'dm': 0., 'b2': 0., 'bs': 0., 'b3nl': 0., 'sn0': 0.,
+              'sn2_2': 0.}
     width = {'qpar': 0.04, 'qper': 0.04, 'b1': 0.3, 'dbeta': 0.1, 'df': 0.1, 'dm': 0.05, 'b2': 0.5, 'bs': 0.5,
-             'b3nl': 0.5}
+             'b3nl': 0.5, 'sn0': 1., 'sn2_2': 5.}
     values = {}
     for name in names:
         namespace, _, basename = name.rpartition('.')
@@ -288,7 +333,9 @@ def check_derivatives(case, device):
     in c on a (4, 16) slice, ``vmap`` over a leading batch of 3 (of x, and of
     x and c), double backward (d2/dx2 and d2/(dx dc), through both
     Functions), ``torch.func.hessian`` in x and in c of a scalar on the
-    slice, and ``vmap`` of ``torch.func.grad`` in c over the batch of 3.
+    slice, ``vmap`` of ``torch.func.grad`` in c over the batch of 3, and
+    reverse mode in x and c over ``vmap`` of ``jvp`` along 3 coefficient
+    directions (the linearize path's gradient).
     Returns {label: error relative to the plain result's magnitude}; raises
     beyond KERNEL_RTOL for first derivatives, COEFF_GRAD_RTOL for the
     coefficient gradient and SECOND_RTOL for second derivatives."""
@@ -340,6 +387,18 @@ def check_derivatives(case, device):
     errors['d2_hessian_c'] = both(lambda f: hessian(scalar(f), argnums=1)(xs, cs))
     # the coefficient gradient under vmap, at the full shape over a leading batch of 3
     errors['vmap_grad_c'] = both(lambda f: vmap(grad(lambda x, c, w: (f(x, c) * w).sum(), argnums=1))(x3, c3, w3))
+    # reverse mode over vmap of jvp, what the linearize path's gradient runs: the tangents along 3 coefficient
+    # directions under vmap, then the gradient in x and in c of a scalar of them and the primal, through both
+    # Functions (the tangent rule's series, its backward's coefficient gradient)
+    ct = normal((3,) + tuple(c.shape), 1e-3)
+
+    def reverse_over_forward(f):
+        xg, cg = x.clone().requires_grad_(True), c.clone().requires_grad_(True)
+        primal, tangent = vmap(lambda t: jvp(lambda cc: f(xg, cc), (cg,), (t,)), out_dims=(None, 0))(ct)
+        return torch.autograd.grad(((tangent + primal) * w).sum(), (xg, cg))
+
+    rof = [reverse_over_forward(function) for function in (kernel, clenshaw_reference)]
+    errors['d2_rof_x'], errors['d2_rof_c'] = rel(rof[0][0], rof[1][0]), rel(rof[0][1], rof[1][1])
     if device.type == 'cuda':
         torch.cuda.synchronize()
     tolerance = dict(vmap_grad_c=COEFF_GRAD_RTOL)
@@ -403,7 +462,7 @@ def kernel_cases():
         for k in (2, 8):
             cases.append(dict(rows=BATCH, q=NQUERY, order=202, per_row=per_row, log_values=True, k=k))
     cases.append(dict(rows=56, q=1, order=202, per_row=False, log_values=True))  # the kobs lookup
-    cases += ept_cases() + xi_cases()
+    cases += ept_cases() + xi_cases() + ept_xi_cases()
     return cases
 
 
@@ -422,6 +481,15 @@ def xi_cases():
     the observed k."""
     return [dict(rows=rows, q=XI_NQUERY, order=XI_ORDER, per_row=False, log_values=True)
             for rows in (BATCH, BIG_BATCH)] + [dict(rows=300, q=1, order=XI_ORDER, per_row=False, log_values=True)]
+
+
+def ept_xi_cases():
+    """Config 3xi's launches: the loop tables' series at (B, 2400, 205) and the
+    template's exp'd lookups at (B, 2400, 320), one coefficient row a chain,
+    at B = 4096 and EPT_XI_BIG_BATCH."""
+    return [dict(rows=rows, q=EPT_XI_NQUERY, order=order, per_row=True, log_values=log_values)
+            for rows in (BATCH, EPT_XI_BIG_BATCH) for order, log_values in ((EPT_XI_WORK_ORDER, False),
+                                                                         (EPT_ORDER, True))]
 
 
 def case_label(case):
@@ -509,7 +577,7 @@ def coeff_grad_cases():
     cases.append(dict(rows=70000, q=FS_NQUERY, order=ORDER, per_row=True, log_values=True, max_grid=7))
     cases.append(dict(rows=BATCH, q=FS_NQUERY, order=ORDER, per_row=True, log_values=True, offset=1))
     cases.append(dict(rows=56, q=100, order=ORDER, per_row=True, log_values=True))  # 9 queries a lane, prefetched
-    cases += ept_cases()
+    cases += ept_cases() + ept_xi_cases()
     return cases
 
 
@@ -644,15 +712,40 @@ def host_ms(fn, calls=200):
     return elapsed / calls * 1e3
 
 
-def time_ept_kernels(smi, device):
-    """Phase 4 at config 3's shapes (:func:`ept_cases`): each kernel's device
-    time by CUDA-graph replay beside its bound, its plain version's time, and
-    for the coefficient gradient (with y for the exp'd lookups, as the
-    backward launches it) the nearest library call's. Returns {label: numbers}."""
+def library_series_ms(x, c, log_values):
+    """Milliseconds a call (CUDA events) of the nearest library call to the
+    series: ``torch.special.chebyshev_polynomial_t`` over (B, Q, order), every
+    T_j(x) materialised, an einsum with the (shared or per-row) coefficients,
+    then exp if ``log_values``; None where the card cannot hold the (B, Q,
+    order) tensor. A yardstick only, used nowhere in the port."""
+    import torch
+    degrees = torch.arange(c.shape[-1], device=x.device)
+    subscripts = 'bqj,bj->bq' if c.ndim == 2 else 'bqj,j->bq'
+
+    def call():
+        y = torch.einsum(subscripts, torch.special.chebyshev_polynomial_t(x[..., None], degrees), c)
+        return torch.exp(y) if log_values else y
+
+    try:
+        return time_cuda(call, 3, warmup=1)
+    except torch.cuda.OutOfMemoryError as exc:
+        print('phase 4: chebyshev_polynomial_t + einsum{} could not run at {}: {}'.format(
+            ' + exp' if log_values else '', tuple(x.shape) + (c.shape[-1],), str(exc)[:200]))
+        torch.cuda.empty_cache()
+        return None
+
+
+def time_ept_kernels(smi, device, cases=None, config='config 3'):
+    """Phase 4 at ``config``'s shapes (``cases``, by default config 3's,
+    :func:`ept_cases`): each kernel's device time by CUDA-graph replay beside
+    its bound, its plain version's time, and the nearest library calls' (for
+    the series :func:`library_series_ms`, for the coefficient gradient, with y
+    for the exp'd lookups as the backward launches it,
+    ``chebyshev_polynomial_t`` + einsum). Returns {label: numbers}."""
     import torch
     from desilike_tpu_torch.ops import cuda_kernels
     out = {}
-    for case in ept_cases():
+    for case in ept_cases() if cases is None else cases:
         rows, q, order, log_values = case['rows'], case['q'], case['order'], case['log_values']
         x, c = case_inputs(case, device, seed=2)
         w = torch.tensor(np.random.default_rng(5).normal(size=tuple(x.shape)), dtype=torch.float32, device=device)
@@ -663,6 +756,7 @@ def time_ept_kernels(smi, device):
         entry['ms'] = float(np.mean([time_graph(lambda: cuda_kernels.clenshaw(x, c, log_values)) for _ in range(2)]))
         entry['bound_ms'], entry['bound_by'] = clenshaw_bound_ms(rows, q, order, True)
         entry['plain_ms'] = time_cuda(lambda: cuda_kernels.clenshaw_reference(x, c, log_values), 3, warmup=1)
+        entry['library_ms'] = library_series_ms(x, c, log_values)
         entry['grad_ms'] = float(np.mean([time_graph(lambda: cuda_kernels._launch_coeff_grad(x, w, y, order, True))
                                           for _ in range(2)]))
         entry['grad_bound_ms'], entry['grad_bound_by'] = coeff_grad_bound_ms(rows, q, order, True, y is not None)
@@ -679,13 +773,17 @@ def time_ept_kernels(smi, device):
             entry['grad_library_ms'] = None
             print('phase 4: chebyshev_polynomial_t + einsum could not run at {}x{} order {}: {}'.format(
                 rows, q, order, str(exc)[:300]))
-        print('phase 4: config-3 shape {}x{} order {} per-row {} on {!r}: Clenshaw {:.4f} ms a launch (CUDA-graph '
-              'replay), bound {:.4f} ms ({}), {:.1%} of it, plain version {:.4f} ms; coefficient gradient {:.4f} ms, '
-              'bound {:.4f} ms ({}), {:.1%} of it, plain version {:.4f} ms, chebyshev_polynomial_t + einsum {} '
-              'ms'.format(rows, q, order, 'exp' if log_values else 'series', smi, entry['ms'], entry['bound_ms'],
-                          entry['bound_by'], entry['bound_ms'] / entry['ms'], entry['plain_ms'], entry['grad_ms'],
-                          entry['grad_bound_ms'], entry['grad_bound_by'], entry['grad_bound_ms'] / entry['grad_ms'],
-                          entry['grad_plain_ms'], entry['grad_library_ms'] and round(entry['grad_library_ms'], 4)))
+            torch.cuda.empty_cache()
+        print('phase 4: {} shape {}x{} order {} per-row {} on {!r}: Clenshaw {:.4f} ms a launch (CUDA-graph '
+              'replay), bound {:.4f} ms ({}), {:.1%} of it, plain version {:.4f} ms, chebyshev_polynomial_t + einsum{} '
+              '{} ms; coefficient gradient {:.4f} ms, bound {:.4f} ms ({}), {:.1%} of it, plain version {:.4f} ms, '
+              'chebyshev_polynomial_t + einsum {} ms'.format(
+                  config, rows, q, order, 'exp' if log_values else 'series', smi, entry['ms'], entry['bound_ms'],
+                  entry['bound_by'], entry['bound_ms'] / entry['ms'], entry['plain_ms'],
+                  ' + exp' if log_values else '', entry['library_ms'] and round(entry['library_ms'], 4),
+                  entry['grad_ms'], entry['grad_bound_ms'], entry['grad_bound_by'],
+                  entry['grad_bound_ms'] / entry['grad_ms'], entry['grad_plain_ms'],
+                  entry['grad_library_ms'] and round(entry['grad_library_ms'], 4)))
         del x, c, w, y, wy
     torch.cuda.empty_cache()
     return out
@@ -1036,6 +1134,190 @@ def check_config_xi(golden):
     return xi, fn, out
 
 
+def device_ms(call, calls=2):
+    """Device milliseconds a call of ``call``: the sum of the kernels' device
+    times that ``torch.profiler`` records over ``calls`` calls, after one
+    call of warm-up."""
+    import torch
+    from torch.profiler import profile, ProfilerActivity
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    us = sum(event.device_time if hasattr(event, 'device_time') else event.cuda_time for event in prof.events()
+             if event.device_type == torch.autograd.DeviceType.CUDA)
+    return us / calls * 1e-3
+
+
+def solved_at_points(likelihood, names, rows):
+    """The solved parameters (npoints, nsolved) of ``likelihood`` at the points ``rows``, as numpy."""
+    import torch
+    values = {n: torch.tensor(rows[:, i], dtype=torch.float32, device=likelihood.pipeline.device)
+              for i, n in enumerate(names)}
+    with torch.no_grad():
+        _, aux = likelihood.logpost_fn()(values)
+    return torch.stack([aux['solved'][n] for n in likelihood.pipeline.solved_params.names()], dim=-1).cpu().numpy()
+
+
+def check_solved(label, got, expected, width):
+    """Raise unless every solved parameter is within SOLVED_RTOL of its prior
+    width or of its value; print the error."""
+    err = float((np.abs(got - expected) / np.maximum(width, np.abs(expected))).max())
+    line = '{}: max |d solved| / max(prior width, |solved|) {:.3e} (tol {:.0e})'.format(label, err, SOLVED_RTOL)
+    print(line)
+    if not err <= SOLVED_RTOL:
+        raise AssertionError(line)
+
+
+def check_config_3xi(smi):
+    """Phase 3, config 3xi (config 3's EPT theory in configuration space, the
+    counterterms solved by the linearize path) on the card, the slice's main
+    path: log-posterior and gradient over B = 4096 and EPT_XI_BIG_BATCH
+    seeded chains (finite, the 3 counterterms in ``aux['solved']`` with every
+    chain factored, both kernels launched with the gradient, the launches
+    counted forward and with the gradient, the peak of device memory, wall
+    and device milliseconds a call each), the synchronising calls of one
+    forward call, the frozen JAX x64 values of
+    ``tests/data/torch_port_marg_reference.npz`` at 16 points (and the solved
+    counterterms there), and the card against the port's CPU path at 4
+    points. Returns (likelihood, its logpost_fn, the numbers)."""
+    import torch
+    from desilike_tpu_torch.ops import cuda_kernels
+    reference = np.load(os.path.join(ROOT, 'tests', 'data', 'torch_port_marg_reference.npz'))
+    t0 = time.perf_counter()
+    like = build_ept_xi_likelihood(None)  # no device: the card
+    pipe = like.pipeline
+    names, solved = pipe.varied_params.names(), pipe.solved_params.names()
+    out = dict(build_s=time.perf_counter() - t0, launches={}, max_memory_gib={}, wall_ms={}, device_ms={})
+    if names != list(reference['ept_xi_names']) or solved != list(reference['ept_xi_solved_names']) \
+            or like.size != 90:
+        raise AssertionError('config 3xi varies {} and solves {} over {} data'.format(names, solved, like.size))
+    fn = like.logpost_fn()
+    if pipe.device.type != 'cuda':
+        raise AssertionError('a likelihood built with no device evaluates on {}'.format(pipe.device))
+    for batch in (BATCH, EPT_XI_BIG_BATCH):
+        values = chains(names, batch, seed=0, device=pipe.device)
+        runs = {}
+        for mode in ('forward', 'with gradient'):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cuda_kernels.CLENSHAW_LAUNCHES = cuda_kernels.COEFF_GRAD_LAUNCHES = 0
+            if mode == 'forward':
+                with torch.no_grad():
+                    logpost, aux = fn(values)
+                grad = None
+            else:
+                logpost, grad = logpost_and_grad(fn, values)
+            torch.cuda.synchronize()
+            runs[mode] = (logpost, grad)
+            out['launches'][mode, batch] = (cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES)
+            out['max_memory_gib'][mode, batch] = torch.cuda.max_memory_allocated() / 2 ** 30
+        logpost, grad = runs['with gradient']
+        forward, backward = out['launches']['forward', batch], out['launches']['with gradient', batch]
+        finite = bool(torch.isfinite(logpost).all() and torch.isfinite(grad).all()
+                      and torch.isfinite(runs['forward'][0]).all())
+        factored = int((aux['solved_info'] == 0).sum())
+
+        def forward_call():
+            with torch.no_grad():
+                fn(values)
+
+        def gradient_call():
+            for value in values.values():
+                value.grad = None
+            fn(values)[0].sum().backward()
+
+        for mode, call in (('forward', forward_call), ('with gradient', gradient_call)):
+            out['wall_ms'][mode, batch] = time_cuda(call, 3 if batch == BATCH else 1, warmup=1)
+            out['device_ms'][mode, batch] = device_ms(call, calls=1)
+        print('phase 3: config 3xi: logpost and gradient over B={} chains on {!r}: shape {}, gradient {}, all finite '
+              '{}, mean logpost {:.4f}, {} of {} chains factored; launches forward: Clenshaw {}, coefficient gradient '
+              '{}; with the gradient: Clenshaw {}, coefficient gradient {}; peak device memory {:.2f} GiB forward, '
+              '{:.2f} GiB with the gradient; wall {:.3f} ms forward, {:.3f} ms with the gradient a call; device '
+              '{:.3f} and {:.3f} ms; {} data, {} varied, {} solved'.format(
+                  batch, smi, tuple(logpost.shape), tuple(grad.shape), finite, float(logpost.mean()), factored, batch,
+                  forward[0], forward[1], backward[0], backward[1], out['max_memory_gib']['forward', batch],
+                  out['max_memory_gib']['with gradient', batch], out['wall_ms']['forward', batch],
+                  out['wall_ms']['with gradient', batch], out['device_ms']['forward', batch],
+                  out['device_ms']['with gradient', batch], like.size, len(names), len(solved)))
+        if (logpost.shape != (batch,) or grad.shape != (batch, len(names)) or not finite or forward[0] <= 0
+                or backward[0] <= 0 or forward[1] != 0 or backward[1] <= 0 or factored != batch):
+            raise AssertionError('config 3xi main path failed at B={}'.format(batch))
+        if list(aux['solved']) != solved or aux['solved_hessian'].shape != (batch, 3, 3) \
+                or not all(bool(torch.isfinite(v).all()) and v.shape == (batch,) for v in aux['solved'].values()):
+            raise AssertionError('config 3xi: aux[\'solved\'] does not hold the 3 solved counterterms')
+        if batch == BATCH:
+            out['host_syncs'] = count_host_syncs(fn, values, 'config 3xi')
+        del values, runs, logpost, grad, aux
+        torch.cuda.empty_cache()
+    points = reference['ept_xi_points']
+    lp, g = at_points(like, names, points)
+    check_close('phase 3: config 3xi: card vs JAX float64 (x64) at 16 points', lp, reference['ept_xi_logpost_x64'],
+                EPT_X64_ATOL, g, reference['ept_xi_grad_x64'], EPT_X64_GRAD_RTOL)
+    width = np.array([pipe.params[n].prior.scale for n in solved])
+    check_solved('phase 3: config 3xi: solved counterterms on the card vs JAX x64 at 16 points',
+                 solved_at_points(like, names, points), reference['ept_xi_solved_x64'], width)
+    lp_cpu, g_cpu = at_points(build_ept_xi_likelihood('cpu'), names, points[:4])
+    check_close('phase 3: config 3xi: card vs the port\'s CPU plain path at 4 points', lp[:4], lp_cpu, EPT_X64_ATOL,
+                g[:4], g_cpu, EPT_X64_GRAD_RTOL)
+    return like, fn, out
+
+
+def check_fisher_and_sum(xi, ept, smi):
+    """Phase 3, the Fisher forecast and the summed likelihood on the card:
+    ``Fisher`` of config xi (``xi``, built on the card) at its fiducial (b1 =
+    2.0), jacfwd through the kernels over its 4 varied and 6 solved
+    parameters, against the frozen JAX x64 matrix (|dF_ij| <= FISHER_RTOL
+    sqrt(F_ii F_jj)); then ``FisherGaussianLikelihood`` of its view on qpar
+    and qper plus config 3 (``ept``; they share qpar and qper, as the JAX
+    package's sum does): over B = 4096 chains with the gradient (finite, both
+    kernels launched), and at the 16 frozen points against the JAX x64
+    values at config 3's limits. Returns the numbers."""
+    import torch
+    from desilike_tpu_torch import Fisher, FisherGaussianLikelihood
+    from desilike_tpu_torch.ops import cuda_kernels
+    reference = np.load(os.path.join(ROOT, 'tests', 'data', 'torch_port_marg_reference.npz'))
+    out = {}
+    cuda_kernels.CLENSHAW_LAUNCHES = cuda_kernels.COEFF_GRAD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    fisher = Fisher(xi)(b1=2.0)
+    torch.cuda.synchronize()
+    out['fisher_s'] = time.perf_counter() - t0
+    out['launches_fisher'] = (cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES)
+    F, ref = fisher.precision, -reference['fisher_xi_hessian_x64']
+    err = float((np.abs(F - ref) / np.sqrt(np.outer(np.diag(ref), np.diag(ref)))).max())
+    out['fisher_error'] = err
+    line = ('phase 3: Fisher of config xi on {!r} ({} varied + solved, {:.2f} s; launches: Clenshaw {}, coefficient '
+            'gradient {}): max |dF_ij| / sqrt(F_ii F_jj) from JAX x64 {:.3e} (tol {:.0e}); sigma(qpar) {:.5f}, '
+            'sigma(qper) {:.5f}'.format(smi, len(fisher.names()), out['fisher_s'], *out['launches_fisher'], err,
+                                        FISHER_RTOL, fisher.std('qpar'), fisher.std('qper')))
+    print(line)
+    if fisher.names() != list(reference['fisher_xi_names_x64']) or not err <= FISHER_RTOL \
+            or out['launches_fisher'][0] <= 0:
+        raise AssertionError(line)
+    total = FisherGaussianLikelihood(fisher=fisher.view(['qpar', 'qper'])) + ept  # no device: the card
+    pipe = total.pipeline
+    names = pipe.varied_params.names()
+    if names != list(reference['sum_names']) or pipe.solved_params.names() != list(reference['sum_solved_names']):
+        raise AssertionError('the sum varies {} and solves {}'.format(names, pipe.solved_params.names()))
+    fn = total.logpost_fn()
+    values = chains(names, BATCH, seed=0, device=pipe.device)
+    logpost, grad, forward, backward = drive(fn, values)
+    out['launches_sum'] = {'forward': forward, 'with gradient': backward}
+    finite = bool(torch.isfinite(logpost).all() and torch.isfinite(grad).all())
+    print('phase 3: Fisher(config xi) view on qpar, qper + config 3 over B={} chains on {!r}: all finite {}, mean '
+          'logpost {:.4f}; launches forward: Clenshaw {}, coefficient gradient {}; with the gradient: Clenshaw {}, '
+          'coefficient gradient {}'.format(BATCH, smi, finite, float(logpost.mean()), *forward, *backward))
+    if not finite or logpost.shape != (BATCH,) or backward[0] <= 0 or backward[1] <= 0:
+        raise AssertionError('the summed likelihood failed at B={}'.format(BATCH))
+    lp, g = at_points(total, names, reference['sum_points'])
+    check_close('phase 3: Fisher(config xi) view + config 3: card vs JAX float64 (x64) at 16 points', lp,
+                reference['sum_logpost_x64'], EPT_X64_ATOL, g, reference['sum_grad_x64'], EPT_X64_GRAD_RTOL)
+    return out
+
+
 def time_xi_kernel(smi, device):
     """Phase 4 at config xi's shapes (:func:`xi_cases`' two batches): the
     Clenshaw kernel's device time by CUDA-graph replay beside its bound, its
@@ -1151,6 +1433,11 @@ def main(kernels_only=False):
                                     EFTLikeKaiserTracerPowerSpectrumMultipoles)
     cuda = config.device('cuda')
     started = time.perf_counter()
+    laps = [started]
+
+    def lap(label):  # the seconds since the previous lap
+        laps.append(time.perf_counter())
+        print('{} took {:.1f} s'.format(label, laps[-1] - laps[-2]))
 
     # --- phase 1: the card ---
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
@@ -1164,6 +1451,7 @@ def main(kernels_only=False):
           'on {} SMs: {}'.format(torch.cuda.get_device_properties(0).multi_processor_count, ', '.join(
               '{}: {} registers, {} blocks'.format(label, regs, blocks) for label, (regs, blocks) in resident.items())))
     print(smi)
+    lap('phase 1')
 
     # --- phase 2: the kernels against their plain versions ---
     like = build_likelihood(None)  # no device: the card
@@ -1250,6 +1538,7 @@ def main(kernels_only=False):
               '(tol {:.0e} for the first derivatives, {:.0e} for the second)'.format(
                   case_label(case), ', '.join('{} {:.2e}'.format(k, e) for k, e in errors.items()), KERNEL_RTOL,
                   SECOND_RTOL))
+    lap('phase 2')
     if kernels_only:
         print('phases 1 and 2 took {:.1f} s'.format(time.perf_counter() - started))
         return
@@ -1288,6 +1577,7 @@ def main(kernels_only=False):
     k29 = np.linspace(0.02, 0.3, 29)
     theory_golden('phase 3', DampedBAOWigglesTracerPowerSpectrumMultipoles(
         ells=(0, 2), k=k29, template=BAOPowerSpectrumTemplate(z=0.8, apmode='qparqper')), golden, 'damped_bao')
+    lap('phase 3: config 1')
 
     joint = build_joint_likelihood(None)  # no device: the card
     jpipe = joint.pipeline
@@ -1336,10 +1626,17 @@ def main(kernels_only=False):
         ells=(0, 2, 4), k=k29, template=ShapeFitPowerSpectrumTemplate(z=0.8)), golden, 'kaiser')
     theory_golden('phase 3', EFTLikeKaiserTracerPowerSpectrumMultipoles(
         ells=(0, 2), k=k29, template=ShapeFitPowerSpectrumTemplate(z=0.8)), golden, 'eft_kaiser')
+    lap('phase 3: config 4')
     ept, efn, config3 = check_config3(golden)
+    lap('phase 3: config 3')
     enames = ept.pipeline.varied_params.names()
     xi, xfn, config_xi = check_config_xi(golden)
     xnames = xi.pipeline.varied_params.names()
+    lap('phase 3: config xi')
+    _, _, config_3xi = check_config_3xi(smi)
+    lap('phase 3: config 3xi')
+    fisher_sum = check_fisher_and_sum(xi, ept, smi)
+    lap('phase 3: the Fisher forecast and the sum')
     print('phases 1 to 3 took {:.1f} s'.format(time.perf_counter() - started))
 
     # --- phase 4: times (reported, not gated) ---
@@ -1355,10 +1652,12 @@ def main(kernels_only=False):
         bound_ms, bound_by = clenshaw_bound_ms(rows, q, order, per_row)
         timed[label, rows, q] = dict(ms=float(np.mean(runs)), bound_ms=bound_ms, bound_by=bound_by,
                                      geometry=cuda_kernels.LAST_GEOMETRY)  # that of the launches timed
+        if rows == BATCH and (per_row, q) in ((False, NQUERY), (True, FS_NQUERY)):  # configs 1 and 4's main shapes
+            timed[label, rows, q]['library_ms'] = library_series_ms(x, c, True)
         print('phase 4: Clenshaw {}x{} order {} {} on {!r}: device time {:.4f} ms a launch (CUDA-graph replay, '
-              'runs {}); bound {:.4f} ms ({}), {:.1%} of it'.format(
+              'runs {}); bound {:.4f} ms ({}), {:.1%} of it; chebyshev_polynomial_t + einsum + exp {} ms'.format(
                   rows, q, order, label, smi, timed[label, rows, q]['ms'], ['%.4f' % t for t in runs], bound_ms,
-                  bound_by, bound_ms / timed[label, rows, q]['ms']))
+                  bound_by, bound_ms / timed[label, rows, q]['ms'], timed[label, rows, q].get('library_ms')))
     main_shape = timed['shared', BATCH, NQUERY]
     x, c = case_inputs(dict(rows=BATCH, q=NQUERY, order=order, per_row=False, log_values=True), cuda, seed=2)
     wrapper_host_ms = host_ms(lambda: clenshaw(x, c))
@@ -1420,6 +1719,7 @@ def main(kernels_only=False):
                                                          ['%.4f' % t for t in runs], bound_ms, bound_by))
     del x, c, w, y
     ept_timed = time_ept_kernels(smi, cuda)
+    ept_xi_timed = time_ept_kernels(smi, cuda, ept_xi_cases(), 'config 3xi')
     xi_timed = time_xi_kernel(smi, cuda)
     cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES = saved
 
@@ -1443,6 +1743,7 @@ def main(kernels_only=False):
             print(line)
             del fixed
             torch.cuda.empty_cache()
+    lap('phase 4')
     # --- phase 5: the samplers on config 4 ---
     t5 = time.perf_counter()
     samplers = run_samplers(joint, ept, smi)
@@ -1460,8 +1761,8 @@ def main(kernels_only=False):
         'queries_per_thread': main_shape['geometry'].k, 'max_abs_err': max_abs_err,
         'ms': main_shape['ms'], 'plain_ms': plain_ms, 'bound_ms': main_shape['bound_ms'],
         'bound_by': main_shape['bound_by'], 'share_of_bound': main_shape['bound_ms'] / main_shape['ms'],
-        'library_ms': None, 'ms_per_row': timed['per-row', BATCH, NQUERY]['ms'],
-        'ms_per_row_288': fs['ms'], 'bound_ms_per_row_288': fs['bound_ms'],
+        'library_ms': main_shape['library_ms'], 'ms_per_row': timed['per-row', BATCH, NQUERY]['ms'],
+        'ms_per_row_288': fs['ms'], 'bound_ms_per_row_288': fs['bound_ms'], 'library_ms_per_row_288': fs['library_ms'],
         'ms_65536': timed['shared', BIG_BATCH, NQUERY]['ms'],
         'bound_ms_65536': timed['shared', BIG_BATCH, NQUERY]['bound_ms'], 'host_ms': wrapper_host_ms,
         'geometry': main_shape['geometry']._asdict(), 'launches_chees_step': samplers['launches_chees_step'][0],
@@ -1472,7 +1773,13 @@ def main(kernels_only=False):
                              for label, rows, q in timed if rows == HESSIAN_ROWS},
         'launches_config3': launches3[0], 'launches_chees_step_config3': samplers['launches_chees_step_config3'][0],
         **{key + '_config3': {label: entry[key] for label, entry in ept_timed.items()}
-           for key in ('ms', 'bound_ms', 'plain_ms')},
+           for key in ('ms', 'bound_ms', 'plain_ms', 'library_ms')},
+        **{key + '_config_3xi': {label: entry[key] for label, entry in ept_xi_timed.items()}
+           for key in ('ms', 'bound_ms', 'plain_ms', 'library_ms')},
+        **{'launches_config_3xi_' + '{}_{}'.format(mode.replace(' ', '_'), batch): value[0]
+           for (mode, batch), value in config_3xi['launches'].items()},
+        'launches_fisher': fisher_sum['launches_fisher'][0],
+        **{'launches_sum_' + mode.replace(' ', '_'): value[0] for mode, value in fisher_sum['launches_sum'].items()},
         'launches_config_xi': config_xi['launches']['with gradient', BATCH][0],
         'launches_config_xi_forward': config_xi['launches']['forward', BATCH][0],
         'launches_hessian_config_xi': config_xi['launches_hessian'][0],
@@ -1492,7 +1799,13 @@ def main(kernels_only=False):
         'bound_ms_hessian_288': grad_timed['hessian']['bound_ms'],
         'launches_config3': launches3[1], 'launches_chees_step_config3': samplers['launches_chees_step_config3'][1],
         **{key + '_config3': {label: entry['grad_' + key] for label, entry in ept_timed.items()}
-           for key in ('ms', 'bound_ms', 'plain_ms', 'library_ms')}}],
+           for key in ('ms', 'bound_ms', 'plain_ms', 'library_ms')},
+        **{key + '_config_3xi': {label: entry['grad_' + key] for label, entry in ept_xi_timed.items()}
+           for key in ('ms', 'bound_ms', 'plain_ms', 'library_ms')},
+        **{'launches_config_3xi_' + '{}_{}'.format(mode.replace(' ', '_'), batch): value[1]
+           for (mode, batch), value in config_3xi['launches'].items()},
+        'launches_fisher': fisher_sum['launches_fisher'][1],
+        **{'launches_sum_' + mode.replace(' ', '_'): value[1] for mode, value in fisher_sum['launches_sum'].items()}}],
         'evals_per_s': {' '.join(str(part) for part in key): rate for key, rate in rates.items()},
         'host_syncs_forward': host_syncs,
         **{name: {'build_s': numbers['build_s'],
@@ -1500,6 +1813,12 @@ def main(kernels_only=False):
                   'max_memory_gib': {'{} {}'.format(*key): value for key, value in numbers['max_memory_gib'].items()}}
            for name, numbers in (('config3', config3), ('config_xi', config_xi))},
         'hessian_errors_config_xi': config_xi['hessian_errors'],
+        'config_3xi': {'build_s': config_3xi['build_s'], 'big_batch': EPT_XI_BIG_BATCH,
+                       'host_syncs_forward': config_3xi['host_syncs'],
+                       **{key: {'{} {}'.format(*k): v for k, v in config_3xi[key].items()}
+                          for key in ('launches', 'max_memory_gib', 'wall_ms', 'device_ms')}},
+        'fisher_sum': {'fisher_s': fisher_sum['fisher_s'], 'fisher_error': fisher_sum['fisher_error'],
+                       'launches_fisher': fisher_sum['launches_fisher'], 'launches_sum': fisher_sum['launches_sum']},
         'host_syncs_forward_config_xi': {batch: config_xi['host_syncs', batch] for batch in (BATCH, BIG_BATCH)}}))
     print(json.dumps({'samplers': samplers, 'card': smi}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

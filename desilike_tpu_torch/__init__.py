@@ -7,10 +7,14 @@ correlation-function BAO likelihood: calculator graph with namespaces,
 host-side fiducial cosmology, BAO and ShapeFit templates, damped-wiggle,
 (EFT-like) Kaiser and 1-loop EPT theories (FFTLog one-loop tables, IR
 resummation, both prior bases) in P(k) and, by the FFTLog Hankel transform,
-in xi(s), windowed observables, analytic covariance and the Gaussian likelihood with analytic marginalization over
-static and per-chain linear bases; and the gradient samplers over it
-(``samplers``: ChEES, NUTS, HMC, MCLMC) with their chains and diagnostics
-(``samples``).
+in xi(s), windowed observables (with the 'cubic' Gaussianization of P(k)),
+analytic covariance, Gaussian likelihoods and their sums with analytic
+marginalization over the solved parameters ('.marg', '.best', '.prec'; static
+rows, per-chain basis rows and, for the rest, forward mode through the
+pipeline); the gradient samplers over them (``samplers``: ChEES, NUTS, HMC,
+MCLMC) with their chains and diagnostics (``samples``); and the Fisher
+forecast (``Fisher``, ``LikelihoodFisher``, ``FisherGaussianLikelihood``) with
+``Differentiation``.
 Per-evaluation compute runs on a batch of chains, in float32, on the CUDA
 card unless the caller asks for the CPU by name (``device='cpu'``); the
 Chebyshev lookups and their gradients run through hand-written CUDA kernels
@@ -31,4 +35,7 @@ from .theories import (DampedBAOWigglesTracerPowerSpectrumMultipoles, BAOPowerSp
                        EFTLikeKaiserTracerCorrelationFunctionMultipoles, EPTTracerCorrelationFunctionMultipoles)
 from .observables import (TracerPowerSpectrumMultipolesObservable, TracerCorrelationFunctionMultipolesObservable,
                           BoxFootprint)
-from .likelihoods import ObservablesGaussianLikelihood
+from .likelihoods import (BaseLikelihood, BaseGaussianLikelihood, ObservablesGaussianLikelihood,
+                          FisherGaussianLikelihood, SumLikelihood)
+from .differentiation import Differentiation
+from .fisher import Fisher, LikelihoodFisher, PriorFisher

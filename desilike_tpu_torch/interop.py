@@ -59,8 +59,9 @@ def state_from_numpy(likelihood, arrays):
     flatdata = _checked('flatdata', arrays['flatdata'], likelihood.flatdata)
     whiten = _checked('whiten', arrays['whiten'], likelihood._whiten)
     pipe = likelihood.pipeline
-    nstatic = len(likelihood._static_linear_indices(pipe, pipe.solved_params))
-    static_J = _checked('static_J', arrays['static_J'], np.empty((nstatic, likelihood.size)))
+    solved = pipe.solved_params
+    static_names = tuple(solved[i].name for i in likelihood._static_linear_indices(pipe, solved))
+    static_J = _checked('static_J', arrays['static_J'], np.empty((len(static_names), likelihood.size)))
     for window, template, wmatrix, pk_dd, pknow_dd in loaded:
         template.set_fiducial_tables(pk_dd, pknow_dd)
         window.wmatrix = wmatrix
@@ -71,6 +72,6 @@ def state_from_numpy(likelihood, arrays):
         start = stop
     likelihood.flatdata = flatdata
     likelihood._whiten = whiten
-    likelihood._static_J = static_J
+    likelihood._static_J = {static_names: static_J}
     likelihood.__dict__.pop('_logpost_fn', None)  # built on the old state
     return likelihood

@@ -1,1 +1,2 @@
-from .base import BaseLikelihood, BaseGaussianLikelihood, ObservablesGaussianLikelihood
+from .base import (BaseLikelihood, BaseGaussianLikelihood, ObservablesGaussianLikelihood, FisherGaussianLikelihood,
+                   SumLikelihood)

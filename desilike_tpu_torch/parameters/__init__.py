@@ -1,3 +1,3 @@
 from .prior import Prior
-from .parameter import Parameter, ParameterCollection
-from .samples import Samples
+from .parameter import Parameter, ParameterCollection, Deriv
+from .samples import Samples, DerivArray

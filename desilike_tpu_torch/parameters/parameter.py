@@ -2,7 +2,8 @@
 
 Counterpart of ``desilike_tpu/parameters/parameter.py``. Parameters are
 host-side metadata only; the evaluated quantities are plain dicts
-``{name: (B,) tensor}``. ``Deriv`` waits for the emulators (ROADMAP A14).
+``{name: (B,) tensor}``. ``Deriv`` keys the derivatives that
+``Differentiation`` returns.
 
 Solved statuses:
   '.best'  — plug in the analytic best-fit,
@@ -22,6 +23,35 @@ from .. import config
 
 
 _ALLOWED_SOLVED = ('.best', '.marg', '.auto', '.prec')
+
+
+class Deriv(dict):
+    """Multiset of derivative orders, e.g. Deriv({'a': 1, 'b': 1}) ~ d^2/dadb.
+    Hashable, order-insensitive."""
+
+    def __init__(self, names=None):
+        super().__init__()
+        if names is None:
+            names = ()
+        if isinstance(names, dict):
+            items = names.items()
+        elif isinstance(names, str):
+            items = [(names, 1)]
+        else:
+            items = [(name, 1) for name in names]
+        for name, order in items:
+            if order > 0:
+                self[name] = self.get(name, 0) + order
+
+    def __hash__(self):
+        return hash(tuple(sorted(self.items())))
+
+    @property
+    def total(self):
+        return sum(self.values())
+
+    def __repr__(self):
+        return 'Deriv({})'.format(dict(self))
 
 
 def _decode_name(name):

@@ -4,8 +4,9 @@ Counterpart of ``desilike_tpu/parameters/samples.py``, backed by numpy on the
 host (the samplers copy their records off the device once, at the end of a
 run). Files are the same ``.npz`` layout: one ``arr:<name>`` array a column
 and a JSON ``__meta__`` of the parameters and scalar attributes, so that a
-file the JAX package saved loads here. Derivative-tagged columns
-(``Deriv``/``DerivArray``, ``deriv:`` keys) wait for ROADMAP A14.
+file the JAX package saved loads here. ``DerivArray`` holds what
+``Differentiation`` returns; derivative-tagged columns of a file (``deriv:``
+keys) wait for ROADMAP A14.
 """
 
 import json
@@ -13,7 +14,32 @@ import json
 import numpy as np
 
 from ..utils import BaseClass
-from .parameter import Parameter, ParameterCollection
+from .parameter import Parameter, ParameterCollection, Deriv
+
+
+class DerivArray(object):
+    """numpy array with a leading axis indexed by derivative keys:
+    ``arr[()]`` is the value, ``arr[('a',)]`` d/da, ``arr[('a', 'b')]``
+    d2/dadb."""
+
+    def __init__(self, value, derivs=None):
+        self.value = np.asarray(value)
+        self.derivs = [d if isinstance(d, Deriv) else Deriv(d) for d in (derivs or [Deriv()])]
+
+    def __getitem__(self, deriv):
+        if isinstance(deriv, (tuple, list, str, Deriv, dict)):
+            deriv = deriv if isinstance(deriv, Deriv) else Deriv(deriv)
+            if deriv not in self.derivs:
+                raise KeyError('derivative {} not stored; have {}'.format(deriv, self.derivs))
+            return self.value[self.derivs.index(deriv)]
+        return self.value[deriv]
+
+    @property
+    def shape(self):
+        return self.value.shape[1:]
+
+    def __repr__(self):
+        return 'DerivArray(shape={}, derivs={})'.format(self.value.shape, self.derivs)
 
 
 class Samples(BaseClass):
@@ -146,7 +172,7 @@ class Samples(BaseClass):
             if key.startswith('arr:'):
                 new.data[key[4:]] = loaded[key]
             elif key.startswith('deriv:'):
-                raise NotImplementedError('{} holds derivative-tagged column {!r}: DerivArray is ROADMAP '
+                raise NotImplementedError('{} holds derivative-tagged column {!r}: loading them is ROADMAP '
                                           'A14'.format(filename, key[6:]))
         return new
 

@@ -2,9 +2,8 @@
 
 Counterpart of ``desilike_tpu/samples/chain.py`` (the reference's
 samples/chain.py:79), numpy on the host. Shape convention: (nsteps,
-nchains) leading axes (or flat (nsamples,)). The Fisher export
-(``to_fisher``) waits for ROADMAP A14, the getdist readers and writers for
-A17.
+nchains) leading axes (or flat (nsamples,)). The getdist readers and
+writers wait for ROADMAP A17.
 """
 
 import numpy as np
@@ -234,8 +233,16 @@ class Chain(Samples):
         return new
 
     def to_fisher(self, params=None):
-        """Gaussian approximation as a LikelihoodFisher: ROADMAP A14."""
-        raise NotImplementedError('Chain.to_fisher (LikelihoodFisher) is ROADMAP A14')
+        """Gaussian approximation of the chain's posterior as a
+        LikelihoodFisher: the weighted mean and the inverse of the weighted
+        covariance."""
+        from ..fisher import LikelihoodFisher
+        pts, names = self.points(params)
+        w = self.weight.reshape(-1)
+        mean = np.average(pts, axis=0, weights=w)
+        cov = np.cov(pts, rowvar=False, aweights=w)
+        hessian = -np.linalg.inv(np.atleast_2d(cov))
+        return LikelihoodFisher(mean, [self.params[n] if n in self.params else n for n in names], hessian)
 
     @classmethod
     def from_getdist(cls, base_fn):

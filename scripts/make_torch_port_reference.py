@@ -20,6 +20,13 @@ writes its reference file under ``tests/data``:
   beside its xi observable on one footprint (pk-pk, pk-xi, xi-xi), and the
   xi theory vectors at the golden parameters, all in float64 (x64), and the
   Kaiser and EFT-like Kaiser xi vectors in float32;
+- ``marg``: the general marginalization path and the Fisher forecast ->
+  ``torch_port_marg_reference.npz`` (see :func:`marg_reference`): config
+  3xi (config 3's EPT theory in configuration space, its counterterms
+  solved by the linearize path) at full width and reduced, the Fisher
+  matrix of config xi, the sum of a compressed likelihood from that Fisher
+  with config 3, and the EFT-like Kaiser xi multipoles with their
+  counterterms and stochastic terms solved;
 - ``hessian``: config 4's log-density in the gradient samplers' unconstrained
   space (``NUTSSampler._logdens_grad``: the logit transform of the bounded
   parameters and its log-Jacobian), its gradient and its Hessian, in
@@ -57,8 +64,8 @@ with numpy alone, and ``tests/test_torch_bao_likelihood.py`` and
 JAX package so that the files cannot go stale.
 
 Run from the repository root:
-``JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py [bao|joint|ept|xi|hessian]``
-(all five when no name is given).
+``JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py [bao|joint|ept|xi|marg|hessian]``
+(all six when no name is given).
 """
 
 import os
@@ -70,7 +77,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUTPUTS = {name: os.path.join(ROOT, 'tests', 'data', 'torch_port_{}_reference.npz'.format(name))
-           for name in ('bao', 'joint', 'ept', 'xi', 'hessian')}
+           for name in ('bao', 'joint', 'ept', 'xi', 'marg', 'hessian')}
 NPOINTS = 16
 HESSIAN_STEP = 1e-4  # central differences of the x64 gradient in the unconstrained space
 
@@ -78,8 +85,9 @@ HESSIAN_STEP = 1e-4  # central differences of the x64 gradient in the unconstrai
 # away from their edges (so no clip is active); b1 is centered on the value
 # the tracer's data were generated with
 WIDTHS = {'qpar': 0.04, 'qper': 0.04, 'b1': 0.3, 'dbeta': 0.1, 'df': 0.1, 'dm': 0.05,
-          'b2': 0.5, 'bs': 0.5, 'b3nl': 0.5}
-CENTERS = {'qpar': 1., 'qper': 1., 'dbeta': 1., 'df': 1., 'dm': 0., 'b2': 0., 'bs': 0., 'b3nl': 0.}
+          'b2': 0.5, 'bs': 0.5, 'b3nl': 0.5, 'sn0': 1., 'sn2_2': 5.}
+CENTERS = {'qpar': 1., 'qper': 1., 'dbeta': 1., 'df': 1., 'dm': 0., 'b2': 0., 'bs': 0., 'b3nl': 0., 'sn0': 0.,
+           'sn2_2': 0.}
 B1 = {'': 2., 'LRG': 2., 'LRGbao': 2., 'ELG': 1.3, 'ELGbao': 1.3}
 
 
@@ -190,6 +198,142 @@ def xi_extras(path):
     np.savez(path, **arrays)
 
 
+def build_ept_xi_likelihood(ells=(0, 2, 4), step=4.):
+    """Config 3xi in the JAX package: the EPT theory of
+    ``scripts/bench_ept.py:20-31`` in configuration space, s = 30-150 Mpc/h
+    in ``step`` Mpc/h bins for each multipole of ``ells`` (full width: (0, 2,
+    4), 4 Mpc/h, 90 data), ``data={'b1': 2.0}``, the xi-xi Gaussian
+    covariance, the counterterms ``ct*`` solved on the pipeline (their xi node
+    has no analytic basis: the linearize path); the stochastic terms varied,
+    as the xi theory leaves them."""
+    from desilike_tpu.theories import EPTTracerCorrelationFunctionMultipoles, ShapeFitPowerSpectrumTemplate
+    from desilike_tpu.observables import TracerCorrelationFunctionMultipolesObservable, BoxFootprint
+    from desilike_tpu.likelihoods import ObservablesGaussianLikelihood
+    theory = EPTTracerCorrelationFunctionMultipoles(ells=ells, template=ShapeFitPowerSpectrumTemplate(z=0.8))
+    observable = TracerCorrelationFunctionMultipolesObservable(
+        data={'b1': 2.0}, slim={ell: (30., 150., step) for ell in ells}, theory=theory)
+    like = ObservablesGaussianLikelihood(observables=[observable], footprints=[BoxFootprint(volume=2e9, nbar=5e-4)])
+    like.pipeline.params.update({'ct*': dict(derived='.marg')}, basename=True)
+    return like
+
+
+def build_eft_xi_likelihood():
+    """EFT-like Kaiser xi multipoles (0, 2) over 48-152 Mpc/h in 4 Mpc/h bins,
+    ``data={'b1': 2.0}``, counterterms and stochastic terms solved on the
+    pipeline (the counterterms by the linearize path, the stochastic terms
+    with a static design matrix)."""
+    from desilike_tpu.theories import EFTLikeKaiserTracerCorrelationFunctionMultipoles, ShapeFitPowerSpectrumTemplate
+    from desilike_tpu.observables import TracerCorrelationFunctionMultipolesObservable, BoxFootprint
+    from desilike_tpu.likelihoods import ObservablesGaussianLikelihood
+    theory = EFTLikeKaiserTracerCorrelationFunctionMultipoles(ells=(0, 2), template=ShapeFitPowerSpectrumTemplate(z=0.8))
+    observable = TracerCorrelationFunctionMultipolesObservable(
+        data={'b1': 2.}, slim={ell: (48., 152., 4.) for ell in (0, 2)}, theory=theory)
+    like = ObservablesGaussianLikelihood(observables=[observable], footprints=[BoxFootprint(volume=2e9, nbar=5e-4)])
+    like.pipeline.params.update({'ct*': dict(derived='.marg'), 'sn*': dict(derived='.marg')}, basename=True)
+    return like
+
+
+def build_bao_likelihood(params, transform=None, data=None):
+    """The BAO likelihood of ``tests/test_likelihood.py`` reduced to the
+    monopole, over 0.02-0.3 h/Mpc, with ``params`` on its theory and the
+    observable's ``transform``."""
+    from desilike_tpu.theories import DampedBAOWigglesTracerPowerSpectrumMultipoles
+    from desilike_tpu.observables import TracerPowerSpectrumMultipolesObservable, BoxFootprint
+    from desilike_tpu.likelihoods import ObservablesGaussianLikelihood
+    theory = DampedBAOWigglesTracerPowerSpectrumMultipoles(ells=(0,))
+    theory.init.params = params
+    observable = TracerPowerSpectrumMultipolesObservable(data=data or {}, klim={0: (0.02, 0.3, 0.01)}, theory=theory,
+                                                         transform=transform)
+    return ObservablesGaussianLikelihood(observables=[observable], footprints=[BoxFootprint(volume=1e10, nbar=1e-3)])
+
+
+# the solved broadband of the BAO likelihood under the cubic transform (every term on the linearize path, al0_0
+# '.best' beside the others' '.marg'), and its al0_0 folded into the covariance ('.prec'), the others fixed
+BAO_CUBIC_PARAMS = {'al*': dict(derived='.marg', prior=dict(dist='norm', loc=0., scale=1e3)),
+                    'al0_0': dict(derived='.best', prior=dict(dist='norm', loc=0., scale=1e3))}
+BAO_PREC_PARAMS = {'al*': dict(fixed=True),
+                   'al0_0': dict(derived='.prec', fixed=False, prior=dict(dist='norm', loc=0., scale=100.))}
+
+
+def returned_solved_names(like):
+    """The solved parameters whose values the log-posterior returns: all but
+    those folded into the covariance ('.prec')."""
+    return [p.name for p in like.pipeline.solved_params if p.derived != '.prec']
+
+
+def evaluate_likelihood(like, names, points):
+    """JAX log-posterior, its gradient and the solved parameters of ``like``
+    at ``points`` (one row per point, one column per name of ``names``)."""
+    import jax
+    import jax.numpy as jnp
+    logpost = like.logpost_fn(jit=False)
+    solved_names = returned_solved_names(like)
+
+    def scalar(theta):
+        value, aux = logpost(dict(zip(names, theta)))
+        return value, jnp.asarray([aux['solved'][name] for name in solved_names])
+
+    (values, solved), grads = jax.jit(jax.vmap(jax.value_and_grad(scalar, has_aux=True)))(jnp.asarray(points))
+    return [np.asarray(a, dtype='f8') for a in (values, grads, solved)]
+
+
+def marg_likelihoods():
+    """{prefix: (the function that builds the likelihood, number of points)} of :func:`marg_reference`."""
+    return {'ept_xi': (build_ept_xi_likelihood, NPOINTS),
+            'ept_xi_small': (lambda: build_ept_xi_likelihood(ells=(0, 2), step=8.), 4),
+            'eft_xi': (build_eft_xi_likelihood, 4),
+            'bao_cubic': (lambda: build_bao_likelihood(BAO_CUBIC_PARAMS, transform='cubic', data={'b1': 2.2}), 4),
+            'bao_prec': (lambda: build_bao_likelihood(BAO_PREC_PARAMS), 4)}
+
+
+def marg_reference(path, x64):
+    """The arrays of ``torch_port_marg_reference.npz`` in the package's
+    current dtype, written to ``path``; keys suffixed ``_x64`` in x64 mode.
+
+    - ``{ept_xi, ept_xi_small, eft_xi, bao_cubic, bao_prec}_{names,
+      solved_names, points}``, and the log-posterior, its gradient and the
+      solved parameters at the points (``_logpost``, ``_grad``,
+      ``_solved``): config 3xi at full width (16 points) and reduced to (0,
+      2) in 8 Mpc/h bins (4 points), the EFT-like Kaiser xi (4 points), and
+      the BAO likelihood under the cubic transform and with '.prec' (4
+      points each, :data:`BAO_CUBIC_PARAMS`, :data:`BAO_PREC_PARAMS`);
+    - ``fisher_xi_{names, center, hessian, gradient}``: ``Fisher`` of config
+      xi (:func:`build_xi_likelihood`) at its fiducial (the parameters'
+      values, b1 = 2.0 at which the data were made), over its 4 varied and 6
+      solved parameters;
+    - ``sum_{fisher_names, fisher_center, fisher_hessian}``: that Fisher's
+      ``view(['qpar', 'qper'])``, and ``sum_{names, points, logpost, grad,
+      solved}``: ``FisherGaussianLikelihood`` of it + config 3
+      (``scripts/bench_ept.build``) at 16 points. The two share ``qpar``
+      and ``qper``: the sum's pipeline merges parameters of one name.
+    """
+    from desilike_tpu.fisher import Fisher
+    from desilike_tpu.likelihoods import FisherGaussianLikelihood
+    suffix = '_x64' if x64 else ''
+    arrays = {}
+    for prefix, (build, npoints) in marg_likelihoods().items():
+        like = build()
+        names = like.pipeline.varied_params.names()
+        points = reference_points(names, npoints).astype('f4').astype('f8')
+        arrays.update({prefix + '_names': np.array(names), prefix + '_points': points,
+                       prefix + '_solved_names': np.array(returned_solved_names(like))})
+        for key, value in zip(('logpost', 'grad', 'solved'), evaluate_likelihood(like, names, points)):
+            arrays['{}_{}{}'.format(prefix, key, suffix)] = value
+    fisher = Fisher(build_xi_likelihood())(b1=2.0)
+    arrays.update({'fisher_xi_names' + suffix: np.array(fisher.names()), 'fisher_xi_center' + suffix: fisher.center,
+                   'fisher_xi_hessian' + suffix: fisher.hessian, 'fisher_xi_gradient' + suffix: fisher.gradient})
+    view = fisher.view(['qpar', 'qper'])
+    total = FisherGaussianLikelihood(fisher=view) + build_jax_likelihood('ept')
+    names = total.pipeline.varied_params.names()
+    points = reference_points(names).astype('f4').astype('f8')
+    arrays.update({'sum_fisher_names': np.array(view.names()), 'sum_fisher_center' + suffix: view.center,
+                   'sum_fisher_hessian' + suffix: view.hessian, 'sum_names': np.array(names), 'sum_points': points,
+                   'sum_solved_names': np.array(total.pipeline.solved_params.names())})
+    for key, value in zip(('logpost', 'grad', 'solved'), evaluate_likelihood(total, names, points)):
+        arrays['sum_{}{}'.format(key, suffix)] = value
+    np.savez(path, **arrays)
+
+
 def build_jax_likelihood(config):
     if config == 'bao':
         import __graft_entry__
@@ -211,22 +355,11 @@ def evaluate(config, names=None, points=None):
     ``points`` (in the package's current dtype; by default the reference
     points of the configuration's varied parameters, rounded to float32),
     and the built likelihood."""
-    import jax
-    import jax.numpy as jnp
-
     like = build_jax_likelihood(config)
-    logpost = like.logpost_fn(jit=False)
     if names is None:
         names = like.pipeline.varied_params.names()
         points = reference_points(names).astype('f4')
-    solved_names = like.pipeline.solved_params.names()
-
-    def scalar(theta):
-        value, aux = logpost(dict(zip(names, theta)))
-        return value, jnp.stack([aux['solved'][name] for name in solved_names])
-
-    (values, solved), grads = jax.jit(jax.vmap(jax.value_and_grad(scalar, has_aux=True)))(jnp.asarray(points))
-    return like, names, np.asarray(points, dtype='f8'), [np.asarray(a, dtype='f8') for a in (values, grads, solved)]
+    return like, names, np.asarray(points, dtype='f8'), evaluate_likelihood(like, names, points)
 
 
 def evaluate_x64(config, names, points):
@@ -281,6 +414,18 @@ def run_x64(mode):
         return dict(np.load(path))
 
 
+def build_marg_reference():
+    """:func:`marg_reference` in float32, then in x64 in a child process."""
+    import jax
+    jax.config.update('jax_platforms', 'cpu')
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'f32.npz')
+        marg_reference(path, x64=False)
+        arrays = dict(np.load(path))
+    arrays.update(run_x64('--x64-marg'))
+    return arrays
+
+
 def build_hessian_reference():
     """Config 4's unconstrained log-density, gradient and Hessian at the first
     reference point, computed in float64 in a child process."""
@@ -317,6 +462,11 @@ if __name__ == '__main__':
         jax.config.update('jax_platforms', 'cpu')
         xi_extras(sys.argv[2])
         sys.exit(0)
+    if sys.argv[1:2] == ['--x64-marg']:
+        import jax
+        jax.config.update('jax_platforms', 'cpu')
+        marg_reference(sys.argv[2], x64=True)
+        sys.exit(0)
     if sys.argv[1:2] == ['--x64']:
         import jax
         jax.config.update('jax_platforms', 'cpu')
@@ -325,6 +475,11 @@ if __name__ == '__main__':
         np.savez(sys.argv[3], logpost=values, grad=grads, solved=solved)
         sys.exit(0)
     for config in sys.argv[1:] or list(OUTPUTS):
-        arrays = build_hessian_reference() if config == 'hessian' else build_reference(config)
+        if config == 'hessian':
+            arrays = build_hessian_reference()
+        elif config == 'marg':
+            arrays = build_marg_reference()
+        else:
+            arrays = build_reference(config)
         np.savez_compressed(OUTPUTS[config], **arrays)
         print('wrote {} ({:d} bytes)'.format(OUTPUTS[config], os.path.getsize(OUTPUTS[config])))

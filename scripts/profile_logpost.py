@@ -1,11 +1,11 @@
 """Where a log-posterior call spends its time on one CUDA card.
 
-Builds config 1, 3, 4 or xi of ``chip_smoke.py`` on the card and, for the
+Builds config 1, 3, 4, xi or 3xi of ``chip_smoke.py`` on the card and, for the
 forward call and for the call with its gradient, at each batch of seeded
 chains:
 
 - times the call on the host's clock (10 calls ending in a synchronise);
-- runs ``torch.profiler`` over 5 calls and reports, a call: the CUDA kernels
+- runs ``torch.profiler`` over 5 calls (``--calls``) and reports, a call: the CUDA kernels
   launched, the device-busy time (the sum of the kernels' durations), the
   share of the wall time the card is idle, the host's time in each CUDA
   runtime call, the card's largest idle gaps between two kernels (with the
@@ -22,12 +22,14 @@ chains:
   products with a 156-, 52- or 6-wide operand: window, whitening and
   design matrices; and MAGMA), the other matrix products, and the
   elementwise rest (reductions included); the products by the device time
-  of the operators that launched them, the rest by kind of kernel.
+  of the operators that launched them, the rest by kind of kernel; for
+  config 3xi (config 3's theory in configuration space) config 3's B6 and
+  B7 beside config xi's stages (``stages_ms_a_call``).
 
 Prints one JSON line per (mode, batch), each with the card's name and power
 limit, and writes them to ``--out`` if given.
 
-    python3 scripts/profile_logpost.py [--config 1|3|4|xi] [--batches 4096 32768] [--out FILE]
+    python3 scripts/profile_logpost.py [--config 1|3|4|xi|3xi] [--batches 4096 32768] [--calls 5] [--out FILE]
 """
 
 import argparse
@@ -82,9 +84,11 @@ def xi_stage(shapes):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
-    parser.add_argument('--config', choices=('1', '3', '4', 'xi'), default='4')
+    parser.add_argument('--config', choices=('1', '3', '4', 'xi', '3xi'), default='4')
     parser.add_argument('--batches', type=int, nargs='+', default=[4096, 32768])
     parser.add_argument('--out', default=None, help='file the JSON lines are also written to')
+    parser.add_argument('--calls', type=int, default=5,
+                        help='calls profiled (the profiler holds memory a call: config 3xi needs 1 at 4096 chains)')
     args = parser.parse_args()
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import torch
@@ -95,7 +99,8 @@ def main():
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     like = {'1': chip_smoke.build_likelihood, '3': chip_smoke.build_ept_likelihood,
-            '4': chip_smoke.build_joint_likelihood, 'xi': chip_smoke.build_xi_likelihood}[args.config](None)
+            '4': chip_smoke.build_joint_likelihood, 'xi': chip_smoke.build_xi_likelihood,
+            '3xi': chip_smoke.build_ept_xi_likelihood}[args.config](None)
     fn = like.logpost_fn()
     names = like.pipeline.varied_params.names()
     lines = []
@@ -120,7 +125,7 @@ def main():
                 call()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) / 10 * 1e3
-            calls = 5
+            calls = args.calls
             torch.cuda.reset_peak_memory_stats()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
                 for _ in range(calls):
@@ -155,7 +160,8 @@ def main():
                 shapes = [tuple(shape) for shape in (average.input_shapes or []) if shape]
                 ops.append((us, average.key, shapes))
                 product = any(k in average.key for k in ('mm', 'matmul', 'mv', 'dot', 'einsum', 'linear'))
-                stage = {'3': loop_stage, 'xi': xi_stage}.get(args.config, lambda _: None)(shapes) if product else None
+                stage = {'3': loop_stage, 'xi': xi_stage, '3xi': lambda shapes: loop_stage(shapes) or xi_stage(shapes)}.get(
+                    args.config, lambda _: None)(shapes) if product else None
                 if stage:
                     stages[stage] += us
             ops.sort(key=lambda op: -op[0])
@@ -173,6 +179,11 @@ def main():
                                      for us, before, after in gaps[:8]]}
             if args.config == '3':
                 line['loop_stages_ms_a_call'] = {k: us / calls * 1e-3 for k, us in stages.items()}
+            if args.config == '3xi':
+                line['stages_ms_a_call'] = dict(
+                    {k: us / calls * 1e-3 for k, us in stages.items()}, magma=kinds['magma'] / calls * 1e-3,
+                    clenshaw=kinds['clenshaw'] / calls * 1e-3, cufft=kinds['cufft'] / calls * 1e-3,
+                    elementwise=(kinds['elementwise'] + kinds['reduction']) / calls * 1e-3)
             if args.config == 'xi':
                 # the matrix products by stage (device time of the operators that launched them), MAGMA
                 # beside the window and solve; the kinds of kernel for the rest

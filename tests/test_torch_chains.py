@@ -83,8 +83,10 @@ def test_chain_statistics(vals):
     assert burned.shape == burned_jax.shape == (450, 4)
     merged = Chain.concatenate([burned, ours.remove_burnin(500)])
     assert merged.shape == (550, 4)
-    with pytest.raises(NotImplementedError, match='A14'):
-        ours.to_fisher()
+    fisher, fisher_jax = ours.to_fisher(['a', 'b']), theirs.to_fisher(['a', 'b'])
+    assert fisher.names() == fisher_jax.names() == ['a', 'b']
+    close(fisher.center, fisher_jax.center)
+    close(fisher.hessian, fisher_jax.hessian)
     with pytest.raises(NotImplementedError, match='A17'):
         ours.write_getdist('chain')
 

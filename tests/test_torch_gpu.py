@@ -256,6 +256,49 @@ def test_xi_logpost_on_card_matches_cpu(cuda):
             < XI_X64_GRAD_RTOL
 
 
+def test_ept_xi_logpost_on_card_matches_cpu_and_jax(cuda):
+    """Config 3xi on the card, where a likelihood built with no device runs
+    (the counterterms by the linearize path: forward mode under vmap through
+    the xi step, its gradient through both kernels), against the port's CPU
+    plain path and the JAX x64 values at 4 frozen points, and the solved
+    counterterms against JAX x64; tolerances of chip_smoke.py."""
+    from chip_smoke import build_ept_xi_likelihood, EPT_X64_ATOL, EPT_X64_GRAD_RTOL, SOLVED_RTOL
+    reference = np.load(os.path.join(os.path.dirname(__file__), 'data', 'torch_port_marg_reference.npz'))
+    names = list(reference['ept_xi_names'])
+    results = []
+    for device in (None, 'cpu'):  # no device: the card
+        like = build_ept_xi_likelihood(device)
+        values = {n: torch.tensor(reference['ept_xi_points'][:4, i], dtype=torch.float32,
+                                  device=like.pipeline.device, requires_grad=True) for i, n in enumerate(names)}
+        before = (cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES)
+        logpost, aux = like.logpost_fn()(values)
+        logpost.sum().backward()
+        launched = (cuda_kernels.CLENSHAW_LAUNCHES - before[0], cuda_kernels.COEFF_GRAD_LAUNCHES - before[1])
+        assert like.pipeline.device.type == (device or 'cuda')
+        assert launched == ((10, 5) if device is None else (0, 0))
+        grad = torch.stack([values[n].grad for n in names], dim=-1)
+        solved = torch.stack([aux['solved'][n] for n in like.pipeline.solved_params.names()], dim=-1)
+        results.append((logpost.detach().cpu().numpy(), grad.cpu().numpy(), solved.detach().cpu().numpy()))
+    (lp, g, solved), (lp_cpu, g_cpu, _) = results
+    for expected, expected_grad in ((lp_cpu, g_cpu), (reference['ept_xi_logpost_x64'][:4],
+                                                      reference['ept_xi_grad_x64'][:4])):
+        np.testing.assert_allclose(lp, expected, rtol=0., atol=EPT_X64_ATOL)
+        assert (np.linalg.norm(g - expected_grad, axis=-1) / np.linalg.norm(expected_grad, axis=-1)).max() \
+            < EPT_X64_GRAD_RTOL
+    expected = reference['ept_xi_solved_x64'][:4]
+    assert np.all(np.abs(solved - expected) <= SOLVED_RTOL * np.maximum(100., np.abs(expected)))
+
+
+def test_fisher_and_sum_on_card(cuda):
+    """``Fisher`` of config xi on the card (jacfwd through the kernel) against
+    the JAX x64 matrix, then the compressed likelihood of its view on qpar
+    and qper plus config 3 against the JAX x64 values at 16 frozen points
+    (chip_smoke.check_fisher_and_sum)."""
+    from chip_smoke import build_ept_likelihood, build_xi_likelihood, check_fisher_and_sum
+    out = check_fisher_and_sum(build_xi_likelihood(None), build_ept_likelihood(None), 'card')
+    assert out['launches_fisher'][0] > 0 and out['launches_sum']['with gradient'] == (10, 5)
+
+
 def test_xi_goldens_on_card(cuda):
     """The xi theories built with no device run on the card: ``damped_bao_xi``
     against its golden vector, ``ept_xi`` against the JAX x64 vector
@@ -277,9 +320,10 @@ def test_xi_goldens_on_card(cuda):
                                   dict(rows=4096, q=560, order=202, per_row=False, log_values=True)], ids=case_label)
 def test_derivatives_through_the_kernels(cuda, case):
     """torch.func.jvp (x, c), jacfwd (x, c) on a (4, 16) slice, vmap over a
-    leading 3 (x; x and c) and double backward (d2/dx2, d2/(dx dc)) through
-    the Functions that launch the kernels, against the same transforms of
-    the plain recurrence; tolerances of chip_smoke.py."""
+    leading 3 (x; x and c), double backward (d2/dx2, d2/(dx dc)) and reverse
+    mode over vmap of jvp through the Functions that launch the kernels,
+    against the same transforms of the plain recurrence; tolerances of
+    chip_smoke.py."""
     before = (cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES)
     check_derivatives(case, cuda)
     assert cuda_kernels.CLENSHAW_LAUNCHES > before[0] and cuda_kernels.COEFF_GRAD_LAUNCHES > before[1]

@@ -148,7 +148,10 @@ def test_not_positive_definite_raises(own_likelihood):
 
 def test_unsolvable_parameters_raise():
     """A solved parameter with neither a static design row nor an analytic
-    basis (b1 enters quadratically) waits for the linearize path."""
+    basis (b1 enters quadratically), which raised before the linearize path
+    was ported: it takes that path beside the counterterms' analytic rows,
+    and its one Newton step from its default moves it toward the value the
+    data were made with (b1 = 2), every chain factored."""
     from desilike_tpu_torch import (ShapeFitPowerSpectrumTemplate, EFTLikeKaiserTracerPowerSpectrumMultipoles,
                                     TracerPowerSpectrumMultipolesObservable, BoxFootprint,
                                     ObservablesGaussianLikelihood)
@@ -158,5 +161,12 @@ def test_unsolvable_parameters_raise():
                                                          theory=theory)
     like = ObservablesGaussianLikelihood(observables=[observable], footprints=[BoxFootprint(volume=2e9, nbar=5e-4)],
                                          device='cpu')
-    with pytest.raises(NotImplementedError, match=r"\['b1'\].*A8"):
-        like.logpost_fn()
+    pipe = like.pipeline
+    assert pipe.solved_params.names() == ['b1', 'ct0_2', 'ct2_2']
+    aidx, _ = like._analytic_basis_plan(pipe.solved_params, [0, 1, 2], [like])
+    assert aidx == [1, 2]
+    b1 = pipe.params['b1'].value
+    values = {p.name: torch.full((2,), p.value) for p in pipe.varied_params}
+    logpost, aux = like.logpost_fn()(values)
+    assert bool(torch.isfinite(logpost).all()) and aux['solved_info'].tolist() == [0, 0]
+    assert float((aux['solved']['b1'] - 2.).abs().max()) < abs(b1 - 2.)
