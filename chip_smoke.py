@@ -11,8 +11,10 @@ multipoles, :func:`build_xi_likelihood`) and the batched config-3xi
 log-posterior (config 3's theory on xi multipoles, its counterterms solved
 by the linearize path, :func:`build_ept_xi_likelihood`), each with its
 gradient; the Fisher forecast of config xi and the sum of its compressed
-likelihood with config 3; and the gradient samplers (ChEES, NUTS) over
-config 4, ChEES over config 3.
+likelihood with config 3; the batched config-5 log-posterior (config 4 with
+its templates emulated: MLP for ShapeFit, Taylor for BAO,
+:func:`build_emulated_likelihood`); and the gradient samplers (ChEES, NUTS)
+over config 4, ChEES over config 3, NUTS over config 5.
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions, the
    kernel library's build time, ptxas's registers, and the blocks of each
@@ -70,7 +72,13 @@ config 4, ChEES over config 3.
    at EPT_XI_BIG_BATCH (wall and device milliseconds a call), its frozen JAX x64 values and solved
    counterterms in ``tests/data/torch_port_marg_reference.npz``, the CPU
    path at 4 points. The Fisher of config xi and the sum
-   (:func:`check_fisher_and_sum`) against the same file;
+   (:func:`check_fisher_and_sum`) against the same file. Config 5
+   (:func:`check_config5`): the JAX package's emulators carried across from
+   ``tests/data/torch_port_emulator_reference.npz``, against its x64 and
+   float32 values at 16 points and the CPU path at 4; then the port's own
+   emulators fitted on the card (``check()`` of each), log-posterior and
+   gradient at B = 4096 and 32768 (launches, wall and device milliseconds,
+   peak memory);
 4. times (reported, not gated): the Clenshaw kernel's device time from
    CUDA-graph replay of 50 launches at (4096, 560, 202) shared and per-row,
    (4096, 288, 202) per-row and (65536, 560, 202) shared, the coefficient
@@ -92,10 +100,13 @@ config 4, ChEES over config 3.
 5. the samplers (:func:`run_samplers`): on config 4 ChEES over B = 4096
    chains (24 warmup and 8 sampling iterations, at most 32 leapfrog steps)
    and NUTS over 64 chains (max_depth 5); on config 3 ChEES over B = 4096
-   chains (24 + 8 iterations, at most 16 leapfrog steps); each with the launch counters
-   set to 0 just before and read just after; iterations/s, chain-gradient
-   evaluations/s, launches a leapfrog step, step size, trajectory length,
-   acceptance, leaves and host reads an iteration.
+   chains (24 + 8 iterations, at most 16 leapfrog steps); on config 5 NUTS
+   over B = 4096 chains (8 + 4 iterations, max_depth 4,
+   :func:`run_emulated_nuts`) and its Fisher against config 4's; each with
+   the launch counters set to 0 just before and read just after;
+   iterations/s, chain-gradient evaluations/s, launches a leapfrog step,
+   step size, trajectory length, acceptance, leaves and host reads an
+   iteration.
 
 Any failure raises (exit code 1). The last three lines of standard output
 are a JSON object describing the kernels, one with the samplers' numbers,
@@ -171,6 +182,13 @@ SOLVED_RTOL = 1e-3
 FISHER_RTOL = 1e-3  # config xi's Fisher matrix against JAX x64: |dF_ij| <= FISHER_RTOL sqrt(F_ii F_jj)
 SAMPLER_BATCH = BATCH  # ChEES chains on config 4
 HESSIAN_ROWS = 18  # the start-point Hessian's batch: one copy of the point a varied parameter of config 4
+EMU_MLP_CHECK = 0.05  # Emulator.check() of an MLP template: the JAX package's bound (tests/test_config5.py:30)
+EMU_TAYLOR_CHECK = 1e-3  # Emulator.check() of a Taylor-emulated BAO template (its qpar, qper: linear in theta)
+EMU_TRACERS = (('LRG', 0.8, 2.0), ('ELG', 1.1, 1.3))  # configs 4 and 5: namespace, redshift, b1 of the mock data
+# config 5's template grids: those the theories give their templates (full_shape.py and bao.py ``_klim``), so that
+# the emulated tables have config 4's shapes and Chebyshev order
+EMU_FS_K = np.geomspace(1e-3, 1., 500)
+EMU_BAO_K = np.geomspace(1e-4, 1., 2000)
 
 
 def build_likelihood(device):
@@ -190,27 +208,31 @@ def build_likelihood(device):
     return like
 
 
-def build_joint_likelihood(device):
+def build_joint_likelihood(device, templates=None):
     """Config 4 in the port, with the calls of the JAX package's bench:
     two tracers, each with a full-shape observable (ShapeFit template,
     EFT-like Kaiser theory, counterterms and stochastic terms marginalized)
-    and a BAO observable (broadband marginalized); ``device=None``: the card."""
+    and a BAO observable (broadband marginalized); ``device=None``: the card.
+    ``templates``: {namespace: node} in place of the templates (LRG, LRGbao,
+    ELG, ELGbao), as config 5 gives them."""
     from desilike_tpu_torch import (DampedBAOWigglesTracerPowerSpectrumMultipoles, BAOPowerSpectrumTemplate,
                                     ShapeFitPowerSpectrumTemplate, EFTLikeKaiserTracerPowerSpectrumMultipoles,
                                     TracerPowerSpectrumMultipolesObservable, BoxFootprint,
                                     ObservablesGaussianLikelihood)
+    templates = templates or {}
     observables, footprints = [], []
-    for tracer, z, b1 in [('LRG', 0.8, 2.0), ('ELG', 1.1, 1.3)]:
-        fs_theory = EFTLikeKaiserTracerPowerSpectrumMultipoles(
-            ells=(0, 2), template=ShapeFitPowerSpectrumTemplate(z=z, namespace=tracer), namespace=tracer)
+    for tracer, z, b1 in EMU_TRACERS:
+        template = templates[tracer] if tracer in templates else ShapeFitPowerSpectrumTemplate(z=z, namespace=tracer)
+        fs_theory = EFTLikeKaiserTracerPowerSpectrumMultipoles(ells=(0, 2), template=template, namespace=tracer)
         fs_theory.init.params = {'ct*': dict(derived='.marg'), 'sn*': dict(derived='.marg')}
         observables.append(TracerPowerSpectrumMultipolesObservable(
             data={'{}.b1'.format(tracer): b1},
             klim={0: (0.02, 0.2, 0.005), 2: (0.02, 0.2, 0.005)}, theory=fs_theory))
         footprints.append(BoxFootprint(volume=2e9, nbar=5e-4))
-        bao_theory = DampedBAOWigglesTracerPowerSpectrumMultipoles(
-            ells=(0, 2), template=BAOPowerSpectrumTemplate(z=z, namespace=tracer + 'bao'),
-            namespace=tracer + 'bao')
+        template = templates[tracer + 'bao'] if tracer + 'bao' in templates else \
+            BAOPowerSpectrumTemplate(z=z, namespace=tracer + 'bao')
+        bao_theory = DampedBAOWigglesTracerPowerSpectrumMultipoles(ells=(0, 2), template=template,
+                                                                   namespace=tracer + 'bao')
         bao_theory.init.params = {'al*': dict(derived='.marg')}
         observables.append(TracerPowerSpectrumMultipolesObservable(
             data={'{}bao.b1'.format(tracer): b1},
@@ -219,6 +241,62 @@ def build_joint_likelihood(device):
     like = ObservablesGaussianLikelihood(observables=observables, footprints=footprints, device=device)
     like.pipeline
     return like
+
+
+def carried_emulator(reference, namespace, template):
+    """The JAX package's emulator of ``namespace`` in ``reference`` (the
+    arrays of ``tests/data/torch_port_emulator_reference.npz``), carried
+    across: its emulator file through ``Emulator.load`` on ``template``
+    and, for an MLP, its flax weights through ``interop.mlp_state_from_flax``."""
+    import tempfile
+    from desilike_tpu_torch import Emulator
+    from desilike_tpu_torch.interop import mlp_state_from_flax
+    prefix = namespace + ':'
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'emulator.npz')
+        np.savez(path, **{key[len(prefix):]: reference[key] for key in reference.files if key.startswith(prefix)
+                          and key[len(prefix):].split(':')[0] in ('meta', 'fixed', 'engine')})
+        emulator = Emulator.load(path, calculator=template)
+    if emulator.engine.name == 'mlp':
+        layers = sorted({key.split(':')[2] for key in reference.files if key.startswith(prefix + 'flax:')})
+        params = {layer: {w: reference['{}flax:{}:{}'.format(prefix, layer, w)] for w in ('kernel', 'bias')}
+                  for layer in layers}
+        norm = [reference['{}norm:{:d}'.format(prefix, i)] for i in range(4)]
+        emulator.engine.set_weights(*mlp_state_from_flax(params, norm))
+    return emulator
+
+
+def emulated_templates(device, reference=None):
+    """Config 5's templates as emulators, {namespace: Emulator}: each tracer's
+    ShapeFit template (on EMU_FS_K) by an MLP with the engine's defaults
+    (hidden (64, 64), 512 Sobol samples, 3000 Adam steps, lr 3e-3, seed 7),
+    its BAO template (on EMU_BAO_K) by a Taylor series of order 3. Fitted on
+    ``device`` (None: the card), or carried across from ``reference``
+    (:func:`carried_emulator`)."""
+    from desilike_tpu_torch import (BAOPowerSpectrumTemplate, ShapeFitPowerSpectrumTemplate, Emulator,
+                                    MLPEmulatorEngine, TaylorEmulatorEngine)
+    out = {}
+    for tracer, z, _ in EMU_TRACERS:
+        for namespace, template, engine in (
+                (tracer, ShapeFitPowerSpectrumTemplate(z=z, k=EMU_FS_K, namespace=tracer, device=device),
+                 MLPEmulatorEngine),
+                (tracer + 'bao', BAOPowerSpectrumTemplate(z=z, k=EMU_BAO_K, namespace=tracer + 'bao', device=device),
+                 lambda: TaylorEmulatorEngine(order=3))):
+            if reference is None:
+                out[namespace] = Emulator(template, engine=engine()).fit()
+            else:
+                out[namespace] = carried_emulator(reference, namespace, template)
+    return out
+
+
+def build_emulated_likelihood(device, reference=None):
+    """Config 5 in the port: config 4 (:func:`build_joint_likelihood`) with
+    its templates replaced by the emulated nodes (``Emulator.to_calculator``)
+    of :func:`emulated_templates` (fitted on ``device``, or carried across
+    from ``reference``); 18 varied, 30 solved, 368 data. ``device=None``:
+    the card."""
+    emulators = emulated_templates(device, reference)
+    return build_joint_likelihood(device, {ns: emu.to_calculator() for ns, emu in emulators.items()})
 
 
 def build_ept_likelihood(device):
@@ -1318,6 +1396,179 @@ def check_fisher_and_sum(xi, ept, smi):
     return out
 
 
+def check_config5(smi, joint_fn):
+    """Phase 3, config 5 (config 4 with emulated templates) on the card.
+    Carried across: the JAX package's emulators of
+    ``tests/data/torch_port_emulator_reference.npz`` (its Taylor files
+    through ``Emulator.load``, its MLP weights through
+    ``interop.mlp_state_from_flax``), the log-posterior and gradient at 16
+    frozen points against its x64 and float32 values, and against the port's
+    CPU path at 4 points. Then the port's own emulators, fitted on the card
+    (:func:`emulated_templates`; seconds and final losses printed):
+    ``check()`` below EMU_MLP_CHECK for each MLP and EMU_TAYLOR_CHECK for each
+    Taylor series; log-posterior and gradient over B = 4096 and
+    JOINT_BIG_BATCH chains (finite, the 30 solved parameters, both kernels
+    launched, counted forward and with the gradient), wall and device
+    milliseconds a call and the peak of device memory, and config 4's
+    (``joint_fn``) wall and device milliseconds on the same chains, timed
+    alongside. Returns (likelihood, its logpost_fn, the numbers)."""
+    import torch
+    from desilike_tpu_torch.ops import cuda_kernels
+    reference = np.load(os.path.join(ROOT, 'tests', 'data', 'torch_port_emulator_reference.npz'))
+    names, solved = list(reference['names']), list(reference['solved_names'])
+    carried = build_emulated_likelihood(None, reference=reference)  # no device: the card
+    pipe = carried.pipeline
+    if pipe.varied_params.names() != names or pipe.solved_params.names() != solved or carried.size != 368 \
+            or pipe.device.type != 'cuda':
+        raise AssertionError('config 5 varies {} and solves {} over {} data on {}'.format(
+            pipe.varied_params.names(), pipe.solved_params.names(), carried.size, pipe.device))
+    points = reference['points']
+    lp, g = at_points(carried, names, points)
+    check_close('phase 3: config 5: card, the JAX package\'s emulators vs JAX float32 at 16 points', lp,
+                reference['logpost'], JOINT_F32_ATOL, g, reference['grad'], JOINT_F32_GRAD_RTOL)
+    check_close('phase 3: config 5: card, the JAX package\'s emulators vs JAX float64 (x64) at 16 points', lp,
+                reference['logpost_x64'], JOINT_X64_ATOL, g, reference['grad_x64'], JOINT_X64_GRAD_RTOL)
+    lp_cpu, g_cpu = at_points(build_emulated_likelihood('cpu', reference=reference), names, points[:4])
+    check_close('phase 3: config 5: card vs the port\'s CPU plain path at 4 points', lp[:4], lp_cpu, JOINT_X64_ATOL,
+                g[:4], g_cpu, JOINT_X64_GRAD_RTOL)
+    del carried
+
+    out = dict(fit_s={}, loss={}, check={}, launches={}, max_memory_gib={}, wall_ms={}, device_ms={},
+               config4_wall_ms={}, config4_device_ms={})
+    t0 = time.perf_counter()
+    emulators = emulated_templates(None)  # fitted on the card
+    torch.cuda.synchronize()
+    out['fit_s'] = time.perf_counter() - t0
+    for namespace, emulator in emulators.items():
+        out['check'][namespace] = emulator.check()
+        if emulator.engine.name == 'mlp':
+            out['loss'][namespace] = emulator.engine.loss
+    print('phase 3: config 5: the port\'s emulators fitted on {!r} in {:.2f} s (MLP: 512 Sobol rows, 3000 Adam '
+          'steps; Taylor order 3; classification included): final MLP losses {}; check() {}'.format(
+              smi, out['fit_s'], {k: round(v, 8) for k, v in out['loss'].items()},
+              {k: float('{:.3e}'.format(v)) for k, v in out['check'].items()}))
+    for namespace, emulator in emulators.items():
+        bound = EMU_MLP_CHECK if emulator.engine.name == 'mlp' else EMU_TAYLOR_CHECK
+        if not out['check'][namespace] < bound:
+            raise AssertionError('config 5: the {} emulator of {} checks at {} (bound {})'.format(
+                emulator.engine.name, namespace, out['check'][namespace], bound))
+    t0 = time.perf_counter()
+    like = build_joint_likelihood(None, {ns: emu.to_calculator() for ns, emu in emulators.items()})
+    out['build_s'] = time.perf_counter() - t0
+    fn = like.logpost_fn()
+    for batch in (BATCH, JOINT_BIG_BATCH):
+        values = chains(names, batch, seed=0, device=like.pipeline.device)
+        runs = {}
+        for mode in ('forward', 'with gradient'):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cuda_kernels.CLENSHAW_LAUNCHES = cuda_kernels.COEFF_GRAD_LAUNCHES = 0
+            if mode == 'forward':
+                with torch.no_grad():
+                    logpost, aux = fn(values)
+                grad = None
+            else:
+                logpost, grad = logpost_and_grad(fn, values)
+            torch.cuda.synchronize()
+            runs[mode] = (logpost, grad)
+            out['launches'][mode, batch] = (cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES)
+            out['max_memory_gib'][mode, batch] = torch.cuda.max_memory_allocated() / 2 ** 30
+        logpost, grad = runs['with gradient']
+        forward, backward = out['launches']['forward', batch], out['launches']['with gradient', batch]
+        finite = bool(torch.isfinite(logpost).all() and torch.isfinite(grad).all()
+                      and torch.isfinite(runs['forward'][0]).all())
+
+        for key, function in (('', fn), ('config4_', joint_fn)):  # config 5, then config 4 on the same chains
+            def forward_call():
+                with torch.no_grad():
+                    function(values)
+
+            def gradient_call():
+                for value in values.values():
+                    value.grad = None
+                function(values)[0].sum().backward()
+
+            for mode, call in (('forward', forward_call), ('with gradient', gradient_call)):
+                out[key + 'wall_ms'][mode, batch] = time_cuda(call, 5 if batch == BATCH else 2, warmup=1)
+                out[key + 'device_ms'][mode, batch] = device_ms(call, calls=1)
+        rates = {key + mode: batch / out[key + 'wall_ms'][mode, batch] * 1e3
+                 for key in ('', 'config4_') for mode in ('forward', 'with gradient')}
+        print('phase 3: config 5: logpost and gradient over B={} chains on {!r}: shape {}, gradient {}, all finite '
+              '{}, mean logpost {:.4f}; launches forward: Clenshaw {}, coefficient gradient {}; with the gradient: '
+              'Clenshaw {}, coefficient gradient {}; peak device memory {:.2f} GiB forward, {:.2f} GiB with the '
+              'gradient; wall {:.3f} ms forward ({:.0f} evals/s), {:.3f} ms with the gradient ({:.0f} evals/s); '
+              'device {:.3f} and {:.3f} ms (busy {:.1%}, {:.1%}); config 4 alongside: wall {:.3f} and {:.3f} ms '
+              '({:.0f} and {:.0f} evals/s), device {:.3f} and {:.3f} ms; {} data, {} varied, {} solved'.format(
+                  batch, smi, tuple(logpost.shape), tuple(grad.shape), finite, float(logpost.mean()), forward[0],
+                  forward[1], backward[0], backward[1], out['max_memory_gib']['forward', batch],
+                  out['max_memory_gib']['with gradient', batch], out['wall_ms']['forward', batch],
+                  rates['forward'], out['wall_ms']['with gradient', batch], rates['with gradient'],
+                  out['device_ms']['forward', batch], out['device_ms']['with gradient', batch],
+                  out['device_ms']['forward', batch] / out['wall_ms']['forward', batch],
+                  out['device_ms']['with gradient', batch] / out['wall_ms']['with gradient', batch],
+                  out['config4_wall_ms']['forward', batch], out['config4_wall_ms']['with gradient', batch],
+                  rates['config4_forward'], rates['config4_with gradient'], out['config4_device_ms']['forward', batch],
+                  out['config4_device_ms']['with gradient', batch], like.size, len(names), len(solved)))
+        if (logpost.shape != (batch,) or grad.shape != (batch, len(names)) or not finite or forward[0] <= 0
+                or backward[0] <= forward[0] or forward[1] != 0 or backward[1] <= 0):
+            raise AssertionError('config 5 main path failed at B={}'.format(batch))
+        if list(aux['solved']) != solved or aux['solved_hessian'].shape != (batch, 30, 30) \
+                or not all(bool(torch.isfinite(v).all()) and v.shape == (batch,) for v in aux['solved'].values()):
+            raise AssertionError('config 5: aux[\'solved\'] does not hold the 30 solved parameters')
+        del values, runs, logpost, grad, aux
+        torch.cuda.empty_cache()
+    return like, fn, out
+
+
+def run_emulated_nuts(joint, emulated, smi):
+    """Phase 5 on config 5 (``emulated``, built on the card): NUTS over
+    SAMPLER_BATCH chains (8 warmup and 4 sampling iterations, max_depth 4),
+    with the launch counters set to 0 just before and read just after;
+    raises unless every recorded log-posterior is finite, both kernels were
+    launched and the share of sampling transitions that moved a chain lies
+    in (0, 1). Then ``Fisher`` of config 5 against config 4's (``joint``):
+    raises unless the standard deviations of qpar, dm, df and b1 of each
+    tracer lie within a factor 0.7-1.4 (tests/test_config5.py:38-42).
+    Returns the numbers."""
+    import torch
+    from desilike_tpu_torch import Fisher
+    from desilike_tpu_torch.ops import cuda_kernels
+    from desilike_tpu_torch.samplers import NUTSSampler
+    torch.cuda.synchronize()
+    cuda_kernels.CLENSHAW_LAUNCHES = cuda_kernels.COEFF_GRAD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    sampler = NUTSSampler(emulated, nchains=SAMPLER_BATCH, max_depth=4, seed=4)
+    chain = sampler.run(nsteps=4, nwarmup=8)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = (cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES)
+    d = sampler.diagnostics
+    x = np.stack([chain[name] for name in sampler.names], axis=-1)  # (nsteps, nchains, ndim)
+    moved = float(np.any(x[1:] != x[:-1], axis=-1).mean())
+    out = dict(chains=sampler.nchains, nwarmup=8, nsteps=4, max_depth=4, seconds=seconds,
+               iterations=d['iterations'], iterations_per_s=d['iterations'] / seconds, leaves=d['leaves'],
+               leaves_per_iteration=d['leaves'] / d['iterations'],
+               chain_gradient_evaluations_per_s=sampler.nchains * sampler.gradient_evaluations / seconds,
+               launches_clenshaw=launches[0], launches_coeff_grad=launches[1], moved_share=moved,
+               divergence_rate=d['divergence_rate'], step_size=float(np.median(d['step_size'])),
+               logposterior_finite=bool(np.isfinite(chain['logposterior']).all()), shape=list(chain.shape))
+    print('phase 5: nuts on config 5 on {!r}: {}'.format(smi, json.dumps(out)))
+    if not out['logposterior_finite'] or min(launches) <= 0 or not 0. < moved < 1.:
+        raise AssertionError('NUTS on config 5: a recorded log-posterior is not finite, a kernel was not launched, '
+                             'or the share of moves {} is outside (0, 1)'.format(moved))
+    t0 = time.perf_counter()
+    fisher, exact = Fisher(emulated)(), Fisher(joint)()
+    out['fisher_s'] = time.perf_counter() - t0
+    out['fisher_std_ratio'] = {name: float(fisher.std(name) / exact.std(name))
+                               for name in ('{}.{}'.format(tracer, basename) for tracer in ('LRG', 'ELG')
+                                            for basename in ('qpar', 'dm', 'df', 'b1'))}
+    print('phase 5: Fisher of config 5 against config 4 on {!r} ({:.2f} s both): standard deviation ratios {}'.format(
+        smi, out['fisher_s'], {k: round(v, 4) for k, v in out['fisher_std_ratio'].items()}))
+    if not all(0.7 < ratio < 1.4 for ratio in out['fisher_std_ratio'].values()):
+        raise AssertionError('config 5\'s Fisher is not within 0.7-1.4 of config 4\'s')
+    return out
+
+
 def time_xi_kernel(smi, device):
     """Phase 4 at config xi's shapes (:func:`xi_cases`' two batches): the
     Clenshaw kernel's device time by CUDA-graph replay beside its bound, its
@@ -1637,6 +1888,8 @@ def main(kernels_only=False):
     lap('phase 3: config 3xi')
     fisher_sum = check_fisher_and_sum(xi, ept, smi)
     lap('phase 3: the Fisher forecast and the sum')
+    emulated, _, config5 = check_config5(smi, jfn)
+    lap('phase 3: config 5')
     print('phases 1 to 3 took {:.1f} s'.format(time.perf_counter() - started))
 
     # --- phase 4: times (reported, not gated) ---
@@ -1747,6 +2000,7 @@ def main(kernels_only=False):
     # --- phase 5: the samplers on config 4 ---
     t5 = time.perf_counter()
     samplers = run_samplers(joint, ept, smi)
+    samplers['nuts_config5'] = run_emulated_nuts(joint, emulated, smi)
     samplers['seconds'] = time.perf_counter() - t5
     print('phase 5 took {:.1f} s; all phases took {:.1f} s'.format(samplers['seconds'], time.perf_counter() - started))
 
@@ -1780,6 +2034,9 @@ def main(kernels_only=False):
            for (mode, batch), value in config_3xi['launches'].items()},
         'launches_fisher': fisher_sum['launches_fisher'][0],
         **{'launches_sum_' + mode.replace(' ', '_'): value[0] for mode, value in fisher_sum['launches_sum'].items()},
+        **{'launches_config5_{}_{}'.format(mode.replace(' ', '_'), batch): value[0]
+           for (mode, batch), value in config5['launches'].items()},
+        'launches_nuts_config5': samplers['nuts_config5']['launches_clenshaw'],
         'launches_config_xi': config_xi['launches']['with gradient', BATCH][0],
         'launches_config_xi_forward': config_xi['launches']['forward', BATCH][0],
         'launches_hessian_config_xi': config_xi['launches_hessian'][0],
@@ -1805,7 +2062,10 @@ def main(kernels_only=False):
         **{'launches_config_3xi_' + '{}_{}'.format(mode.replace(' ', '_'), batch): value[1]
            for (mode, batch), value in config_3xi['launches'].items()},
         'launches_fisher': fisher_sum['launches_fisher'][1],
-        **{'launches_sum_' + mode.replace(' ', '_'): value[1] for mode, value in fisher_sum['launches_sum'].items()}}],
+        **{'launches_sum_' + mode.replace(' ', '_'): value[1] for mode, value in fisher_sum['launches_sum'].items()},
+        **{'launches_config5_{}_{}'.format(mode.replace(' ', '_'), batch): value[1]
+           for (mode, batch), value in config5['launches'].items()},
+        'launches_nuts_config5': samplers['nuts_config5']['launches_coeff_grad']}],
         'evals_per_s': {' '.join(str(part) for part in key): rate for key, rate in rates.items()},
         'host_syncs_forward': host_syncs,
         **{name: {'build_s': numbers['build_s'],
@@ -1817,6 +2077,12 @@ def main(kernels_only=False):
                        'host_syncs_forward': config_3xi['host_syncs'],
                        **{key: {'{} {}'.format(*k): v for k, v in config_3xi[key].items()}
                           for key in ('launches', 'max_memory_gib', 'wall_ms', 'device_ms')}},
+        'config5': {'fit_s': config5['fit_s'], 'build_s': config5['build_s'], 'loss': config5['loss'],
+                    'check': config5['check'],
+                    **{key: {'{} {}'.format(*k): v for k, v in config5[key].items()}
+                       for key in ('launches', 'max_memory_gib', 'wall_ms', 'device_ms', 'config4_wall_ms',
+                                   'config4_device_ms')},
+                    'evals_per_s': {'{} {}'.format(*k): k[1] / v * 1e3 for k, v in config5['wall_ms'].items()}},
         'fisher_sum': {'fisher_s': fisher_sum['fisher_s'], 'fisher_error': fisher_sum['fisher_error'],
                        'launches_fisher': fisher_sum['launches_fisher'], 'launches_sum': fisher_sum['launches_sum']},
         'host_syncs_forward_config_xi': {batch: config_xi['host_syncs', batch] for batch in (BATCH, BIG_BATCH)}}))

@@ -14,7 +14,9 @@ rows, per-chain basis rows and, for the rest, forward mode through the
 pipeline); the gradient samplers over them (``samplers``: ChEES, NUTS, HMC,
 MCLMC) with their chains and diagnostics (``samples``); and the Fisher
 forecast (``Fisher``, ``LikelihoodFisher``, ``FisherGaussianLikelihood``) with
-``Differentiation``.
+``Differentiation``; and the emulators (``emulators``: ``Emulator`` with the
+Point, Taylor and MLP engines) that replace a calculator by a surrogate
+node.
 Per-evaluation compute runs on a batch of chains, in float32, on the CUDA
 card unless the caller asks for the CPU by name (``device='cpu'``); the
 Chebyshev lookups and their gradients run through hand-written CUDA kernels
@@ -39,3 +41,5 @@ from .likelihoods import (BaseLikelihood, BaseGaussianLikelihood, ObservablesGau
                           FisherGaussianLikelihood, SumLikelihood)
 from .differentiation import Differentiation
 from .fisher import Fisher, LikelihoodFisher, PriorFisher
+from .emulators import (Emulator, EmulatedCalculator, PointEmulatorEngine, TaylorEmulatorEngine,
+                        MLPEmulatorEngine)

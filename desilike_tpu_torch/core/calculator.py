@@ -11,8 +11,9 @@ Dependencies are discovered implicitly: any Calculator instance in
 ``self.__dict__`` after initialize, unless ``self.requires`` is set
 explicitly. ``namespace='LRG'`` prefixes the node's parameter names
 (``LRG.b1``) and passes to the sub-calculators it creates, unless one sets
-``_propagate_namespace = False``. The state snapshots that emulators read
-wait for ROADMAP A14.
+``_propagate_namespace = False``. ``__getstate__`` snapshots a node's
+per-evaluation outputs (its ``_state_attrs``), which the emulators and the
+default getter of ``Differentiation`` read.
 
 Host tables reach the per-evaluation path through :meth:`Calculator.const`,
 which casts a numpy attribute to the dtype and device of the current
@@ -184,6 +185,49 @@ class Calculator(BaseClass):
 
     def get(self):
         return self
+
+    def __getstate__(self):
+        """Snapshot of the per-evaluation outputs listed in ``_state_attrs``
+        (the emulators and ``Differentiation``'s default getter read it).
+
+        An entry that depends on the evaluation's parameters keeps their
+        leading chain axis, ``(B, ...)``; a constant one (a fiducial table,
+        a float) has no batch axis. Entries are the attributes themselves
+        (tensors, floats, or dicts of tensors such as ``pktable``), not
+        copies.
+        """
+        return {name: getattr(self, name) for name in getattr(self, '_state_attrs', []) if hasattr(self, name)}
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+
+    def state_tensors(self, batch, nested=True):
+        """The state snapshot as ``{name: (batch, ...) tensor}`` in the
+        evaluation's dtype and device: a constant entry (a number, a numpy
+        array or a tensor of :meth:`const`) broadcast to the batch, a dict
+        entry flattened to ``'name.key'`` (dropped when ``nested`` is
+        False), an entry that is not a number dropped."""
+        cache = self.__dict__.get('_const_cache', {})
+        constants = {id(t) for _, tensors in cache.values() for t in tensors.values()}
+        out = {}
+
+        def add(name, value):
+            if isinstance(value, dict):
+                if nested:
+                    for key, item in value.items():
+                        add('{}.{}'.format(name, key), item)
+                return
+            if isinstance(value, torch.Tensor):
+                if id(value) in constants:
+                    value = value.expand(batch, *value.shape)
+                out[name] = value
+            elif isinstance(value, (int, float, np.number, np.ndarray)) and np.issubdtype(np.asarray(value).dtype, np.number):
+                value = torch.as_tensor(np.asarray(value), dtype=self.dtype, device=self.device)
+                out[name] = value.expand(batch, *value.shape)
+
+        for name, value in self.__getstate__().items():
+            add(name, value)
+        return out
 
     def const(self, name, dtype=None):
         """Host attribute ``name`` (numpy) as a tensor of the current

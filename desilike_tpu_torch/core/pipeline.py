@@ -6,7 +6,7 @@ traces the walk once and lets ``vmap`` add the chain dimension, here every
 parameter is a ``(B,)`` tensor and each calculator broadcasts over the
 leading batch dimension itself. Host-evaluated nodes, injected external
 state and the per-calculator profiler wait for the cosmology-varying
-theories (ROADMAP A11, A14).
+theories (ROADMAP A11).
 """
 
 import torch
@@ -164,6 +164,7 @@ class Pipeline(BaseClass):
         """
         ref = next(iter(full_values.values()), None)
         dtype, device = (ref.dtype, ref.device) if ref is not None else (config.get_dtype(), self.device)
+        self.batch = ref.numel() if ref is not None else 1  # the batch of the last walk (state snapshots)
         for calc in self.calculators:
             cvals = {p.basename: full_values[p.name] for p in calc.runtime_info.params
                      if p.derived is not True and not p.drop}

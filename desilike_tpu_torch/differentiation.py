@@ -132,11 +132,12 @@ class Differentiation(BaseClass):
     ----------
     calculator : Calculator
         Pipeline root.
-    getter : callable
+    getter : callable or None
         Called after the pipeline's evaluation; returns the quantity (a
         tensor with a leading batch dimension, or a dict of them) to
-        differentiate. The calculators' state snapshots, the JAX package's
-        default, wait for ROADMAP A14 (the emulators).
+        differentiate. Defaults to the root calculator's state snapshot
+        (:meth:`Calculator.state_tensors`: a dict entry flattened to
+        ``'name.key'``, a constant one broadcast to the batch).
     order : int or dict name -> int
         Maximum derivative order (total, mixed partials included).
     method : 'auto' (forward mode) or 'finite'
@@ -146,11 +147,11 @@ class Differentiation(BaseClass):
     """
 
     def __init__(self, calculator, getter=None, order=1, method='auto', accuracy=2, delta_scale=1.):
-        if getter is None:
-            raise NotImplementedError("the calculators' state snapshots, the default getter, are ROADMAP A14: "
-                                      'pass getter')
         self.calculator = calculator
         self.pipeline = calculator.pipeline
+        if getter is None:
+            def getter():
+                return calculator.state_tensors(self.pipeline.batch)
         self.varied_params = self.pipeline.varied_params
         self.names = self.varied_params.names()
         self.getter = getter

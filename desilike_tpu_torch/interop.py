@@ -7,7 +7,9 @@ agrees" from "the host initialization agrees". The arrays are those that
 ``scripts/make_torch_port_reference.py`` writes: ``STATE_KEYS``. A
 correlation-function observable carries the same ones: its window matrix
 (onto the theory's s grid) and the tables of the template under its
-theory's P(k) node. The other
+theory's P(k) node. ``mlp_state_from_flax`` carries a JAX-trained MLP
+emulator's weights, which the JAX package's emulator files do not hold.
+The other
 readers of the JAX package's ``interop.py`` (measured data, window files)
 wait for ROADMAP A12.
 """
@@ -75,3 +77,20 @@ def state_from_numpy(likelihood, arrays):
     likelihood._static_J = {static_names: static_J}
     likelihood.__dict__.pop('_logpost_fn', None)  # built on the old state
     return likelihood
+
+
+def mlp_state_from_flax(params, norm):
+    """The weights of a flax MLP of the JAX package's ``MLPEmulatorEngine``
+    as the port's: ``params`` the flax parameters as nested numpy dicts
+    (``{'Dense_i': {'kernel': (in, out), 'bias': (out,)}}``, the engine's
+    ``_params['params']``), ``norm`` the engine's ``_norm`` (xm, xs, ym, ys).
+    Returns the ``state_dict`` of ``emulators.MLP`` (``nn.Linear.weight`` is
+    the transposed kernel, (out, in)) and the norm as float32 tensors, which
+    ``MLPEmulatorEngine.set_weights`` takes."""
+    import torch
+    state = {}
+    for i in range(len(params)):
+        dense = params['Dense_{:d}'.format(i)]
+        state['layers.{:d}.weight'.format(i)] = torch.as_tensor(np.asarray(dense['kernel'], dtype='f4').T.copy())
+        state['layers.{:d}.bias'.format(i)] = torch.as_tensor(np.asarray(dense['bias'], dtype='f4'))
+    return state, tuple(torch.as_tensor(np.asarray(a, dtype='f4')) for a in norm)

@@ -569,12 +569,15 @@ class _Clenshaw(torch.autograd.Function):
             c_dim = 0
         elif coeffs.ndim == 2:  # the same per-row coefficients in every slice
             coeffs, c_dim = coeffs.expand(info.batch_size, *coeffs.shape), 0
+        # the kernel takes contiguous rows: a vmapped dimension that is not the
+        # outermost in memory (a tangent of a sliced MLP output) folds into
+        # strided ones
         if c_dim is None:  # shared coefficients, batched x
             (xb,) = _batch_rows(info, (x_dim,), x)
-            y = _Clenshaw.apply(xb, coeffs, log_values)
+            y = _Clenshaw.apply(xb.contiguous(), coeffs.contiguous(), log_values)
         else:
             xb, cb = _batch_rows(info, (x_dim, c_dim), x, coeffs)
-            y = _Clenshaw.apply(xb, cb, log_values)
+            y = _Clenshaw.apply(xb.contiguous(), cb.contiguous(), log_values)
         return y.reshape(info.batch_size, rows, y.shape[-1]), 0
 
 

@@ -1,8 +1,9 @@
 """Prior / reference distributions with batched torch ``logpdf``.
 
 Counterpart of ``desilike_tpu/parameters/prior.py``. Draws come from a
-``torch.Generator`` (``sample``); the prior transform ``ppf`` waits for the
-nested sampler (ROADMAP A15).
+``torch.Generator`` (``sample``); ``ppf``, the percent-point function, is
+host numpy (the MLP emulator's quasi-random draws). The batched prior
+transform of the nested sampler waits for ROADMAP A15.
 """
 
 import math
@@ -114,6 +115,24 @@ class Prior(BaseClass):
             return self.loc - self.scale * torch.log1p(-uniform())
         if self.dist == 'loguniform':
             return lo * (hi / lo) ** uniform()
+        raise ValueError(self.dist)
+
+    def ppf(self, u):
+        """Percent-point function at ``u`` in [0, 1], host numpy (float64),
+        the distribution truncated at its limits."""
+        u = np.asarray(u)
+        lo, hi = self.limits
+        if self.dist == 'uniform':
+            return lo + (hi - lo) * u
+        if self.dist == 'norm':
+            a, b = (lo - self.loc) / self.scale, (hi - self.loc) / self.scale
+            return stats.truncnorm.ppf(u, a, b, loc=self.loc, scale=self.scale)
+        if self.dist == 'expon':
+            a = stats.expon.cdf(lo, loc=self.loc, scale=self.scale) if np.isfinite(lo) else 0.
+            b = stats.expon.cdf(hi, loc=self.loc, scale=self.scale) if np.isfinite(hi) else 1.
+            return stats.expon.ppf(a + (b - a) * u, loc=self.loc, scale=self.scale)
+        if self.dist == 'loguniform':
+            return lo * (hi / lo) ** u
         raise ValueError(self.dist)
 
     @property

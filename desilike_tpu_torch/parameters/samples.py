@@ -5,10 +5,12 @@ host (the samplers copy their records off the device once, at the end of a
 run). Files are the same ``.npz`` layout: one ``arr:<name>`` array a column
 and a JSON ``__meta__`` of the parameters and scalar attributes, so that a
 file the JAX package saved loads here. ``DerivArray`` holds what
-``Differentiation`` returns; derivative-tagged columns of a file (``deriv:``
-keys) wait for ROADMAP A14.
+``Differentiation`` returns; such a column is saved as ``deriv:<name>`` (the
+values) beside ``derivkeys:<name>`` (the derivative keys, one ``repr`` of
+the sorted (name, count) items each), as the JAX package saves it.
 """
 
+import ast
 import json
 
 import numpy as np
@@ -155,7 +157,13 @@ class Samples(BaseClass):
     # --- IO ---
 
     def save(self, filename):
-        arrays = {'arr:' + name: np.asarray(value) for name, value in self.data.items()}
+        arrays = {}
+        for name, value in self.data.items():
+            if isinstance(value, DerivArray):
+                arrays['deriv:' + name] = np.asarray(value.value)
+                arrays['derivkeys:' + name] = np.array([repr(sorted(d.items())) for d in value.derivs])
+            else:
+                arrays['arr:' + name] = np.asarray(value)
         meta = {'params': self.params.__getstate__(),
                 'attrs': {k: v for k, v in self.attrs.items() if isinstance(v, (int, float, str, bool, list, tuple))}}
         arrays['__meta__'] = np.array(json.dumps(meta, default=float))
@@ -172,8 +180,9 @@ class Samples(BaseClass):
             if key.startswith('arr:'):
                 new.data[key[4:]] = loaded[key]
             elif key.startswith('deriv:'):
-                raise NotImplementedError('{} holds derivative-tagged column {!r}: loading them is ROADMAP '
-                                          'A14'.format(filename, key[6:]))
+                name = key[6:]
+                derivs = [Deriv(dict(ast.literal_eval(str(s)))) for s in loaded['derivkeys:' + name]]
+                new.data[name] = DerivArray(loaded[key], derivs)
         return new
 
     def __repr__(self):

@@ -59,6 +59,8 @@ def ap_s_mu(s, mu, qpar=1., qper=1.):
 class BaseTheoryPowerSpectrumMultipoles(Calculator):
     """Base for theory P_l(k); output attribute ``power`` of shape (B, nell, nk)."""
 
+    _state_attrs = ['power']
+
     def initialize(self, k=None, ells=(0, 2, 4), **kwargs):
         if k is None:
             k = np.linspace(0.01, 0.2, 101)
@@ -71,6 +73,8 @@ class BaseTheoryPowerSpectrumMultipoles(Calculator):
 
 class BaseTheoryCorrelationFunctionMultipoles(Calculator):
     """Base for theory xi_l(s); output attribute ``corr`` of shape (B, nell, ns)."""
+
+    _state_attrs = ['corr']
 
     def initialize(self, s=None, ells=(0, 2, 4), **kwargs):
         if s is None:

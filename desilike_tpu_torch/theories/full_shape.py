@@ -46,6 +46,7 @@ class KaiserPowerSpectrumMultipoles(BasePTPowerSpectrumMultipoles):
     AP-remapped grid, with optional Gaussian damping."""
 
     _params = {'sigmapar': dict(value=0., fixed=True), 'sigmaper': dict(value=0., fixed=True)}
+    _state_attrs = ['power', 'pktable']
 
     def calculate(self, sigmapar=0., sigmaper=0., **kw):
         jac, kap, muap = self.template.ap_k_mu(self.const('k'), self.const('mu'))

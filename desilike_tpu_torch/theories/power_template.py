@@ -35,6 +35,8 @@ class BasePowerSpectrumTemplate(Calculator):
     ``pk_dd_interp`` / ``pknow_dd_interp``.
     """
 
+    _state_attrs = ['pk_dd', 'pknow_dd', 'f', 'fsigma8', 'qpar', 'qper']
+
     def initialize(self, k=None, z=1., apmode='qparqper', with_now='peakaverage', only_now=False, eta=1. / 3.):
         if with_now != 'peakaverage' or only_now:
             raise NotImplementedError("with_now={!r}, only_now={!r}: only the 'peakaverage' no-wiggle table "
@@ -55,6 +57,7 @@ class BasePowerSpectrumTemplate(Calculator):
         self.fsigma8_fid = self.f_fid * self.sigma8_fid
         self.rs_drag_fid = float(bg.rs_drag(p))
         self._cheb = ChebyshevLogInterp(self.k)
+        self._cheb_cache = {}
         pk_dd = lin.pk_lin(p, self.k, self.z)
         pknow_dd = lin.NoWiggleFilter(self.k)(pk_dd, lin.pk_lin(p, self.k, self.z, nowiggle=True))
         self.set_fiducial_tables(pk_dd, pknow_dd)

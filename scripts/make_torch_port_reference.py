@@ -27,6 +27,8 @@ writes its reference file under ``tests/data``:
   matrix of config xi, the sum of a compressed likelihood from that Fisher
   with config 3, and the EFT-like Kaiser xi multipoles with their
   counterterms and stochastic terms solved;
+- ``emu``: config 5, config 4 with emulated templates
+  (:func:`emulated_reference`) -> ``torch_port_emulator_reference.npz``;
 - ``hessian``: config 4's log-density in the gradient samplers' unconstrained
   space (``NUTSSampler._logdens_grad``: the logit transform of the bounded
   parameters and its log-Jacobian), its gradient and its Hessian, in
@@ -64,8 +66,8 @@ with numpy alone, and ``tests/test_torch_bao_likelihood.py`` and
 JAX package so that the files cannot go stale.
 
 Run from the repository root:
-``JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py [bao|joint|ept|xi|marg|hessian]``
-(all six when no name is given).
+``JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py [bao|joint|ept|xi|marg|hessian|emu]``
+(all seven when no name is given).
 """
 
 import os
@@ -78,6 +80,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUTPUTS = {name: os.path.join(ROOT, 'tests', 'data', 'torch_port_{}_reference.npz'.format(name))
            for name in ('bao', 'joint', 'ept', 'xi', 'marg', 'hessian')}
+OUTPUTS['emu'] = os.path.join(ROOT, 'tests', 'data', 'torch_port_emulator_reference.npz')
 NPOINTS = 16
 HESSIAN_STEP = 1e-4  # central differences of the x64 gradient in the unconstrained space
 
@@ -334,6 +337,195 @@ def marg_reference(path, x64):
     np.savez(path, **arrays)
 
 
+# config 5's template grids: those the theories give their templates (full_shape.py and bao.py ``_klim``),
+# so that the emulated tables have config 4's shapes
+EMU_FS_K = np.geomspace(1e-3, 1., 500)
+EMU_BAO_K = np.geomspace(1e-4, 1., 2000)
+EMU_TRACERS = (('LRG', 0.8, 2.0), ('ELG', 1.1, 1.3))
+EMU_NPREDICT = 8  # seeded points at which each emulator's prediction is frozen
+EMU_NY = 64  # rows of the MLP's training set Y frozen (LRG), of its 512
+TAYLOR_K = np.geomspace(1e-3, 0.5, 120)  # the ShapeFit template of tests/test_emulators.py:12
+
+
+def build_emulated_likelihood(nodes):
+    """Config 5: config 4 (``bench.build_likelihood``) with each tracer's
+    templates replaced by the nodes ``nodes[tracer]`` (ShapeFit) and
+    ``nodes[tracer + 'bao']`` (BAO)."""
+    from desilike_tpu.theories import DampedBAOWigglesTracerPowerSpectrumMultipoles
+    from desilike_tpu.theories.full_shape import EFTLikeKaiserTracerPowerSpectrumMultipoles
+    from desilike_tpu.observables import TracerPowerSpectrumMultipolesObservable, BoxFootprint
+    from desilike_tpu.likelihoods import ObservablesGaussianLikelihood
+    observables, footprints = [], []
+    for tracer, z, b1 in EMU_TRACERS:
+        fs_theory = EFTLikeKaiserTracerPowerSpectrumMultipoles(ells=(0, 2), template=nodes[tracer], namespace=tracer)
+        fs_theory.init.params = {'ct*': dict(derived='.marg'), 'sn*': dict(derived='.marg')}
+        observables.append(TracerPowerSpectrumMultipolesObservable(
+            data={'{}.b1'.format(tracer): b1},
+            klim={0: (0.02, 0.2, 0.005), 2: (0.02, 0.2, 0.005)}, theory=fs_theory))
+        footprints.append(BoxFootprint(volume=2e9, nbar=5e-4))
+        bao_theory = DampedBAOWigglesTracerPowerSpectrumMultipoles(ells=(0, 2), template=nodes[tracer + 'bao'],
+                                                                   namespace=tracer + 'bao')
+        bao_theory.init.params = {'al*': dict(derived='.marg')}
+        observables.append(TracerPowerSpectrumMultipolesObservable(
+            data={'{}bao.b1'.format(tracer): b1},
+            klim={0: (0.02, 0.3, 0.005), 2: (0.02, 0.3, 0.005)}, theory=bao_theory))
+        footprints.append(BoxFootprint(volume=2e9, nbar=5e-4))
+    return ObservablesGaussianLikelihood(observables=observables, footprints=footprints)
+
+
+def emu_templates():
+    """{namespace: (template, engine name)}: config 5's templates before emulation."""
+    from desilike_tpu.theories import ShapeFitPowerSpectrumTemplate, BAOPowerSpectrumTemplate
+    out = {}
+    for tracer, z, _ in EMU_TRACERS:
+        out[tracer] = (ShapeFitPowerSpectrumTemplate(z=z, k=EMU_FS_K, namespace=tracer), 'mlp')
+        out[tracer + 'bao'] = (BAOPowerSpectrumTemplate(z=z, k=EMU_BAO_K, namespace=tracer + 'bao'), 'taylor')
+    return out
+
+
+def emu_predictions(emu, seed):
+    """EMU_NPREDICT seeded points around the emulator's center (inside its
+    reference ranges) and the emulator's flat prediction at each."""
+    rng = np.random.default_rng(seed)
+    theta = np.array([[p.value + 0.5 * (p.ref.std if p.ref is not None else 0.01) * rng.uniform(-1., 1.)
+                       for p in emu.varied_params] for _ in range(EMU_NPREDICT)]).astype('f4').astype('f8')
+    pred = np.array([np.concatenate([np.asarray(v, dtype='f8').reshape(-1) for v in emu.predict(t).values()])
+                     for t in theta])
+    return theta, pred
+
+
+def saved_arrays(emu, prefix):
+    """The arrays of ``emu.save`` (the JAX package's emulator file), keys prefixed."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'emu.npz')
+        emu.save(path)
+        return {prefix + key: value for key, value in np.load(path).items()}
+
+
+def emulated_reference(path):
+    """Config 5's arrays (float32, the package's default), written to
+    ``path``; then their x64 values from a child process:
+
+    - for each tracer's ShapeFit template (``LRG``, ``ELG``; on EMU_FS_K) its
+      MLP emulator (the engine's defaults: hidden (64, 64), 512 Sobol
+      samples, 3000 Adam steps, lr 3e-3, seed 7): ``<ns>:<key>`` the arrays
+      of its emulator file (``meta``, ``engine:loss``), ``<ns>:flax:Dense_i:
+      {kernel,bias}`` the trained weights, ``<ns>:norm:0`` to ``<ns>:norm:3``
+      its ``_norm`` (xm, xs, ym, ys) and ``<ns>:check`` its ``check()``; for LRG the Sobol inputs ``LRG:X`` and
+      the first EMU_NY rows of its outputs ``LRG:Y``;
+    - for each tracer's BAO template (``LRGbao``, ``ELGbao``; on EMU_BAO_K)
+      its Taylor emulator (order 3): ``<ns>:<key>`` its emulator file
+      (``meta``, ``fixed:*``, ``engine:{coeffs,center,derivs}``);
+    - for each emulator ``<ns>:predict_theta`` (EMU_NPREDICT points) and
+      ``<ns>:predict`` (the flat predicted state);
+    - config 5 (:func:`build_emulated_likelihood`) at 16 points: ``names``,
+      ``solved_names``, ``points``, ``logpost``, ``grad``, ``solved`` and
+      their ``_x64`` twins (the same emulators, the pipeline in float64;
+      the MLP runs in float32 even so);
+    - ``taylor_x64:{coeffs,derivs,names,varied_names}``: Taylor order 3 of
+      the ShapeFit template at z = 0.8 on TAYLOR_K, fitted in float64;
+    - ``getter:*`` (:func:`default_getter_reference`).
+    """
+    from desilike_tpu.emulators import Emulator, MLPEmulatorEngine, TaylorEmulatorEngine
+    arrays, nodes = {}, {}
+    for i, (ns, (template, engine)) in enumerate(emu_templates().items()):
+        if engine == 'mlp':
+            emu = Emulator(template, engine=MLPEmulatorEngine()).fit()
+            arrays.update(saved_arrays(emu, ns + ':'))
+            for layer, weights in emu.engine._params['params'].items():
+                for key, value in weights.items():
+                    arrays['{}:flax:{}:{}'.format(ns, layer, key)] = np.asarray(value)
+            for j, value in enumerate(emu.engine._norm):
+                arrays['{}:norm:{:d}'.format(ns, j)] = np.asarray(value)
+            arrays[ns + ':check'] = np.array(emu.check())
+            if ns == 'LRG':
+                arrays['LRG:X'], arrays['LRG:Y'] = emu.engine.X, np.asarray(emu.engine.Y[:EMU_NY])
+        else:
+            emu = Emulator(template, engine=TaylorEmulatorEngine(order=3)).fit()
+            arrays.update(saved_arrays(emu, ns + ':'))
+        arrays[ns + ':predict_theta'], arrays[ns + ':predict'] = emu_predictions(emu, seed=i)
+        nodes[ns] = emu.to_calculator()
+    arrays.update(default_getter_reference())
+    like = build_emulated_likelihood(nodes)
+    names = like.pipeline.varied_params.names()
+    points = reference_points(names).astype('f4').astype('f8')
+    arrays.update(names=np.array(names), points=points, solved_names=np.array(returned_solved_names(like)))
+    for key, value in zip(('logpost', 'grad', 'solved'), evaluate_likelihood(like, names, points)):
+        arrays[key] = value
+    np.savez(path, **arrays)
+    env = dict(os.environ, JAX_PLATFORMS='cpu', JAX_ENABLE_X64='1', DESILIKE_TPU_X64='1')
+    subprocess.run([sys.executable, os.path.abspath(__file__), '--x64-emu', path], env=env, check=True)
+
+
+def default_getter_reference():
+    """``Differentiation`` without a getter (the root's state snapshot) at
+    order 1 on the ShapeFit template at z = 0.8 on TAYLOR_K, float32:
+    ``getter:<entry>`` the values and derivatives of each state entry (one
+    row a derivative key), ``getter:derivs`` the keys."""
+    from desilike_tpu.differentiation import Differentiation
+    from desilike_tpu.theories import ShapeFitPowerSpectrumTemplate
+    result = Differentiation(ShapeFitPowerSpectrumTemplate(z=0.8, k=TAYLOR_K), order=1)()
+    arrays = {'getter:' + name: np.asarray(value.value, dtype='f8') for name, value in result.items()}
+    arrays['getter:derivs'] = np.array([repr(sorted(d.items())) for d in next(iter(result.values())).derivs])
+    return arrays
+
+
+def emulated_x64(path):
+    """The x64 child of :func:`emulated_reference`: rebuilds its emulators from
+    the arrays in ``path`` (the MLP from its flax weights, the Taylor ones
+    from their files), evaluates config 5 in float64 at its points, fits the
+    Taylor check case in float64, and adds the ``_x64`` arrays to ``path``."""
+    import flax.linen as nn
+    from desilike_tpu.emulators import Emulator, MLPEmulatorEngine, TaylorEmulatorEngine
+    from desilike_tpu.theories import ShapeFitPowerSpectrumTemplate
+    arrays = dict(np.load(path))
+    nodes = {}
+    for ns, (template, engine) in emu_templates().items():
+        if engine == 'mlp':
+            emu = Emulator(template, engine=MLPEmulatorEngine())
+            layers = sorted({key.split(':')[2] for key in arrays if key.startswith(ns + ':flax:')})
+            params = {'params': {layer: {key: arrays['{}:flax:{}:{}'.format(ns, layer, key)] for key in ('kernel', 'bias')}
+                                 for layer in layers}}
+            sizes = [params['params'][layer]['bias'].shape[0] for layer in layers]
+
+            class MLP(nn.Module):  # the engine's network (emulators/__init__.py:332-337)
+                @nn.compact
+                def __call__(self, x):
+                    for h in sizes[:-1]:
+                        x = nn.gelu(nn.Dense(h)(x))
+                    return nn.Dense(sizes[-1])(x)
+
+            emu.engine._model, emu.engine._params = MLP(), params
+            emu.engine._norm = tuple(arrays['{}:norm:{:d}'.format(ns, j)] for j in range(4))
+        else:
+            with tempfile.TemporaryDirectory() as tmp:
+                file = os.path.join(tmp, 'emu.npz')
+                np.savez(file, **{key[len(ns) + 1:]: value for key, value in arrays.items() if key.startswith(ns + ':')
+                                  and not key.startswith(ns + ':predict')})
+                emu = Emulator.load(file, calculator=template)
+        nodes[ns] = emu.to_calculator()
+    like = build_emulated_likelihood(nodes)
+    names = list(arrays['names'])
+    if like.pipeline.varied_params.names() != names:
+        raise AssertionError('the x64 build varies {}'.format(like.pipeline.varied_params.names()))
+    for key, value in zip(('logpost', 'grad', 'solved'), evaluate_likelihood(like, names, arrays['points'])):
+        arrays[key + '_x64'] = value
+    emu = Emulator(ShapeFitPowerSpectrumTemplate(z=0.8, k=TAYLOR_K), engine=TaylorEmulatorEngine(order=3)).fit()
+    arrays.update({'taylor_x64:coeffs': np.asarray(emu.engine.coeffs, dtype='f8'),
+                   'taylor_x64:derivs': emu.engine.__getstate__()['derivs'],
+                   'taylor_x64:names': np.array(emu.names), 'taylor_x64:varied_names': np.array(emu.varied_names)})
+    np.savez(path, **arrays)
+
+
+def build_emulated_reference():
+    import jax
+    jax.config.update('jax_platforms', 'cpu')
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'emu.npz')
+        emulated_reference(path)
+        return dict(np.load(path))
+
+
 def build_jax_likelihood(config):
     if config == 'bao':
         import __graft_entry__
@@ -467,6 +659,11 @@ if __name__ == '__main__':
         jax.config.update('jax_platforms', 'cpu')
         marg_reference(sys.argv[2], x64=True)
         sys.exit(0)
+    if sys.argv[1:2] == ['--x64-emu']:
+        import jax
+        jax.config.update('jax_platforms', 'cpu')
+        emulated_x64(sys.argv[2])
+        sys.exit(0)
     if sys.argv[1:2] == ['--x64']:
         import jax
         jax.config.update('jax_platforms', 'cpu')
@@ -479,6 +676,8 @@ if __name__ == '__main__':
             arrays = build_hessian_reference()
         elif config == 'marg':
             arrays = build_marg_reference()
+        elif config == 'emu':
+            arrays = build_emulated_reference()
         else:
             arrays = build_reference(config)
         np.savez_compressed(OUTPUTS[config], **arrays)

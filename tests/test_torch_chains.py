@@ -18,6 +18,8 @@ import pytest
 from desilike_tpu.samples import diagnostics as jax_diagnostics
 from desilike_tpu.samples.chain import Chain as JaxChain
 from desilike_tpu.samplers.base import BasePosteriorSampler as JaxBasePosteriorSampler, Diagnostics as JaxDiagnostics
+from desilike_tpu.parameters import Deriv as JaxDeriv, DerivArray as JaxDerivArray
+from desilike_tpu_torch.parameters import DerivArray
 from desilike_tpu_torch.samples import Chain, diagnostics
 from desilike_tpu_torch.samplers.base import BasePosteriorSampler, Diagnostics
 
@@ -117,11 +119,27 @@ def test_saved_chain_loads_and_sample_solved(tmp_path):
     np.testing.assert_array_equal(ours.sample_solved(seed=3)['s0'], chain.sample_solved(seed=3)['s0'])
 
 
-def test_load_refuses_derivative_columns(tmp_path):
-    np.savez(tmp_path / 'deriv.npz', **{'deriv:x': np.zeros((2, 3)), 'derivkeys:x': np.array(['[]', '[]']),
-                                        '__meta__': np.array('{"params": {"params": []}, "attrs": {}}')})
-    with pytest.raises(NotImplementedError, match='A14'):
-        Chain.load(tmp_path / 'deriv.npz')
+def test_derivative_columns_round_trip(tmp_path):
+    """A ``DerivArray`` column (``deriv:`` / ``derivkeys:``) saved by the JAX
+    package loads in the port with equal values and keys, and the port's
+    save loads back in the JAX package (exact)."""
+    rng = np.random.default_rng(4)
+    derivs = [{}, {'a': 1}, {'b': 1}, {'a': 2}, {'a': 1, 'b': 1}]
+    value = rng.normal(size=(len(derivs), 3))
+    jax_chain = JaxChain()
+    jax_chain['a'] = rng.normal(size=3)
+    jax_chain['x'] = JaxDerivArray(value, derivs=[JaxDeriv(d) for d in derivs])
+    jax_chain.save(tmp_path / 'jax.npz')
+    value = np.asarray(jax_chain['x'].value)  # as the JAX package holds it (float32)
+    loaded = Chain.load(tmp_path / 'jax.npz')
+    assert isinstance(loaded['x'], DerivArray) and [dict(d) for d in loaded['x'].derivs] == derivs
+    np.testing.assert_array_equal(loaded['x'].value, value)
+    np.testing.assert_array_equal(loaded['x'][('a', 'b')], value[4])
+    np.testing.assert_array_equal(loaded['a'], jax_chain['a'])
+    loaded.save(tmp_path / 'port.npz')
+    back = JaxChain.load(tmp_path / 'port.npz')
+    assert [dict(d) for d in back['x'].derivs] == derivs
+    np.testing.assert_array_equal(np.asarray(back['x'].value), value)
 
 
 def run_checks(cls, diagnostics_cls, chains):

@@ -198,6 +198,37 @@ def test_joint_logpost_on_card_matches_cpu(cuda):
     assert (np.linalg.norm(g - g_cpu, axis=-1) / np.linalg.norm(g_cpu, axis=-1)).max() < JOINT_X64_GRAD_RTOL
 
 
+def test_emulated_logpost_on_card_matches_cpu(cuda):
+    """Config 5 (config 4 with the JAX package's emulators carried across
+    from tests/data/torch_port_emulator_reference.npz) on the card, where a
+    likelihood built with no device runs, against the port's CPU plain path,
+    both float32, at 4 frozen points; config 4's tolerances and launches.
+    Its Fisher on the card (forward mode under vmap through the MLP's sliced
+    outputs) is finite."""
+    from chip_smoke import JOINT_X64_ATOL, JOINT_X64_GRAD_RTOL, build_emulated_likelihood
+    from desilike_tpu_torch import Fisher
+    reference = np.load(os.path.join(os.path.dirname(__file__), 'data', 'torch_port_emulator_reference.npz'))
+    names = list(reference['names'])
+    results = []
+    for device in (None, 'cpu'):  # no device: the card
+        like = build_emulated_likelihood(device, reference=reference)
+        values = {n: torch.tensor(reference['points'][:4, i], dtype=torch.float32, device=like.pipeline.device,
+                                  requires_grad=True) for i, n in enumerate(names)}
+        before = (cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES)
+        logpost, _ = like.logpost_fn()(values)
+        logpost.sum().backward()
+        launched = (cuda_kernels.CLENSHAW_LAUNCHES - before[0], cuda_kernels.COEFF_GRAD_LAUNCHES - before[1])
+        assert like.pipeline.device.type == (device or 'cuda')
+        assert launched == ((14, 2) if device is None else (0, 0))
+        grad = torch.stack([values[n].grad for n in names], dim=-1)
+        results.append((logpost.detach().cpu().numpy(), grad.cpu().numpy()))
+        if device is None:
+            assert np.isfinite(Fisher(like)().hessian).all()
+    (lp, g), (lp_cpu, g_cpu) = results
+    np.testing.assert_allclose(lp, lp_cpu, rtol=0., atol=JOINT_X64_ATOL)
+    assert (np.linalg.norm(g - g_cpu, axis=-1) / np.linalg.norm(g_cpu, axis=-1)).max() < JOINT_X64_GRAD_RTOL
+
+
 def test_ept_logpost_on_card_matches_cpu(cuda):
     """Config 3 on the card, where a likelihood built with no device runs
     (both kernels at orders 105 and 320, forward and backward), against the
