@@ -9,9 +9,12 @@ log-posterior of ``scripts/bench_ept.py`` and the batched config-xi BAO
 log-posterior in configuration space (config 1's likelihood on xi
 multipoles, :func:`build_xi_likelihood`) and the batched config-3xi
 log-posterior (config 3's theory on xi multipoles, its counterterms solved
-by the linearize path, :func:`build_ept_xi_likelihood`), each with its
-gradient; the Fisher forecast of config xi and the sum of its compressed
-likelihood with config 3; the batched config-5 log-posterior (config 4 with
+by the linearize path, :func:`build_ept_xi_likelihood`) and the batched
+config-3d log-posterior (BASELINE's config 3: config 3 on direct
+cosmology parameters, the cosmology evaluated per chain,
+:func:`build_ept_direct_likelihood`), each with its gradient; the Fisher
+forecast of config xi and of config 3d, and the sum of config xi's
+compressed likelihood with config 3; the batched config-5 log-posterior (config 4 with
 its templates emulated: MLP for ShapeFit, Taylor for BAO,
 :func:`build_emulated_likelihood`); and the gradient samplers (ChEES, NUTS)
 over config 4, ChEES over config 3, NUTS over config 5.
@@ -63,7 +66,12 @@ over config 4, ChEES over config 3, NUTS over config 5.
    and with the gradient), the frozen JAX values of
    ``tests/data/torch_port_ept_reference.npz``, the card against the CPU
    plain path at 4 points, and the ``ept``, ``ept_resum`` and
-   ``ept_physical`` golden vectors. Config xi (:func:`check_config_xi`): the
+   ``ept_physical`` golden vectors. Config 3d (:func:`check_config3d`): the
+   same at B = 4096 and 32768 beside config 3 (wall and device
+   milliseconds), the frozen values of
+   ``tests/data/torch_port_direct_reference.npz``, the ``eh99_pk`` golden,
+   the synchronising calls beside config 3's, and its Fisher on the card
+   against the CPU path. Config xi (:func:`check_config_xi`): the
    same at B = 4096 and 65536, its frozen values in
    ``tests/data/torch_port_xi_reference.npz``, the start-point Hessian
    diagonal through the rfft/irfft pair, the ``damped_bao_xi`` golden
@@ -96,7 +104,9 @@ over config 4, ChEES over config 3, NUTS over config 5.
    and, at B = 4096, ``chebyshev_polynomial_t`` + einsum + exp) and at config
    3xi's (:func:`time_ept_kernels` over :func:`ept_xi_cases`); the nearest
    library call to the series (:func:`library_series_ms`) at configs 1, 4
-   and 3's shapes too;
+   and 3's shapes too; both kernels at the templates' own lookups
+   (:func:`template_cases`); the cosmology node of config 3d alone
+   (:func:`time_cosmology_node`); config 3d's evals/s beside config 3's;
 5. the samplers (:func:`run_samplers`): on config 4 ChEES over B = 4096
    chains (24 warmup and 8 sampling iterations, at most 32 leapfrog steps)
    and NUTS over 64 chains (max_depth 5); on config 3 ChEES over B = 4096
@@ -185,6 +195,9 @@ HESSIAN_ROWS = 18  # the start-point Hessian's batch: one copy of the point a va
 EMU_MLP_CHECK = 0.05  # Emulator.check() of an MLP template: the JAX package's bound (tests/test_config5.py:30)
 EMU_TAYLOR_CHECK = 1e-3  # Emulator.check() of a Taylor-emulated BAO template (its qpar, qper: linear in theta)
 EMU_TRACERS = (('LRG', 0.8, 2.0), ('ELG', 1.1, 1.3))  # configs 4 and 5: namespace, redshift, b1 of the mock data
+# config 3d's cosmological parameters: chains (and the frozen points) drawn uniformly within these of the fiducial
+COSMO_CENTER = {'h': 0.6736, 'omega_cdm': 0.12, 'omega_b': 0.02237, 'logA': 3.036394, 'n_s': 0.9649}
+COSMO_WIDTH = {'h': 0.02, 'omega_cdm': 0.006, 'omega_b': 0.0008, 'logA': 0.1, 'n_s': 0.02}
 # config 5's template grids: those the theories give their templates (full_shape.py and bao.py ``_klim``), so that
 # the emulated tables have config 4's shapes and Chebyshev order
 EMU_FS_K = np.geomspace(1e-3, 1., 500)
@@ -317,6 +330,26 @@ def build_ept_likelihood(device):
     return like
 
 
+def build_ept_direct_likelihood(device):
+    """Config 3d in the port: BASELINE's config 3, the 1-loop EPT full-shape
+    likelihood on direct cosmology parameters, with the calls of
+    :func:`build_ept_likelihood` but the template
+    ``DirectPowerSpectrumTemplate(z=0.8)``: its default varied parameters
+    (h, omega_cdm, omega_b, logA, n_s) on the eh98 engine, evaluated per
+    chain; 10 varied, 6 solved, 108 data. ``device=None``: the card."""
+    from desilike_tpu_torch import (EPTTracerPowerSpectrumMultipoles, DirectPowerSpectrumTemplate,
+                                    TracerPowerSpectrumMultipolesObservable, BoxFootprint,
+                                    ObservablesGaussianLikelihood)
+    theory = EPTTracerPowerSpectrumMultipoles(ells=(0, 2, 4), template=DirectPowerSpectrumTemplate(z=0.8))
+    theory.init.params = {'ct*': dict(derived='.marg'), 'sn*': dict(derived='.marg')}
+    observable = TracerPowerSpectrumMultipolesObservable(
+        data={'b1': 2.0}, klim={ell: (0.02, 0.2, 0.005) for ell in (0, 2, 4)}, theory=theory)
+    like = ObservablesGaussianLikelihood(observables=[observable], footprints=[BoxFootprint(volume=2e9, nbar=5e-4)],
+                                         device=device)
+    like.pipeline
+    return like
+
+
 def build_xi_likelihood(device):
     """Config xi in the port: config 1 (:func:`build_likelihood`) in
     configuration space, as a user builds it. Damped BAO xi multipoles (0, 2)
@@ -367,9 +400,9 @@ def chains(names, batch, seed, device):
     import torch
     rng = np.random.default_rng(seed)
     center = {'qpar': 1., 'qper': 1., 'dbeta': 1., 'df': 1., 'dm': 0., 'b2': 0., 'bs': 0., 'b3nl': 0., 'sn0': 0.,
-              'sn2_2': 0.}
+              'sn2_2': 0., **COSMO_CENTER}
     width = {'qpar': 0.04, 'qper': 0.04, 'b1': 0.3, 'dbeta': 0.1, 'df': 0.1, 'dm': 0.05, 'b2': 0.5, 'bs': 0.5,
-             'b3nl': 0.5, 'sn0': 1., 'sn2_2': 5.}
+             'b3nl': 0.5, 'sn0': 1., 'sn2_2': 5., **COSMO_WIDTH}
     values = {}
     for name in names:
         namespace, _, basename = name.rpartition('.')
@@ -540,8 +573,18 @@ def kernel_cases():
         for k in (2, 8):
             cases.append(dict(rows=BATCH, q=NQUERY, order=202, per_row=per_row, log_values=True, k=k))
     cases.append(dict(rows=56, q=1, order=202, per_row=False, log_values=True))  # the kobs lookup
-    cases += ept_cases() + xi_cases() + ept_xi_cases()
+    cases += ept_cases() + xi_cases() + ept_xi_cases() + template_cases()
     return cases
+
+
+def template_cases():
+    """The templates' own lookups of their wiggles (series, not exp'd) at a
+    chain's moved k, at B = 4096: BAOPhaseShift and WiggleSplit on the BAO
+    theories' template grid (2000 points, order 202, the fiducial wiggles:
+    shared coefficients), DirectWiggleSplit on the EPT theory's (1200
+    points, order 320, each chain's wiggles: one coefficient row a chain)."""
+    return [dict(rows=BATCH, q=2000, order=ORDER, per_row=False, log_values=False),
+            dict(rows=BATCH, q=1200, order=EPT_ORDER, per_row=True, log_values=False)]
 
 
 def ept_cases():
@@ -655,7 +698,7 @@ def coeff_grad_cases():
     cases.append(dict(rows=70000, q=FS_NQUERY, order=ORDER, per_row=True, log_values=True, max_grid=7))
     cases.append(dict(rows=BATCH, q=FS_NQUERY, order=ORDER, per_row=True, log_values=True, offset=1))
     cases.append(dict(rows=56, q=100, order=ORDER, per_row=True, log_values=True))  # 9 queries a lane, prefetched
-    cases += ept_cases() + ept_xi_cases()
+    cases += ept_cases() + ept_xi_cases() + [case for case in template_cases() if case['per_row']]
     return cases
 
 
@@ -819,12 +862,14 @@ def time_ept_kernels(smi, device, cases=None, config='config 3'):
     its bound, its plain version's time, and the nearest library calls' (for
     the series :func:`library_series_ms`, for the coefficient gradient, with y
     for the exp'd lookups as the backward launches it,
-    ``chebyshev_polynomial_t`` + einsum). Returns {label: numbers}."""
+    ``chebyshev_polynomial_t`` + einsum); the coefficient gradient per row
+    or summed over the rows, as the case's coefficients are. Returns {label:
+    numbers}."""
     import torch
     from desilike_tpu_torch.ops import cuda_kernels
     out = {}
     for case in ept_cases() if cases is None else cases:
-        rows, q, order, log_values = case['rows'], case['q'], case['order'], case['log_values']
+        rows, q, order, log_values, per_row = (case[key] for key in ('rows', 'q', 'order', 'log_values', 'per_row'))
         x, c = case_inputs(case, device, seed=2)
         w = torch.tensor(np.random.default_rng(5).normal(size=tuple(x.shape)), dtype=torch.float32, device=device)
         with torch.no_grad():
@@ -832,18 +877,19 @@ def time_ept_kernels(smi, device, cases=None, config='config 3'):
         wy = w if y is None else w * y
         entry = out['{}x{} order {}'.format(rows, q, order)] = {}
         entry['ms'] = float(np.mean([time_graph(lambda: cuda_kernels.clenshaw(x, c, log_values)) for _ in range(2)]))
-        entry['bound_ms'], entry['bound_by'] = clenshaw_bound_ms(rows, q, order, True)
+        entry['bound_ms'], entry['bound_by'] = clenshaw_bound_ms(rows, q, order, per_row)
         entry['plain_ms'] = time_cuda(lambda: cuda_kernels.clenshaw_reference(x, c, log_values), 3, warmup=1)
         entry['library_ms'] = library_series_ms(x, c, log_values)
-        entry['grad_ms'] = float(np.mean([time_graph(lambda: cuda_kernels._launch_coeff_grad(x, w, y, order, True))
+        entry['grad_ms'] = float(np.mean([time_graph(lambda: cuda_kernels._launch_coeff_grad(x, w, y, order, per_row))
                                           for _ in range(2)]))
-        entry['grad_bound_ms'], entry['grad_bound_by'] = coeff_grad_bound_ms(rows, q, order, True, y is not None)
+        entry['grad_bound_ms'], entry['grad_bound_by'] = coeff_grad_bound_ms(rows, q, order, per_row, y is not None)
         entry['grad_plain_ms'] = time_cuda(lambda: cuda_kernels.clenshaw_coeff_grad_reference(x, wy, order), 3,
                                            warmup=1)
 
         def library_call():  # every T_j(x) materialised, then a contraction
             degrees = torch.arange(order, device=device)
-            return torch.einsum('bq,bqj->bj', wy, torch.special.chebyshev_polynomial_t(x[..., None], degrees))
+            return torch.einsum('bq,bqj->bj' if per_row else 'bq,bqj->j', wy,
+                                torch.special.chebyshev_polynomial_t(x[..., None], degrees))
 
         try:  # a yardstick only, used nowhere in the port
             entry['grad_library_ms'] = time_cuda(library_call, 3, warmup=1)
@@ -852,11 +898,12 @@ def time_ept_kernels(smi, device, cases=None, config='config 3'):
             print('phase 4: chebyshev_polynomial_t + einsum could not run at {}x{} order {}: {}'.format(
                 rows, q, order, str(exc)[:300]))
             torch.cuda.empty_cache()
-        print('phase 4: {} shape {}x{} order {} per-row {} on {!r}: Clenshaw {:.4f} ms a launch (CUDA-graph '
+        print('phase 4: {} shape {}x{} order {} {} {} on {!r}: Clenshaw {:.4f} ms a launch (CUDA-graph '
               'replay), bound {:.4f} ms ({}), {:.1%} of it, plain version {:.4f} ms, chebyshev_polynomial_t + einsum{} '
               '{} ms; coefficient gradient {:.4f} ms, bound {:.4f} ms ({}), {:.1%} of it, plain version {:.4f} ms, '
               'chebyshev_polynomial_t + einsum {} ms'.format(
-                  config, rows, q, order, 'exp' if log_values else 'series', smi, entry['ms'], entry['bound_ms'],
+                  config, rows, q, order, 'per-row' if per_row else 'shared', 'exp' if log_values else 'series', smi,
+                  entry['ms'], entry['bound_ms'],
                   entry['bound_by'], entry['bound_ms'] / entry['ms'], entry['plain_ms'],
                   ' + exp' if log_values else '', entry['library_ms'] and round(entry['library_ms'], 4),
                   entry['grad_ms'], entry['grad_bound_ms'], entry['grad_bound_by'],
@@ -972,9 +1019,11 @@ def count_host_syncs(fn, values, label='config 4'):
     import warnings
     import torch
     places = collections.Counter()
+    calling = [False]
 
     def record(message, category, filename, lineno, file=None, line=None):
-        if 'synchroniz' in str(message):
+        # only the call's: turning the debug mode on can itself warn of a synchronisation (seen on an H100)
+        if calling[0] and 'synchroniz' in str(message):
             frames = [f for f in traceback.extract_stack()[:-1]
                       if f.filename.startswith(ROOT) and not f.filename.endswith('chip_smoke.py')]
             frame = frames[-1] if frames else None
@@ -987,9 +1036,11 @@ def count_host_syncs(fn, values, label='config 4'):
         warnings.showwarning = record
         torch.cuda.set_sync_debug_mode('warn')
         try:
+            calling[0] = True
             with torch.no_grad():
                 fn(values)
         finally:
+            calling[0] = False
             torch.cuda.set_sync_debug_mode(0)
     print('phase 3: {}: one forward call at B={} made {} synchronising CUDA call(s){}'.format(
         label, next(iter(values.values())).shape[0], sum(places.values()),
@@ -1116,6 +1167,189 @@ def check_config3(golden):
     return ept, fn, out
 
 
+def check_config3d(golden, smi, ept):
+    """Phase 3, config 3d (BASELINE's config 3: config 3 on direct cosmology
+    parameters, :func:`build_ept_direct_likelihood`) on the card:
+    log-posterior and gradient over B = 4096 and EPT_BIG_BATCH seeded chains
+    (finite, the 6 solved parameters, the Clenshaw kernel launched forward
+    and both kernels with the gradient, counted; the peak of device memory;
+    wall and device milliseconds a call, and config 3's (``ept``) on the
+    same batch alongside); the frozen JAX values of
+    ``tests/data/torch_port_direct_reference.npz`` at 16 points (float32 with
+    the JAX package's host state; float32 and x64 with the port's own), the card against the port's CPU path at 4 points, the
+    ``eh99_pk`` golden through a Direct template on the card, the
+    synchronising calls of one forward call (beside config 3's, only the
+    copies of its fixed parameters' defaults may add to them), and the Fisher of config 3d at
+    its fiducial against the CPU path's (|dF_ij| <= FISHER_RTOL
+    sqrt(F_ii F_jj)). Returns (likelihood, its logpost_fn, the numbers)."""
+    import torch
+    from desilike_tpu_torch import DirectPowerSpectrumTemplate, Fisher, Pipeline
+    from desilike_tpu_torch.interop import state_from_numpy
+    from desilike_tpu_torch.ops import cuda_kernels
+    reference = np.load(os.path.join(ROOT, 'tests', 'data', 'torch_port_direct_reference.npz'))
+    t0 = time.perf_counter()
+    like = build_ept_direct_likelihood(None)  # no device: the card
+    pipe = like.pipeline
+    names, solved = pipe.varied_params.names(), pipe.solved_params.names()
+    out = dict(build_s=time.perf_counter() - t0, launches={}, max_memory_gib={}, wall_ms={}, device_ms={},
+               config3_wall_ms={}, config3_device_ms={})
+    if names != list(reference['names']) or solved != list(reference['solved_names']) or like.size != 108 \
+            or pipe.device.type != 'cuda':
+        raise AssertionError('config 3d varies {} and solves {} over {} data on {}'.format(names, solved, like.size,
+                                                                                        pipe.device))
+    fn, efn, enames = like.logpost_fn(), ept.logpost_fn(), ept.pipeline.varied_params.names()
+    cosmo_names = direct_template(like).cosmo.runtime_info.params.names()
+    for batch in (BATCH, EPT_BIG_BATCH):
+        values = chains(names, batch, seed=0, device=pipe.device)
+        runs = {}
+        for mode in ('forward', 'with gradient'):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cuda_kernels.CLENSHAW_LAUNCHES = cuda_kernels.COEFF_GRAD_LAUNCHES = 0
+            if mode == 'forward':
+                with torch.no_grad():
+                    logpost, aux = fn(values)
+                grad = None
+            else:
+                logpost, grad = logpost_and_grad(fn, values)
+            torch.cuda.synchronize()
+            runs[mode] = (logpost, grad)
+            out['launches'][mode, batch] = (cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES)
+            out['max_memory_gib'][mode, batch] = torch.cuda.max_memory_allocated() / 2 ** 30
+        logpost, grad = runs['with gradient']
+        forward, backward = out['launches']['forward', batch], out['launches']['with gradient', batch]
+        finite = bool(torch.isfinite(logpost).all() and torch.isfinite(grad).all()
+                      and torch.isfinite(runs['forward'][0]).all())
+        print('phase 3: config 3d: logpost and gradient over B={} chains on {!r}: shape {}, gradient {}, all finite '
+              '{}, mean logpost {:.4f}; launches forward: Clenshaw {}, coefficient gradient {}; with the gradient: '
+              'Clenshaw {}, coefficient gradient {}; peak device memory {:.2f} GiB forward, {:.2f} GiB with the '
+              'gradient; {} data, {} varied, {} solved'.format(
+                  batch, smi, tuple(logpost.shape), tuple(grad.shape), finite, float(logpost.mean()), forward[0],
+                  forward[1], backward[0], backward[1], out['max_memory_gib']['forward', batch],
+                  out['max_memory_gib']['with gradient', batch], like.size, len(names), len(solved)))
+        if (logpost.shape != (batch,) or grad.shape != (batch, len(names)) or not finite or forward[0] <= 0
+                or backward[0] <= forward[0] or forward[1] != 0 or backward[1] <= 0):
+            raise AssertionError('config 3d main path failed at B={}'.format(batch))
+        if list(aux['solved']) != solved or len(solved) != 6 \
+                or not all(bool(torch.isfinite(v).all()) and v.shape == (batch,) for v in aux['solved'].values()):
+            raise AssertionError('config 3d: aux[\'solved\'] does not hold the 6 solved parameters')
+        del runs, logpost, grad, aux
+        evalues = chains(enames, batch, seed=0, device=pipe.device)
+        iterations = 10 if batch == BATCH else 3
+        for mode in ('forward', 'with gradient'):
+            for key, function, args in (('', fn, values), ('config3_', efn, evalues)):
+                torch.cuda.empty_cache()  # the two likelihoods' blocks differ: at 32768 with the gradient they fragment
+                if mode == 'forward':
+                    def call():
+                        with torch.no_grad():
+                            function(args)
+                else:
+                    def call():  # gradients accumulate; harmless
+                        function(args)[0].sum().backward()
+                out[key + 'wall_ms'][mode, batch] = time_cuda(call, iterations, warmup=1)
+                out[key + 'device_ms'][mode, batch] = device_ms(call)
+            print('phase 3: config 3d {} at B={} on {!r}: {:.2f} ms a call wall, {:.2f} ms device (config 3 on the '
+                  'same batch: {:.2f} / {:.2f} ms)'.format(
+                      mode, batch, smi, out['wall_ms'][mode, batch], out['device_ms'][mode, batch],
+                      out['config3_wall_ms'][mode, batch], out['config3_device_ms'][mode, batch]))
+        if batch == BATCH:
+            # beside config 3's, the only synchronising calls config 3d may add are the copies of its fixed
+            # parameters' defaults to the card (core/pipeline.py, ROADMAP A6)
+            out['host_syncs'] = count_host_syncs(fn, values, label='config 3d')
+            out['host_syncs_config3'] = count_host_syncs(efn, evalues, label='config 3')
+            added = {place: count - out['host_syncs_config3'].get(place, 0) for place, count in out['host_syncs'].items()
+                     if count > out['host_syncs_config3'].get(place, 0)}
+            if any(not place.startswith(os.path.join('desilike_tpu_torch', 'core', 'pipeline.py')) for place in added):
+                raise AssertionError('config 3d adds synchronising calls beside config 3\'s: {}'.format(added))
+        del values, evalues
+        torch.cuda.empty_cache()
+    points = reference['points']
+    lp, g = at_points(state_from_numpy(build_ept_direct_likelihood('cuda'), reference), names, points)
+    check_close('phase 3: config 3d: card, JAX host state vs JAX float32 at 16 points', lp, reference['logpost'],
+                EPT_F32_ATOL, g, reference['grad'], EPT_F32_GRAD_RTOL)
+    lp, g = at_points(like, names, points)
+    check_close('phase 3: config 3d: card, own host state vs JAX float32 at 16 points', lp, reference['logpost'],
+                EPT_F32_ATOL, g, reference['grad'], EPT_F32_GRAD_RTOL)
+    check_close('phase 3: config 3d: card, own host state vs JAX float64 (x64) at 16 points', lp,
+                reference['logpost_x64'], EPT_X64_ATOL, g, reference['grad_x64'], EPT_X64_GRAD_RTOL)
+    like_cpu = build_ept_direct_likelihood('cpu')
+    lp_cpu, g_cpu = at_points(like_cpu, names, points[:4])
+    check_close('phase 3: config 3d: card vs the port\'s CPU plain path at 4 points', lp[:4], lp_cpu, EPT_X64_ATOL,
+                g[:4], g_cpu, EPT_X64_GRAD_RTOL)
+    k29 = np.linspace(0.02, 0.3, 29)
+    eh99 = DirectPowerSpectrumTemplate(z=0.8, k=k29, engine='eh99')  # no device: the card
+    Pipeline(eh99).evaluate({})
+    got, ref = eh99.pk_dd[0].cpu().numpy().astype('f8'), golden['eh99_pk']
+    err = float(np.abs(got - ref).max() / np.abs(ref).max())
+    print('phase 3: golden eh99_pk (Direct template, eh99 engine) on {}: max |d| / max |ref| {:.3e} (tol 2e-5 + '
+          '2e-5 rtol)'.format(eh99.pk_dd.device, err))
+    np.testing.assert_allclose(got, ref, atol=2e-5 * np.max(np.abs(ref)), rtol=2e-5)
+    fishers = {}
+    for label, likelihood in (('card', like), ('cpu', like_cpu)):
+        cuda_kernels.CLENSHAW_LAUNCHES = cuda_kernels.COEFF_GRAD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        fishers[label] = Fisher(likelihood)(b1=2.0)
+        if label == 'card':
+            torch.cuda.synchronize()
+            out['fisher_s'] = time.perf_counter() - t0
+            out['launches_fisher'] = (cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES)
+    F, ref = fishers['card'].precision, fishers['cpu'].precision
+    out['fisher_error'] = float((np.abs(F - ref) / np.sqrt(np.outer(np.diag(ref), np.diag(ref)))).max())
+    out['fisher_std'] = {name: fishers['card'].std(name) for name in cosmo_names if name in names}
+    line = ('phase 3: Fisher of config 3d at its fiducial on {!r} ({} varied + solved, {:.2f} s; launches: Clenshaw '
+            '{}, coefficient gradient {}): max |dF_ij| / sqrt(F_ii F_jj) from the CPU path {:.3e} (tol {:.0e}); '
+            'sigma {}'.format(smi, len(fishers['card'].names()), out['fisher_s'], *out['launches_fisher'],
+                              out['fisher_error'], FISHER_RTOL,
+                              ', '.join('{} {:.5f}'.format(n, v) for n, v in out['fisher_std'].items())))
+    print(line)
+    if not out['fisher_error'] <= FISHER_RTOL or out['launches_fisher'][0] <= 0:
+        raise AssertionError(line)
+    return like, fn, out
+
+
+def direct_template(likelihood):
+    """The ``DirectPowerSpectrumTemplate`` node of ``likelihood``'s pipeline."""
+    from desilike_tpu_torch import DirectPowerSpectrumTemplate
+    return next(c for c in likelihood.pipeline.calculators if isinstance(c, DirectPowerSpectrumTemplate))
+
+
+def time_cosmology_node(like, smi):
+    """Phase 4: the cosmology node of config 3d alone (the Direct template's
+    pipeline: its ``Cosmology`` node, the AP effect and the template's
+    per-chain tables pk_dd, pknow_dd, f, sigma8), forward and with the
+    gradient of its outputs, at B = 4096 and EPT_BIG_BATCH: device
+    milliseconds and kernels a call (:func:`kernel_profile`), and wall
+    milliseconds. Returns {(mode, batch): numbers}."""
+    import torch
+    from desilike_tpu_torch import Pipeline
+    template = direct_template(like)
+    cosmology = Pipeline(template)
+    names = [name for name in template.cosmo.runtime_info.params.names() if name in like.pipeline.varied_params]
+    out = {}
+    for batch in (BATCH, EPT_BIG_BATCH):
+        values = {name: value.detach() for name, value in chains(names, batch, seed=0, device=cosmology.device).items()}
+        for mode in ('forward', 'with gradient'):
+            if mode == 'forward':
+                def call():
+                    with torch.no_grad():
+                        cosmology.evaluate(values)
+            else:
+                leaves = {name: value.clone().requires_grad_(True) for name, value in values.items()}
+
+                def call():  # gradients accumulate; harmless
+                    cosmology.evaluate(leaves)
+                    (template.pk_dd.sum() + template.pknow_dd.sum() + template.fsigma8.sum() + template.qpar.sum()
+                     + template.qper.sum()).backward()
+            ms, kernels = kernel_profile(call)
+            wall = time_cuda(call, 10 if batch == BATCH else 3, warmup=1)
+            out[mode, batch] = dict(device_ms=ms, kernels=kernels, wall_ms=wall)
+            print('phase 4: the cosmology node of config 3d (Cosmology, AP effect, the Direct template\'s tables) '
+                  '{} at B={} on {!r}: {:.3f} ms device, {:.0f} kernels, {:.3f} ms wall a call'.format(
+                      mode, batch, smi, ms, kernels, wall))
+        del values
+    return out
+
+
 def check_config_xi(golden):
     """Phase 3, config xi (config 1 in configuration space) on the card:
     log-posterior and gradient over B = 4096 and 65536 seeded chains (finite,
@@ -1212,10 +1446,10 @@ def check_config_xi(golden):
     return xi, fn, out
 
 
-def device_ms(call, calls=2):
-    """Device milliseconds a call of ``call``: the sum of the kernels' device
-    times that ``torch.profiler`` records over ``calls`` calls, after one
-    call of warm-up."""
+def kernel_profile(call, calls=2):
+    """(device milliseconds, kernels) a call of ``call``: the sum of the
+    device times of the kernels and copies that ``torch.profiler`` records
+    over ``calls`` calls, and their number, after one call of warm-up."""
     import torch
     from torch.profiler import profile, ProfilerActivity
     call()
@@ -1224,9 +1458,14 @@ def device_ms(call, calls=2):
         for _ in range(calls):
             call()
         torch.cuda.synchronize()
-    us = sum(event.device_time if hasattr(event, 'device_time') else event.cuda_time for event in prof.events()
-             if event.device_type == torch.autograd.DeviceType.CUDA)
-    return us / calls * 1e-3
+    events = [event for event in prof.events() if event.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(event.device_time if hasattr(event, 'device_time') else event.cuda_time for event in events)
+    return us / calls * 1e-3, len(events) / calls
+
+
+def device_ms(call, calls=2):
+    """Device milliseconds a call of ``call`` (:func:`kernel_profile`)."""
+    return kernel_profile(call, calls)[0]
 
 
 def solved_at_points(likelihood, names, rows):
@@ -1880,6 +2119,9 @@ def main(kernels_only=False):
     lap('phase 3: config 4')
     ept, efn, config3 = check_config3(golden)
     lap('phase 3: config 3')
+    direct, dfn, config3d = check_config3d(golden, smi, ept)
+    dnames = direct.pipeline.varied_params.names()
+    lap('phase 3: config 3d')
     enames = ept.pipeline.varied_params.names()
     xi, xfn, config_xi = check_config_xi(golden)
     xnames = xi.pipeline.varied_params.names()
@@ -1973,21 +2215,27 @@ def main(kernels_only=False):
     del x, c, w, y
     ept_timed = time_ept_kernels(smi, cuda)
     ept_xi_timed = time_ept_kernels(smi, cuda, ept_xi_cases(), 'config 3xi')
+    template_timed = time_ept_kernels(smi, cuda, template_cases(), 'the templates\' wiggles')
     xi_timed = time_xi_kernel(smi, cuda)
+    cosmology_timed = time_cosmology_node(direct, smi)
     cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES = saved
 
     rates = {}
     for label, function, varied, batches in (('config 1', fn, names, (BATCH, BIG_BATCH)),
                                              ('config 4', jfn, jnames, (BATCH, JOINT_BIG_BATCH)),
                                              ('config 3', efn, enames, (BATCH, EPT_BIG_BATCH)),
+                                             ('config 3d', dfn, dnames, (BATCH, EPT_BIG_BATCH)),
                                              ('config xi', xfn, xnames, (BATCH, BIG_BATCH))):
         for batch in batches:
+            torch.cuda.empty_cache()
             fixed = chains(varied, batch, seed=1, device=cuda)
             with torch.no_grad():
                 forward_ms = time_cuda(lambda: function(fixed), 20 if batch == BATCH else 10)
             rates[label, batch] = batch / forward_ms * 1e3
             line = 'phase 4: {} logpost at B={} on {!r}: {:.4f} ms a call, {:.0f} evals/s'.format(
                 label, batch, smi, forward_ms, rates[label, batch])
+            # config 3d with the gradient at 32768 (66 GiB) is timed in phase 3: here, beside the other
+            # likelihoods' blocks, the card cannot hold it
             if batch == BATCH or label in ('config 3', 'config xi'):
                 # gradients accumulate; harmless
                 backward_ms = time_cuda(lambda: function(fixed)[0].sum().backward(), 10 if batch == BATCH else 3)
@@ -2026,9 +2274,13 @@ def main(kernels_only=False):
         'bound_ms_hessian': {'{} {}'.format(label, q): timed[label, HESSIAN_ROWS, q]['bound_ms']
                              for label, rows, q in timed if rows == HESSIAN_ROWS},
         'launches_config3': launches3[0], 'launches_chees_step_config3': samplers['launches_chees_step_config3'][0],
+        **{'launches_config3d_{}_{}'.format(mode.replace(' ', '_'), batch): value[0]
+           for (mode, batch), value in config3d['launches'].items()},
         **{key + '_config3': {label: entry[key] for label, entry in ept_timed.items()}
            for key in ('ms', 'bound_ms', 'plain_ms', 'library_ms')},
         **{key + '_config_3xi': {label: entry[key] for label, entry in ept_xi_timed.items()}
+           for key in ('ms', 'bound_ms', 'plain_ms', 'library_ms')},
+        **{key + '_templates': {label: entry[key] for label, entry in template_timed.items()}
            for key in ('ms', 'bound_ms', 'plain_ms', 'library_ms')},
         **{'launches_config_3xi_' + '{}_{}'.format(mode.replace(' ', '_'), batch): value[0]
            for (mode, batch), value in config_3xi['launches'].items()},
@@ -2055,9 +2307,13 @@ def main(kernels_only=False):
         'launches_hessian': launches_hessian[1], 'ms_hessian_288': grad_timed['hessian']['ms'],
         'bound_ms_hessian_288': grad_timed['hessian']['bound_ms'],
         'launches_config3': launches3[1], 'launches_chees_step_config3': samplers['launches_chees_step_config3'][1],
+        **{'launches_config3d_{}_{}'.format(mode.replace(' ', '_'), batch): value[1]
+           for (mode, batch), value in config3d['launches'].items()},
         **{key + '_config3': {label: entry['grad_' + key] for label, entry in ept_timed.items()}
            for key in ('ms', 'bound_ms', 'plain_ms', 'library_ms')},
         **{key + '_config_3xi': {label: entry['grad_' + key] for label, entry in ept_xi_timed.items()}
+           for key in ('ms', 'bound_ms', 'plain_ms', 'library_ms')},
+        **{key + '_templates': {label: entry['grad_' + key] for label, entry in template_timed.items()}
            for key in ('ms', 'bound_ms', 'plain_ms', 'library_ms')},
         **{'launches_config_3xi_' + '{}_{}'.format(mode.replace(' ', '_'), batch): value[1]
            for (mode, batch), value in config_3xi['launches'].items()},
@@ -2073,6 +2329,14 @@ def main(kernels_only=False):
                   'max_memory_gib': {'{} {}'.format(*key): value for key, value in numbers['max_memory_gib'].items()}}
            for name, numbers in (('config3', config3), ('config_xi', config_xi))},
         'hessian_errors_config_xi': config_xi['hessian_errors'],
+        'config3d': {'build_s': config3d['build_s'], 'host_syncs_forward': config3d['host_syncs'],
+                     'host_syncs_forward_config3': config3d['host_syncs_config3'],
+                     'fisher_s': config3d['fisher_s'], 'fisher_error': config3d['fisher_error'],
+                     'fisher_std': config3d['fisher_std'], 'launches_fisher': config3d['launches_fisher'],
+                     **{key: {'{} {}'.format(*k): v for k, v in config3d[key].items()}
+                        for key in ('launches', 'max_memory_gib', 'wall_ms', 'device_ms', 'config3_wall_ms',
+                                    'config3_device_ms')},
+                     'cosmology_node': {'{} {}'.format(*k): v for k, v in cosmology_timed.items()}},
         'config_3xi': {'build_s': config_3xi['build_s'], 'big_batch': EPT_XI_BIG_BATCH,
                        'host_syncs_forward': config_3xi['host_syncs'],
                        **{key: {'{} {}'.format(*k): v for k, v in config_3xi[key].items()}

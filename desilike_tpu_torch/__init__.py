@@ -30,7 +30,7 @@ from .utils import BaseClass
 from .parameters import Parameter, ParameterCollection, Prior
 from .core import Calculator, Pipeline
 from .theories import (DampedBAOWigglesTracerPowerSpectrumMultipoles, BAOPowerSpectrumTemplate,
-                       ShapeFitPowerSpectrumTemplate, KaiserTracerPowerSpectrumMultipoles,
+                       ShapeFitPowerSpectrumTemplate, DirectPowerSpectrumTemplate, Cosmology, KaiserTracerPowerSpectrumMultipoles,
                        EFTLikeKaiserTracerPowerSpectrumMultipoles, EPTTracerPowerSpectrumMultipoles,
                        DampedBAOWigglesCorrelationFunctionMultipoles, DampedBAOWigglesTracerCorrelationFunctionMultipoles,
                        KaiserTracerCorrelationFunctionMultipoles,

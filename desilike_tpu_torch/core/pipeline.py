@@ -5,8 +5,7 @@ Counterpart of ``desilike_tpu/core/pipeline.py``. Where the JAX package
 traces the walk once and lets ``vmap`` add the chain dimension, here every
 parameter is a ``(B,)`` tensor and each calculator broadcasts over the
 leading batch dimension itself. Host-evaluated nodes, injected external
-state and the per-calculator profiler wait for the cosmology-varying
-theories (ROADMAP A11).
+state and the per-calculator profiler wait for ROADMAP A15 and A17.
 """
 
 import torch

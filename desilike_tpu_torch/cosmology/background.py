@@ -1,18 +1,33 @@
-"""Background cosmology, host-side in float64 numpy.
+"""Background cosmology in torch, for one cosmology or a batch of chains.
 
-Counterpart of ``desilike_tpu/cosmology/background.py`` for what the BAO
-template's fiducial tables need: densities, E(z), distances (64-node
-Gauss-Legendre quadrature in sqrt(a)), the RK4 growth solution and
-rs_drag. These run once at initialization, so they are plain numpy; the
-recombination-era quantities wait for the compressed CMB likelihoods
-(ROADMAP A13).
+Counterpart of ``desilike_tpu/cosmology/background.py``: densities, E(z),
+distances (64-node Gauss-Legendre quadrature in sqrt(a)), the linear growth
+solution and rs_drag. One copy of the formulas serves two callers:
+
+- the host, at initialization (fiducial tables): a parameter dict of plain
+  numbers and numpy grids; the functions compute in float64 on the CPU and
+  return numpy (:func:`host`);
+- the per-chain path: every parameter a ``(B,)`` tensor (``Cosmology``
+  node), the results ``(B,)`` or ``(B,) + grid shape`` tensors on the
+  parameters' device and dtype.
+
+Redshifts are static (numbers or numpy arrays): the growth lookups use them
+to pick grid nodes on the host. The growth equation is linear in (D, D'),
+so each RK4 step is a 2 x 2 matrix; the 255 steps are built in one pass and
+multiplied out by a log-depth prefix product (:func:`growth_solution`),
+solved once per parameter dict. The recombination-era quantities wait for
+the compressed CMB likelihoods (ROADMAP A13).
 
 Conventions: distances in Mpc/h, k in h/Mpc. Growth is solved in a
 matter+Lambda(+w0wa) universe, neglecting radiation (the normalization
 convention of the Eisenstein-Hu transfer functions).
 """
 
+import collections
+import functools
+
 import numpy as np
+import torch
 
 C_KMS = 299792.458            # speed of light [km/s]
 DH_100 = C_KMS / 100.0        # c / (100 km/s/Mpc) = 2997.92458 Mpc/h
@@ -27,15 +42,122 @@ DEFAULT_PARAMS = dict(
 )
 """DESI fiducial cosmology (Planck 2018 base). logA = ln(10^10 A_s)."""
 
+_STATIC_KEYS = ('N_ncdm',)  # counts, not parameters: they stay Python numbers
+CACHES = ('_growth', '_eh98', '_eh98_nowiggle')  # what a parameter dict keeps of its own evaluation
+
 
 def resolve(params=None):
-    """Fill a parameter dict with DESI-fiducial defaults; derive A_s."""
+    """Fill a parameter dict with DESI-fiducial defaults; derive A_s.
+
+    ``'_massless_ncdm'`` records whether the massive-neutrino density is
+    zero, as the JAX package decides it on a concrete value: a zero
+    ``m_ncdm`` given as a number (a fixed parameter) has none, a tensor
+    (a varied one) the massive formula, which at 0 gives the massless
+    density. The ``Cosmology`` node sets it from the parameter's fixed host
+    value."""
     full = dict(DEFAULT_PARAMS)
     full.update(params or {})
     if 'A_s' not in full:
-        full['A_s'] = float(np.exp(full['logA'])) * 1e-10
+        logA = full['logA']
+        full['A_s'] = torch.exp(logA) * 1e-10 if isinstance(logA, torch.Tensor) else float(np.exp(logA)) * 1e-10
+    if '_massless_ncdm' not in full:
+        m = full['m_ncdm']
+        full['_massless_ncdm'] = not full.get('N_ncdm', 1) or (not isinstance(m, torch.Tensor) and float(m) == 0.)
     return full
 
+
+def tensors(p, like):
+    """The numbers of the parameter dict ``p`` as 0-d tensors of ``like``'s
+    dtype and device (counts, flags and tensors kept); ``p`` itself if it
+    holds no number to convert (so that what it caches stays)."""
+    numbers = [name for name, value in p.items() if not (name.startswith('_') or name in _STATIC_KEYS
+                                                         or isinstance(value, torch.Tensor))]
+    if not numbers:
+        return p
+    out = dict(p)
+    for name in numbers:
+        out[name] = torch.as_tensor(p[name], dtype=like.dtype, device=like.device)
+    return out
+
+
+def host_tensors(p):
+    """A host parameter dict as float64 CPU tensors (:func:`tensors`)."""
+    return tensors(p, torch.empty((), dtype=torch.float64))
+
+
+def host(fn):
+    """Let ``fn(p, *args)`` take a host parameter dict (plain numbers) and
+    numpy arguments: it then runs in float64 on the CPU and returns numpy.
+    With a tensor among the parameters or arguments, ``fn`` runs as it is."""
+
+    @functools.wraps(fn)
+    def wrapper(p, *args, **kwargs):
+        if any(isinstance(v, torch.Tensor) for v in list(p.values()) + list(args) + list(kwargs.values())):
+            return fn(p, *args, **kwargs)
+        out = fn(host_tensors(p), *args, **kwargs)
+        if isinstance(out, tuple):
+            return tuple(o.numpy() if isinstance(o, torch.Tensor) else o for o in out)
+        return out.numpy() if isinstance(out, torch.Tensor) else out
+
+    return wrapper
+
+
+def per_chain(fn, p, k, *args, **kwargs):
+    """``fn(p, k, *args, **kwargs)`` with ``k`` one row a chain, (B, n), for
+    the (B,) parameters of ``p``: ``fn``'s grid semantics applied to each
+    chain's row (``torch.func.vmap`` over the chains). Returns (B, n)."""
+    p = {name: value for name, value in p.items() if name not in CACHES}
+    batched = {name: value for name, value in p.items() if isinstance(value, torch.Tensor) and value.ndim}
+    static = {name: value for name, value in p.items() if name not in batched}
+    return torch.func.vmap(lambda b, row: fn({**static, **b}, row, *args, **kwargs))(batched, k)
+
+
+def float64(p):
+    """The parameter dict in float64 (what it caches left out)."""
+    return {name: value.double() if isinstance(value, torch.Tensor) else value for name, value in p.items()
+            if name not in CACHES}
+
+
+def ref(p):
+    """A tensor of the parameter dict, for the dtype and device of its grids."""
+    return p['h']
+
+
+_GRIDS = collections.OrderedDict()  # static grids copied to a card, by content: at most _NGRIDS
+_NGRIDS = 256
+
+
+def as_grid(x, p):
+    """A static grid (number, numpy or tensor) as a tensor of ``p``'s dtype
+    and device. A host grid is copied to a card once and kept (by content,
+    the most recent ``_NGRIDS``): a copy each call would synchronise the
+    host with the card."""
+    like = ref(p)
+    if isinstance(x, torch.Tensor):
+        return x.to(like.dtype)
+    x = np.asarray(x, dtype='f8')
+    if like.device.type == 'cpu':
+        return torch.as_tensor(x, dtype=like.dtype)
+    key = (x.shape, x.tobytes(), like.dtype, like.device)
+    if key in _GRIDS:
+        _GRIDS.move_to_end(key)
+    else:
+        _GRIDS[key] = torch.as_tensor(x, dtype=like.dtype, device=like.device)
+        if len(_GRIDS) > _NGRIDS:
+            _GRIDS.popitem(last=False)
+    return _GRIDS[key]
+
+
+def over(value, grid):
+    """A per-chain value (shape S: () or (B,)) against a grid tensor: shape
+    S + (1,) * grid.ndim, so that the result has shape S + grid.shape; a
+    number stays as it is."""
+    if isinstance(value, torch.Tensor):
+        return value.reshape(value.shape + (1,) * grid.ndim)
+    return value
+
+
+# --- densities ---
 
 def omega_gamma(p):
     """Photon density omega_gamma = Omega_gamma h^2 from T_cmb."""
@@ -61,15 +183,14 @@ def _rho_ncdm_ratio(y):
 
 
 def omega_ncdm_a(p, a):
-    """Massive-neutrino contribution to E^2(a) a^4 h^2."""
-    a = np.asarray(a, dtype='f8')
+    """Massive-neutrino contribution to E^2(a) a^4 h^2; ``a`` a grid tensor."""
+    if p['_massless_ncdm']:
+        return torch.zeros_like(a)
     n = p.get('N_ncdm', 1)
-    if not n or float(p['m_ncdm']) == 0.:
-        return np.zeros_like(a)
     per_species_massless = (7. / 8.) * TNCDM ** 4 * omega_gamma(p)
     t_nu_ev = TNCDM * p['T_cmb'] / 2.7255 * 2.7255 * 8.617333262e-5
-    y = p['m_ncdm'] / n * a / t_nu_ev
-    return n * per_species_massless * _rho_ncdm_ratio(y)
+    y = over(p['m_ncdm'] / n, a) * a / over(t_nu_ev, a)
+    return n * over(per_species_massless, a) * _rho_ncdm_ratio(y)
 
 
 def omega_m(p):
@@ -81,6 +202,7 @@ def omega_cb(p):
     return p['omega_cdm'] + p['omega_b']
 
 
+@host
 def Omega_m(p):
     return omega_m(p) / p['h'] ** 2
 
@@ -91,113 +213,167 @@ def Omega_de(p):
 
 
 def _f_de(p, a):
-    """Dark-energy density scaling for w0-wa (CPL): rho_de(a)/rho_de0."""
-    w0, wa = p['w0_fde'], p['wa_fde']
-    return a ** (-3. * (1. + w0 + wa)) * np.exp(-3. * wa * (1. - a))
+    """Dark-energy density scaling for w0-wa (CPL): rho_de(a)/rho_de0, on the grid ``a``."""
+    w0, wa = over(p['w0_fde'], a), over(p['wa_fde'], a)
+    return a ** (-3. * (1. + w0 + wa)) * torch.exp(-3. * wa * (1. - a))
 
 
+@host
 def efunc_of_a(p, a):
-    """E(a) = H(a)/H0 including radiation and massive neutrinos."""
-    a = np.asarray(a, dtype='f8')
-    h2 = p['h'] ** 2
-    og = omega_gamma(p) + omega_ur(p)
-    E2 = (omega_cb(p) * a ** -3 + og * a ** -4 + omega_ncdm_a(p, a) * a ** -4) / h2 \
-        + p['Omega_k'] * a ** -2 + Omega_de(p) * _f_de(p, a)
-    return np.sqrt(E2)
+    """E(a) = H(a)/H0 including radiation and massive neutrinos; ``a`` a grid."""
+    a = as_grid(a, p)
+    h2 = over(p['h'] ** 2, a)
+    og = over(omega_gamma(p) + omega_ur(p), a)
+    E2 = (over(omega_cb(p), a) * a ** -3 + og * a ** -4 + omega_ncdm_a(p, a) * a ** -4) / h2 \
+        + over(p['Omega_k'], a) * a ** -2 + over(Omega_de(p), a) * _f_de(p, a)
+    return torch.sqrt(E2)
 
 
+@host
 def efunc(p, z):
-    """E(z) = H(z)/H0."""
+    """E(z) = H(z)/H0; ``z`` static."""
     return efunc_of_a(p, 1. / (1. + np.asarray(z, dtype='f8')))
 
 
 _GL_NODES, _GL_WEIGHTS = np.polynomial.legendre.leggauss(64)
 
 
+@host
 def comoving_radial_distance(p, z):
     """D_C(z) = c/H0 int dz'/E(z') in Mpc/h, by 64-node Gauss-Legendre
-    quadrature in u = sqrt(a)."""
-    z = np.asarray(z, dtype='f8')
-    u_end = 1. / np.sqrt(1. + z)
-    u = u_end[..., None] + (1. - u_end[..., None]) * (_GL_NODES + 1.) / 2.
-    integ = np.sum(_GL_WEIGHTS * 2. / (u ** 3 * efunc_of_a(p, u ** 2)), axis=-1) * (1. - u_end) / 2.
+    quadrature in u = sqrt(a); ``z`` static."""
+    u_end = 1. / np.sqrt(1. + np.asarray(z, dtype='f8'))
+    u = as_grid(u_end[..., None] + (1. - u_end[..., None]) * (_GL_NODES + 1.) / 2., p)
+    w = as_grid(_GL_WEIGHTS, p)
+    integ = torch.sum(w * 2. / (u ** 3 * efunc_of_a(p, u ** 2)), dim=-1) * as_grid((1. - u_end) / 2., p)
     return DH_100 * integ
 
 
+@host
 def hubble_distance(p, z):
     """D_H(z) = c/H(z) in Mpc/h."""
     return DH_100 / efunc(p, z)
 
 
+@host
 def comoving_angular_distance(p, z):
-    """D_M(z): transverse comoving distance with curvature, Mpc/h."""
+    """D_M(z): transverse comoving distance with curvature, Mpc/h; the
+    curvature branch chosen per chain."""
     dc = comoving_radial_distance(p, z)
-    ok = p['Omega_k']
-    sqrt_ok = np.sqrt(np.abs(ok) + 1e-15)
+    ok = over(p['Omega_k'], as_grid(z, p))
+    sqrt_ok = torch.sqrt(torch.abs(ok) + 1e-15)
     x = sqrt_ok * dc / DH_100
-    if ok > 1e-8:
-        return DH_100 / sqrt_ok * np.sinh(x)
-    if ok < -1e-8:
-        return DH_100 / sqrt_ok * np.sin(x)
-    return dc
+    return torch.where(ok > 1e-8, DH_100 / sqrt_ok * torch.sinh(x),
+                       torch.where(ok < -1e-8, DH_100 / sqrt_ok * torch.sin(x), dc))
 
+
+# --- growth (matter + DE only; EH normalization convention) ---
 
 _GROWTH_LNA = np.linspace(np.log(1e-3), 0., 256)
+_GROWTH_NODES = np.exp(np.stack([_GROWTH_LNA[:-1], _GROWTH_LNA[:-1] + 0.5 * np.diff(_GROWTH_LNA), _GROWTH_LNA[1:]]))
 
 
-def _growth_ode(p):
-    """Integrate D'' + (2 + dlnH/dlna) D' = (3/2) Om(a) D with RK4 over ln a.
-
-    Returns (lna grid, D(lna), dD/dlna), with D = D' = a deep in matter
-    domination.
-    """
+def _growth_steps(p):
+    """The RK4 steps of D'' + (2 + dlnH/dlna) D' = (3/2) Om(a) D over the
+    ln a grid as matrices: y' = A(ln a) y with y = (D, D') is linear, so one
+    RK4 step from node n is exactly y_{n+1} = M_n y_n, with M_n built from A
+    at the step's start, middle and end. Returns M, shape S + (255, 2, 2),
+    in float64 (see :func:`growth_solution`)."""
+    p = float64(p)
     om0 = omega_m(p) / p['h'] ** 2
     ok0 = p['Omega_k']
     ode0 = Omega_de(p)
-    w0, wa = p['w0_fde'], p['wa_fde']
-
-    def E2g(a):
-        return om0 * a ** -3 + ok0 * a ** -2 + ode0 * _f_de(p, a)
-
-    def rhs(y, lna):
-        a = np.exp(lna)
-        dfde = _f_de(p, a) * (-3. * (1. + w0 + wa) / a + 3. * wa)
-        dE2 = -3. * om0 * a ** -4 - 2. * ok0 * a ** -3 + ode0 * dfde
-        dlnH_dlna = a * dE2 / (2. * E2g(a))
-        om_a = om0 * a ** -3 / E2g(a)
-        return np.array([y[1], -(2. + dlnH_dlna) * y[1] + 1.5 * om_a * y[0]])
-
-    dx = _GROWTH_LNA[1] - _GROWTH_LNA[0]
-    a0 = np.exp(_GROWTH_LNA[0])
-    ys = [np.array([a0, a0])]
-    for lna in _GROWTH_LNA[:-1]:
-        y = ys[-1]
-        k1 = rhs(y, lna)
-        k2 = rhs(y + 0.5 * dx * k1, lna + 0.5 * dx)
-        k3 = rhs(y + 0.5 * dx * k2, lna + 0.5 * dx)
-        k4 = rhs(y + dx * k3, lna + dx)
-        ys.append(y + dx / 6. * (k1 + 2 * k2 + 2 * k3 + k4))
-    ys = np.array(ys)
-    return _GROWTH_LNA, ys[:, 0], ys[:, 1]
+    a = as_grid(_GROWTH_NODES, p)  # (3, 255): start, middle, end of each step
+    om0, ok0, ode0 = over(om0, a), over(ok0, a), over(ode0, a)
+    w0, wa = over(p['w0_fde'], a), over(p['wa_fde'], a)
+    fde = _f_de(p, a)
+    E2 = om0 * a ** -3 + ok0 * a ** -2 + ode0 * fde
+    dfde = fde * (-3. * (1. + w0 + wa) / a + 3. * wa)
+    dE2 = -3. * om0 * a ** -4 - 2. * ok0 * a ** -3 + ode0 * dfde
+    damping = -(2. + a * dE2 / (2. * E2))       # A[1, 1]
+    source = 1.5 * om0 * a ** -3 / E2           # A[1, 0]
+    zeros, ones = torch.zeros_like(source), torch.ones_like(source)
+    A = torch.stack([torch.stack([zeros, ones], dim=-1), torch.stack([source, damping], dim=-1)], dim=-2)
+    A0, Ah, A1 = A.unbind(dim=-4)                # S + (255, 2, 2) each
+    dx = float(_GROWTH_LNA[1] - _GROWTH_LNA[0])
+    eye = torch.eye(2, dtype=A.dtype, device=A.device)
+    K1 = A0
+    K2 = _matmul2(Ah, eye + 0.5 * dx * K1)
+    K3 = _matmul2(Ah, eye + 0.5 * dx * K2)
+    K4 = _matmul2(A1, eye + dx * K3)
+    return eye + dx / 6. * (K1 + 2. * K2 + 2. * K3 + K4)
 
 
+def _matmul2(A, B):
+    """Products of 2 x 2 matrices, (..., 2, 2) each, as one elementwise product
+    and one sum: as a batched GEMM of B x 255 matrices of 2 x 2 in float64 the
+    card took 60 ms of config 3d's 67 at B = 4096 (NVIDIA H100)."""
+    return (A[..., :, :, None] * B[..., None, :, :]).sum(dim=-2)
+
+
+def _prefix_products(M):
+    """P_n = M_n M_{n-1} ... M_0 for every n along axis -3, by a log-depth
+    (Hillis-Steele) scan: ceil(log2 n) rounds of one batched matrix product."""
+    n, shift = M.shape[-3], 1
+    while shift < n:
+        M = torch.cat([M[..., :shift, :, :], _matmul2(M[..., shift:, :, :], M[..., :-shift, :, :])], dim=-3)
+        shift *= 2
+    return M
+
+
+def growth_solution(p):
+    """(D, dD/dlna) on the 256-node ln a grid, shape S + (256,) each, with D =
+    D' = a deep in matter domination: the RK4 solution of the JAX package's
+    ``_growth_ode_scan``, reassociated as matrix products. Solved in float64
+    and returned in the parameters' dtype: in float32 the products of 255
+    steps carry a coherent 2-3e-6 of D, a shift of the pk amplitude that put
+    the reduced config 3d's log-posterior 3.6e-2 from the JAX package's x64
+    values, over its 2e-2 limit (2.5e-2 with this solution in float64, 5.4e-3
+    with the transfers' constants too; measured on the CPU).
+    Solved once per parameter dict: the result is kept in ``p['_growth']``."""
+    if '_growth' not in p:
+        P = _prefix_products(_growth_steps(p))
+        a0 = float(np.exp(_GROWTH_LNA[0]))
+        y = (a0 * P.sum(dim=-1)).to(ref(p).dtype)  # P @ (a0, a0)
+        first = torch.full(y.shape[:-2] + (1,), a0, dtype=y.dtype, device=y.device)
+        p['_growth'] = (torch.cat([first, y[..., 0]], dim=-1), torch.cat([first, y[..., 1]], dim=-1))
+    return p['_growth']
+
+
+def _interp_nodes(values, z):
+    """Linear interpolation (``np.interp``) of ``values`` (S + (256,)) on the
+    ln a grid at ln a = -ln(1 + z), ``z`` static: the nodes are chosen on the
+    host."""
+    z = np.asarray(z, dtype='f8')
+    lnaq = np.clip(-np.log1p(z), _GROWTH_LNA[0], _GROWTH_LNA[-1])
+    idx = np.clip(np.searchsorted(_GROWTH_LNA, lnaq, side='right') - 1, 0, len(_GROWTH_LNA) - 2)
+    t = (lnaq - _GROWTH_LNA[idx]) / (_GROWTH_LNA[idx + 1] - _GROWTH_LNA[idx])
+    out = [torch.lerp(values[..., i], values[..., i + 1], float(w)) for i, w in zip(idx.ravel(), t.ravel())]
+    if z.ndim == 0:
+        return out[0]
+    return torch.stack(out, dim=-1).reshape(values.shape[:-1] + z.shape)
+
+
+@host
 def growth_factor(p, z, normalize='z0'):
     """Linear growth D(z); normalize='z0' -> D(0)=1, 'md' -> D ~ a in MD."""
-    lna, D, _ = _growth_ode(p)
-    Dq = np.interp(-np.log1p(np.asarray(z, dtype='f8')), lna, D)
+    D, _ = growth_solution(p)
+    Dq = _interp_nodes(D, z)
     if normalize == 'z0':
-        return Dq / D[-1]
+        return Dq / over(D[..., -1], as_grid(z, p))
     return Dq
 
 
+@host
 def growth_rate(p, z):
     """f(z) = dlnD/dlna."""
-    lna, D, Dp = _growth_ode(p)
-    return np.interp(-np.log1p(np.asarray(z, dtype='f8')), lna, Dp / D)
+    D, Dp = growth_solution(p)
+    return _interp_nodes(Dp / D, z)
 
 
+@host
 def rs_drag(p):
     """r_d in Mpc/h from the Aubourg et al. 2015 fit (eq. 16, arXiv:1411.1074)."""
-    rd_mpc = 55.154 * np.exp(-72.3 * (omega_ncdm(p) + 0.0006) ** 2) \
+    rd_mpc = 55.154 * torch.exp(-72.3 * (omega_ncdm(p) + 0.0006) ** 2) \
         / (omega_cb(p) ** 0.25351 * p['omega_b'] ** 0.12807)
     return rd_mpc * p['h']

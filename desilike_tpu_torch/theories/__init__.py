@@ -1,6 +1,15 @@
 from .base import (APEffect, BaseTheoryPowerSpectrumMultipoles, BaseTheoryCorrelationFunctionMultipoles,
                    BaseTheoryCorrelationFunctionFromPowerSpectrumMultipoles, WedgesMixin, ap_k_mu, ap_s_mu)
-from .power_template import BasePowerSpectrumTemplate, BAOPowerSpectrumTemplate, ShapeFitPowerSpectrumTemplate
+from .cosmology import Cosmology
+from .power_template import (BasePowerSpectrumTemplate, FixedPowerSpectrumTemplate, BAOPowerSpectrumTemplate,
+                             BAOPhaseShiftPowerSpectrumTemplate, StandardPowerSpectrumTemplate,
+                             ShapeFitPowerSpectrumTemplate, DirectPowerSpectrumTemplate,
+                             DirectWiggleSplitPowerSpectrumTemplate, WiggleSplitPowerSpectrumTemplate,
+                             BandVelocityPowerSpectrumTemplate, TurnOverPowerSpectrumTemplate,
+                             ExtractedBandVelocityPowerSpectrumTemplate, BandVelocityPowerSpectrumCalculator)
+from .extractors import (BAOExtractor, StandardPowerSpectrumExtractor, ShapeFitPowerSpectrumExtractor,
+                         WiggleSplitPowerSpectrumExtractor, BandVelocityPowerSpectrumExtractor,
+                         TurnOverPowerSpectrumExtractor, BAOPhaseShiftExtractor)
 from .bao import (BaseBAOWigglesPowerSpectrumMultipoles, DampedBAOWigglesPowerSpectrumMultipoles,
                   BaseBAOWigglesTracerPowerSpectrumMultipoles, DampedBAOWigglesTracerPowerSpectrumMultipoles,
                   BaseBAOWigglesCorrelationFunctionMultipoles, DampedBAOWigglesCorrelationFunctionMultipoles,

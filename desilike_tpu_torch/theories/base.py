@@ -1,10 +1,10 @@
 """Base theory classes: multipole grids, mu-wedge projection, AP effect,
 and pk -> xi by FFTLog.
 
-Counterpart of ``desilike_tpu/theories/base.py`` in the direct-parameter AP
-modes ('qiso', 'qap', 'qisoqap', 'qparqper'). The 'geometry' and 'bao'
-modes, which read distances from a varied cosmology, wait for
-``theories/cosmology.py`` (ROADMAP A11).
+Counterpart of ``desilike_tpu/theories/base.py``: the AP effect in the
+direct-parameter modes ('qiso', 'qap', 'qisoqap', 'qparqper') and in the
+'geometry' and 'bao' modes, which read the distances of a
+:class:`~.cosmology.Cosmology` node per chain against the fiducial ones.
 """
 
 import numpy as np
@@ -15,6 +15,8 @@ from ..ops.chebyshev import _static_cubic_interp_matrix
 from ..ops.fftlog import PowerToCorrelation
 from ..ops.legendre import weights_mu, multipole_weights, to_poles
 from ..observables.window import matrix_lininterp
+from ..cosmology import background as bg
+from .cosmology import Cosmology
 
 
 def _col(value):
@@ -100,8 +102,12 @@ class WedgesMixin(object):
 
 
 class APEffect(Calculator):
-    """Alcock-Paczynski scaling in the direct-parameter modes 'qiso', 'qap',
-    'qisoqap', 'qparqper'."""
+    r"""Alcock-Paczynski scaling.
+
+    modes: 'qiso', 'qap', 'qisoqap', 'qparqper' (direct scaling parameters),
+    'geometry' / 'bao' (the distances of ``cosmo``, per chain, against the
+    fiducial ones, computed on the host; 'bao' in units of rs_drag).
+    """
 
     @staticmethod
     def _params(init):
@@ -116,16 +122,33 @@ class APEffect(Calculator):
                   'qparqper': ['qpar', 'qper'], 'geometry': [], 'bao': []}[mode]
         return {name: specs[name] for name in varied}
 
-    def initialize(self, z=1., mode='geometry', eta=1. / 3.):
+    def initialize(self, z=1., mode='geometry', fiducial=None, eta=1. / 3., cosmo=None):
         self.z = float(np.asarray(z))
         self.mode = str(mode)
-        if self.mode in ('geometry', 'bao'):
-            raise NotImplementedError("APEffect mode {!r} reads a varied cosmology: it is ported with "
-                                      "theories/cosmology.py (ROADMAP A11)".format(self.mode))
         self.eta = float(eta)
+        fiducial = fiducial if isinstance(fiducial, dict) else None
+        fid = bg.resolve(fiducial)
+        self.fiducial = fid
+        self.DH_fid = float(bg.hubble_distance(fid, self.z))
+        self.DM_fid = float(bg.comoving_angular_distance(fid, self.z))
+        self.DV_fid = float((self.DH_fid * self.DM_fid ** 2 * self.z) ** (1. / 3.)) if self.z > 0 else self.DH_fid
+        self.rd_fid = float(bg.rs_drag(fid))
+        if self.mode in ('geometry', 'bao'):
+            self.cosmo = cosmo if cosmo is not None else Cosmology(fiducial=fiducial)
 
     def calculate(self, **params):
-        if self.mode == 'qiso':
+        if self.mode in ('geometry', 'bao'):
+            self.DH = self.cosmo.hubble_distance(self.z)
+            self.DM = self.cosmo.comoving_angular_distance(self.z)
+            self.DV = (self.DH * self.DM ** 2 * self.z) ** (1. / 3.) if self.z > 0 else self.DH
+            if self.mode == 'bao':
+                rd = self.cosmo.rs_drag()
+                qpar = (self.DH / rd) / (self.DH_fid / self.rd_fid)
+                qper = (self.DM / rd) / (self.DM_fid / self.rd_fid) if self.z > 0 else qpar
+            else:
+                qpar = self.DH / self.DH_fid
+                qper = self.DM / self.DM_fid if self.z > 0 else qpar
+        elif self.mode == 'qiso':
             qpar = qper = params['qiso']
         elif self.mode == 'qap':
             qap = params['qap']
@@ -138,6 +161,12 @@ class APEffect(Calculator):
         self.qpar, self.qper = qpar, qper
         self.qap = qpar / qper
         self.qiso = qpar ** self.eta * qper ** (1. - self.eta)
+
+    def ap_k_mu(self, k, mu):
+        return ap_k_mu(k, mu, qpar=self.qpar, qper=self.qper)
+
+    def ap_s_mu(self, s, mu):
+        return ap_s_mu(s, mu, qpar=self.qpar, qper=self.qper)
 
 
 class BaseTheoryCorrelationFunctionFromPowerSpectrumMultipoles(BaseTheoryCorrelationFunctionMultipoles):

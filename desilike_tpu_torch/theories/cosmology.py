@@ -1,0 +1,204 @@
+"""Cosmology calculator node, evaluated per chain.
+
+Counterpart of ``desilike_tpu/theories/cosmology.py`` for the ``eh98`` and
+``eh99`` engines (EH98 transfer functions, and EH99's massive-neutrino
+free-streaming suppression) and the ``table`` engine (an injected pk at the
+fiducial cosmology with the exact + EH98-ratio parameter response). Every
+parameter arrives as a ``(B,)`` tensor; the accessors return ``(B,)`` or
+``(B, nk)`` tensors on the evaluation's device, from one parameter dict
+built per evaluation, which caches the growth solution
+(:func:`..cosmology.background.growth_solution`). The ``emulator`` engine
+waits for ROADMAP A11c, ``external`` and ``inject`` for A17, ``theta=True``
+(h solved from 100 theta_*) for A13.
+"""
+
+import numpy as np
+
+from ..core import Calculator
+from ..cosmology import background as bg
+from ..cosmology import linear as lin
+from ..cosmology import eh
+
+
+_COSMO_PARAM_DEFAULTS = {
+    'h': dict(value=0.6736, prior=dict(limits=[0.1, 1.]), ref=dict(dist='norm', loc=0.6736, scale=0.005), latex='h'),
+    'omega_cdm': dict(value=0.1200, prior=dict(limits=[0.01, 0.99]), ref=dict(dist='norm', loc=0.12, scale=0.001), latex=r'\omega_{cdm}'),
+    'omega_b': dict(value=0.02237, prior=dict(limits=[0.005, 0.1]), ref=dict(dist='norm', loc=0.02237, scale=0.0002), latex=r'\omega_{b}'),
+    'logA': dict(value=3.036394, prior=dict(limits=[1.61, 3.91]), ref=dict(dist='norm', loc=3.036, scale=0.01), latex=r'\ln(10^{10} A_s)'),
+    'n_s': dict(value=0.9649, prior=dict(limits=[0.8, 1.2]), ref=dict(dist='norm', loc=0.9649, scale=0.004), latex='n_s'),
+    'tau_reio': dict(value=0.0544, prior=dict(limits=[0.01, 0.8]), latex=r'\tau'),
+    'm_ncdm': dict(value=0.06, prior=dict(limits=[0., 5.]), latex=r'\sum m_\nu'),
+    'N_ur': dict(value=2.0328, latex='N_{ur}'),
+    'Omega_k': dict(value=0., prior=dict(limits=[-0.3, 0.3]), latex=r'\Omega_k'),
+    'w0_fde': dict(value=-1., prior=dict(limits=[-3., 1.]), latex='w_0'),
+    'wa_fde': dict(value=0., prior=dict(limits=[-3., 2.]), latex='w_a'),
+}
+
+TNCDM_NEFF = (bg.TNCDM / (4. / 11.) ** (1. / 3.)) ** 4
+
+
+def get_from(obj, name, z=None):
+    """Uniform quantity access used by templates and extractors."""
+    fn = getattr(obj, name)
+    return fn(z) if z is not None else fn()
+
+
+class Cosmology(Calculator):
+    """Differentiable cosmology node. All parameters fixed by default; vary a
+    subset via ``init.params`` or ``fixed=``. One node is typically shared
+    across tracers, so it keeps no namespace of theirs.
+
+    Exposes: efunc(z), comoving_radial_distance(z),
+    comoving_angular_distance(z), hubble_distance(z), rs_drag(),
+    growth_rate(z), growth_factor(z), growth_rate_k(k, z), pk_dd(k, z),
+    pk_dd_now(k, z), sigma_r(r, z), sigma8(z), fsigma8(z) and N_eff; ``z``
+    static, ``k`` a grid (a tensor on the evaluation's device, or numpy).
+    """
+
+    _propagate_namespace = False
+
+    @staticmethod
+    def _params(init):
+        fixed = init.get('fixed', True)
+
+        def is_fixed(name):
+            return True if fixed is True else (name in fixed if hasattr(fixed, '__contains__') else bool(fixed))
+
+        return {name: dict(cfg, fixed=is_fixed(name)) for name, cfg in _COSMO_PARAM_DEFAULTS.items()}
+
+    def initialize(self, fiducial=None, fixed=True, engine='eh98', pk_table=None, theta=False, emulator=None):
+        if theta:
+            raise NotImplementedError('theta=True (h solved from 100 theta_*) needs the recombination-era '
+                                      'quantities: ROADMAP A13')
+        self.engine = str(engine)
+        if self.engine == 'emulator':
+            raise NotImplementedError("engine='emulator' (the trained Boltzmann-correction MLP) is ROADMAP A11c")
+        if self.engine == 'external':
+            raise NotImplementedError("engine='external' (per-evaluation host-code products) is ROADMAP A17")
+        if self.engine not in ('eh98', 'eh99', 'table'):
+            raise ValueError("engine must be 'eh98'/'eh99' (approximate few-percent transfer functions, "
+                             "self-contained) or 'table' (injected Boltzmann pk, fiducial-pinned response)")
+        base = dict(bg.DEFAULT_PARAMS)
+        if fiducial:
+            base.update(fiducial)
+        self.fiducial_values = base
+        # the JAX package decides on a concrete value whether the massive neutrinos have a density: fixed at 0, none
+        m_ncdm = next(param for param in self.params if param.basename == 'm_ncdm')
+        self._massless_ncdm = not base.get('N_ncdm', 1) or (m_ncdm.fixed and float(m_ncdm.value) == 0.)
+        if self.engine == 'table':
+            if pk_table is None:
+                raise ValueError("engine='table' needs pk_table=(k, pk) at z=0 from a Boltzmann code at the "
+                                 'fiducial cosmology')
+            ktab, pktab = (np.asarray(v, dtype='f8') for v in pk_table)
+            self._lnk_tab, self._lnpk_tab = np.log(ktab), np.log(pktab)
+            self._p_fid = bg.resolve(dict(base))
+            self._p_fid_tensors = {}
+            self._alpha_nw = lin.table_nowiggle_amplitude(self._p_fid, self._lnk_tab, self._lnpk_tab)
+
+    def inject(self, **arrays):
+        raise NotImplementedError("inject() needs engine='external': ROADMAP A17")
+
+    def calculate(self, **params):
+        p = dict(self.fiducial_values)
+        p.update({k: v for k, v in params.items() if k in p or k in ('A_s', 'alpha_s')})
+        # alternative inputs: w0_fld/wa_fld are CLASS's names of w0_fde/wa_fde; N_eff is the total radiation
+        # (N_ur + N_ncdm contributions); Omega_m sets omega_cdm given h, omega_b and the neutrino density
+        if 'w0_fld' in params:
+            p['w0_fde'] = params['w0_fld']
+        if 'wa_fld' in params:
+            p['wa_fde'] = params['wa_fld']
+        if 'N_eff' in params:
+            p['N_ur'] = params['N_eff'] - p.get('N_ncdm', 1) * TNCDM_NEFF
+        if 'Omega_m' in params:
+            p['omega_cdm'] = (params['Omega_m'] * p['h'] ** 2 - p['omega_b']
+                              - p['m_ncdm'] * bg.NEUTRINO_MASS_TO_OMEGA)
+        p['_massless_ncdm'] = self._massless_ncdm
+        self.p = bg.resolve(p)
+
+    def _grid(self, k):
+        return bg.as_grid(k, self.p)
+
+    # --- background ---
+
+    def efunc(self, z):
+        return bg.efunc(self.p, z)
+
+    def comoving_angular_distance(self, z):
+        return bg.comoving_angular_distance(self.p, z)
+
+    def comoving_radial_distance(self, z):
+        return bg.comoving_radial_distance(self.p, z)
+
+    def hubble_distance(self, z):
+        return bg.DH_100 / self.efunc(z)
+
+    def rs_drag(self):
+        return bg.rs_drag(self.p)
+
+    @property
+    def N_eff(self):
+        return self.p['N_ur'] + self.p.get('N_ncdm', 1) * TNCDM_NEFF
+
+    # --- growth & fourier ---
+
+    def growth_rate(self, z):
+        return bg.growth_rate(self.p, z)
+
+    def growth_factor(self, z):
+        return bg.growth_factor(self.p, z)
+
+    def growth_rate_k(self, k, z):
+        """Scale-dependent growth rate f(k, z), (B, nk): flat except for the
+        eh99 engine, where massive-neutrino free-streaming suppresses it
+        (EH99 eq. 11)."""
+        k = self._grid(k)
+        f = bg.over(self.growth_rate(z), k)
+        if self.engine == 'eh99':
+            return f * eh.growth_rate_ratio(self.p, k, z)
+        return f.expand(f.shape[:f.ndim - k.ndim] + k.shape)
+
+    def _fiducial(self):
+        """The table engine's fiducial parameters as tensors of the evaluation's dtype and device, made once."""
+        like = bg.ref(self.p)
+        key = (like.dtype, like.device)
+        if key not in self._p_fid_tensors:
+            self._p_fid_tensors[key] = bg.tensors(self._p_fid, like)
+        return self._p_fid_tensors[key]
+
+    def _pk(self, p, k, z):
+        if self.engine == 'table':
+            return lin.pk_lin_table(p, self._fiducial(), self._lnk_tab, self._lnpk_tab, k, z)
+        if self.engine == 'eh99':
+            return lin.pk_lin(p, k, z) * eh.neutrino_ratio(p, k, z)
+        return lin.pk_lin(p, k, z)
+
+    def pk_dd(self, k, z):
+        return self._pk(self.p, self._grid(k), z)
+
+    def pk_dd_rows(self, k, z):
+        """pk_dd at one row of k a chain, (B, n) (the extractors' pivots
+        rescaled per chain)."""
+        return bg.per_chain(lambda p, row: self._pk(p, row, z), self.p, k)
+
+    def pk_dd_now(self, k, z):
+        k = self._grid(k)
+        if self.engine == 'table':
+            # the table's response algebra; the smooth EH98 shape scaled to its normalization
+            return self._alpha_nw * lin.pk_lin(self.p, k, z, nowiggle=True)
+        if self.engine == 'eh99':
+            return lin.pk_lin(self.p, k, z, nowiggle=True) * eh.neutrino_ratio(self.p, k, z)
+        return lin.pk_lin(self.p, k, z, nowiggle=True)
+
+    def sigma_r(self, r, z=0.):
+        if self.engine == 'eh98':
+            return lin.sigma_r(self.p, r, z)
+        return lin.sigma_r(self.p, r, z, pk_func=lambda k: self.pk_dd(k, z))
+
+    def sigma8(self, z=0.):
+        return self.sigma_r(8., z)
+
+    def fsigma8(self, z=0.):
+        return self.growth_rate(z) * self.sigma8(z)
+
+    def get(self):
+        return self

@@ -27,8 +27,8 @@ LO-resummed input, and the tree term carries the full mu-dependent damping
 with the leading-order wiggle correction (1 + k^2 Sigma_tot^2).
 
 The correlation-function multipoles are the FFTLog transform of these.
-The default ``DirectPowerSpectrumTemplate`` waits for ROADMAP A11 (pass
-``template=``).
+The default template is ``DirectPowerSpectrumTemplate`` (its cosmology
+evaluated per chain).
 """
 
 import re
@@ -41,6 +41,7 @@ from ..ops.spt_fftlog import FFTLogOneLoop, SIGMA_V2_Q
 from ..ops.chebyshev import ChebyshevLogInterp
 from .base import BaseTheoryPowerSpectrumMultipoles, WedgesMixin, _col
 from .full_shape import BaseTracerCorrelationFunctionMultipoles
+from .power_template import DirectPowerSpectrumTemplate
 
 
 def physical_stochastic_settings(tracer=None):
@@ -179,7 +180,7 @@ class EPTTracerPowerSpectrumMultipoles(BaseTheoryPowerSpectrumMultipoles, Wedges
             self.sigv = float(sigv if sigv is not None else settings['sigv'])
         super().initialize(k=k, ells=ells)
         if template is None:
-            raise NotImplementedError('pass template=: the default DirectPowerSpectrumTemplate is ROADMAP A11')
+            template = DirectPowerSpectrumTemplate()
         self.template = template
         lo, hi, nk_tmpl = self._klim_template
         if nk_template is not None:

@@ -18,6 +18,7 @@ import re
 import numpy as np
 import torch
 
+from .power_template import DirectPowerSpectrumTemplate
 from .base import BaseTheoryPowerSpectrumMultipoles, BaseTheoryCorrelationFunctionFromPowerSpectrumMultipoles, \
     WedgesMixin, _col
 
@@ -30,7 +31,7 @@ class BasePTPowerSpectrumMultipoles(BaseTheoryPowerSpectrumMultipoles, WedgesMix
     def initialize(self, k=None, ells=(0, 2, 4), template=None, mu=8, method='leggauss', **kwargs):
         super().initialize(k=k, ells=ells)
         if template is None:
-            raise NotImplementedError('pass template=: the default DirectPowerSpectrumTemplate is ROADMAP A11')
+            template = DirectPowerSpectrumTemplate()
         self.template = template
         kin = np.geomspace(min(self._klim[0], self.k[0] / 2), max(self._klim[1], self.k[-1] * 2), self._klim[2])
         self.template.init.update(k=kin)

@@ -29,6 +29,16 @@ writes its reference file under ``tests/data``:
   counterterms and stochastic terms solved;
 - ``emu``: config 5, config 4 with emulated templates
   (:func:`emulated_reference`) -> ``torch_port_emulator_reference.npz``;
+- ``direct``: config 3d, BASELINE's config 3 on direct cosmology parameters
+  (:func:`build_ept_direct_likelihood`: config 3's EPT likelihood on
+  ``DirectPowerSpectrumTemplate(z=0.8)``) -> ``torch_port_direct_reference.npz``,
+  with besides (:func:`direct_reference`) its reduced build at 16 points,
+  the cosmology functions at 16 seeded cosmologies, the ``Cosmology`` node's
+  engines and alternative inputs, and ``APEffect`` in its 'geometry' and
+  'bao' modes, those in float64 (x64);
+- ``templates``: the other templates and the extractors at the settings of
+  ``tests/test_templates_extra.py`` (:func:`templates_reference`), in
+  float64 (x64) -> ``torch_port_templates_reference.npz``;
 - ``hessian``: config 4's log-density in the gradient samplers' unconstrained
   space (``NUTSSampler._logdens_grad``: the logit transform of the bounded
   parameters and its log-Jacobian), its gradient and its Hessian, in
@@ -66,8 +76,8 @@ with numpy alone, and ``tests/test_torch_bao_likelihood.py`` and
 JAX package so that the files cannot go stale.
 
 Run from the repository root:
-``JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py [bao|joint|ept|xi|marg|hessian|emu]``
-(all seven when no name is given).
+``JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py [bao|joint|ept|xi|marg|hessian|emu|direct|templates]``
+(all nine when no name is given).
 """
 
 import os
@@ -79,7 +89,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUTPUTS = {name: os.path.join(ROOT, 'tests', 'data', 'torch_port_{}_reference.npz'.format(name))
-           for name in ('bao', 'joint', 'ept', 'xi', 'marg', 'hessian')}
+           for name in ('bao', 'joint', 'ept', 'xi', 'marg', 'hessian', 'direct', 'templates')}
 OUTPUTS['emu'] = os.path.join(ROOT, 'tests', 'data', 'torch_port_emulator_reference.npz')
 NPOINTS = 16
 HESSIAN_STEP = 1e-4  # central differences of the x64 gradient in the unconstrained space
@@ -88,9 +98,10 @@ HESSIAN_STEP = 1e-4  # central differences of the x64 gradient in the unconstrai
 # away from their edges (so no clip is active); b1 is centered on the value
 # the tracer's data were generated with
 WIDTHS = {'qpar': 0.04, 'qper': 0.04, 'b1': 0.3, 'dbeta': 0.1, 'df': 0.1, 'dm': 0.05,
-          'b2': 0.5, 'bs': 0.5, 'b3nl': 0.5, 'sn0': 1., 'sn2_2': 5.}
+          'b2': 0.5, 'bs': 0.5, 'b3nl': 0.5, 'sn0': 1., 'sn2_2': 5.,
+          'h': 0.02, 'omega_cdm': 0.006, 'omega_b': 0.0008, 'logA': 0.1, 'n_s': 0.02}
 CENTERS = {'qpar': 1., 'qper': 1., 'dbeta': 1., 'df': 1., 'dm': 0., 'b2': 0., 'bs': 0., 'b3nl': 0., 'sn0': 0.,
-           'sn2_2': 0.}
+           'sn2_2': 0., 'h': 0.6736, 'omega_cdm': 0.12, 'omega_b': 0.02237, 'logA': 3.036394, 'n_s': 0.9649}
 B1 = {'': 2., 'LRG': 2., 'LRGbao': 2., 'ELG': 1.3, 'ELGbao': 1.3}
 
 
@@ -337,6 +348,272 @@ def marg_reference(path, x64):
     np.savez(path, **arrays)
 
 
+def build_ept_direct_likelihood(small=False):
+    """Config 3d in the JAX package: BASELINE's config 3 (the EPT likelihood
+    of ``scripts/bench_ept.py:20-31``) on ``DirectPowerSpectrumTemplate(z=0.8)``
+    with its default varied parameters; with ``small``, the reduced build of
+    ``tests/test_ept.py:91-112`` (``small_ept`` widths, h, omega_cdm and logA
+    varied)."""
+    from desilike_tpu.theories import EPTTracerPowerSpectrumMultipoles, DirectPowerSpectrumTemplate
+    from desilike_tpu.observables import TracerPowerSpectrumMultipolesObservable, BoxFootprint
+    from desilike_tpu.likelihoods import ObservablesGaussianLikelihood
+    if small:
+        theory = EPTTracerPowerSpectrumMultipoles(
+            ells=(0, 2), k=np.linspace(0.02, 0.2, 19), nr=96, nx=48, nk_loop=64, mu=6, nk_template=500,
+            template=DirectPowerSpectrumTemplate(z=0.8, varied=('h', 'omega_cdm', 'logA')))
+        klim, data, footprint = {0: (0.02, 0.2, 0.01), 2: (0.02, 0.2, 0.01)}, {'b1': 1.7}, (5e9, 1e-3)
+    else:
+        theory = EPTTracerPowerSpectrumMultipoles(ells=(0, 2, 4), template=DirectPowerSpectrumTemplate(z=0.8))
+        klim, data, footprint = {ell: (0.02, 0.2, 0.005) for ell in (0, 2, 4)}, {'b1': 2.0}, (2e9, 5e-4)
+    theory.init.params = {'ct*': dict(derived='.marg'), 'sn*': dict(derived='.marg')}
+    observable = TracerPowerSpectrumMultipolesObservable(data=data, klim=klim, theory=theory)
+    return ObservablesGaussianLikelihood(observables=[observable],
+                                         footprints=[BoxFootprint(volume=footprint[0], nbar=footprint[1])])
+
+
+# the cosmologies at which the cosmology functions are frozen: uniform draws from np.random.default_rng(1), the
+# first with m_ncdm = 0 (varied: the massive formula, the massless density), the second with Omega_k = 0
+COSMO_RANGES = {'h': (0.6, 0.75), 'omega_cdm': (0.1, 0.14), 'omega_b': (0.02, 0.025), 'logA': (2.9, 3.2),
+                'n_s': (0.92, 1.), 'm_ncdm': (0.02, 0.3), 'Omega_k': (-0.05, 0.05), 'w0_fde': (-1.2, -0.8),
+                'wa_fde': (-0.3, 0.3)}
+COSMO_Z = np.array([0., 0.3, 0.8, 1.5, 3.])
+COSMO_K = np.geomspace(1e-4, 2., 200)
+
+
+def cosmology_points():
+    rng = np.random.default_rng(1)
+    points = np.column_stack([rng.uniform(lo, hi, NPOINTS) for lo, hi in COSMO_RANGES.values()])
+    points[0, list(COSMO_RANGES).index('m_ncdm')] = 0.
+    points[1, list(COSMO_RANGES).index('Omega_k')] = 0.
+    return points
+
+
+def cosmology_functions():
+    """{name: function of a resolved parameter dict}: the JAX package's
+    cosmology functions that the port's ``cosmology`` modules hold."""
+    import jax.numpy as jnp
+    from desilike_tpu.cosmology import background as bg, linear as lin, eh
+    k, z = jnp.asarray(COSMO_K), jnp.asarray(COSMO_Z)
+    nowiggle = lin.NoWiggleFilter(COSMO_K)
+    return {'efunc': lambda p: bg.efunc(p, z), 'comoving_radial_distance': lambda p: bg.comoving_radial_distance(p, z),
+            'comoving_angular_distance': lambda p: bg.comoving_angular_distance(p, z),
+            'hubble_distance': lambda p: bg.hubble_distance(p, z), 'rs_drag': bg.rs_drag,
+            'growth_factor': lambda p: bg.growth_factor(p, z), 'growth_factor_md': lambda p: bg.growth_factor(p, z, 'md'),
+            'growth_rate': lambda p: bg.growth_rate(p, z), 'transfer': lambda p: eh.transfer(p, k),
+            'transfer_nowiggle': lambda p: eh.transfer_nowiggle(p, k), 'sound_horizon_eh': eh.sound_horizon_eh,
+            'neutrino_ratio': lambda p: eh.neutrino_ratio(p, k, 0.8),
+            'growth_rate_ratio': lambda p: eh.growth_rate_ratio(p, k, 0.8),
+            'pk_lin': lambda p: lin.pk_lin(p, k, 0.8), 'pk_lin_nowiggle': lambda p: lin.pk_lin(p, k, 0.8, nowiggle=True),
+            'sigma8': lambda p: lin.sigma_r(p, 8., 0.8),
+            'pknow': lambda p: nowiggle(lin.pk_lin(p, k, 0.8), lin.pk_lin(p, k, 0.8, nowiggle=True)),
+            'primordial_curvature': lambda p: lin.primordial_curvature(dict(p, alpha_s=0.01), k)}
+
+
+def node_cases():
+    """{name: (Cosmology node kwargs, parameter updates, values)}: the JAX
+    package's ``Cosmology`` node, evaluated through a pipeline (``cosmo_*``
+    keys of :func:`direct_reference`)."""
+    varied = {'h': 0.7, 'omega_cdm': 0.125, 'omega_b': 0.023, 'logA': 3.1, 'n_s': 0.95, 'm_ncdm': 0.1,
+              'Omega_k': 0.02, 'w0_fde': -0.9, 'wa_fde': 0.1}
+    return {'eh98': (dict(engine='eh98'), {n: dict(fixed=False) for n in varied}, varied),
+            'eh99': (dict(engine='eh99'), {n: dict(fixed=False) for n in varied}, varied),
+            'table': ('table', {n: dict(fixed=False) for n in ('h', 'omega_cdm', 'logA', 'n_s')},
+                      {'h': 0.7, 'omega_cdm': 0.125, 'logA': 3.1, 'n_s': 0.95}),
+            'massless_fixed': (dict(engine='eh98'), {'m_ncdm': dict(value=0., fixed=True)}, {}),
+            'massless_varied': (dict(engine='eh98'), {'m_ncdm': dict(fixed=False)}, {'m_ncdm': 0.}),
+            'Omega_m': (dict(engine='eh98'), {'Omega_m': dict(value=0.3153, prior=dict(limits=[0.01, 1.]),
+                                                              fixed=False)}, {'Omega_m': 0.35}),
+            'w0_fld': (dict(engine='eh98'), {'w0_fld': dict(value=-0.9, fixed=False)}, {'w0_fld': -0.9}),
+            'N_eff': (dict(engine='eh98'), {'N_eff': dict(value=3.4, fixed=False)}, {'N_eff': 3.4}),
+            'alpha_s': (dict(engine='eh98'), {'alpha_s': dict(value=0., prior=dict(limits=[-0.1, 0.1]),
+                                                              fixed=False)}, {'alpha_s': 0.05})}
+
+
+NODE_K = np.geomspace(1e-3, 1., 64)
+
+
+def fake_boltzmann_table():
+    """The stand-in CLASS table of ``tests/test_pk_injection.py``: EH98 x a
+    smooth 3% shape distortion, on k = geomspace(1e-4, 10, 512)."""
+    import jax.numpy as jnp
+    from desilike_tpu.cosmology import background as bg, linear as lin
+    ktab = np.geomspace(1e-4, 10., 512)
+    pk = np.asarray(lin.pk_lin(bg.resolve({}), jnp.asarray(ktab), 0.), dtype='f8')
+    return ktab, pk * (1. + 0.03 * np.tanh(np.log(ktab / 0.05)))
+
+
+def direct_reference(path, x64):
+    """The extras of ``torch_port_direct_reference.npz`` in the package's
+    current dtype, written to ``path``; keys suffixed ``_x64`` in x64 mode.
+
+    - ``small_{names, solved_names, points, logpost, grad, solved}``: the
+      reduced config 3d (:func:`build_ept_direct_likelihood` with
+      ``small``) at 16 points;
+    - in x64 only, ``cosmo_points`` (one row per cosmology of
+      :func:`cosmology_points`, the columns :data:`COSMO_RANGES`' names) and
+      each function of :func:`cosmology_functions` there (``fn_<name>``), by
+      ``jax.jit`` of ``jax.vmap``: the parameters are traced, as a varied
+      parameter is;
+    - in x64 only, the ``Cosmology`` node of each :func:`node_cases` case
+      through ``Pipeline.evaluate`` (``node_<case>_<quantity>``): pk_dd,
+      pk_dd_now and growth_rate_k on :data:`NODE_K` at z = 0.8, sigma8,
+      fsigma8, efunc, comoving_angular_distance, growth_factor at z = 0.8
+      and rs_drag;
+    - in x64 only, ``ap_<mode>_{qpar, qper}``: ``APEffect`` in the
+      'geometry' and 'bao' modes on a cosmology with h, omega_cdm varied
+      (at 0.7, 0.125), against the fiducial and against ``fiducial={'h':
+      0.65}`` (``ap_<mode>_fid_*``).
+    """
+    import jax
+    import jax.numpy as jnp
+    from desilike_tpu.core import Pipeline
+    from desilike_tpu.cosmology import background as bg
+    from desilike_tpu.theories import Cosmology
+    from desilike_tpu.theories.base import APEffect
+    suffix = '_x64' if x64 else ''
+    like = build_ept_direct_likelihood(small=True)
+    names = like.pipeline.varied_params.names()
+    points = reference_points(names).astype('f4').astype('f8')
+    arrays = {'small_names': np.array(names), 'small_points': points,
+              'small_solved_names': np.array(returned_solved_names(like))}
+    for key, value in zip(('logpost', 'grad', 'solved'), evaluate_likelihood(like, names, points)):
+        arrays['small_{}{}'.format(key, suffix)] = value
+    if x64:
+        points = cosmology_points()
+        arrays['cosmo_points'] = points
+        for name, fn in cosmology_functions().items():
+            values = jax.jit(jax.vmap(lambda row: fn(bg.resolve(dict(zip(COSMO_RANGES, row))))))(jnp.asarray(points))
+            arrays['fn_' + name] = np.asarray(values, dtype='f8')
+        k = jnp.asarray(NODE_K)
+        for case, (kwargs, params, values) in node_cases().items():
+            if kwargs == 'table':
+                kwargs = dict(engine='table', pk_table=fake_boltzmann_table())
+            cosmo = Cosmology(**kwargs)
+            cosmo.init.params = params
+            pipe = Pipeline(cosmo)
+
+            def node(values):
+                pipe.run_once(pipe._resolve_values(values))
+                return {'pk_dd': cosmo.pk_dd(k, 0.8), 'pk_dd_now': cosmo.pk_dd_now(k, 0.8),
+                        'growth_rate_k': cosmo.growth_rate_k(k, 0.8), 'sigma8': cosmo.sigma8(0.8),
+                        'fsigma8': cosmo.fsigma8(0.8), 'efunc': cosmo.efunc(0.8),
+                        'comoving_angular_distance': cosmo.comoving_angular_distance(0.8),
+                        'growth_factor': cosmo.growth_factor(0.8), 'rs_drag': cosmo.rs_drag()}
+
+            # jitted, as logpost_fn is: the varied parameters are traced, the fixed ones host numbers
+            out = jax.jit(node)({name: jnp.asarray(value, dtype=float) for name, value in values.items()})
+            arrays.update({'node_{}_{}'.format(case, q): np.asarray(v, dtype='f8') for q, v in out.items()})
+        for mode in ('geometry', 'bao'):
+            for label, fiducial in (('', None), ('fid_', {'h': 0.65})):
+                cosmo = Cosmology()
+                cosmo.init.params = {'h': dict(fixed=False), 'omega_cdm': dict(fixed=False)}
+                ap = APEffect(z=0.8, mode=mode, cosmo=cosmo, fiducial=fiducial)
+                pipe = Pipeline(ap)
+
+                def qs(values):
+                    pipe.run_once(pipe._resolve_values(values))
+                    return ap.qpar, ap.qper
+
+                qpar, qper = jax.jit(qs)({'h': jnp.asarray(0.7), 'omega_cdm': jnp.asarray(0.125)})
+                arrays['ap_{}_{}qpar'.format(mode, label)] = np.asarray(qpar, dtype='f8')
+                arrays['ap_{}_{}qper'.format(mode, label)] = np.asarray(qper, dtype='f8')
+    np.savez(path, **arrays)
+
+
+# the templates and extractors frozen by ``templates``: {case: (class, init kwargs, parameter values at each point,
+# attributes)}, the settings of tests/test_templates_extra.py; the extractors on a Cosmology node that varies
+# EXTRACTOR_POINTS' parameters
+TEMPLATE_CASES = {
+    'fixed': ('FixedPowerSpectrumTemplate', dict(z=1., k=np.geomspace(1e-3, 0.6, 300)), [{}],
+              ('pk_dd', 'pknow_dd', 'f', 'fsigma8', 'qpar', 'qper')),
+    'standard': ('StandardPowerSpectrumTemplate', dict(z=1., k=np.geomspace(1e-3, 0.6, 300)),
+                 [{'df': 1.1, 'qpar': 1.02, 'qper': 0.99}, {'df': 0.95, 'qpar': 0.98, 'qper': 1.01}],
+                 ('pk_dd', 'f', 'fsigma8', 'qpar', 'qper')),
+    'bao_phaseshift': ('BAOPhaseShiftPowerSpectrumTemplate',
+                       dict(z=0.8, k=np.geomspace(1e-3, 0.6, 400), apmode='qiso'),
+                       [{'baoshift': 1.}, {'baoshift': 2., 'qiso': 1.02}], ('pk_dd', 'pknow_dd', 'f', 'DV_over_rd')),
+    'wigglesplit': ('WiggleSplitPowerSpectrumTemplate', dict(z=1., k=np.geomspace(1e-3, 0.6, 300)),
+                    [{'qbao': 1., 'dm': 0., 'df': 1.}, {'qbao': 1.05, 'dm': 0.02, 'df': 1.1, 'qap': 1.01}],
+                    ('pk_dd', 'pknow_dd', 'f', 'qpar', 'qper')),
+    'wigglesplit_tophat': ('WiggleSplitPowerSpectrumTemplate',
+                           dict(z=1., k=np.geomspace(1e-3, 0.6, 300), kernel='tophat'),
+                           [{'qbao': 1.05, 'dm': 0.02, 'df': 1.1}], ('pk_dd', 'pknow_dd')),
+    'bandvelocity': ('BandVelocityPowerSpectrumTemplate',
+                     dict(z=1., kp=[0.02, 0.05, 0.1, 0.2], k=np.geomspace(5e-3, 0.4, 200)),
+                     [{'dptt1': 1.2}, {'dptt0': 0.9, 'dptt3': 1.1, 'df': 1.05, 'qap': 0.99}],
+                     ('pk_dd', 'pknow_dd', 'pk_tt', 'f', 'qpar')),
+    'turnover': ('TurnOverPowerSpectrumTemplate', dict(z=0.5, k=np.geomspace(3e-3, 0.3, 300)),
+                 [{}, {'qto': 1.1, 'dpto': 1.05, 'm': 0.6, 'n': 0.9, 'qap': 1.02}],
+                 ('pk_dd', 'DV_times_kTO', 'DH_over_DM', 'kto')),
+    'direct_wigglesplit': ('DirectWiggleSplitPowerSpectrumTemplate', dict(z=1., k=np.logspace(-2.2, -0.3, 200)),
+                           [{'qbao': 1.05}, {'sigmabao': 50.}, {'omega_cdm': 0.13, 'qbao': 0.97, 'sigmabao': 3.}],
+                           ('pk_dd', 'pknow_dd', 'f', 'qpar', 'qper'))}
+EXTRACTOR_CASES = {
+    'bao': ('BAOExtractor', dict(z=0.8), ('DH_over_rd', 'DM_over_rd', 'DV_over_rd', 'DH_over_DM', 'qpar', 'qper',
+                                          'qiso', 'qap')),
+    'standard': ('StandardPowerSpectrumExtractor', dict(z=0.8), ('df', 'fsigmar')),
+    'shapefit': ('ShapeFitPowerSpectrumExtractor', dict(z=0.8), ('dm', 'dn', 'df', 'm', 'f_sqrt_Ap')),
+    'shapefit_n': ('ShapeFitPowerSpectrumExtractor', dict(z=0.8, n_varied=True), ('dm', 'df', 'm')),
+    'wigglesplit': ('WiggleSplitPowerSpectrumExtractor', dict(z=0.8), ('qbao', 'df', 'dm', 'm', 'fsigmar')),
+    'wigglesplit_tophat': ('WiggleSplitPowerSpectrumExtractor', dict(z=0.8, kernel='tophat'), ('df', 'dm', 'm')),
+    'bandvelocity': ('BandVelocityPowerSpectrumExtractor', dict(z=0.8, kp=[0.02, 0.05, 0.1, 0.2]),
+                     ('dptt', 'df', 'fsigmar', 'qap')),
+    'turnover': ('TurnOverPowerSpectrumExtractor', dict(z=0.8), ('kTO', 'DV_times_kTO', 'DM_over_DH', 'qto')),
+    'baophaseshift': ('BAOPhaseShiftExtractor', dict(z=0.8), ('baoshift', 'qiso'))}
+EXTRACTOR_POINTS = [{'h': 0.7, 'omega_cdm': 0.125, 'omega_b': 0.023, 'logA': 3.1, 'n_s': 0.95, 'N_ur': 2.3},
+                    {'h': 0.65, 'omega_cdm': 0.115, 'omega_b': 0.021, 'logA': 3.0, 'n_s': 0.98, 'N_ur': 1.9}]
+BAND_KP = [0.02, 0.05, 0.1, 0.2]
+
+
+def templates_reference(path):
+    """``torch_port_templates_reference.npz``, in x64, written to ``path``:
+    ``<case>_<attribute>`` (one row per point) of :data:`TEMPLATE_CASES` and
+    ``extractor_<case>_<attribute>`` of :data:`EXTRACTOR_CASES` at
+    :data:`EXTRACTOR_POINTS`, each through ``Pipeline.evaluate``; and
+    ``calculator_power``: the Kaiser multipoles (0, 2) on k =
+    linspace(0.02, 0.2, 19) of a BandVelocityPowerSpectrumTemplate (z = 0.8,
+    kp = BAND_KP) rewired by ``BandVelocityPowerSpectrumCalculator`` onto a
+    Cosmology node varying EXTRACTOR_POINTS' parameters, at those points
+    with b1 = 2."""
+    from desilike_tpu import theories
+    from desilike_tpu.core import Pipeline
+    arrays = {}
+    for case, (cls, kwargs, points, attrs) in TEMPLATE_CASES.items():
+        node = getattr(theories, cls)(**kwargs)
+        pipe = Pipeline(node)
+        rows = {attr: [] for attr in attrs}
+        for values in points:
+            pipe.evaluate(values)
+            for attr in attrs:
+                rows[attr].append(np.asarray(getattr(node, attr), dtype='f8'))
+        arrays.update({'{}_{}'.format(case, attr): np.array(row) for attr, row in rows.items()})
+        if case == 'turnover':
+            arrays.update(turnover_kto_fid=np.asarray(node.kto_fid), turnover_pkto_fid=np.asarray(node.pkto_fid))
+    for case, (cls, kwargs, attrs) in EXTRACTOR_CASES.items():
+        cosmo = theories.Cosmology()
+        cosmo.init.params = {name: dict(fixed=False) for name in EXTRACTOR_POINTS[0]}
+        node = getattr(theories, cls)(cosmo=cosmo, **kwargs)
+        pipe = Pipeline(node)
+        rows = {attr: [] for attr in attrs}
+        for values in EXTRACTOR_POINTS:
+            pipe.evaluate(values)
+            for attr in attrs:
+                rows[attr].append(np.asarray(getattr(node, attr), dtype='f8'))
+        arrays.update({'extractor_{}_{}'.format(case, attr): np.array(row) for attr, row in rows.items()})
+    theory = theories.KaiserTracerPowerSpectrumMultipoles(
+        ells=(0, 2), k=np.linspace(0.02, 0.2, 19), template=theories.BandVelocityPowerSpectrumTemplate(z=0.8, kp=BAND_KP))
+    cosmo = theories.Cosmology()
+    cosmo.init.params = {name: dict(fixed=False) for name in EXTRACTOR_POINTS[0]}
+    theories.BandVelocityPowerSpectrumCalculator(theory, cosmo=cosmo)
+    pipe = Pipeline(theory)
+    rows = []
+    for values in EXTRACTOR_POINTS:
+        pipe.evaluate(dict(values, b1=2.))
+        rows.append(np.asarray(theory.power, dtype='f8'))
+    arrays['calculator_power'] = np.array(rows)
+    np.savez(path, **arrays)
+
+
 # config 5's template grids: those the theories give their templates (full_shape.py and bao.py ``_klim``),
 # so that the emulated tables have config 4's shapes
 EMU_FS_K = np.geomspace(1e-3, 1., 500)
@@ -532,6 +809,8 @@ def build_jax_likelihood(config):
         return __graft_entry__._build_likelihood()
     if config == 'xi':
         return build_xi_likelihood()
+    if config == 'direct':
+        return build_ept_direct_likelihood()
     if config == 'ept':
         import importlib.util
         spec = importlib.util.spec_from_file_location('bench_ept', os.path.join(ROOT, 'scripts', 'bench_ept.py'))
@@ -593,6 +872,12 @@ def build_reference(config):
     if config == 'xi':
         arrays.update(xi_theory_vectors(['kaiser_xi', 'eft_kaiser_xi']))
         arrays.update(run_x64('--x64-xi-extras'))
+    if config == 'direct':
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, 'f32.npz')
+            direct_reference(path, x64=False)
+            arrays.update(np.load(path))
+        arrays.update(run_x64('--x64-direct'))
     return arrays
 
 
@@ -659,6 +944,16 @@ if __name__ == '__main__':
         jax.config.update('jax_platforms', 'cpu')
         marg_reference(sys.argv[2], x64=True)
         sys.exit(0)
+    if sys.argv[1:2] == ['--x64-direct']:
+        import jax
+        jax.config.update('jax_platforms', 'cpu')
+        direct_reference(sys.argv[2], x64=True)
+        sys.exit(0)
+    if sys.argv[1:2] == ['--x64-templates']:
+        import jax
+        jax.config.update('jax_platforms', 'cpu')
+        templates_reference(sys.argv[2])
+        sys.exit(0)
     if sys.argv[1:2] == ['--x64-emu']:
         import jax
         jax.config.update('jax_platforms', 'cpu')
@@ -678,6 +973,8 @@ if __name__ == '__main__':
             arrays = build_marg_reference()
         elif config == 'emu':
             arrays = build_emulated_reference()
+        elif config == 'templates':
+            arrays = run_x64('--x64-templates')
         else:
             arrays = build_reference(config)
         np.savez_compressed(OUTPUTS[config], **arrays)

@@ -257,6 +257,51 @@ def test_ept_logpost_on_card_matches_cpu(cuda):
     assert (np.linalg.norm(g - g_cpu, axis=-1) / np.linalg.norm(g_cpu, axis=-1)).max() < EPT_X64_GRAD_RTOL
 
 
+def test_direct_logpost_on_card_matches_cpu_and_jax(cuda):
+    """Config 3d (config 3 on direct cosmology parameters: the cosmology per
+    chain on the card) against the port's CPU plain path and the frozen JAX
+    x64 values at 4 points; the Clenshaw kernel launched as in config 3 (5
+    forward and 5 more in the backward, 5 coefficient gradients)."""
+    from chip_smoke import build_ept_direct_likelihood, EPT_X64_ATOL, EPT_X64_GRAD_RTOL
+    reference = np.load(os.path.join(os.path.dirname(__file__), 'data', 'torch_port_direct_reference.npz'))
+    names = list(reference['names'])
+    results = []
+    for device in (None, 'cpu'):  # no device: the card
+        like = build_ept_direct_likelihood(device)
+        values = {n: torch.tensor(reference['points'][:4, i], dtype=torch.float32, device=like.pipeline.device,
+                                  requires_grad=True) for i, n in enumerate(names)}
+        before = (cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES)
+        logpost, _ = like.logpost_fn()(values)
+        logpost.sum().backward()
+        launched = (cuda_kernels.CLENSHAW_LAUNCHES - before[0], cuda_kernels.COEFF_GRAD_LAUNCHES - before[1])
+        assert like.pipeline.device.type == (device or 'cuda')
+        assert launched == ((10, 5) if device is None else (0, 0))
+        grad = torch.stack([values[n].grad for n in names], dim=-1)
+        results.append((logpost.detach().cpu().numpy(), grad.cpu().numpy()))
+    (lp, g), (lp_cpu, g_cpu) = results
+    for expected, expected_grad in ((lp_cpu, g_cpu), (reference['logpost_x64'][:4], reference['grad_x64'][:4])):
+        np.testing.assert_allclose(lp, expected, rtol=0., atol=EPT_X64_ATOL)
+        assert (np.linalg.norm(g - expected_grad, axis=-1) / np.linalg.norm(expected_grad, axis=-1)).max() \
+            < EPT_X64_GRAD_RTOL
+
+
+def test_eh99_golden_on_card(cuda):
+    """The ``eh99_pk`` golden vector through a Direct template on the eh99
+    engine, built with no device (the card), at the golden test's tolerance;
+    and its scale-dependent growth rate through the lookup of its fk table."""
+    from desilike_tpu_torch import DirectPowerSpectrumTemplate, Pipeline
+    golden = np.load(os.path.join(os.path.dirname(__file__), 'data', 'golden_theories.npz'))
+    k29 = np.linspace(0.02, 0.3, 29)
+    template = DirectPowerSpectrumTemplate(z=0.8, k=k29, engine='eh99')
+    Pipeline(template).evaluate({})
+    got, ref = template.pk_dd[0].cpu().numpy().astype('f8'), golden['eh99_pk']
+    np.testing.assert_allclose(got, ref, atol=2e-5 * np.max(np.abs(ref)), rtol=2e-5)
+    before = cuda_kernels.CLENSHAW_LAUNCHES
+    fk = template.f_of_k(torch.tensor(k29, dtype=torch.float32, device=template.pk_dd.device)[None])
+    assert cuda_kernels.CLENSHAW_LAUNCHES == before + 1
+    np.testing.assert_allclose(fk.cpu().numpy(), template.fk.cpu().numpy(), rtol=1e-4)
+
+
 def test_xi_logpost_on_card_matches_cpu(cuda):
     """Config xi on the card, where a likelihood built with no device runs
     (the kernel at (B, 3000, 230) shared, forward and backward; the rfft/irfft

@@ -8,17 +8,21 @@ hands out the files with more tests first, and ``tests/test_bindings.py``,
 the longest file, sets the tier-1 run's wall time by when it starts. The
 cases here take well under a second each, but for the counterterms solved
 through xi (a few seconds), which raised before the linearize path was
-ported and is now held against the frozen JAX values.
+ported and is now held against the frozen JAX values, and the default
+template of the EPT theory (a few seconds to build its FFTLog tables): that
+and the template options and eh99's growth rate raised before the per-chain
+cosmology was ported, and the cases that held the raises now hold the
+behaviour.
 """
 
 import os
-import types
 
 import numpy as np
 import pytest
 import torch
 
-from desilike_tpu_torch import (Pipeline, ShapeFitPowerSpectrumTemplate, BAOPowerSpectrumTemplate,
+from desilike_tpu_torch import (Pipeline, ShapeFitPowerSpectrumTemplate, BAOPowerSpectrumTemplate, Cosmology,
+                                DirectPowerSpectrumTemplate,
                                 KaiserTracerPowerSpectrumMultipoles, EPTTracerPowerSpectrumMultipoles,
                                 DampedBAOWigglesTracerCorrelationFunctionMultipoles,
                                 EFTLikeKaiserTracerCorrelationFunctionMultipoles,
@@ -33,25 +37,70 @@ REFERENCE = np.load(os.path.join(os.path.dirname(__file__), 'data', 'torch_port_
 
 @pytest.mark.parametrize('kwargs, match', [(dict(with_now='wallish2018'), 'peakaverage'), (dict(only_now=True), 'only_now')])
 def test_unported_template_options_raise(kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
-        ShapeFitPowerSpectrumTemplate(z=0.8, **kwargs).runtime_info.initialize()
+    """The template options that raised before the per-chain cosmology was
+    ported, now working as in the JAX package (``power_template.py:39-82``):
+    any ``with_now`` builds the one no-wiggle filter's table ('peakaverage'
+    and 'wallish2018' alike), and ``only_now`` replaces ``pk_dd`` by the
+    no-wiggle table, in the ShapeFit rescaling and in the lookups."""
+    template = ShapeFitPowerSpectrumTemplate(z=0.8, device='cpu', **kwargs)
+    pipe = Pipeline(template)
+    default = ShapeFitPowerSpectrumTemplate(z=0.8, device='cpu')
+    Pipeline(default).evaluate({'dm': 0.05})
+    pipe.evaluate({'dm': 0.05})
+    np.testing.assert_array_equal(template.pknow_dd_fid, default.pknow_dd_fid)
+    np.testing.assert_array_equal(template.pknow_dd.numpy(), default.pknow_dd.numpy())
+    k = torch.tensor(K)[None]
+    if match == 'only_now':
+        assert template.pk_dd is template.pknow_dd
+        np.testing.assert_array_equal(template.pk_dd_interp(k).numpy(), default.pknow_dd_interp(k).numpy())
+    else:
+        assert template.with_now == 'wallish2018'
+        np.testing.assert_array_equal(template.pk_dd.numpy(), default.pk_dd.numpy())
 
 
 @pytest.mark.parametrize('cls', [KaiserTracerPowerSpectrumMultipoles, EPTTracerPowerSpectrumMultipoles])
 def test_pt_without_template_raises(cls):
-    """The default DirectPowerSpectrumTemplate waits for the cosmology (A11)."""
-    with pytest.raises(NotImplementedError, match='A11'):
-        Pipeline(cls(ells=(0, 2), k=K, device='cpu'))
+    """The PT theories without ``template=``, which raised before the
+    per-chain cosmology was ported: their default template is
+    ``DirectPowerSpectrumTemplate`` (``desilike_tpu/theories/full_shape.py:28-29``,
+    ``ept.py:174-175``), with its five cosmological parameters varied."""
+    theory = cls(ells=(0, 2), k=K, device='cpu')
+    pipe = Pipeline(theory)
+    assert isinstance(theory.template, DirectPowerSpectrumTemplate) and theory.template.cosmo.engine == 'eh98'
+    assert pipe.varied_params.names()[:5] == ['h', 'omega_cdm', 'omega_b', 'logA', 'n_s']
+    if cls is KaiserTracerPowerSpectrumMultipoles:
+        power = pipe.evaluate({'h': torch.tensor([0.66, 0.7]), 'b1': 2.})
+        assert power.shape == (2, 2, K.size) and bool(torch.isfinite(power).all())
 
 
 def test_eh99_scale_dependent_growth_raises():
-    """A template on the eh99 engine has a scale-dependent f(k), which the
-    EPT and Kaiser theories read through ``f_of_k``: it waits for A11."""
-    template = ShapeFitPowerSpectrumTemplate(z=0.8, device='cpu')
-    template.runtime_info.initialize()
-    template.cosmo = types.SimpleNamespace(engine='eh99')
-    with pytest.raises(NotImplementedError, match='eh99.*A11'):
-        template.f_of_k(K)
+    """A template on the eh99 engine, whose scale-dependent f(k) the EPT and
+    Kaiser theories read through ``f_of_k``, which raised before the
+    per-chain cosmology was ported: it is now the lookup of the template's fk
+    table, per chain, equal to the engine's growth_rate_k at the table's
+    points (1e-5: the Chebyshev lookup) and below the scalar f where the
+    neutrinos free-stream."""
+    template = DirectPowerSpectrumTemplate(z=0.8, engine='eh99', device='cpu')
+    Pipeline(template).evaluate({'h': torch.tensor([0.66, 0.7])})
+    k = torch.tensor(template.k[::40])[None].expand(2, -1)
+    fk = template.f_of_k(k)
+    assert fk.shape == (2, k.shape[1])
+    np.testing.assert_allclose(fk.numpy(), template.fk[:, ::40].numpy(), rtol=1e-5)
+    assert bool((fk[:, -1] < template.f * 0.999).all()) and bool((fk[:, 0] / template.f - 1).abs().max() < 1e-3)
+
+
+@pytest.mark.parametrize('kwargs, match', [(dict(theta=True), 'A13'), (dict(engine='emulator'), 'A11c'),
+                                           (dict(engine='external'), 'A17'), (None, 'A17')],
+                         ids=['theta', 'emulator', 'external', 'inject'])
+def test_unported_cosmology_options_raise(kwargs, match):
+    """What the ``Cosmology`` node leaves for later: h solved from 100
+    theta_* (the recombination-era quantities, A13), the trained emulator
+    engine (A11c), the external engine and state injection (A17)."""
+    with pytest.raises(NotImplementedError, match=match):
+        if kwargs is None:
+            Cosmology(device='cpu').inject(pk_tab=np.ones(3))
+        else:
+            Cosmology(device='cpu', **kwargs).runtime_info.initialize()
 
 
 @pytest.mark.parametrize('name', ['SimpleBAOWigglesCorrelationFunctionMultipoles',
