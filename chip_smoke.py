@@ -16,8 +16,11 @@ cosmology parameters, the cosmology evaluated per chain,
 forecast of config xi and of config 3d, and the sum of config xi's
 compressed likelihood with config 3; the batched config-5 log-posterior (config 4 with
 its templates emulated: MLP for ShapeFit, Taylor for BAO,
-:func:`build_emulated_likelihood`); and the gradient samplers (ChEES, NUTS)
-over config 4, ChEES over config 3, NUTS over config 5.
+:func:`build_emulated_likelihood`); the batched config-tns log-posterior
+(config 3's calls with the EFT-like TNS theory, whose A/B tables look the
+template's pk up at 460800 points a chain, :func:`build_tns_likelihood`);
+and the gradient samplers (ChEES, NUTS) over config 4, ChEES over config 3,
+NUTS over config 5.
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions, the
    kernel library's build time, ptxas's registers, and the blocks of each
@@ -41,7 +44,11 @@ over config 4, ChEES over config 3, NUTS over config 5.
    320) exp'd, per-row, B in {4096, 32768}); the series at config xi's
    (:func:`xi_cases`: (B, 3000, 230) shared, exp'd, B in {4096, 65536},
    and the (300, 1) lookup) and its x-gradient at B = 4096; both kernels at
-   config 3xi's (:func:`ept_xi_cases`); and the derivatives of the
+   config 3xi's (:func:`ept_xi_cases`); both at config tns's
+   (:func:`tns_cases`: (1024, 460800, 320) per-row exp'd with one row of x
+   shared by every coefficient row, and the shared x at a ragged Q and at
+   the float4 layout), and both past 2^31 queries (:func:`check_tns_overflow`:
+   (4700, 460800), the last rows); and the derivatives of the
    Functions that launch them (:func:`check_derivatives`:
    ``torch.func.jvp``, ``jacfwd``, ``vmap``, double backward and reverse
    mode over ``vmap`` of ``jvp``) at
@@ -86,7 +93,13 @@ over config 4, ChEES over config 3, NUTS over config 5.
    float32 values at 16 points and the CPU path at 4; then the port's own
    emulators fitted on the card (``check()`` of each), log-posterior and
    gradient at B = 4096 and 32768 (launches, wall and device milliseconds,
-   peak memory);
+   peak memory). Config tns (:func:`check_config_tns`): forward at B = 1024
+   and 4096, with the gradient at 1024 and 2048 (launches, peak memory, wall
+   and device milliseconds beside config 3's), the synchronising calls of
+   one forward call, the forward call at 4096 by kind (the Clenshaw
+   lookup, B10's operators, the rest), its frozen JAX x64 values in
+   ``tests/data/torch_port_tns_reference.npz``, the CPU path at 4 points,
+   and the goldens of the theories ported with it;
 4. times (reported, not gated): the Clenshaw kernel's device time from
    CUDA-graph replay of 50 launches at (4096, 560, 202) shared and per-row,
    (4096, 288, 202) per-row and (65536, 560, 202) shared, the coefficient
@@ -107,6 +120,10 @@ over config 4, ChEES over config 3, NUTS over config 5.
    and 3's shapes too; both kernels at the templates' own lookups
    (:func:`template_cases`); the cosmology node of config 3d alone
    (:func:`time_cosmology_node`); config 3d's evals/s beside config 3's;
+   both kernels at config tns's shape (:func:`time_ept_kernels` with a
+   shared x, B = 1024 and 4096, beside their bounds, the plain versions at
+   1024 and the one-GEMM library route) and config tns's evals/s beside
+   config 3's;
 5. the samplers (:func:`run_samplers`): on config 4 ChEES over B = 4096
    chains (24 warmup and 8 sampling iterations, at most 32 leapfrog steps)
    and NUTS over 64 chains (max_depth 5); on config 3 ChEES over B = 4096
@@ -151,6 +168,11 @@ XI_ORDER = 230  # config xi's template order (2000 points from 1e-4 to 1.2)
 EPT_XI_NQUERY = 2400  # config 3xi's lookups: the EPT P(k) model's 300 k x 8 mu nodes a chain
 EPT_XI_WORK_ORDER = 205  # config 3xi's loop tables on the working grid (to 1.7 x 0.6 h/Mpc)
 EPT_XI_BIG_BATCH = 16384  # config 3xi's large batch: the largest power of two that fits with the gradient (not 32768)
+TNS_NQUERY = 96 * 300 * 16  # config tns's A/B-table lookups: pk at |k - q| on (nk_loop, nq_tns, nmu_tns) a chain
+TNS_BATCHES = (1024, 4096)  # config tns forward
+TNS_GRAD_BATCHES = (1024, 2048)  # config tns with the gradient: 2048 reckoned at ~30 GiB before the first run (PERF.md)
+TNS_CHECK_ROWS = 1024  # the rows at which the kernels are held against their plain versions at config tns's shape
+TNS_OVERFLOW_ROWS = 4700  # rows x TNS_NQUERY past 2^31: the flat index of the last rows needs 64 bits
 KGRID = np.geomspace(1e-4, 1., 2000)  # the config-1 template grid
 FP32_FLOPS = 67e12   # published H100 SXM FP32 rate outside the tensor cores, at 700 W
 HBM_BYTES = 3.35e12  # published H100 SXM memory rate
@@ -330,6 +352,30 @@ def build_ept_likelihood(device):
     return like
 
 
+TNS_SMALL = dict(nq_tns=40, nmu_tns=8, nk_loop=48)  # config tns at a small width (the CPU tests')
+
+
+def build_tns_likelihood(device, small=False):
+    """Config tns in the port: config 3's calls (``scripts/bench_ept.py``)
+    with the EFT-like TNS theory at its defaults (FFTLog loops, nk_loop 96,
+    nq_tns 300, nmu_tns 16, Lorentzian FoG: the A/B tables' pk at |k - q| on
+    96 x 300 x 16 = 460800 points a chain), ``ct*`` and ``sn*``
+    marginalized, ``b3`` and ``sigmav`` varied; ``small``: at
+    :data:`TNS_SMALL`; ``device=None``: the card."""
+    from desilike_tpu_torch import (EFTLikeTNSTracerPowerSpectrumMultipoles, ShapeFitPowerSpectrumTemplate,
+                                    TracerPowerSpectrumMultipolesObservable, BoxFootprint,
+                                    ObservablesGaussianLikelihood)
+    theory = EFTLikeTNSTracerPowerSpectrumMultipoles(ells=(0, 2, 4), template=ShapeFitPowerSpectrumTemplate(z=0.8),
+                                                     **(TNS_SMALL if small else {}))
+    theory.init.params = {'ct*': dict(derived='.marg'), 'sn*': dict(derived='.marg')}
+    observable = TracerPowerSpectrumMultipolesObservable(
+        data={'b1': 2.0}, klim={ell: (0.02, 0.2, 0.005) for ell in (0, 2, 4)}, theory=theory)
+    like = ObservablesGaussianLikelihood(observables=[observable], footprints=[BoxFootprint(volume=2e9, nbar=5e-4)],
+                                         device=device)
+    like.pipeline
+    return like
+
+
 def build_ept_direct_likelihood(device):
     """Config 3d in the port: BASELINE's config 3, the 1-loop EPT full-shape
     likelihood on direct cosmology parameters, with the calls of
@@ -400,9 +446,9 @@ def chains(names, batch, seed, device):
     import torch
     rng = np.random.default_rng(seed)
     center = {'qpar': 1., 'qper': 1., 'dbeta': 1., 'df': 1., 'dm': 0., 'b2': 0., 'bs': 0., 'b3nl': 0., 'sn0': 0.,
-              'sn2_2': 0., **COSMO_CENTER}
+              'sn2_2': 0., 'b3': 0., 'sigmav': 4., **COSMO_CENTER}
     width = {'qpar': 0.04, 'qper': 0.04, 'b1': 0.3, 'dbeta': 0.1, 'df': 0.1, 'dm': 0.05, 'b2': 0.5, 'bs': 0.5,
-             'b3nl': 0.5, 'sn0': 1., 'sn2_2': 5., **COSMO_WIDTH}
+             'b3nl': 0.5, 'sn0': 1., 'sn2_2': 5., 'b3': 0.5, 'sigmav': 1., **COSMO_WIDTH}
     values = {}
     for name in names:
         namespace, _, basename = name.rpartition('.')
@@ -573,7 +619,7 @@ def kernel_cases():
         for k in (2, 8):
             cases.append(dict(rows=BATCH, q=NQUERY, order=202, per_row=per_row, log_values=True, k=k))
     cases.append(dict(rows=56, q=1, order=202, per_row=False, log_values=True))  # the kobs lookup
-    cases += ept_cases() + xi_cases() + ept_xi_cases() + template_cases()
+    cases += ept_cases() + xi_cases() + ept_xi_cases() + template_cases() + tns_cases()
     return cases
 
 
@@ -604,6 +650,48 @@ def xi_cases():
             for rows in (BATCH, BIG_BATCH)] + [dict(rows=300, q=1, order=XI_ORDER, per_row=False, log_values=True)]
 
 
+def tns_cases():
+    """Config tns's lookups: the template's exp'd pk at |k - q| on the TNS
+    tables' static (96, 300, 16) grid, one row of x shared by every chain's
+    coefficient row (order 320), at TNS_CHECK_ROWS rows (where the plain
+    version fits); and the shared x at a ragged q (the row layout) and at
+    (4096, 288) series (the flat layout's float4 loads)."""
+    return [dict(rows=TNS_CHECK_ROWS, q=TNS_NQUERY, order=EPT_ORDER, per_row=True, log_values=True, shared_x=True),
+            dict(rows=56, q=561, order=EPT_ORDER, per_row=True, log_values=True, shared_x=True),
+            dict(rows=BATCH, q=FS_NQUERY, order=EPT_ORDER, per_row=True, log_values=False, shared_x=True)]
+
+
+def check_tns_overflow(device):
+    """Both kernels at TNS_OVERFLOW_ROWS x TNS_NQUERY, shared x, order 320:
+    rows x queries past 2^31, so the flat index of the last rows needs 64
+    bits. The last 8 rows (one coefficient row each) against the plain
+    versions on those rows alone. Returns the errors relative to the
+    magnitude."""
+    import torch
+    from desilike_tpu_torch.ops import cuda_kernels
+    case = dict(rows=TNS_OVERFLOW_ROWS, q=TNS_NQUERY, order=EPT_ORDER, per_row=True, log_values=True, shared_x=True)
+    x, c = case_inputs(case, device)
+    with torch.no_grad():
+        y = cuda_kernels.clenshaw(x, c, True)
+        tail = y[-8:].clone()
+        w = torch.ones_like(y)
+        gc = cuda_kernels._launch_coeff_grad(x, w, y, EPT_ORDER, True)[-8:]
+    del y, w
+    expected = cuda_kernels.clenshaw_reference(x, c[-8:], True)
+    expected_gc = cuda_kernels.clenshaw_coeff_grad_reference(x, expected, EPT_ORDER)
+    torch.cuda.synchronize()
+    errs = (float((tail - expected).abs().max() / expected.abs().max()),
+            float((gc - expected_gc).abs().max() / expected_gc.abs().max()))
+    print('phase 2: {} ({:.3g} x 2^31 queries): the last 8 rows vs the plain versions: series {:.3e} (tol {:.0e}), '
+          'coefficient gradient {:.3e} (tol {:.0e})'.format(case_label(case), TNS_OVERFLOW_ROWS * TNS_NQUERY / 2. ** 31,
+                                                            errs[0], KERNEL_RTOL, errs[1], COEFF_GRAD_RTOL))
+    if not (errs[0] <= KERNEL_RTOL and errs[1] <= COEFF_GRAD_RTOL):
+        raise AssertionError('the kernels disagree past 2^31 queries')
+    del x, c
+    torch.cuda.empty_cache()
+    return errs
+
+
 def ept_xi_cases():
     """Config 3xi's launches: the loop tables' series at (B, 2400, 205) and the
     template's exp'd lookups at (B, 2400, 320), one coefficient row a chain,
@@ -614,8 +702,9 @@ def ept_xi_cases():
 
 
 def case_label(case):
-    return '{rows}x{q} order {order} {}{}{}{}{}'.format(
+    return '{rows}x{q} order {order} {}{}{}{}{}{}'.format(
         'per-row' if case['per_row'] else 'shared', ' exp' if case['log_values'] else ' series',
+        ' shared x' if case.get('shared_x') else '',
         ' offset {}'.format(case['offset']) if case.get('offset') else '',
         ' K={}'.format(case['k']) if case.get('k') else '',
         ' grid {}'.format(case['max_grid']) if case.get('max_grid') else '', **case)
@@ -641,7 +730,8 @@ def case_inputs(case, device, seed=1):
     coeffs = ln_pk_coeffs(order)
     if case['per_row']:
         coeffs = coeffs + 1e-3 * rng.normal(size=(rows, order)) / (1. + np.arange(order))
-    x = torch.tensor(rng.uniform(-1., 1., (rows, q)), dtype=torch.float32, device=device)
+    x = torch.tensor(rng.uniform(-1., 1., (1 if case.get('shared_x') else rows, q)), dtype=torch.float32,
+                     device=device)
     offset = case.get('offset', 0)
     if offset:
         storage = torch.empty(rows * q + offset, dtype=torch.float32, device=device)
@@ -698,7 +788,7 @@ def coeff_grad_cases():
     cases.append(dict(rows=70000, q=FS_NQUERY, order=ORDER, per_row=True, log_values=True, max_grid=7))
     cases.append(dict(rows=BATCH, q=FS_NQUERY, order=ORDER, per_row=True, log_values=True, offset=1))
     cases.append(dict(rows=56, q=100, order=ORDER, per_row=True, log_values=True))  # 9 queries a lane, prefetched
-    cases += ept_cases() + ept_xi_cases() + [case for case in template_cases() if case['per_row']]
+    cases += ept_cases() + ept_xi_cases() + [case for case in template_cases() if case['per_row']] + tns_cases()
     return cases
 
 
@@ -712,7 +802,8 @@ def check_coeff_grad_case(case, device):
     import torch
     from desilike_tpu_torch.ops import cuda_kernels
     x, c = case_inputs(case, device)
-    grad_y = torch.tensor(np.random.default_rng(3).normal(size=tuple(x.shape)), dtype=torch.float32, device=device)
+    grad_y = torch.tensor(np.random.default_rng(3).normal(size=(case['rows'], case['q'])), dtype=torch.float32,
+                          device=device)
     y = cuda_kernels.clenshaw_reference(x, c, log_values=True) if case['log_values'] else None
     got = cuda_kernels._launch_coeff_grad(x, grad_y, y, case['order'], case['per_row'],
                                           max_grid=case.get('max_grid', cuda_kernels.MAX_GRID))
@@ -759,23 +850,24 @@ def coeff_grad_occupancy(rows=BATCH, order=ORDER):
     return result
 
 
-def coeff_grad_bound_ms(rows, q, order, per_row, with_y=True):
+def coeff_grad_bound_ms(rows, q, order, per_row, with_y=True, shared_x=False):
     """Least time of the H100 for the coefficient gradient: 3 FLOP (an FFMA
-    and an FADD) a (query, degree) at the FP32 rate, or x, w and y (if
-    ``with_y``) once and the gradient once at the memory rate, whichever is
-    larger. Returns (ms, 'operations' or 'bytes')."""
+    and an FADD) a (query, degree) at the FP32 rate, or x (one row if
+    ``shared_x``), w and y (if ``with_y``) once and the gradient once at the
+    memory rate, whichever is larger. Returns (ms, 'operations' or 'bytes')."""
     flops = 3. * rows * q * order
-    nbytes = 4. * ((3 if with_y else 2) * rows * q + (rows if per_row else 1) * order)
+    nbytes = 4. * ((1 if shared_x else rows) * q + (2 if with_y else 1) * rows * q + (rows if per_row else 1) * order)
     ops_ms, bytes_ms = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
     return (ops_ms, 'operations') if ops_ms >= bytes_ms else (bytes_ms, 'bytes')
 
 
-def clenshaw_bound_ms(rows, q, order, per_row):
+def clenshaw_bound_ms(rows, q, order, per_row, shared_x=False):
     """Least time of the H100 for the series: 3 FLOP (an FFMA and an FADD) a
-    step-query at the FP32 rate, or x and y once and the coefficients once at
-    the memory rate, whichever is larger. Returns (ms, 'operations' or 'bytes')."""
+    step-query at the FP32 rate, or x (one row if ``shared_x``) and y once
+    and the coefficients once at the memory rate, whichever is larger.
+    Returns (ms, 'operations' or 'bytes')."""
     flops = 3. * rows * q * (order - 1)
-    nbytes = 4. * (2 * rows * q + (rows if per_row else 1) * order)
+    nbytes = 4. * ((1 if shared_x else rows) * q + rows * q + (rows if per_row else 1) * order)
     ops_ms, bytes_ms = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
     return (ops_ms, 'operations') if ops_ms >= bytes_ms else (bytes_ms, 'bytes')
 
@@ -837,14 +929,19 @@ def library_series_ms(x, c, log_values):
     """Milliseconds a call (CUDA events) of the nearest library call to the
     series: ``torch.special.chebyshev_polynomial_t`` over (B, Q, order), every
     T_j(x) materialised, an einsum with the (shared or per-row) coefficients,
-    then exp if ``log_values``; None where the card cannot hold the (B, Q,
-    order) tensor. A yardstick only, used nowhere in the port."""
+    then exp if ``log_values``; with one row of x shared by every coefficient
+    row one GEMM: T_j(x) once ((Q, order)), then (B, order) x (order, Q).
+    None where the card cannot hold T_j(x). A yardstick only, used nowhere in
+    the port."""
     import torch
     degrees = torch.arange(c.shape[-1], device=x.device)
     subscripts = 'bqj,bj->bq' if c.ndim == 2 else 'bqj,j->bq'
 
     def call():
-        y = torch.einsum(subscripts, torch.special.chebyshev_polynomial_t(x[..., None], degrees), c)
+        if x.shape[0] == 1 and c.ndim == 2 and c.shape[0] > 1:
+            y = c @ torch.special.chebyshev_polynomial_t(x[0][:, None], degrees).T
+        else:
+            y = torch.einsum(subscripts, torch.special.chebyshev_polynomial_t(x[..., None], degrees), c)
         return torch.exp(y) if log_values else y
 
     try:
@@ -859,35 +956,47 @@ def library_series_ms(x, c, log_values):
 def time_ept_kernels(smi, device, cases=None, config='config 3'):
     """Phase 4 at ``config``'s shapes (``cases``, by default config 3's,
     :func:`ept_cases`): each kernel's device time by CUDA-graph replay beside
-    its bound, its plain version's time, and the nearest library calls' (for
-    the series :func:`library_series_ms`, for the coefficient gradient, with y
-    for the exp'd lookups as the backward launches it,
-    ``chebyshev_polynomial_t`` + einsum); the coefficient gradient per row
-    or summed over the rows, as the case's coefficients are. Returns {label:
-    numbers}."""
+    its bound, its plain version's time (unless the case says ``plain``
+    False: where its (B, Q) temporaries do not fit beside the timed
+    tensors), and the nearest library calls' (for the series
+    :func:`library_series_ms`, for the coefficient gradient, with y for the
+    exp'd lookups as the backward launches it, ``chebyshev_polynomial_t`` +
+    einsum, or one GEMM with T_j(x) once for a shared x); the coefficient
+    gradient per row or summed over the rows, as the case's coefficients
+    are. A graph holds 50 launches, or 3 where each output is over 2^28
+    floats (config tns's (B, 460800): each output stays in the graph's
+    pool). Returns {label: numbers}."""
     import torch
     from desilike_tpu_torch.ops import cuda_kernels
     out = {}
     for case in ept_cases() if cases is None else cases:
         rows, q, order, log_values, per_row = (case[key] for key in ('rows', 'q', 'order', 'log_values', 'per_row'))
+        shared_x = bool(case.get('shared_x'))
+        launches, replays = (3, 3) if rows * q > 2 ** 28 else (50, 10)
         x, c = case_inputs(case, device, seed=2)
-        w = torch.tensor(np.random.default_rng(5).normal(size=tuple(x.shape)), dtype=torch.float32, device=device)
+        w = torch.randn(rows, q, generator=torch.Generator(device).manual_seed(5), device=device)
         with torch.no_grad():
             y = cuda_kernels.clenshaw(x, c, log_values) if log_values else None
         wy = w if y is None else w * y
         entry = out['{}x{} order {}'.format(rows, q, order)] = {}
-        entry['ms'] = float(np.mean([time_graph(lambda: cuda_kernels.clenshaw(x, c, log_values)) for _ in range(2)]))
-        entry['bound_ms'], entry['bound_by'] = clenshaw_bound_ms(rows, q, order, per_row)
-        entry['plain_ms'] = time_cuda(lambda: cuda_kernels.clenshaw_reference(x, c, log_values), 3, warmup=1)
+        entry['ms'] = float(np.mean([time_graph(lambda: cuda_kernels.clenshaw(x, c, log_values), launches, replays)
+                                     for _ in range(2)]))
+        entry['bound_ms'], entry['bound_by'] = clenshaw_bound_ms(rows, q, order, per_row, shared_x)
+        entry['grad_ms'] = float(np.mean([time_graph(lambda: cuda_kernels._launch_coeff_grad(x, w, y, order, per_row),
+                                                     launches, replays) for _ in range(2)]))
+        entry['grad_bound_ms'], entry['grad_bound_by'] = coeff_grad_bound_ms(rows, q, order, per_row, y is not None,
+                                                                             shared_x)
+        entry['plain_ms'] = entry['grad_plain_ms'] = None
+        if case.get('plain', True):
+            entry['plain_ms'] = time_cuda(lambda: cuda_kernels.clenshaw_reference(x, c, log_values), 3, warmup=1)
+            entry['grad_plain_ms'] = time_cuda(lambda: cuda_kernels.clenshaw_coeff_grad_reference(x, wy, order), 3,
+                                               warmup=1)
         entry['library_ms'] = library_series_ms(x, c, log_values)
-        entry['grad_ms'] = float(np.mean([time_graph(lambda: cuda_kernels._launch_coeff_grad(x, w, y, order, per_row))
-                                          for _ in range(2)]))
-        entry['grad_bound_ms'], entry['grad_bound_by'] = coeff_grad_bound_ms(rows, q, order, per_row, y is not None)
-        entry['grad_plain_ms'] = time_cuda(lambda: cuda_kernels.clenshaw_coeff_grad_reference(x, wy, order), 3,
-                                           warmup=1)
 
-        def library_call():  # every T_j(x) materialised, then a contraction
+        def library_call():  # every T_j(x) materialised (once for a shared x), then a contraction
             degrees = torch.arange(order, device=device)
+            if shared_x:
+                return wy @ torch.special.chebyshev_polynomial_t(x[0][:, None], degrees)
             return torch.einsum('bq,bqj->bj' if per_row else 'bq,bqj->j', wy,
                                 torch.special.chebyshev_polynomial_t(x[..., None], degrees))
 
@@ -898,19 +1007,20 @@ def time_ept_kernels(smi, device, cases=None, config='config 3'):
             print('phase 4: chebyshev_polynomial_t + einsum could not run at {}x{} order {}: {}'.format(
                 rows, q, order, str(exc)[:300]))
             torch.cuda.empty_cache()
-        print('phase 4: {} shape {}x{} order {} {} {} on {!r}: Clenshaw {:.4f} ms a launch (CUDA-graph '
-              'replay), bound {:.4f} ms ({}), {:.1%} of it, plain version {:.4f} ms, chebyshev_polynomial_t + einsum{} '
-              '{} ms; coefficient gradient {:.4f} ms, bound {:.4f} ms ({}), {:.1%} of it, plain version {:.4f} ms, '
-              'chebyshev_polynomial_t + einsum {} ms'.format(
-                  config, rows, q, order, 'per-row' if per_row else 'shared', 'exp' if log_values else 'series', smi,
-                  entry['ms'], entry['bound_ms'],
-                  entry['bound_by'], entry['bound_ms'] / entry['ms'], entry['plain_ms'],
+        print('phase 4: {} shape {}x{} order {} {} {}{} on {!r}: Clenshaw {:.4f} ms a launch (CUDA-graph '
+              'replay), bound {:.4f} ms ({}), {:.1%} of it, plain version {} ms, {}{} {} ms; coefficient gradient '
+              '{:.4f} ms, bound {:.4f} ms ({}), {:.1%} of it, plain version {} ms, {} {} ms'.format(
+                  config, rows, q, order, 'per-row' if per_row else 'shared', 'exp' if log_values else 'series',
+                  ', shared x' if shared_x else '', smi, entry['ms'], entry['bound_ms'],
+                  entry['bound_by'], entry['bound_ms'] / entry['ms'], entry['plain_ms'] and round(entry['plain_ms'], 4),
+                  'chebyshev_polynomial_t once + GEMM' if shared_x else 'chebyshev_polynomial_t + einsum',
                   ' + exp' if log_values else '', entry['library_ms'] and round(entry['library_ms'], 4),
                   entry['grad_ms'], entry['grad_bound_ms'], entry['grad_bound_by'],
-                  entry['grad_bound_ms'] / entry['grad_ms'], entry['grad_plain_ms'],
+                  entry['grad_bound_ms'] / entry['grad_ms'], entry['grad_plain_ms'] and round(entry['grad_plain_ms'], 4),
+                  'chebyshev_polynomial_t once + GEMM' if shared_x else 'chebyshev_polynomial_t + einsum',
                   entry['grad_library_ms'] and round(entry['grad_library_ms'], 4)))
         del x, c, w, y, wy
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -925,6 +1035,7 @@ def theory_golden(label, theory, golden, name, x64=None):
     # the parameter values of tests/test_golden.py
     values = {'qpar': 1.02, 'qper': 0.98, 'b1': 1.8, 'sigmapar': 9., 'sigmaper': 6., 'sigmas': 2., 'dbeta': 1.1,
               'df': 1.05, 'dm': 0.02, 'sn0': 500., 'ct0_2': 10., 'ct2_2': 5., 'b2': 0.5, 'bs': -0.2,
+              'ml0_0': 1., 'ml2_1': 0.5, 'fnl_loc': 10., 'p': 1., 'sigmav': 4.,
               'b1p': 1.3, 'b2p': 0.5, 'bsp': -0.3, 'alpha0p': 1.5, 'alpha2p': -0.8, 'sn0p': 0.6, 'sn2p': -0.2}
     pipe = Pipeline(theory)
     allowed = set(pipe.params.basenames())
@@ -1307,6 +1418,165 @@ def check_config3d(golden, smi, ept):
     return like, fn, out
 
 
+def check_config_tns(golden, smi, ept):
+    """Phase 3, config tns (the EFT-like TNS full-shape likelihood,
+    :func:`build_tns_likelihood`) on the card: log-posterior over
+    TNS_BATCHES and with its gradient over TNS_GRAD_BATCHES seeded chains
+    (finite, the 6 solved parameters, the Clenshaw kernel launched forward
+    and both kernels with the gradient, counted; peak device memory; wall
+    and device milliseconds a call beside config 3's (``ept``) on the same
+    batch), the synchronising calls of one forward call, the forward call at
+    the largest batch by kind (:func:`tns_forward_profile`), the frozen JAX x64
+    values of ``tests/data/torch_port_tns_reference.npz`` at 16 points, the
+    card against the port's CPU path at 4 points, and the goldens of the
+    theories ported beside it (``simple_bao``, ``resummed_bao``,
+    ``flexible_bao``, ``tns``, ``efttns_fftlog``, ``png``, ``bispectrum``)
+    on the card. Returns (likelihood, its logpost_fn, the numbers)."""
+    import torch
+    from desilike_tpu_torch import theories
+    from desilike_tpu_torch.ops import cuda_kernels
+    reference = np.load(os.path.join(ROOT, 'tests', 'data', 'torch_port_tns_reference.npz'))
+    t0 = time.perf_counter()
+    like = build_tns_likelihood(None)  # no device: the card
+    pipe = like.pipeline
+    names, solved = pipe.varied_params.names(), pipe.solved_params.names()
+    out = dict(build_s=time.perf_counter() - t0, launches={}, max_memory_gib={}, wall_ms={}, device_ms={},
+               config3_wall_ms={}, config3_device_ms={})
+    if names != list(reference['names']) or solved != list(reference['solved_names']) or like.size != 108 \
+            or pipe.device.type != 'cuda':
+        raise AssertionError('config tns varies {} and solves {} over {} data on {}'.format(names, solved, like.size,
+                                                                                         pipe.device))
+    fn, efn, enames = like.logpost_fn(), ept.logpost_fn(), ept.pipeline.varied_params.names()
+    for batch in sorted(set(TNS_BATCHES) | set(TNS_GRAD_BATCHES)):
+        values = chains(names, batch, seed=0, device=pipe.device)
+        evalues = chains(enames, batch, seed=0, device=pipe.device)
+        modes = [mode for mode, batches in (('forward', TNS_BATCHES), ('with gradient', TNS_GRAD_BATCHES))
+                 if batch in batches]
+        for mode in modes:
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cuda_kernels.CLENSHAW_LAUNCHES = cuda_kernels.COEFF_GRAD_LAUNCHES = 0
+            if mode == 'forward':
+                with torch.no_grad():
+                    logpost, aux = fn(values)
+                grad = torch.zeros(batch, len(names), device=pipe.device)
+            else:
+                logpost, grad = logpost_and_grad(fn, values)
+            torch.cuda.synchronize()
+            launches = out['launches'][mode, batch] = (cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES)
+            out['max_memory_gib'][mode, batch] = torch.cuda.max_memory_allocated() / 2 ** 30
+            finite = bool(torch.isfinite(logpost).all() and torch.isfinite(grad).all())
+            print('phase 3: config tns {} over B={} chains on {!r}: shape {}, all finite {}, mean logpost {:.4f}; '
+                  'launches: Clenshaw {}, coefficient gradient {}; peak device memory {:.2f} GiB; {} data, {} varied, '
+                  '{} solved'.format(mode, batch, smi, tuple(logpost.shape), finite, float(logpost.mean()),
+                                     launches[0], launches[1], out['max_memory_gib'][mode, batch], like.size,
+                                     len(names), len(solved)))
+            expect_grad = mode != 'forward'
+            if logpost.shape != (batch,) or not finite or launches[0] <= 0 or (launches[1] > 0) != expect_grad:
+                raise AssertionError('config tns main path failed {} at B={}'.format(mode, batch))
+            if mode == 'forward' and (list(aux['solved']) != solved or len(solved) != 6 or not all(
+                    bool(torch.isfinite(v).all()) and v.shape == (batch,) for v in aux['solved'].values())):
+                raise AssertionError('config tns: aux[\'solved\'] does not hold the 6 solved parameters')
+            del logpost, grad
+            aux = None
+            for key, function, args in (('', fn, values), ('config3_', efn, evalues)):
+                torch.cuda.empty_cache()
+                if mode == 'forward':
+                    def call():
+                        with torch.no_grad():
+                            function(args)
+                else:
+                    def call():  # gradients accumulate; harmless
+                        function(args)[0].sum().backward()
+                out[key + 'wall_ms'][mode, batch] = time_cuda(call, 3, warmup=1)
+                out[key + 'device_ms'][mode, batch] = device_ms(call, calls=1)
+            print('phase 3: config tns {} at B={} on {!r}: {:.2f} ms a call wall, {:.2f} ms device, {:.0f} evals/s '
+                  '(config 3 on the same batch: {:.2f} / {:.2f} ms); device time {:.2f}x config 3\'s'.format(
+                      mode, batch, smi, out['wall_ms'][mode, batch], out['device_ms'][mode, batch],
+                      batch / out['wall_ms'][mode, batch] * 1e3, out['config3_wall_ms'][mode, batch],
+                      out['config3_device_ms'][mode, batch],
+                      out['device_ms'][mode, batch] / out['config3_device_ms'][mode, batch]))
+        if batch == TNS_BATCHES[0]:
+            out['host_syncs'] = count_host_syncs(fn, values, label='config tns')
+        if batch == TNS_BATCHES[-1]:
+            out['profile'] = tns_forward_profile(fn, values, smi)
+        del values, evalues
+        torch.cuda.empty_cache()
+    points = reference['points']
+    lp, g = at_points(like, names, points)
+    check_close('phase 3: config tns: card vs JAX float64 (x64) at 16 points', lp, reference['logpost_x64'],
+                EPT_X64_ATOL, g, reference['grad_x64'], EPT_X64_GRAD_RTOL)
+    lp_cpu, g_cpu = at_points(build_tns_likelihood('cpu'), names, points[:4])
+    check_close('phase 3: config tns: card vs the port\'s CPU plain path at 4 points', lp[:4], lp_cpu, EPT_X64_ATOL,
+                g[:4], g_cpu, EPT_X64_GRAD_RTOL)
+    k29 = np.linspace(0.02, 0.3, 29)
+    for name, cls in (('simple_bao', theories.SimpleBAOWigglesTracerPowerSpectrumMultipoles),
+                      ('resummed_bao', theories.ResummedBAOWigglesTracerPowerSpectrumMultipoles),
+                      ('flexible_bao', theories.FlexibleBAOWigglesTracerPowerSpectrumMultipoles)):
+        theory_golden('phase 3', cls(ells=(0, 2), k=k29, template=theories.BAOPowerSpectrumTemplate(z=0.8)), golden,
+                      name)
+    for name, cls, loop_method in (('tns', theories.TNSTracerPowerSpectrumMultipoles, 'quadrature'),
+                                   ('efttns_fftlog', theories.EFTLikeTNSTracerPowerSpectrumMultipoles, 'fftlog')):
+        theory_golden('phase 3', cls(ells=(0, 2), k=k29, template=theories.ShapeFitPowerSpectrumTemplate(z=0.8),
+                                     loop_method=loop_method), golden, name)
+    theory_golden('phase 3', theories.PNGTracerPowerSpectrumMultipoles(ells=(0, 2), k=k29), golden, 'png')
+    theory_golden('phase 3', theories.TreeLevelBispectrumMultipoles(template=theories.ShapeFitPowerSpectrumTemplate(
+        z=0.8)), golden, 'bispectrum')
+    return like, fn, out
+
+
+def tns_forward_profile(fn, values, smi, nq=300, nk=96):
+    """Config tns's forward call at the batch of ``values`` by kind
+    (``torch.profiler``, one call after one of warm-up), in device ms: the
+    Clenshaw kernels (the longest launch is the lookup of pk at |k - q|),
+    B10's operators on a (B, nk nq nmu) tensor (the two ``bmm`` with the
+    static kernels and the passes over U and V: the operators with an input
+    of B x TNS_NQUERY elements, by the kernels each launched itself), B10's 1D
+    GEMM ((B, nq) x (nq, 6 nk)), and the rest of the call. Returns {kind:
+    ms}."""
+    import torch
+    from torch.profiler import profile, ProfilerActivity
+    batch = next(iter(values.values())).shape[0]
+
+    def call():
+        with torch.no_grad():
+            fn(values)
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+        call()
+        torch.cuda.synchronize()
+    events = prof.events()
+    device = [event for event in events if event.device_type == torch.autograd.DeviceType.CUDA]
+    launches = [event.time_range.elapsed_us() * 1e-3 for event in device if 'clenshaw' in event.name]
+    out = {'device': sum(event.time_range.elapsed_us() for event in device) * 1e-3, 'clenshaw': sum(launches),
+           'clenshaw_longest': max(launches), 'b10_ops': {}, 'b10_one_d': 0.}
+    for event in events:
+        if event.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        shapes = [list(shape) for shape in (event.input_shapes or []) if isinstance(shape, (list, tuple))]
+        own = sum(kernel.duration for kernel in event.kernels if 'clenshaw' not in kernel.name) * 1e-3
+        if own <= 0.:
+            continue
+        if any(int(np.prod(shape)) == batch * TNS_NQUERY for shape in shapes if shape):
+            key = '{} {}'.format(event.name, shapes)
+            out['b10_ops'][key] = out['b10_ops'].get(key, 0.) + own
+        elif event.name == 'aten::mm' and shapes[:2] == [[batch, nq], [nq, 6 * nk]]:
+            out['b10_one_d'] += own
+    out['b10'] = sum(out['b10_ops'].values()) + out['b10_one_d']
+    out['rest'] = out['device'] - out['clenshaw'] - out['b10']
+    print('phase 3: config tns forward at B={} by kind on {!r} (torch.profiler, device ms): all {:.3f}; Clenshaw '
+          '{:.3f} in {} launches (the lookup of pk at |k - q| {:.3f}); B10 {:.3f}: {}, the 1D GEMM {:.3f}; the rest '
+          '{:.3f}'.format(batch, smi, out['device'], out['clenshaw'], len(launches), out['clenshaw_longest'],
+                          out['b10'], '; '.join('{} {:.3f}'.format(key, ms) for key, ms in out['b10_ops'].items()),
+                          out['b10_one_d'], out['rest']))
+    if not out['b10_ops'] or out['b10_one_d'] <= 0.:
+        raise AssertionError('config tns profile: B10\'s operators were not found')
+    return out
+
+
 def direct_template(likelihood):
     """The ``DirectPowerSpectrumTemplate`` node of ``likelihood``'s pipeline."""
     from desilike_tpu_torch import DirectPowerSpectrumTemplate
@@ -1449,9 +1719,13 @@ def check_config_xi(golden):
 def kernel_profile(call, calls=2):
     """(device milliseconds, kernels) a call of ``call``: the sum of the
     device times of the kernels and copies that ``torch.profiler`` records
-    over ``calls`` calls, and their number, after one call of warm-up."""
+    over ``calls`` calls, and their number, after one call of warm-up. The
+    cached blocks are released first: config 3d with the gradient at 32768
+    (66 GiB) ran out of memory on the blocks the timed calls before it had
+    split."""
     import torch
     from torch.profiler import profile, ProfilerActivity
+    torch.cuda.empty_cache()
     call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2028,6 +2302,7 @@ def main(kernels_only=False):
               '(tol {:.0e} for the first derivatives, {:.0e} for the second)'.format(
                   case_label(case), ', '.join('{} {:.2e}'.format(k, e) for k, e in errors.items()), KERNEL_RTOL,
                   SECOND_RTOL))
+    tns_overflow = check_tns_overflow(cuda)
     lap('phase 2')
     if kernels_only:
         print('phases 1 and 2 took {:.1f} s'.format(time.perf_counter() - started))
@@ -2128,6 +2403,9 @@ def main(kernels_only=False):
     lap('phase 3: config xi')
     _, _, config_3xi = check_config_3xi(smi)
     lap('phase 3: config 3xi')
+    tns, tfn, config_tns = check_config_tns(golden, smi, ept)
+    tnames = tns.pipeline.varied_params.names()
+    lap('phase 3: config tns')
     fisher_sum = check_fisher_and_sum(xi, ept, smi)
     lap('phase 3: the Fisher forecast and the sum')
     emulated, _, config5 = check_config5(smi, jfn)
@@ -2218,6 +2496,9 @@ def main(kernels_only=False):
     template_timed = time_ept_kernels(smi, cuda, template_cases(), 'the templates\' wiggles')
     xi_timed = time_xi_kernel(smi, cuda)
     cosmology_timed = time_cosmology_node(direct, smi)
+    tns_timed = time_ept_kernels(smi, cuda, [dict(rows=rows, q=TNS_NQUERY, order=EPT_ORDER, per_row=True, log_values=True,
+                                                  shared_x=True, plain=rows == TNS_CHECK_ROWS)
+                                             for rows in TNS_BATCHES], 'config tns')
     cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES = saved
 
     rates = {}
@@ -2225,20 +2506,23 @@ def main(kernels_only=False):
                                              ('config 4', jfn, jnames, (BATCH, JOINT_BIG_BATCH)),
                                              ('config 3', efn, enames, (BATCH, EPT_BIG_BATCH)),
                                              ('config 3d', dfn, dnames, (BATCH, EPT_BIG_BATCH)),
-                                             ('config xi', xfn, xnames, (BATCH, BIG_BATCH))):
+                                             ('config xi', xfn, xnames, (BATCH, BIG_BATCH)),
+                                             ('config tns', tfn, tnames, TNS_BATCHES)):
         for batch in batches:
             torch.cuda.empty_cache()
             fixed = chains(varied, batch, seed=1, device=cuda)
             with torch.no_grad():
-                forward_ms = time_cuda(lambda: function(fixed), 20 if batch == BATCH else 10)
+                forward_ms = time_cuda(lambda: function(fixed), 20 if batch == BATCH and label != 'config tns' else 5)
             rates[label, batch] = batch / forward_ms * 1e3
             line = 'phase 4: {} logpost at B={} on {!r}: {:.4f} ms a call, {:.0f} evals/s'.format(
                 label, batch, smi, forward_ms, rates[label, batch])
             # config 3d with the gradient at 32768 (66 GiB) is timed in phase 3: here, beside the other
             # likelihoods' blocks, the card cannot hold it
-            if batch == BATCH or label in ('config 3', 'config xi'):
+            if (batch in TNS_GRAD_BATCHES) if label == 'config tns' else \
+                    (batch == BATCH or label in ('config 3', 'config xi')):
                 # gradients accumulate; harmless
-                backward_ms = time_cuda(lambda: function(fixed)[0].sum().backward(), 10 if batch == BATCH else 3)
+                backward_ms = time_cuda(lambda: function(fixed)[0].sum().backward(),
+                                        10 if batch == BATCH and label != 'config tns' else 3)
                 rates[label, batch, 'gradient'] = batch / backward_ms * 1e3
                 line += '; with gradient {:.4f} ms, {:.0f} evals/s'.format(backward_ms, batch / backward_ms * 1e3)
             print(line)
@@ -2293,7 +2577,12 @@ def main(kernels_only=False):
         'launches_config_xi_forward': config_xi['launches']['forward', BATCH][0],
         'launches_hessian_config_xi': config_xi['launches_hessian'][0],
         **{key + '_config_xi': {label: entry[key] for label, entry in xi_timed.items()}
-           for key in ('ms', 'bound_ms', 'plain_ms', 'library_ms')}}, {
+           for key in ('ms', 'bound_ms', 'plain_ms', 'library_ms')},
+        **{'launches_config_tns_{}_{}'.format(mode.replace(' ', '_'), batch): value[0]
+           for (mode, batch), value in config_tns['launches'].items()},
+        **{key + '_config_tns': {label: entry[key] for label, entry in tns_timed.items()}
+           for key in ('ms', 'bound_ms', 'plain_ms', 'library_ms')},
+        'max_rel_err_past_2_31': tns_overflow[0]}, {
         'name': 'clenshaw_coeff_grad', 'route': 'cuda', 'source': 'desilike_tpu_torch/csrc/clenshaw_coeff_grad.cu',
         'replaces': 'desilike_tpu/ops/pallas_kernels.py:30', 'launches': launches4[1],
         'launches_forward': forward4[1], 'launches_with_gradient': launches4[1], 'max_abs_err': grad_abs_err,
@@ -2321,7 +2610,12 @@ def main(kernels_only=False):
         **{'launches_sum_' + mode.replace(' ', '_'): value[1] for mode, value in fisher_sum['launches_sum'].items()},
         **{'launches_config5_{}_{}'.format(mode.replace(' ', '_'), batch): value[1]
            for (mode, batch), value in config5['launches'].items()},
-        'launches_nuts_config5': samplers['nuts_config5']['launches_coeff_grad']}],
+        'launches_nuts_config5': samplers['nuts_config5']['launches_coeff_grad'],
+        **{'launches_config_tns_{}_{}'.format(mode.replace(' ', '_'), batch): value[1]
+           for (mode, batch), value in config_tns['launches'].items()},
+        **{key + '_config_tns': {label: entry['grad_' + key] for label, entry in tns_timed.items()}
+           for key in ('ms', 'bound_ms', 'plain_ms', 'library_ms')},
+        'max_rel_err_past_2_31': tns_overflow[1]}],
         'evals_per_s': {' '.join(str(part) for part in key): rate for key, rate in rates.items()},
         'host_syncs_forward': host_syncs,
         **{name: {'build_s': numbers['build_s'],
@@ -2349,7 +2643,13 @@ def main(kernels_only=False):
                     'evals_per_s': {'{} {}'.format(*k): k[1] / v * 1e3 for k, v in config5['wall_ms'].items()}},
         'fisher_sum': {'fisher_s': fisher_sum['fisher_s'], 'fisher_error': fisher_sum['fisher_error'],
                        'launches_fisher': fisher_sum['launches_fisher'], 'launches_sum': fisher_sum['launches_sum']},
-        'host_syncs_forward_config_xi': {batch: config_xi['host_syncs', batch] for batch in (BATCH, BIG_BATCH)}}))
+        'host_syncs_forward_config_xi': {batch: config_xi['host_syncs', batch] for batch in (BATCH, BIG_BATCH)},
+        'config_tns': {'build_s': config_tns['build_s'], 'host_syncs_forward': config_tns['host_syncs'],
+                       'profile_forward_{}'.format(TNS_BATCHES[-1]): config_tns['profile'],
+                       **{key: {'{} {}'.format(*k): v for k, v in config_tns[key].items()}
+                          for key in ('launches', 'max_memory_gib', 'wall_ms', 'device_ms', 'config3_wall_ms',
+                                      'config3_device_ms')},
+                       'evals_per_s': {'{} {}'.format(*k): k[1] / v * 1e3 for k, v in config_tns['wall_ms'].items()}}}))
     print(json.dumps({'samplers': samplers, 'card': smi}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
                                              'count': torch.cuda.device_count()}}))

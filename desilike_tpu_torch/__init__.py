@@ -16,7 +16,11 @@ MCLMC) with their chains and diagnostics (``samples``); and the Fisher
 forecast (``Fisher``, ``LikelihoodFisher``, ``FisherGaussianLikelihood``) with
 ``Differentiation``; and the emulators (``emulators``: ``Emulator`` with the
 Point, Taylor and MLP engines) that replace a calculator by a surrogate
-node.
+node. The other theories: the simple, resummed and flexible BAO models
+(spline broadbands too), the simple damped Kaiser model, TNS with its A/B
+tables, local-fNL PNG (density and velocity), the tree-level bispectrum
+and its observable, the Lyman-alpha P1D extractor, and the cosmology
+node's trained ``emulator`` engine (``cosmology.emulator``).
 Per-evaluation compute runs on a batch of chains, in float32, on the CUDA
 card unless the caller asks for the CPU by name (``device='cpu'``); the
 Chebyshev lookups and their gradients run through hand-written CUDA kernels
@@ -34,9 +38,17 @@ from .theories import (DampedBAOWigglesTracerPowerSpectrumMultipoles, BAOPowerSp
                        EFTLikeKaiserTracerPowerSpectrumMultipoles, EPTTracerPowerSpectrumMultipoles,
                        DampedBAOWigglesCorrelationFunctionMultipoles, DampedBAOWigglesTracerCorrelationFunctionMultipoles,
                        KaiserTracerCorrelationFunctionMultipoles,
-                       EFTLikeKaiserTracerCorrelationFunctionMultipoles, EPTTracerCorrelationFunctionMultipoles)
+                       EFTLikeKaiserTracerCorrelationFunctionMultipoles, EPTTracerCorrelationFunctionMultipoles,
+                       SimpleBAOWigglesTracerPowerSpectrumMultipoles, ResummedBAOWigglesTracerPowerSpectrumMultipoles,
+                       FlexibleBAOWigglesTracerPowerSpectrumMultipoles, SimpleBAOWigglesTracerCorrelationFunctionMultipoles,
+                       ResummedBAOWigglesTracerCorrelationFunctionMultipoles,
+                       FlexibleBAOWigglesTracerCorrelationFunctionMultipoles, SimpleTracerPowerSpectrumMultipoles,
+                       TNSTracerPowerSpectrumMultipoles, EFTLikeTNSTracerPowerSpectrumMultipoles,
+                       TNSTracerCorrelationFunctionMultipoles, EFTLikeTNSTracerCorrelationFunctionMultipoles,
+                       PNGTracerPowerSpectrumMultipoles, PNGTracerVelocityPowerSpectrumMultipoles,
+                       TreeLevelBispectrumMultipoles, P1DPowerSpectrumExtractor)
 from .observables import (TracerPowerSpectrumMultipolesObservable, TracerCorrelationFunctionMultipolesObservable,
-                          BoxFootprint)
+                          TracerBispectrumMultipolesObservable, BoxFootprint)
 from .likelihoods import (BaseLikelihood, BaseGaussianLikelihood, ObservablesGaussianLikelihood,
                           FisherGaussianLikelihood, SumLikelihood)
 from .differentiation import Differentiation

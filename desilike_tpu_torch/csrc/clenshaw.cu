@@ -6,6 +6,9 @@
 // computed by b_k = 2 x b_{k+1} - b_{k+2} + c_k (k = order-1 .. 1), y = c_0 + x b_1 - b_2
 // (full c_0 convention, as ChebyshevLogInterp.evaluate), then y = exp(y) when log_values
 // is set. The coefficients are either one row shared by every row of x, or one row per row.
+// With per-row coefficients, x may also be one row of q queries that every row reads
+// (shared_x: the TNS tables' static (k, q, mu) grid, 460800 queries, looked up with each
+// chain's coefficients), so that no (rows, q) copy of it is made.
 //
 // The bound on the H100. On the BAO main path (B = 4096 chains, Q = 560 queries a chain,
 // order 202) the work is 2.29 M queries x 201 steps x 3 FLOP (an FFMA and an FADD) =
@@ -125,11 +128,12 @@ __device__ __forceinline__ long long row_of(long long index, int q, double inv_q
 // space, thread i of the tile the K consecutive ones from (t T + i) K. Shared coefficients are
 // staged once. Per-row coefficients (PER_ROW; the wrapper takes it only when K divides q, so a
 // thread's K queries lie in one row): each tile stages the rows it spans, at most `window`.
-// At most 32 registers for K <= 4: 8 blocks of 256 threads, 64 warps, on an SM.
+// At most 32 registers for K <= 4: 8 blocks of 256 threads, 64 warps, on an SM. shared_x (PER_ROW
+// only): x is one row of q queries, read by every row at its own offset.
 template <int K, bool VEC, bool PER_ROW>  // VEC only with K a multiple of 4
 __global__ void __launch_bounds__(256, K <= 4 ? 8 : 4) clenshaw_flat_kernel(const float* __restrict__ x, const float* __restrict__ coeffs,
                                      float* __restrict__ out, long long n, int q, int order, int chunks,
-                                     int log_values, long long tiles) {
+                                     int log_values, long long tiles, int shared_x) {
     extern __shared__ float4 smem[];
     if (!PER_ROW) {
         stage(reinterpret_cast<float*>(smem), coeffs, 1, 1, order, 4 * chunks);
@@ -151,6 +155,10 @@ __global__ void __launch_bounds__(256, K <= 4 ? 8 : 4) clenshaw_flat_kernel(cons
         if (base >= n) {
             continue;
         }
+        const long long row = PER_ROW ? row_of(base, q, inv_q) : 0;
+        // the thread's K queries lie in one row: with a shared x, at that row's offset in it
+        const float* xs = x + (PER_ROW && shared_x ? base - row * q : base);
+        const long long xn = PER_ROW && shared_x ? (row + 1) * q - base : n - base;
         bool whole = false;  // all K queries in range, loaded and stored as float4s
         float v[K];
         if constexpr (VEC) {
@@ -158,7 +166,7 @@ __global__ void __launch_bounds__(256, K <= 4 ? 8 : 4) clenshaw_flat_kernel(cons
             if (whole) {
 #pragma unroll
                 for (int k = 0; k < K; k += 4) {
-                    const float4 q4 = *reinterpret_cast<const float4*>(x + base + k);
+                    const float4 q4 = *reinterpret_cast<const float4*>(xs + k);
                     v[k] = q4.x;
                     v[k + 1] = q4.y;
                     v[k + 2] = q4.z;
@@ -169,12 +177,12 @@ __global__ void __launch_bounds__(256, K <= 4 ? 8 : 4) clenshaw_flat_kernel(cons
         if (!whole) {
 #pragma unroll
             for (int k = 0; k < K; ++k) {
-                v[k] = base + k < n ? x[base + k] : 0.f;
+                v[k] = k < xn ? xs[k] : 0.f;
             }
         }
         const float4* c4 = smem;
         if (PER_ROW) {
-            c4 += (row_of(base, q, inv_q) - row0) * chunks;
+            c4 += (row - row0) * chunks;
         }
         clenshaw_series<K>(c4, chunks, v);
         if (log_values) {
@@ -211,7 +219,7 @@ template <int K>  // at most 32 registers for K <= 4: 7 blocks of 288 threads on
 __global__ void __launch_bounds__(512, K <= 4 ? 4 : 2)
 clenshaw_rows_kernel(const float* __restrict__ x, const float* __restrict__ coeffs, float* __restrict__ out,
                      int rows, int q, int order, int chunks, int log_values, int rows_per_block,
-                     int row_threads, int col_tiles, long long tiles) {
+                     int row_threads, int col_tiles, long long tiles, int shared_x) {
     extern __shared__ float4 smem[];
     const int r = threadIdx.x / row_threads;
     const int i = threadIdx.x - r * row_threads;
@@ -232,7 +240,7 @@ clenshaw_rows_kernel(const float* __restrict__ x, const float* __restrict__ coef
         if (r >= rows_per_block || row >= rows) {
             continue;
         }
-        const float* xrow = x + row * q;
+        const float* xrow = shared_x ? x : x + row * q;
         float* orow = out + row * q;
         const int q0 = col * row_threads * K + i;
         float v[K];
@@ -254,43 +262,44 @@ clenshaw_rows_kernel(const float* __restrict__ x, const float* __restrict__ coef
 
 template <int K, bool PER_ROW>
 void launch_flat(const float* x, const float* coeffs, float* out, long long n, int q, int order, int chunks,
-                 int log_values, int vec, int threads, long long tiles, int grid, size_t smem,
+                 int log_values, int vec, int threads, long long tiles, int grid, size_t smem, int shared_x,
                  cudaStream_t stream) {
     if constexpr (K % 4 == 0) {
         if (vec) {
             clenshaw_flat_kernel<K, true, PER_ROW><<<grid, threads, smem, stream>>>(
-                x, coeffs, out, n, q, order, chunks, log_values, tiles);
+                x, coeffs, out, n, q, order, chunks, log_values, tiles, shared_x);
             return;
         }
     }
     clenshaw_flat_kernel<K, false, PER_ROW><<<grid, threads, smem, stream>>>(
-        x, coeffs, out, n, q, order, chunks, log_values, tiles);
+        x, coeffs, out, n, q, order, chunks, log_values, tiles, shared_x);
 }
 
 template <int K>
 cudaError_t launch(const float* x, const float* coeffs, float* out, int rows, int q, int order, int per_row,
                    int log_values, int vec, int flat, int threads, int rows_per_block, int row_threads,
-                   int col_tiles, long long tiles, int grid, cudaStream_t stream) {
+                   int col_tiles, long long tiles, int grid, int shared_x, cudaStream_t stream) {
     const int chunks = (order + 3) / 4;
     const size_t smem = static_cast<size_t>(rows_per_block) * chunks * sizeof(float4);
     const long long n = static_cast<long long>(rows) * q;
     if (!flat) {
         clenshaw_rows_kernel<K><<<grid, threads, smem, stream>>>(
-            x, coeffs, out, rows, q, order, chunks, log_values, rows_per_block, row_threads, col_tiles, tiles);
+            x, coeffs, out, rows, q, order, chunks, log_values, rows_per_block, row_threads, col_tiles, tiles,
+            shared_x);
     } else if (per_row) {
         launch_flat<K, true>(x, coeffs, out, n, q, order, chunks, log_values, vec, threads, tiles, grid, smem,
-                             stream);
+                             shared_x, stream);
     } else {
         launch_flat<K, false>(x, coeffs, out, n, q, order, chunks, log_values, vec, threads, tiles, grid, smem,
-                              stream);
+                              0, stream);
     }
     return cudaGetLastError();
 }
 
 }  // namespace
 
-// x: (rows, q) float32, contiguous; coeffs: (order,) when per_row is 0, else (rows, order),
-// contiguous; out: (rows, q). k: queries a thread (2, 4 or 8). The launch geometry
+// x: (rows, q) float32, contiguous, or (q,) read by every row when shared_x (per_row only);
+// coeffs: (order,) when per_row is 0, else (rows, order), contiguous; out: (rows, q). k: queries a thread (2, 4 or 8). The launch geometry
 // (flat or row layout, threads, rows_per_block: the coefficient rows staged a block,
 // row_threads, col_tiles, tiles, grid) and vec (x and out 16-byte aligned) come from the
 // wrapper. Launches on `stream` and returns the value of cudaGetLastError() (0 on success); an
@@ -298,9 +307,12 @@ cudaError_t launch(const float* x, const float* coeffs, float* out, int rows, in
 extern "C" int clenshaw_f32(const void* x, const void* coeffs, void* out, int rows, int q, int order,
                             int per_row, int log_values, int k, int vec, int flat, int threads,
                             int rows_per_block, int row_threads, int col_tiles, long long tiles, int grid,
-                            void* stream) {
+                            int shared_x, void* stream) {
     if (rows <= 0 || q <= 0 || tiles <= 0) {
         return 0;
+    }
+    if (shared_x && !per_row) {
+        return static_cast<int>(cudaErrorInvalidValue);
     }
     const float* xf = static_cast<const float*>(x);
     const float* cf = static_cast<const float*>(coeffs);
@@ -311,7 +323,7 @@ extern "C" int clenshaw_f32(const void* x, const void* coeffs, void* out, int ro
 #define CLENSHAW_CASE(K)                                                                                 \
         case K:                                                                                         \
             err = launch<K>(xf, cf, of, rows, q, order, per_row, log_values, vec, flat, threads,        \
-                            rows_per_block, row_threads, col_tiles, tiles, grid, s);                    \
+                            rows_per_block, row_threads, col_tiles, tiles, grid, shared_x, s);          \
             break;
         CLENSHAW_CASE(2)
         CLENSHAW_CASE(4)

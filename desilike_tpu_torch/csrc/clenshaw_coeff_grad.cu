@@ -7,7 +7,9 @@
 // respect to the coefficients is, for each row b and degree j < order,
 //     gc[b, j] = sum_q w[b, q] T_j(x[b, q]),
 // with w = grad_y for a plain series and w = grad_y * y for an exp'd one (y is passed in and the
-// product is taken at load). With coefficients shared by all rows the sum runs over b too.
+// product is taken at load). With coefficients shared by all rows the sum runs over b too. With
+// per-row coefficients, x may be one row of q queries read by every row (shared_x), as the
+// series kernel's shared x.
 //
 // The bound on the H100. The recurrence T_{j+1} = 2 x T_j - T_{j-1} is linear, so the kernel
 // carries U_j = w T_j instead of T_j: one FFMA advances it and one FADD adds it to the sum, 3 FLOP
@@ -103,12 +105,13 @@ __device__ __forceinline__ void copies_wait() { asm volatile("cp.async.wait_grou
 // time. The caller passes rows < rows only and commits the group.
 template <int NQ>
 __device__ __forceinline__ void prefetch(float* buffer, const float* x, const float* grad_y, const float* y,
-                                         long long row, int tile, int q, int sub) {
+                                         long long row, int tile, int q, int sub, int shared_x) {
     constexpr int WIDTH = LANES * NQ;
     const long long start = row * q + static_cast<long long>(tile) * WIDTH;
+    const long long xstart = shared_x ? static_cast<long long>(tile) * WIDTH : start;
     const int granules = min(WIDTH, q - tile * WIDTH) / 4;
     for (int g = sub; g < granules; g += LANES) {
-        copy16(buffer + 4 * g, x + start + 4 * g);
+        copy16(buffer + 4 * g, x + xstart + 4 * g);
         copy16(buffer + WIDTH + 4 * g, grad_y + start + 4 * g);
         if (y != nullptr) {
             copy16(buffer + 2 * WIDTH + 4 * g, y + start + 4 * g);
@@ -121,11 +124,12 @@ __device__ __forceinline__ void prefetch(float* buffer, const float* x, const fl
 // PER_ROW: gc is (rows, order) and written once. Otherwise gc is (order,), zeroed by the caller,
 // and dynamic shared memory holds (warps a block) x padded floats, padded = order rounded up to
 // CHUNK. PREFETCH (PER_ROW, q a multiple of 4, arrays 16-byte aligned): dynamic shared memory
-// holds a buffer of buffer_floats(NQ) floats a team.
+// holds a buffer of buffer_floats(NQ) floats a team. shared_x (PER_ROW): x is one row of q queries.
 template <int NQ, bool PER_ROW, bool PREFETCH>
 __global__ void __launch_bounds__(32 * MAX_WARPS)
 clenshaw_coeff_grad_kernel(const float* __restrict__ x, const float* __restrict__ grad_y,
-                           const float* __restrict__ y, float* __restrict__ gc, int rows, int q, int order) {
+                           const float* __restrict__ y, float* __restrict__ gc, int rows, int q, int order,
+                           int shared_x) {
     static_assert(PER_ROW || !PREFETCH, "only per-row coefficients prefetch");
     constexpr int WIDTH = LANES * NQ;  // queries a tile
     extern __shared__ __align__(16) float smem[];
@@ -154,7 +158,7 @@ clenshaw_coeff_grad_kernel(const float* __restrict__ x, const float* __restrict_
     auto copy_next = [&](long long k) {
         const long long next_row = team + (k + 1) / tiles * teams;
         if (k + 1 < units && next_row < rows) {
-            prefetch<NQ>(buffer, x, grad_y, y, next_row, static_cast<int>((k + 1) % tiles), q, sub);
+            prefetch<NQ>(buffer, x, grad_y, y, next_row, static_cast<int>((k + 1) % tiles), q, sub, shared_x);
         }
         copies_commit();
     };
@@ -189,12 +193,13 @@ clenshaw_coeff_grad_kernel(const float* __restrict__ x, const float* __restrict_
             copy_next(k);
         } else {  // each register waits for its own load only: the recurrence starts as they land
             const long long start = row * q + static_cast<long long>(tile) * WIDTH;
+            const long long xstart = shared_x ? static_cast<long long>(tile) * WIDTH : start;
 #pragma unroll
             for (int n = 0; n < NQ; ++n) {
                 const int i = sub + LANES * n;
                 float xv = 0.f, wv = 0.f;
                 if (live && tile * WIDTH + i < q) {
-                    xv = x[start + i];
+                    xv = x[xstart + i];
                     wv = grad_y[start + i];
                     if (y != nullptr) {
                         wv *= y[start + i];
@@ -261,7 +266,7 @@ clenshaw_coeff_grad_kernel(const float* __restrict__ x, const float* __restrict_
     }
 }
 
-using Kernel = void (*)(const float*, const float*, const float*, float*, int, int, int);
+using Kernel = void (*)(const float*, const float*, const float*, float*, int, int, int, int);
 
 template <int NQ>
 Kernel variant(int per_row, int prefetch) {
@@ -302,8 +307,8 @@ cudaError_t prepare(int nq, int per_row, int prefetch, int warps, int smem, Kern
 
 }  // namespace
 
-// x, grad_y: (rows, q) float32, contiguous; y: the forward's exp'd output (rows, q) when the
-// series was exp'd, else null; gc: (rows, order) when per_row, else (order,) zeroed by the
+// x, grad_y: (rows, q) float32, contiguous (x (q,) read by every row when shared_x, per_row
+// only); y: the forward's exp'd output (rows, q) when the series was exp'd, else null; gc: (rows, order) when per_row, else (order,) zeroed by the
 // caller. nq: queries a lane (1, 9 or 18); prefetch: copy each team's next unit into shared memory
 // ahead of its use (per_row only; q a multiple of 4 and the arrays 16-byte aligned); warps: a
 // block (1 to 8); smem: dynamic shared memory of a block in bytes; grid: blocks. All come from
@@ -311,9 +316,12 @@ cudaError_t prepare(int nq, int per_row, int prefetch, int warps, int smem, Kern
 // the error of the shared-memory opt-in; an uncompiled instance returns cudaErrorInvalidValue.
 extern "C" int clenshaw_coeff_grad_f32(const void* x, const void* grad_y, const void* y, void* gc, int rows,
                                        int q, int order, int per_row, int nq, int prefetch, int warps, int smem,
-                                       int grid, void* stream) {
+                                       int grid, int shared_x, void* stream) {
     if (rows <= 0 || q <= 0 || order <= 0 || grid <= 0) {
         return 0;
+    }
+    if (shared_x && !per_row) {
+        return static_cast<int>(cudaErrorInvalidValue);
     }
     Kernel kernel;
     cudaError_t err = prepare(nq, per_row, prefetch, warps, smem, &kernel);
@@ -322,7 +330,7 @@ extern "C" int clenshaw_coeff_grad_f32(const void* x, const void* grad_y, const 
     }
     kernel<<<grid, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(x), static_cast<const float*>(grad_y), static_cast<const float*>(y),
-        static_cast<float*>(gc), rows, q, order);
+        static_cast<float*>(gc), rows, q, order, shared_x);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,7 +8,8 @@ agrees" from "the host initialization agrees". The arrays are those that
 correlation-function observable carries the same ones: its window matrix
 (onto the theory's s grid) and the tables of the template under its
 theory's P(k) node. ``mlp_state_from_flax`` carries a JAX-trained MLP
-emulator's weights, which the JAX package's emulator files do not hold.
+emulator's weights, which the JAX package's emulator files do not hold;
+``pk_emulator_weights_from_jax`` a JAX-trained cosmology emulator's.
 The other
 readers of the JAX package's ``interop.py`` (measured data, window files)
 wait for ROADMAP A12.
@@ -94,3 +95,26 @@ def mlp_state_from_flax(params, norm):
         state['layers.{:d}.weight'.format(i)] = torch.as_tensor(np.asarray(dense['kernel'], dtype='f4').T.copy())
         state['layers.{:d}.bias'.format(i)] = torch.as_tensor(np.asarray(dense['bias'], dtype='f4'))
     return state, tuple(torch.as_tensor(np.asarray(a, dtype='f4')) for a in norm)
+
+
+def pk_emulator_weights_from_jax(weights):
+    """A cosmology-emulator weight dict of the JAX package
+    (``desilike_tpu.cosmology.emulator.train_pk_emulator`` or
+    ``load_weights``: 'param_names', the normalizations, 'k_grid',
+    'z_grid', 'layers' as (W (in, out), b) pairs, ...) as the port's, which
+    ``desilike_tpu_torch.cosmology.emulator`` and ``Cosmology(engine=
+    'emulator', emulator=...)`` take: the same layout, as numpy arrays (the
+    layers float32) and plain numbers, private keys dropped."""
+    out = {}
+    for key, value in weights.items():
+        if key.startswith('_'):
+            continue
+        if key == 'layers':
+            out[key] = [(np.asarray(W, dtype='f4'), np.asarray(b, dtype='f4')) for W, b in value]
+        elif key == 'param_names':
+            out[key] = tuple(str(name) for name in value)
+        elif np.ndim(value):
+            out[key] = np.asarray(value, dtype='f8')
+        else:
+            out[key] = value.item() if hasattr(value, 'item') else value
+    return out

@@ -474,7 +474,8 @@ class ObservablesGaussianLikelihood(BaseGaussianLikelihood):
     """Gaussian likelihood over a list of observables.
 
     covariance: explicit matrix of the concatenated data vectors, or None ->
-    computed analytically from ``footprints``.
+    the observables' own explicit matrices, block-diagonal (where each has
+    one), else computed analytically from ``footprints``.
     """
 
     def initialize(self, observables=None, covariance=None, footprints=None):
@@ -483,10 +484,21 @@ class ObservablesGaussianLikelihood(BaseGaussianLikelihood):
         self.observables = list(observables)
         for obs in self.observables:
             obs.runtime_info.initialize()
+            if getattr(obs, 'nmocks', 0):
+                raise NotImplementedError('a covariance estimated from mocks (the Hartlap and Percival factors) '
+                                          'is ROADMAP A12')
         self.flatdata = np.concatenate([obs.flatdata for obs in self.observables])
+        covs = [getattr(obs, 'covariance', None) for obs in self.observables]
+        if covariance is None and all(cov is not None for cov in covs):
+            covariance = np.zeros((self.flatdata.size,) * 2)
+            start = 0
+            for cov in covs:
+                stop = start + len(cov)
+                covariance[start:stop, start:stop] = cov
+                start = stop
         if covariance is None:
             if footprints is None:
-                raise ValueError('provide covariance or footprints')
+                raise ValueError('provide covariance, observables with a covariance, or footprints')
             from ..observables.covariance import ObservablesCovarianceMatrix
             covariance = ObservablesCovarianceMatrix(self.observables, footprints=footprints)()
         self._set_whitening(np.atleast_2d(np.asarray(covariance, dtype='f8')))

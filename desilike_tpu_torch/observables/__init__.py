@@ -3,3 +3,4 @@ from .window import (WindowedPowerSpectrumMultipoles, WindowedCorrelationFunctio
 from .power_spectrum import TracerPowerSpectrumMultipolesObservable
 from .correlation_function import TracerCorrelationFunctionMultipolesObservable
 from .covariance import BaseFootprint, BoxFootprint, ObservablesCovarianceMatrix, integral_legendre_product
+from .bispectrum import TracerBispectrumMultipolesObservable

@@ -1,0 +1,55 @@
+"""Tracer bispectrum multipoles observable.
+
+Counterpart of ``desilike_tpu/observables/bispectrum.py``: the theory
+B_l(k1, k2, k3) on given triangles against a flat data vector, with an
+explicit covariance. A covariance estimated from mocks (and its Hartlap
+and Percival factors) waits for ROADMAP A12.
+"""
+
+import numpy as np
+
+from ..core import Calculator, Pipeline
+
+
+class TracerBispectrumMultipolesObservable(Calculator):
+    """Observable: theory B_l(k1, k2, k3) on given triangles vs flat data.
+
+    data : dict (generated from the theory at these parameter values, a
+        host-side float64 evaluation) or array.
+    covariance : the explicit (ndata, ndata) matrix, or None (then the
+        likelihood takes one).
+    """
+
+    _state_attrs = ['flattheory']
+
+    def initialize(self, data=None, covariance=None, triangles=None, ells=(0,), theory=None):
+        if theory is None:
+            from ..theories.bispectrum import TreeLevelBispectrumMultipoles
+            theory = TreeLevelBispectrumMultipoles(triangles=triangles, ells=ells)
+        elif triangles is not None:
+            theory.init.update(triangles=triangles, ells=ells)
+        self.theory = theory
+        self.theory.runtime_info.initialize()
+        self.triangles = self.theory.triangles
+        self.ells = tuple(self.theory.ells)
+        self.mocks = None
+        if isinstance(covariance, (list, tuple)) and len(covariance) and np.ndim(covariance[0]) >= 1:
+            raise NotImplementedError('a covariance estimated from mocks (with the Hartlap and Percival factors) '
+                                      'is ROADMAP A12: pass the covariance matrix')
+        self.covariance = None if covariance is None else np.atleast_2d(np.asarray(covariance, dtype='f8'))
+        if isinstance(data, dict):
+            self.flatdata = Pipeline(self.theory).host_evaluate(data)[0].numpy().ravel()
+        elif data is not None:
+            self.flatdata = np.asarray(data, dtype='f8').ravel()
+        else:
+            self.flatdata = None
+
+    @property
+    def nmocks(self):
+        return 0
+
+    def calculate(self, **params):
+        self.flattheory = self.theory.bispectrum.reshape(self.theory.bispectrum.shape[0], -1)
+
+    def get(self):
+        return self.flattheory

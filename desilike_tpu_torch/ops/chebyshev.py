@@ -127,12 +127,22 @@ class ChebyshevLogInterp:
             x2 = x.reshape(x.shape[0], -1) if x.ndim > 1 else x.reshape(1, -1)
         return clenshaw(x2.contiguous(), coeffs, self.log_values).reshape(x.shape)
 
+    def static_x(self, k):
+        """Normalized ln k of fixed points k, clamped to [-1, 1], flattened
+        (host-side float64 numpy): the queries of :meth:`evaluate_shared`."""
+        lnk = np.log(np.asarray(k, dtype='f8')).ravel()
+        return np.clip((lnk - self.lo) / (self.hi - self.lo) * 2. - 1., -1., 1.)
+
+    def evaluate_shared(self, coeffs, x):
+        """coeffs (order,) or (B, order), x (Q,) a tensor of :meth:`static_x`
+        -> y (1, Q) or (B, Q): the kernel with one row of x read by every
+        coefficient row (no (B, Q) copy of the fixed points)."""
+        return clenshaw(x.reshape(1, -1), coeffs, self.log_values)
+
     def evaluation_matrix(self, k):
         """Static (npts, order) design matrix T_j(x(k)) for fixed evaluation
         points k (host-side float64 numpy), for :meth:`evaluate_static`."""
-        lnk = np.log(np.asarray(k, dtype='f8')).ravel()
-        x = np.clip((lnk - self.lo) / (self.hi - self.lo) * 2. - 1., -1., 1.)
-        theta = np.arccos(x)
+        theta = np.arccos(self.static_x(k))
         return np.cos(np.outer(theta, np.arange(self.order)))
 
     def evaluate_static(self, coeffs, matrix):

@@ -13,7 +13,10 @@ Two kernels: the Clenshaw series (:func:`clenshaw`, forward, and its
 x-gradient by the same kernel on the derivative series) and its gradient
 with respect to the coefficients (:func:`clenshaw_coeff_grad`), which
 :func:`clenshaw` reaches in its backward pass when the coefficients require
-a gradient (ShapeFit's per-chain tables).
+a gradient (ShapeFit's per-chain tables). Both take x as (B, Q), or, with
+one coefficient row a row, as one row (1, Q) that every row reads (shared
+x: a static grid looked up with each chain's coefficients, such as the TNS
+tables' 460800 points, with no (B, Q) copy of it).
 
 The CUDA sources live in ``desilike_tpu_torch/csrc``. At first use they are
 compiled with ``nvcc`` for ``sm_90a`` (one process a source, started
@@ -221,9 +224,9 @@ def library():
         log = ''.join(outputs)
     lib = ctypes.CDLL(target)
     lib.clenshaw_f32.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 12
-                                 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+                                 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     lib.clenshaw_f32.restype = ctypes.c_int
-    lib.clenshaw_coeff_grad_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib.clenshaw_coeff_grad_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     lib.clenshaw_coeff_grad_f32.restype = ctypes.c_int
     lib.clenshaw_coeff_grad_occupancy.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
     lib.clenshaw_coeff_grad_occupancy.restype = ctypes.c_int
@@ -235,7 +238,7 @@ def library():
 def clenshaw_reference(x, coeffs, log_values=True):
     """Plain PyTorch Clenshaw recurrence (the kernel's oracle and CPU path).
 
-    x : (B, Q) queries in [-1, 1]
+    x : (B, Q) queries in [-1, 1], or (1, Q) read by every coefficient row
     coeffs : (order,) shared by all rows, or (B, order) one row per row of x
     Returns (B, Q) series values, exp'd if ``log_values``.
     """
@@ -276,6 +279,11 @@ def clenshaw_derivative_coeffs(coeffs):
     return torch.cat([0.5 * deriv[..., :1], deriv[..., 1:]], dim=-1)
 
 
+def _shared_x(x, coeffs):
+    """Whether x is one row (1, Q) read by each of several coefficient rows."""
+    return coeffs.ndim == 2 and x.shape[0] == 1 and coeffs.shape[0] > 1
+
+
 def _launch_clenshaw(x, coeffs, log_values, queries_per_thread=None, max_grid=MAX_GRID):
     global CLENSHAW_LAUNCHES, LAST_GEOMETRY
     if x.device.type != 'cuda':
@@ -289,6 +297,9 @@ def _launch_clenshaw(x, coeffs, log_values, queries_per_thread=None, max_grid=MA
             tuple(x.shape), tuple(coeffs.shape)))
     rows, q = x.shape
     order = coeffs.shape[-1]
+    shared_x = _shared_x(x, coeffs)
+    if shared_x:
+        rows = coeffs.shape[0]
     if coeffs.ndim == 2 and coeffs.shape[0] != rows:
         raise ValueError('coeffs has {} rows for {} rows of x'.format(coeffs.shape[0], rows))
     if not (x.is_contiguous() and coeffs.is_contiguous()):
@@ -296,7 +307,7 @@ def _launch_clenshaw(x, coeffs, log_values, queries_per_thread=None, max_grid=MA
     if not 1 <= order <= _MAX_ORDER:
         raise ValueError('order {} outside [1, {}]: a padded coefficient row must fit 48 KB of shared '
                          'memory'.format(order, _MAX_ORDER))
-    out = torch.empty_like(x)
+    out = torch.empty((rows, q), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     per_row = coeffs.ndim == 2 and rows > 1  # one coefficient row is a shared one
@@ -309,7 +320,7 @@ def _launch_clenshaw(x, coeffs, log_values, queries_per_thread=None, max_grid=MA
         err = lib.clenshaw_f32(x.data_ptr(), coeffs.data_ptr(), out.data_ptr(), rows, q, order, int(per_row),
                                int(bool(log_values)), geometry.k, int(vec), int(geometry.flat), geometry.threads,
                                geometry.rows_per_block, geometry.row_threads, geometry.col_tiles,
-                               geometry.tiles, geometry.grid, stream)
+                               geometry.tiles, geometry.grid, int(shared_x), stream)
     if err != 0:
         raise RuntimeError('CUDA Clenshaw kernel launch failed with cudaError {:d}'.format(err))
     CLENSHAW_LAUNCHES += 1
@@ -417,17 +428,20 @@ def _launch_coeff_grad(x, grad_y, y, order, per_row, max_grid=MAX_GRID):
     tensors = [x, grad_y] + ([] if y is None else [y])
     if x.device.type != 'cuda':
         raise ValueError('the CUDA coefficient-gradient kernel needs a CUDA tensor, got one on {}'.format(x.device))
+    if x.ndim != 2 or grad_y.ndim != 2:
+        raise ValueError('expected x and grad_y (B, Q), got {} and {}'.format(tuple(x.shape), tuple(grad_y.shape)))
+    shared_x = bool(per_row) and x.shape[0] == 1 and grad_y.shape[0] > 1
     for t in tensors:
-        if t.device != x.device or t.dtype != torch.float32 or t.shape != x.shape or not t.is_contiguous():
+        shape = grad_y.shape if shared_x else x.shape
+        if t.device != x.device or t.dtype != torch.float32 or t.shape[-1] != x.shape[-1] or \
+                (t is not x and t.shape != shape) or not t.is_contiguous():
             raise ValueError('the CUDA coefficient-gradient kernel takes contiguous float32 tensors of one shape '
-                             'on one device, got {} {} on {} beside x {} on {}'.format(
-                                 t.dtype, tuple(t.shape), t.device, tuple(x.shape), x.device))
-    if x.ndim != 2:
-        raise ValueError('expected x (B, Q), got {}'.format(tuple(x.shape)))
+                             '(x may be one row with per-row coefficients) on one device, got {} {} on {} beside x '
+                             '{} on {}'.format(t.dtype, tuple(t.shape), t.device, tuple(x.shape), x.device))
     if not 1 <= order <= _MAX_ORDER:
         raise ValueError('order {} outside [1, {}]: a partial gradient must fit 48 KB of shared memory'.format(
             order, _MAX_ORDER))
-    rows, q = x.shape
+    rows, q = grad_y.shape
     # the kernel adds into the shared gradient, and writes every entry of the per-row one
     gc = torch.empty((rows, order), dtype=x.dtype, device=x.device) if per_row else \
         torch.zeros(order, dtype=x.dtype, device=x.device)
@@ -445,7 +459,8 @@ def _launch_coeff_grad(x, grad_y, y, order, per_row, max_grid=MAX_GRID):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.clenshaw_coeff_grad_f32(x.data_ptr(), grad_y.data_ptr(), None if y is None else y.data_ptr(),
                                           gc.data_ptr(), rows, q, order, int(per_row), geometry.nq,
-                                          int(geometry.prefetch), geometry.warps, geometry.smem, geometry.grid, stream)
+                                          int(geometry.prefetch), geometry.warps, geometry.smem, geometry.grid,
+                                          int(shared_x), stream)
     if err != 0:
         raise RuntimeError('CUDA coefficient-gradient kernel launch failed with cudaError {:d}'.format(err))
     COEFF_GRAD_LAUNCHES += 1
@@ -456,7 +471,8 @@ def _launch_coeff_grad(x, grad_y, y, order, per_row, max_grid=MAX_GRID):
 def clenshaw_coeff_grad(x, w, order, per_row=True):
     """gc[b, j] = sum_q w[b, q] T_j(x[b, q]) for j < order: the gradient of a
     Chebyshev series at x (B, Q) with respect to its coefficients, given the
-    gradient w (B, Q) with respect to the series. Returns (B, order), or
+    gradient w (B, Q) with respect to the series (x may be one row (1, Q)
+    for every row, with ``per_row``). Returns (B, order), or
     (order,) summed over b for shared coefficients (``per_row`` False). A CPU
     tensor takes :func:`clenshaw_coeff_grad_reference`; a CUDA tensor
     launches the kernel or raises."""
@@ -542,6 +558,8 @@ class _Clenshaw(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             slope = _Clenshaw.apply(x, clenshaw_derivative_coeffs(coeffs), False)
             grad_x = grad_y * (slope * y if ctx.log_values else slope)
+            if grad_x.shape[0] != x.shape[0]:  # a shared x
+                grad_x = grad_x.sum(0, keepdim=True)
         if ctx.needs_input_grad[1]:
             grad_coeffs = _ClenshawCoeffGrad.apply(x, grad_y, y if ctx.log_values else None, coeffs.shape[-1],
                                                    coeffs.ndim == 2)
@@ -561,6 +579,11 @@ class _Clenshaw(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, x, coeffs, log_values):
         x_dim, c_dim, _ = in_dims
+        if x_dim is None and c_dim is not None and _shared_x(x, coeffs.select(c_dim, 0)):
+            # a shared x stays one row: the vmapped dimension folds into the coefficient rows
+            coeffs = coeffs.movedim(c_dim, 0)
+            y = _Clenshaw.apply(x, coeffs.reshape(-1, coeffs.shape[-1]).contiguous(), log_values)
+            return y.reshape(coeffs.shape[:2] + y.shape[-1:]), 0
         rows = _unbatched_rows(x, x_dim)
         if c_dim is not None:
             coeffs = coeffs.movedim(c_dim, 0)
@@ -614,6 +637,8 @@ class _ClenshawCoeffGrad(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             weight = w if y is None else w * y
             grad_x = weight * _Clenshaw.apply(x, clenshaw_derivative_coeffs(grad_gc), False)
+            if grad_x.shape[0] != x.shape[0]:  # a shared x
+                grad_x = grad_x.sum(0, keepdim=True)
         if ctx.needs_input_grad[1]:
             grad_w = series if y is None else series * y
         if y is not None and ctx.needs_input_grad[2]:
@@ -640,6 +665,12 @@ class _ClenshawCoeffGrad(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, x, w, y, order, per_row):
+        if in_dims[0] is None and per_row and x.shape[0] == 1 and \
+                _unbatched_rows(w, in_dims[1]) > 1:  # a shared x stays one row
+            rows = _unbatched_rows(w, in_dims[1])
+            wb, yb = _batch_rows(info, in_dims[1:3], w, y)
+            gc = _ClenshawCoeffGrad.apply(x, wb.contiguous(), None if yb is None else yb.contiguous(), order, True)
+            return gc.reshape(info.batch_size, rows, order), 0
         rows = _unbatched_rows(x, in_dims[0])
         xb, wb, yb = _batch_rows(info, in_dims[:3], x, w, y)
         gc = _ClenshawCoeffGrad.apply(xb, wb, yb, order, True).reshape(info.batch_size, rows, order)
@@ -649,13 +680,14 @@ class _ClenshawCoeffGrad(torch.autograd.Function):
 def clenshaw(x, coeffs, log_values=True):
     """Batched Chebyshev evaluation (signature of ``clenshaw_pallas``).
 
-    x : (B, Q) normalized queries in [-1, 1]
+    x : (B, Q) normalized queries in [-1, 1], or (1, Q) read by every row
+        of per-row coefficients (a shared x)
     coeffs : (order,) shared by all rows, or (B, order)
     Returns (B, Q) series values (exp'd if log_values). A CPU tensor takes
     :func:`clenshaw_reference`; a CUDA tensor launches the kernel or raises.
-    Differentiable in x and in the coefficients on both paths: on the CPU by
-    autograd through the plain recurrence, on the card by the kernels.
+    Differentiable in x and in the coefficients, to any order and in both
+    modes, through the same autograd Functions on both devices: on the CPU
+    their derivative formulas run on the plain versions (no graph of the
+    recurrence's steps is kept), on the card on the kernels.
     """
-    if x.device.type == 'cpu':
-        return clenshaw_reference(x, coeffs, log_values)
     return _Clenshaw.apply(x, coeffs, bool(log_values))

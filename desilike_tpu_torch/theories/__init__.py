@@ -11,7 +11,11 @@ from .extractors import (BAOExtractor, StandardPowerSpectrumExtractor, ShapeFitP
                          WiggleSplitPowerSpectrumExtractor, BandVelocityPowerSpectrumExtractor,
                          TurnOverPowerSpectrumExtractor, BAOPhaseShiftExtractor)
 from .bao import (BaseBAOWigglesPowerSpectrumMultipoles, DampedBAOWigglesPowerSpectrumMultipoles,
+                  SimpleBAOWigglesPowerSpectrumMultipoles, ResummedBAOWigglesPowerSpectrumMultipoles,
+                  FlexibleBAOWigglesPowerSpectrumMultipoles,
                   BaseBAOWigglesTracerPowerSpectrumMultipoles, DampedBAOWigglesTracerPowerSpectrumMultipoles,
+                  SimpleBAOWigglesTracerPowerSpectrumMultipoles, ResummedBAOWigglesTracerPowerSpectrumMultipoles,
+                  FlexibleBAOWigglesTracerPowerSpectrumMultipoles,
                   BaseBAOWigglesCorrelationFunctionMultipoles, DampedBAOWigglesCorrelationFunctionMultipoles,
                   SimpleBAOWigglesCorrelationFunctionMultipoles, ResummedBAOWigglesCorrelationFunctionMultipoles,
                   FlexibleBAOWigglesCorrelationFunctionMultipoles, BaseBAOWigglesTracerCorrelationFunctionMultipoles,
@@ -22,5 +26,11 @@ from .bao import (BaseBAOWigglesPowerSpectrumMultipoles, DampedBAOWigglesPowerSp
 from .full_shape import (BasePTPowerSpectrumMultipoles, KaiserPowerSpectrumMultipoles,
                          BaseTracerPowerSpectrumMultipoles, KaiserTracerPowerSpectrumMultipoles,
                          EFTLikeKaiserTracerPowerSpectrumMultipoles, BaseTracerCorrelationFunctionMultipoles,
-                         KaiserTracerCorrelationFunctionMultipoles, EFTLikeKaiserTracerCorrelationFunctionMultipoles)
+                         KaiserTracerCorrelationFunctionMultipoles, EFTLikeKaiserTracerCorrelationFunctionMultipoles,
+                         SimpleTracerPowerSpectrumMultipoles)
 from .ept import EPTTracerPowerSpectrumMultipoles, EPTTracerCorrelationFunctionMultipoles
+from .tns import (TNSTracerPowerSpectrumMultipoles, EFTLikeTNSTracerPowerSpectrumMultipoles,
+                  TNSTracerCorrelationFunctionMultipoles, EFTLikeTNSTracerCorrelationFunctionMultipoles)
+from .png import PNGTracerPowerSpectrumMultipoles, PNGTracerVelocityPowerSpectrumMultipoles
+from .bispectrum import TreeLevelBispectrumMultipoles
+from .lya import P1DPowerSpectrumExtractor

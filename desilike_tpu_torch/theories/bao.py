@@ -8,8 +8,14 @@ the s^-2, s^-1, s^0 broadband. Per evaluation: AP-remap (k, mu) over the
 chain batch -> Chebyshev lookups of the fiducial pk and no-wiggle pk (the
 Clenshaw kernel) -> damped wiggle combination -> Legendre projection ->
 (xi only: the static landing, the FFTLog transform and the interpolation
-onto s) -> broadband ``(B, nb) @ (nb, nell * n)``. The simple, resummed and
-flexible models and the spline broadband kernels wait for ROADMAP A11.
+onto s) -> broadband ``(B, nb) @ (nb, nell * n)``. The simple model is the
+damped one with ``model='fix-damping'``; the resummed model damps the
+wiggles with (1 - j0) integrals of the fiducial no-wiggle pk, computed on
+the host in float64 at initialization; the flexible model modulates the
+wiggles per multipole with spline kernels of k, a static (nnode, nk) basis,
+so that its amplitudes enter through one product. The spline broadbands
+('ngp', 'cic', 'tsc', 'pcs') are static too: each kernel row is scaled by
+the fiducial no-wiggle pk at its node.
 """
 
 import re
@@ -20,6 +26,31 @@ import torch
 from .base import BaseTheoryPowerSpectrumMultipoles, BaseTheoryCorrelationFunctionFromPowerSpectrumMultipoles, \
     WedgesMixin, _col
 from .power_template import BAOPowerSpectrumTemplate
+
+
+def _kernel_func(x, kernel='tsc'):
+    """Particle-assignment kernel shapes, the spline broadband and
+    modulation bases (host float64 numpy)."""
+    x = np.abs(np.asarray(x, dtype='f8'))
+    out = np.zeros_like(x)
+    if kernel == 'ngp':
+        out[x < 0.5] = 1.
+    elif kernel == 'cic':
+        m = x < 1.
+        out[m] = 1. - x[m]
+    elif kernel == 'tsc':
+        m = x < 0.5
+        out[m] = 0.75 - x[m] ** 2
+        m = (x >= 0.5) & (x < 1.5)
+        out[m] = 0.5 * (1.5 - x[m]) ** 2
+    elif kernel == 'pcs':
+        m = x < 1.
+        out[m] = (4. - 6. * x[m] ** 2 + 3. * x[m] ** 3) / 6.
+        m = (x >= 1.) & (x < 2.)
+        out[m] = (2. - x[m]) ** 3 / 6.
+    else:
+        raise ValueError('unknown kernel {}'.format(kernel))
+    return out
 
 
 class BaseBAOWigglesPowerSpectrumMultipoles(BaseTheoryPowerSpectrumMultipoles, WedgesMixin):
@@ -113,6 +144,140 @@ class DampedBAOWigglesPowerSpectrumMultipoles(BaseBAOWigglesPowerSpectrumMultipo
         self.power = self.to_poles(pkmu)
 
 
+class SimpleBAOWigglesPowerSpectrumMultipoles(DampedBAOWigglesPowerSpectrumMultipoles):
+    """Moves only the BAO wiggles with the scaling parameters: the damped
+    model with ``model='fix-damping'``."""
+
+    def initialize(self, *args, model='fix-damping', **kwargs):
+        super().initialize(*args, model=model, **kwargs)
+
+
+class ResummedBAOWigglesPowerSpectrumMultipoles(BaseBAOWigglesPowerSpectrumMultipoles):
+    r"""IR-resummed BAO wiggles (arXiv:1907.00043): the damping scales come
+    from (1 - j0) integrals of the fiducial no-wiggle pk, static, computed
+    on the host in float64 at initialization (the template is initialized
+    first, for its fiducial tables)."""
+
+    def initialize(self, *args, shotnoise=0., **kwargs):
+        super().initialize(*args, **kwargs)
+        self.shotnoise = float(shotnoise)
+        from scipy.integrate import simpson
+        from scipy.special import spherical_jn
+        k = np.asarray(self.template.init.get('k'))
+        self.template.runtime_info.initialize()
+        pklin = np.asarray(self.template.pknow_dd_fid, dtype='f8')
+        j0 = spherical_jn(0, self.template.rs_drag_fid * k)
+        sk = np.exp(-0.5 * (k * self.smoothing_radius) ** 2) if self.mode else 0.
+        skc = 1. - sk
+        self.sigma_sn2 = 1. / self.smoothing_radius / 6. / np.pi ** 1.5
+        self.sigma_nl2 = simpson((1. - j0) * pklin, x=k) / (3. * np.pi ** 2)
+        self.sigma_dd2 = simpson((1. - j0) * skc ** 2 * pklin, x=k) / (3. * np.pi ** 2)
+        if self.mode == 'reciso':
+            self.sigma_x2 = simpson((1. - j0) * skc * pklin, x=k) / (3. * np.pi ** 2)
+
+    def wiggles(self, k, mu, b1=1., f=0., d=1.):
+        """The damped wiggles at (k, mu), (B, nk, nmu); b1, f, d (B, 1, 1)."""
+        wig = self.template.pk_dd_interp(k) - self.template.pknow_dd_interp(k)
+        ksq = (1. + f * (f + 2.) * mu ** 2) * k ** 2
+        d2 = d ** 2
+        sigma_dd2 = self.sigma_dd2 + self.shotnoise * self.sigma_sn2 / b1 ** 2
+        if self.mode == 'reciso':
+            sk = torch.exp(-0.5 * (k * self.smoothing_radius) ** 2)
+            skc = 1. - sk
+            res = (b1 + f * mu ** 2 * skc - sk) ** 2 * torch.exp(-0.5 * ksq * d2 * sigma_dd2)
+            sigma_ds2 = (1. + f * mu ** 2) * sigma_dd2 + f * (1. + f) * mu ** 2 * self.sigma_x2
+            res = res + 2. * (b1 + f * mu ** 2 * skc - sk) * (1. + f * mu ** 2) * sk * torch.exp(-0.5 * ksq * d2 * sigma_ds2)
+            sigma_ss2 = sigma_dd2 + f ** 2 * mu ** 2 * self.sigma_nl2 + 2. * f * mu ** 2 * self.sigma_x2
+            res = res + (1. + f * mu ** 2) ** 2 * sk ** 2 * torch.exp(-0.5 * ksq * d2 * sigma_ss2)
+        else:  # '' and 'recsym'
+            res = (b1 + f * mu ** 2) ** 2 * torch.exp(-0.5 * ksq * d2 * sigma_dd2)
+        return res * wig
+
+    def calculate(self, b1=1., dbeta=1., sigmas=0., d=1., **kw):
+        b1, sigmas, d = _col(b1), _col(sigmas), _col(d)
+        f = _col(dbeta * self.template.f)
+        k, mu = self.const('k'), self.const('mu')
+        _, kap, muap = self.template.ap_k_mu(k, mu)
+        kobs = k[:, None]
+        pknow = self.template.pknow_dd_interp(kobs)
+        fog = 1. / (1. + (sigmas * kobs * mu) ** 2 / 2.) ** 2
+        sk = torch.exp(-0.5 * (kobs * self.smoothing_radius) ** 2) if self.mode == 'reciso' else 0.
+        pksmooth = (b1 + f * mu ** 2 * (1. - sk)) ** 2 * pknow * fog
+        damped_wiggles = self.wiggles(kap, muap, b1=b1, f=f, d=d) / self.template.pknow_dd_interp(kap)
+        self.power = self.to_poles(pksmooth * (1. + damped_wiggles))
+
+
+class FlexibleBAOWigglesPowerSpectrumMultipoles(BaseBAOWigglesPowerSpectrumMultipoles):
+    """Wiggles modulated by spline kernels of k: the wiggle amplitude of
+    each (ell, node), ``ml{ell}_{n}``, is a free linear parameter. The
+    kernels are static, so the per-multipole modulation is one product
+    ``(B, nml) @ (nml, nell * nk)``; it depends on k only, so it multiplies
+    the wiggles' multipoles after the projection."""
+
+    @staticmethod
+    def _params(init):
+        params = {}
+        ells = tuple(init.get('ells', (0, 2)))
+        kp = init.get('kp', 0.06283)
+        k = init.get('k')
+        kmax = float(np.max(k)) if k is not None else 0.3
+        nmax = int(np.ceil(kmax / kp)) + 2
+        for ell in ells:
+            for n in range(-2, nmax):
+                params['ml{:d}_{:d}'.format(ell, n)] = dict(
+                    value=1. if (ell == ells[0] and n == 0) else 0.,
+                    prior=dict(dist='norm', loc=0., scale=10.),
+                    ref=dict(limits=[-1e-3, 1e-3]), delta=0.005,
+                    latex='m_{{{:d},{:d}}}'.format(ell, n))
+        params['b1'] = dict(value=1.5, prior=dict(limits=[0.2, 4.]), ref=dict(limits=[1.5, 2.5]), latex='b')
+        return params
+
+    def initialize(self, *args, kp=None, kernel='tsc', **kwargs):
+        super().initialize(*args, **kwargs)
+        self.kernel = str(kernel)
+        if kp is None:  # rs_drag_fid is set by the template's initialize
+            self.template.runtime_info.initialize()
+        self.kp = 2. * np.pi / self.rs_drag_fid if kp is None else float(kp)
+        pattern = re.compile(r'ml(\d+)_(-?\d+)')
+        matches = [(p.basename, pattern.match(p.basename)) for p in self.params]
+        self._wiggle_orders = {ell: {name: int(m.group(2)) for name, m in matches if m and int(m.group(1)) == ell}
+                               for ell in self.ells}
+        self._wiggle_names, rows = [], []
+        nk = len(self.k)
+        for ill, ell in enumerate(self.ells):
+            for name, n in self._wiggle_orders[ell].items():
+                row = np.zeros((len(self.ells), nk))
+                row[ill] = _kernel_func(self.k / self.kp - n, self.kernel)
+                rows.append(row.ravel())
+                self._wiggle_names.append(name)
+        self.modulation_design = np.array(rows).reshape(len(rows), len(self.ells) * nk)
+
+    def calculate(self, b1=1., **params):
+        b1, f = _col(b1), _col(self.template.f)
+        k, mu = self.const('k'), self.const('mu')
+        _, kap, muap = self.template.ap_k_mu(k, mu)
+        pknowap = self.template.pknow_dd_interp(kap)
+        wig = (self.template.pk_dd_interp(kap) - pknowap) / pknowap
+        smooth = (b1 + f * mu ** 2) ** 2 * self.template.pknow_dd_interp(k[:, None])
+        shape = (len(self.ells), len(self.k))
+        power = self.to_poles(smooth)
+        if self._wiggle_names:
+            amps = torch.stack([params[name] for name in self._wiggle_names], dim=-1)
+            modulation = (amps @ self.const('modulation_design')).reshape(amps.shape[:-1] + shape)
+            power = power + modulation * self.to_poles(smooth * wig)
+        self.power = power
+
+
+def _adjust_model_params(pt_cls, params):
+    """The resummed model has no Gaussian Sigma_par/perp damping (its
+    damping comes from the (1 - j0) integrals) and carries the fixed
+    growth-scaling parameter ``d``."""
+    if pt_cls is not None and issubclass(pt_cls, ResummedBAOWigglesPowerSpectrumMultipoles):
+        params.pop('sigmapar', None)
+        params.pop('sigmaper', None)
+        params['d'] = dict(value=1., prior=dict(limits=[0., 4.]), ref=dict(limits=[0.8, 1.2]), latex='d', fixed=True)
+
+
 class BaseBAOWigglesTracerPowerSpectrumMultipoles(BaseTheoryPowerSpectrumMultipoles):
     r"""BAO P_l(k) with broadband terms: broadband='power' (powers k^-3..k^1
     scaled by kp = 2 pi / rd) or 'power3' (3 powers)."""
@@ -131,6 +296,7 @@ class BaseBAOWigglesTracerPowerSpectrumMultipoles(BaseTheoryPowerSpectrumMultipo
             'sigmapar': dict(value=9., prior=dict(limits=[0.1, 10.]), latex=r'\Sigma_\parallel', fixed=True),
             'sigmaper': dict(value=6., prior=dict(limits=[0.1, 10.]), latex=r'\Sigma_\perp', fixed=True),
         }
+        _adjust_model_params(getattr(cls, '_pt_cls', None), params)
         broadband = str(init.get('broadband', 'power'))
         ells = tuple(init.get('ells', (0, 2)))
         if 'power' in broadband:
@@ -141,14 +307,20 @@ class BaseBAOWigglesTracerPowerSpectrumMultipoles(BaseTheoryPowerSpectrumMultipo
                     if broadband == 'power3' and pow not in (-2, -1, 0):
                         cfg['fixed'] = True
                     params['al{:d}_{:d}'.format(ell, pow)] = cfg
+        else:
+            for ell in ells:
+                for ik in range(-2, 10):
+                    params['al{:d}_{:d}'.format(ell, ik)] = dict(
+                        value=0., prior=dict(dist='norm', loc=0., scale=1e4),
+                        ref=dict(limits=[-1e-2, 1e-2]), delta=0.005,
+                        latex='a_{{{:d},{:d}}}'.format(ell, ik))
         return params
 
     def initialize(self, k=None, ells=(0, 2), broadband='power', kp=None, pt=None, **kwargs):
         super().initialize(k=k, ells=ells)
         self.broadband = str(broadband)
-        if self.broadband not in ('power', 'power3'):
-            raise NotImplementedError('broadband {!r}: the spline-kernel broadbands are ported with the '
-                                      'remaining BAO models (ROADMAP A11)'.format(self.broadband))
+        if 'power' not in self.broadband and self.broadband not in ('ngp', 'cic', 'tsc', 'pcs'):
+            raise ValueError('unknown broadband {}'.format(self.broadband))
         if pt is None:
             pt = self._pt_cls()
         self.pt = pt
@@ -166,7 +338,9 @@ class BaseBAOWigglesTracerPowerSpectrumMultipoles(BaseTheoryPowerSpectrumMultipo
 
     def _set_broadband(self):
         """Classify al{ell}_{n} params per multipole and stack their static
-        basis into one (nb, nell * nk) design matrix."""
+        basis into one (nb, nell * nk) design matrix: powers of k / kp, or
+        spline kernels of k / kp - n scaled by the fiducial no-wiggle pk at
+        their node (a parameter whose kernel is zero on every k is fixed)."""
         self.broadband_orders = {ell: {} for ell in self.ells}
         for param in list(self.params):
             match = re.match(r'al(\d+)_(-?\d+)', param.basename)
@@ -178,10 +352,21 @@ class BaseBAOWigglesTracerPowerSpectrumMultipoles(BaseTheoryPowerSpectrumMultipo
                     del self.params[param.name]
         self._broadband_names, rows = [], []
         nk = len(self.k)
+        if 'power' not in self.broadband:
+            pknow_fid = self.pt.template.pknow_dd_fid
+            ktab = np.asarray(self.pt.template.k)
         for ill, ell in enumerate(self.ells):
-            for name, pow in self.broadband_orders[ell].items():
+            for name, ind in list(self.broadband_orders[ell].items()):
                 row = np.zeros((len(self.ells), nk))
-                row[ill] = (self.k / self.kp) ** pow
+                if 'power' in self.broadband:
+                    row[ill] = (self.k / self.kp) ** ind
+                else:
+                    kernel = _kernel_func(self.k / self.kp - ind, self.broadband)
+                    if np.allclose(kernel, 0., atol=1e-8):
+                        self.params[self.params.select(basename=name)[0].name].update(fixed=True)
+                        del self.broadband_orders[ell][name]
+                        continue
+                    row[ill] = kernel * np.interp(np.clip(ind * self.kp, ktab[0], ktab[-1]), ktab, pknow_fid)
                 rows.append(row.ravel())
                 self._broadband_names.append(name)
         self.broadband_design = np.array(rows).reshape(len(rows), len(self.ells) * nk)
@@ -210,6 +395,18 @@ class DampedBAOWigglesTracerPowerSpectrumMultipoles(BaseBAOWigglesTracerPowerSpe
     _pt_cls = DampedBAOWigglesPowerSpectrumMultipoles
 
 
+class SimpleBAOWigglesTracerPowerSpectrumMultipoles(BaseBAOWigglesTracerPowerSpectrumMultipoles):
+    _pt_cls = SimpleBAOWigglesPowerSpectrumMultipoles
+
+
+class ResummedBAOWigglesTracerPowerSpectrumMultipoles(BaseBAOWigglesTracerPowerSpectrumMultipoles):
+    _pt_cls = ResummedBAOWigglesPowerSpectrumMultipoles
+
+
+class FlexibleBAOWigglesTracerPowerSpectrumMultipoles(BaseBAOWigglesTracerPowerSpectrumMultipoles):
+    _pt_cls = FlexibleBAOWigglesPowerSpectrumMultipoles
+
+
 class BaseBAOWigglesCorrelationFunctionMultipoles(BaseTheoryCorrelationFunctionFromPowerSpectrumMultipoles):
     """Wiggle-only BAO xi_l(s), no broadband: the FFTLog transform of the
     wiggle P_l(k) model ``_pt_power_cls``, which holds the model parameters."""
@@ -219,7 +416,9 @@ class BaseBAOWigglesCorrelationFunctionMultipoles(BaseTheoryCorrelationFunctionF
     @classmethod
     def _params(cls, init):
         params = BaseBAOWigglesTracerPowerSpectrumMultipoles._params(init)
-        return {name: cfg for name, cfg in params.items() if not name.startswith('al')}
+        params = {name: cfg for name, cfg in params.items() if not name.startswith('al')}
+        _adjust_model_params(cls._pt_power_cls, params)
+        return params
 
     def initialize(self, s=None, ells=(0, 2), **kwargs):
         super().initialize(s=s, power=self._pt_power_cls(), ells=ells, **kwargs)
@@ -291,39 +490,31 @@ class DampedBAOWigglesTracerCorrelationFunctionMultipoles(BaseBAOWigglesTracerCo
     _pt_power_cls = DampedBAOWigglesPowerSpectrumMultipoles
 
 
-class _RemainingBAOModel(object):
-    """The simple, resummed and flexible BAO models, in P(k) and xi(s), are
-    ported with the remaining theories."""
+class SimpleBAOWigglesCorrelationFunctionMultipoles(BaseBAOWigglesCorrelationFunctionMultipoles):
+    """xi counterpart of :class:`SimpleBAOWigglesPowerSpectrumMultipoles`."""
 
-    _params = None
-
-    def initialize(self, *args, **kwargs):
-        raise NotImplementedError('{}: the simple, resummed and flexible BAO models are ROADMAP A11'.format(
-            type(self).__name__))
+    _pt_power_cls = SimpleBAOWigglesPowerSpectrumMultipoles
 
 
-class SimpleBAOWigglesCorrelationFunctionMultipoles(_RemainingBAOModel, BaseBAOWigglesCorrelationFunctionMultipoles):
-    pass
+class ResummedBAOWigglesCorrelationFunctionMultipoles(BaseBAOWigglesCorrelationFunctionMultipoles):
+    """xi counterpart of :class:`ResummedBAOWigglesPowerSpectrumMultipoles`."""
+
+    _pt_power_cls = ResummedBAOWigglesPowerSpectrumMultipoles
 
 
-class ResummedBAOWigglesCorrelationFunctionMultipoles(_RemainingBAOModel, BaseBAOWigglesCorrelationFunctionMultipoles):
-    pass
+class FlexibleBAOWigglesCorrelationFunctionMultipoles(BaseBAOWigglesCorrelationFunctionMultipoles):
+    """xi counterpart of :class:`FlexibleBAOWigglesPowerSpectrumMultipoles`."""
+
+    _pt_power_cls = FlexibleBAOWigglesPowerSpectrumMultipoles
 
 
-class FlexibleBAOWigglesCorrelationFunctionMultipoles(_RemainingBAOModel, BaseBAOWigglesCorrelationFunctionMultipoles):
-    pass
+class SimpleBAOWigglesTracerCorrelationFunctionMultipoles(BaseBAOWigglesTracerCorrelationFunctionMultipoles):
+    _pt_power_cls = SimpleBAOWigglesPowerSpectrumMultipoles
 
 
-class SimpleBAOWigglesTracerCorrelationFunctionMultipoles(_RemainingBAOModel,
-                                                          BaseBAOWigglesTracerCorrelationFunctionMultipoles):
-    pass
+class ResummedBAOWigglesTracerCorrelationFunctionMultipoles(BaseBAOWigglesTracerCorrelationFunctionMultipoles):
+    _pt_power_cls = ResummedBAOWigglesPowerSpectrumMultipoles
 
 
-class ResummedBAOWigglesTracerCorrelationFunctionMultipoles(_RemainingBAOModel,
-                                                            BaseBAOWigglesTracerCorrelationFunctionMultipoles):
-    pass
-
-
-class FlexibleBAOWigglesTracerCorrelationFunctionMultipoles(_RemainingBAOModel,
-                                                            BaseBAOWigglesTracerCorrelationFunctionMultipoles):
-    pass
+class FlexibleBAOWigglesTracerCorrelationFunctionMultipoles(BaseBAOWigglesTracerCorrelationFunctionMultipoles):
+    _pt_power_cls = FlexibleBAOWigglesPowerSpectrumMultipoles

@@ -21,8 +21,11 @@ from .cosmology import Cosmology
 
 def _col(value):
     """(B,) parameter -> (B, 1, 1), to broadcast against (B, nk, nmu) grids;
-    a plain number stays as it is."""
-    return value[..., None, None] if isinstance(value, torch.Tensor) else value
+    a plain number, and a value already on such a grid (a scale-dependent
+    growth rate at the AP-remapped k), stay as they are."""
+    if isinstance(value, torch.Tensor) and value.ndim < 2:
+        return value[..., None, None]
+    return value
 
 
 def ap_k_mu(k, mu, qpar=1., qper=1.):

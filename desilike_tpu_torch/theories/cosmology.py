@@ -2,22 +2,26 @@
 
 Counterpart of ``desilike_tpu/theories/cosmology.py`` for the ``eh98`` and
 ``eh99`` engines (EH98 transfer functions, and EH99's massive-neutrino
-free-streaming suppression) and the ``table`` engine (an injected pk at the
-fiducial cosmology with the exact + EH98-ratio parameter response). Every
-parameter arrives as a ``(B,)`` tensor; the accessors return ``(B,)`` or
-``(B, nk)`` tensors on the evaluation's device, from one parameter dict
-built per evaluation, which caches the growth solution
-(:func:`..cosmology.background.growth_solution`). The ``emulator`` engine
-waits for ROADMAP A11c, ``external`` and ``inject`` for A17, ``theta=True``
-(h solved from 100 theta_*) for A13.
+free-streaming suppression), the ``table`` engine (an injected pk at the
+fiducial cosmology with the exact + EH98-ratio parameter response) and the
+``emulator`` engine (a trained MLP correction to EH98,
+:mod:`..cosmology.emulator`: its (nz, nk) ln-ratio table predicted per
+chain, then linear in z and in ln k). Every parameter arrives as a ``(B,)``
+tensor; the accessors return ``(B,)`` or ``(B, nk)`` tensors on the
+evaluation's device, from one parameter dict built per evaluation, which
+caches the growth solution (:func:`..cosmology.background.growth_solution`).
+``external`` and ``inject`` wait for ROADMAP A17, ``theta=True`` (h solved
+from 100 theta_*) for A13.
 """
 
 import numpy as np
+import torch
 
 from ..core import Calculator
 from ..cosmology import background as bg
 from ..cosmology import linear as lin
 from ..cosmology import eh
+from ..cosmology import emulator as emu
 
 
 _COSMO_PARAM_DEFAULTS = {
@@ -71,17 +75,30 @@ class Cosmology(Calculator):
             raise NotImplementedError('theta=True (h solved from 100 theta_*) needs the recombination-era '
                                       'quantities: ROADMAP A13')
         self.engine = str(engine)
-        if self.engine == 'emulator':
-            raise NotImplementedError("engine='emulator' (the trained Boltzmann-correction MLP) is ROADMAP A11c")
         if self.engine == 'external':
             raise NotImplementedError("engine='external' (per-evaluation host-code products) is ROADMAP A17")
-        if self.engine not in ('eh98', 'eh99', 'table'):
+        if self.engine not in ('eh98', 'eh99', 'table', 'emulator'):
             raise ValueError("engine must be 'eh98'/'eh99' (approximate few-percent transfer functions, "
-                             "self-contained) or 'table' (injected Boltzmann pk, fiducial-pinned response)")
+                             "self-contained), 'emulator' (trained Boltzmann-correction MLP) or 'table' (injected "
+                             "Boltzmann pk, fiducial-pinned response)")
         base = dict(bg.DEFAULT_PARAMS)
         if fiducial:
             base.update(fiducial)
         self.fiducial_values = base
+        if self.engine == 'emulator':
+            if emulator is None:
+                raise ValueError("engine='emulator' needs emulator=<weights dict or .npz path from "
+                                 'cosmology.emulator.train_pk_emulator>')
+            self._emu_weights = emu.load_weights(emulator) if isinstance(emulator, str) or \
+                hasattr(emulator, '__fspath__') else emulator
+            missing = [n for n in self._emu_weights['param_names'] if n not in base]
+            if missing:
+                raise ValueError('emulator expects unknown parameters {}'.format(missing))
+            # static no-wiggle companion: a Gaussian ln-k smoothing of the predicted ln-ratio removes its
+            # residual BAO-phase wiggles
+            self._emu_lnk = np.log(np.asarray(self._emu_weights['k_grid'], dtype='f8'))
+            self._emu_smooth_t = np.ascontiguousarray(lin.smoothing_matrix(self._emu_lnk).T)
+            self._emu_layers = {}
         # the JAX package decides on a concrete value whether the massive neutrinos have a density: fixed at 0, none
         m_ncdm = next(param for param in self.params if param.basename == 'm_ncdm')
         self._massless_ncdm = not base.get('N_ncdm', 1) or (m_ncdm.fixed and float(m_ncdm.value) == 0.)
@@ -114,6 +131,43 @@ class Cosmology(Calculator):
                               - p['m_ncdm'] * bg.NEUTRINO_MASS_TO_OMEGA)
         p['_massless_ncdm'] = self._massless_ncdm
         self.p = bg.resolve(p)
+        if self.engine == 'emulator':
+            like = bg.ref(self.p)
+            key = (like.dtype, like.device)
+            if key not in self._emu_layers:
+                self._emu_layers[key] = emu.layer_tensors(self._emu_weights, like.device)
+            theta = torch.stack([torch.as_tensor(self.p[name], dtype=like.dtype, device=like.device).expand(like.shape)
+                                 for name in self._emu_weights['param_names']], dim=-1)
+            self._emu_lnr, self._emu_rs_ratio = emu.predict_tables(self._emu_weights, theta,
+                                                                   layers=self._emu_layers[key])
+            self._emu_lnr_smooth = self._emu_lnr @ bg.as_grid(self._emu_smooth_t, self.p)
+
+    # --- emulator-engine helpers ---
+
+    def _emu_z_bracket(self, z):
+        zg = np.asarray(self._emu_weights['z_grid'], dtype='f8')
+        iz = int(np.clip(np.searchsorted(zg, z) - 1, 0, len(zg) - 2))
+        t = float(np.clip((z - zg[iz]) / (zg[iz + 1] - zg[iz]), 0., 1.))
+        return zg, iz, t
+
+    def _emu_interp(self, rows, k):
+        """rows (B, nk_emu) on the emulator's ln k grid, linear in ln k at
+        ``k`` (a static grid (n,) or one row a chain (B, n)); the edge
+        values outside."""
+        lnk_grid = bg.as_grid(self._emu_lnk, self.p)
+        lnk = torch.log(self._grid(k))
+        idx = torch.clamp(torch.searchsorted(lnk_grid, lnk.contiguous(), right=True) - 1, 0, lnk_grid.shape[-1] - 2)
+        t = torch.clamp((lnk - lnk_grid[idx]) / (lnk_grid[idx + 1] - lnk_grid[idx]), 0., 1.)
+        if lnk.ndim == 1:
+            lo, hi = rows[..., idx], rows[..., idx + 1]
+        else:
+            lo, hi = torch.gather(rows, -1, idx), torch.gather(rows, -1, idx + 1)
+        return torch.lerp(lo, hi, t)
+
+    def _emu_lnratio_at(self, table, k, z):
+        """The ln-ratio table (B, nz, nk_emu) at ``k``: linear in z, then in ln k."""
+        _, iz, t = self._emu_z_bracket(z)
+        return self._emu_interp((1. - t) * table[..., iz, :] + t * table[..., iz + 1, :], k)
 
     def _grid(self, k):
         return bg.as_grid(k, self.p)
@@ -133,6 +187,8 @@ class Cosmology(Calculator):
         return bg.DH_100 / self.efunc(z)
 
     def rs_drag(self):
+        if self.engine == 'emulator':
+            return bg.rs_drag(self.p) * self._emu_rs_ratio
         return bg.rs_drag(self.p)
 
     @property
@@ -155,6 +211,12 @@ class Cosmology(Calculator):
         f = bg.over(self.growth_rate(z), k)
         if self.engine == 'eh99':
             return f * eh.growth_rate_ratio(self.p, k, z)
+        if self.engine == 'emulator':
+            # the ratio table carries the scale-dependent growth: f(k, z) = f_bg(z) - (1+z)/2 dln r/dz, with the
+            # z-derivative from the table's piecewise-linear slope
+            zg, iz, _ = self._emu_z_bracket(z)
+            slope = (self._emu_lnr[..., iz + 1, :] - self._emu_lnr[..., iz, :]) / (zg[iz + 1] - zg[iz])
+            return f - 0.5 * (1. + z) * self._emu_interp(slope, k)
         return f.expand(f.shape[:f.ndim - k.ndim] + k.shape)
 
     def _fiducial(self):
@@ -173,12 +235,18 @@ class Cosmology(Calculator):
         return lin.pk_lin(p, k, z)
 
     def pk_dd(self, k, z):
-        return self._pk(self.p, self._grid(k), z)
+        k = self._grid(k)
+        if self.engine == 'emulator':
+            return lin.pk_lin(self.p, k, z) * torch.exp(self._emu_lnratio_at(self._emu_lnr, k, z))
+        return self._pk(self.p, k, z)
 
     def pk_dd_rows(self, k, z):
         """pk_dd at one row of k a chain, (B, n) (the extractors' pivots
         rescaled per chain)."""
-        return bg.per_chain(lambda p, row: self._pk(p, row, z), self.p, k)
+        rows = bg.per_chain(lambda p, row: self._pk(p, row, z), self.p, k)
+        if self.engine == 'emulator':
+            rows = rows * torch.exp(self._emu_lnratio_at(self._emu_lnr, k, z))
+        return rows
 
     def pk_dd_now(self, k, z):
         k = self._grid(k)
@@ -187,6 +255,9 @@ class Cosmology(Calculator):
             return self._alpha_nw * lin.pk_lin(self.p, k, z, nowiggle=True)
         if self.engine == 'eh99':
             return lin.pk_lin(self.p, k, z, nowiggle=True) * eh.neutrino_ratio(self.p, k, z)
+        if self.engine == 'emulator':
+            # the ln-k-smoothed ratio: the broadband correction without the truth table's residual wiggles
+            return lin.pk_lin(self.p, k, z, nowiggle=True) * torch.exp(self._emu_lnratio_at(self._emu_lnr_smooth, k, z))
         return lin.pk_lin(self.p, k, z, nowiggle=True)
 
     def sigma_r(self, r, z=0.):

@@ -302,9 +302,10 @@ class EPTTracerPowerSpectrumMultipoles(BaseTheoryPowerSpectrumMultipoles, Wedges
             kq = kq.expand((per_row,) + tuple(kq.shape))
         return interp(kq) * mask
 
-    def _fftlog_tables(self):
+    def _fftlog_tables(self, resum=True):
         """The loop tables from the template's coefficients through the
-        static design matrix; returns (tables, pk on k_work, resummation
+        static design matrix, on the IR-resummed input if the theory
+        resums and ``resum``; returns (tables, pk on k_work, resummation
         scales or None)."""
         tmpl = self.template
         cheb = tmpl._cheb
@@ -313,7 +314,7 @@ class EPTTracerPowerSpectrumMultipoles(BaseTheoryPowerSpectrumMultipoles, Wedges
         mat, mask = self.const('_loop_eval_mat', dtype), self.const('_loop_mask', dtype)
         coeffs = tmpl.pk_dd_coeffs().to(dtype)
         scales = None
-        if self.resum:
+        if self.resum and resum:
             # IR resummation: the loops run on the LO-resummed input
             # P_nw + exp(-k^2 Sigma^2_iso) P_w; full and no-wiggle tables land on
             # every loop grid through one stacked product
@@ -330,12 +331,12 @@ class EPTTracerPowerSpectrumMultipoles(BaseTheoryPowerSpectrumMultipoles, Wedges
         tables = self.loop.tables_from_arrays(vals[..., :n1], pk_k, pk_kq, vals[..., -n4:])
         return {name: table.to(self.dtype) for name, table in tables.items()}, pk_k.to(self.dtype), scales
 
-    def _quadrature_tables(self):
+    def _quadrature_tables(self, resum=True):
         tmpl = self.template
         rows = tmpl.pk_dd_coeffs()
         per_row = rows.shape[0] if rows.ndim == 2 else None
         scales = None
-        if self.resum:
+        if self.resum and resum:
             scales = self._resum_scales(self._lookup(tmpl.pknow_dd_interp, self.const('_resum_q'), per_row))
             s2_iso = scales[3]
 

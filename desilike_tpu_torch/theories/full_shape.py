@@ -10,7 +10,8 @@ and stochastic terms. The bias/counterterm structure stays explicitly
 linear, which is what the analytic marginalization uses. The
 correlation-function classes are the FFTLog transforms of these P(k)
 multipoles (:class:`BaseTheoryCorrelationFunctionFromPowerSpectrumMultipoles`).
-``SimpleTracerPowerSpectrumMultipoles`` waits for ROADMAP A11.
+``SimpleTracerPowerSpectrumMultipoles`` is the damped Kaiser model on a
+template's pk, without PT tables.
 """
 
 import re
@@ -18,7 +19,7 @@ import re
 import numpy as np
 import torch
 
-from .power_template import DirectPowerSpectrumTemplate
+from .power_template import DirectPowerSpectrumTemplate, StandardPowerSpectrumTemplate
 from .base import BaseTheoryPowerSpectrumMultipoles, BaseTheoryCorrelationFunctionFromPowerSpectrumMultipoles, \
     WedgesMixin, _col
 
@@ -189,3 +190,43 @@ class KaiserTracerCorrelationFunctionMultipoles(BaseTracerCorrelationFunctionMul
 
 class EFTLikeKaiserTracerCorrelationFunctionMultipoles(BaseTracerCorrelationFunctionMultipoles):
     _power_cls = EFTLikeKaiserTracerPowerSpectrumMultipoles
+
+
+class SimpleTracerPowerSpectrumMultipoles(BaseTheoryPowerSpectrumMultipoles, WedgesMixin):
+    r"""Minimal damped-Kaiser tracer model:
+    pkmu = jac exp(-k^2 (sigmapar^2 mu^2 + sigmaper^2 (1 - mu^2)) / 2)
+           (b1 + f muap^2)^2 P(kap) + sn0 / nd."""
+
+    _params = {
+        'b1': dict(value=1.5, prior=dict(limits=[0., 4.]), ref=dict(dist='norm', loc=1.5, scale=0.1), latex='b_1'),
+        'sn0': dict(value=0., prior=dict(dist='norm', loc=0., scale=2.), latex='s_{n,0}'),
+        'sigmapar': dict(value=0., fixed=True, prior=dict(limits=[0., 10.]), latex=r'\Sigma_\parallel'),
+        'sigmaper': dict(value=0., fixed=True, prior=dict(limits=[0., 10.]), latex=r'\Sigma_\perp'),
+    }
+
+    def initialize(self, k=None, ells=(0, 2, 4), template=None, mu=8, method='leggauss', shotnoise=1e4):
+        super().initialize(k=k, ells=ells)
+        if template is None:
+            template = StandardPowerSpectrumTemplate()
+        self.template = template
+        kin = np.geomspace(min(1e-3, self.k[0] / 2), max(1., self.k[-1] * 2), 500)
+        self.template.init.update(k=kin)
+        self.set_k_mu(k=self.k, mu=mu, method=method, ells=self.ells)
+        self.nd = 1. / float(shotnoise)
+
+    def calculate(self, b1=1.5, sn0=0., sigmapar=0., sigmaper=0., **kw):
+        k, mu = self.const('k'), self.const('mu')
+        jac, kap, muap = self.template.ap_k_mu(k, mu)
+        f = _col(self.template.f_of_k(kap))
+        mu2 = mu ** 2
+        damping = torch.exp(-k[:, None] ** 2 * (_col(sigmapar) ** 2 * mu2 + _col(sigmaper) ** 2 * (1. - mu2)) / 2.)
+        pkmu = (_col(jac) * damping * (_col(b1) + f * muap ** 2) ** 2 * self.template.pk_dd_interp(kap)
+                + _col(sn0) / self.nd)
+        self.power = self.to_poles(pkmu)
+
+    @property
+    def z(self):
+        return self.template.z
+
+    def get(self):
+        return self.power

@@ -39,6 +39,33 @@ writes its reference file under ``tests/data``:
 - ``templates``: the other templates and the extractors at the settings of
   ``tests/test_templates_extra.py`` (:func:`templates_reference`), in
   float64 (x64) -> ``torch_port_templates_reference.npz``;
+- ``tns``: config tns, config 3's likelihood with the EFT-like TNS theory
+  (:func:`build_tns_likelihood`), at full width and at a small width (the
+  TNS grid at nq 40, nmu 8, 48 working points), its log-posterior,
+  gradient and solved parameters at 16 points, in float64 (x64) only ->
+  ``torch_port_tns_reference.npz`` (``names``, ``points``,
+  ``logpost_x64``, ``grad_x64``, ``solved_x64``, ``solved_names``, and the
+  same prefixed ``small_``);
+- ``theories``: the other theories (:func:`theories_reference`) ->
+  ``torch_port_theories_reference.npz``: in float32, the cosmology
+  emulator trained on the synthetic truth of
+  ``tests/test_boltzmann_emulator.py`` (its weights, training set, targets,
+  predictions, held-out error), its initial weights and its loss after 20
+  Adam steps; in float64 (x64, a child process), the BAO models with the
+  spline broadbands and the reconstruction modes, the six remaining BAO xi
+  classes, PNG's modes and velocity multipoles, the 1-loop bispectrum and
+  its observable's likelihood at 4 points, the Lyman-alpha extractor at 4
+  cosmologies, and the Direct template on the emulator engine;
+- ``tier1``: JAX evaluations that port tests ran live, frozen for the
+  tier-1 clock (:func:`tier1_reference`), in float32 as the tests ran them
+  -> ``torch_port_tier1_reference.npz``: config 4's reduced build of
+  ``tests/test_torch_joint_reduced.py`` (its layout, data, covariance, the
+  log-posterior, solved parameters and directional derivatives at 4 points,
+  the theory vector and whitened residual with every parameter given) and
+  the IR-resummed EPT theory with quadrature loops of
+  ``tests/test_torch_ept.py`` at two points, and
+  ``SimpleTracerPowerSpectrumMultipoles`` and the Kaiser tracer on the
+  eh99 engine (a scale-dependent growth rate) at two points each;
 - ``hessian``: config 4's log-density in the gradient samplers' unconstrained
   space (``NUTSSampler._logdens_grad``: the logit transform of the bounded
   parameters and its log-Jacobian), its gradient and its Hessian, in
@@ -76,8 +103,8 @@ with numpy alone, and ``tests/test_torch_bao_likelihood.py`` and
 JAX package so that the files cannot go stale.
 
 Run from the repository root:
-``JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py [bao|joint|ept|xi|marg|hessian|emu|direct|templates]``
-(all nine when no name is given).
+``JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py [bao|joint|ept|xi|marg|hessian|emu|direct|templates|tns|theories|tier1]``
+(all twelve when no name is given).
 """
 
 import os
@@ -89,7 +116,8 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUTPUTS = {name: os.path.join(ROOT, 'tests', 'data', 'torch_port_{}_reference.npz'.format(name))
-           for name in ('bao', 'joint', 'ept', 'xi', 'marg', 'hessian', 'direct', 'templates')}
+           for name in ('bao', 'joint', 'ept', 'xi', 'marg', 'hessian', 'direct', 'templates', 'tns', 'theories',
+                        'tier1')}
 OUTPUTS['emu'] = os.path.join(ROOT, 'tests', 'data', 'torch_port_emulator_reference.npz')
 NPOINTS = 16
 HESSIAN_STEP = 1e-4  # central differences of the x64 gradient in the unconstrained space
@@ -99,9 +127,12 @@ HESSIAN_STEP = 1e-4  # central differences of the x64 gradient in the unconstrai
 # the tracer's data were generated with
 WIDTHS = {'qpar': 0.04, 'qper': 0.04, 'b1': 0.3, 'dbeta': 0.1, 'df': 0.1, 'dm': 0.05,
           'b2': 0.5, 'bs': 0.5, 'b3nl': 0.5, 'sn0': 1., 'sn2_2': 5.,
-          'h': 0.02, 'omega_cdm': 0.006, 'omega_b': 0.0008, 'logA': 0.1, 'n_s': 0.02}
+          'h': 0.02, 'omega_cdm': 0.006, 'omega_b': 0.0008, 'logA': 0.1, 'n_s': 0.02, 'b3': 0.5, 'sigmav': 1.,
+          'bs2': 0.5, 'snB': 1.}
 CENTERS = {'qpar': 1., 'qper': 1., 'dbeta': 1., 'df': 1., 'dm': 0., 'b2': 0., 'bs': 0., 'b3nl': 0., 'sn0': 0.,
-           'sn2_2': 0., 'h': 0.6736, 'omega_cdm': 0.12, 'omega_b': 0.02237, 'logA': 3.036394, 'n_s': 0.9649}
+           'sn2_2': 0., 'h': 0.6736, 'omega_cdm': 0.12, 'omega_b': 0.02237, 'logA': 3.036394, 'n_s': 0.9649,
+           'b3': 0., 'sigmav': 4., 'bs2': 0., 'snB': 0.}
+TNS_SMALL = dict(nq_tns=40, nmu_tns=8, nk_loop=48)  # config tns at a small width: the CPU tests'
 B1 = {'': 2., 'LRG': 2., 'LRGbao': 2., 'ELG': 1.3, 'ELGbao': 1.3}
 
 
@@ -803,6 +834,343 @@ def build_emulated_reference():
         return dict(np.load(path))
 
 
+def build_tns_likelihood(small=False):
+    """Config tns: config 3's calls (``scripts/bench_ept.py``) with the
+    EFT-like TNS theory at its defaults (FFTLog loops, nk_loop 96, nq_tns
+    300, nmu_tns 16, Lorentzian FoG), or at :data:`TNS_SMALL`."""
+    from desilike_tpu.theories import EFTLikeTNSTracerPowerSpectrumMultipoles, ShapeFitPowerSpectrumTemplate
+    from desilike_tpu.observables import TracerPowerSpectrumMultipolesObservable, BoxFootprint
+    from desilike_tpu.likelihoods import ObservablesGaussianLikelihood
+    theory = EFTLikeTNSTracerPowerSpectrumMultipoles(ells=(0, 2, 4), template=ShapeFitPowerSpectrumTemplate(z=0.8),
+                                                    **(TNS_SMALL if small else {}))
+    theory.init.params = {'ct*': dict(derived='.marg'), 'sn*': dict(derived='.marg')}
+    obs = TracerPowerSpectrumMultipolesObservable(
+        data={'b1': 2.0}, klim={ell: (0.02, 0.2, 0.005) for ell in (0, 2, 4)}, theory=theory)
+    return ObservablesGaussianLikelihood(observables=[obs], footprints=[BoxFootprint(volume=2e9, nbar=5e-4)])
+
+
+def tns_reference(path):
+    """The x64 child of the ``tns`` mode: config tns at full width and
+    small, 16 points each, written to ``path``."""
+    arrays = {}
+    for prefix, small in (('', False), ('small_', True)):
+        like = build_tns_likelihood(small)
+        names = like.pipeline.varied_params.names()
+        points = reference_points(names).astype('f4').astype('f8')
+        values, grads, solved = evaluate_likelihood(like, names, points)
+        arrays.update({prefix + 'names': np.array(names), prefix + 'points': points,
+                       prefix + 'solved_names': np.array(like.pipeline.solved_params.names()),
+                       prefix + 'logpost_x64': values, prefix + 'grad_x64': grads, prefix + 'solved_x64': solved})
+    np.savez(path, **arrays)
+
+
+# the synthetic truth of tests/test_boltzmann_emulator.py
+EMU_RANGES = {'h': (0.64, 0.71), 'omega_cdm': (0.11, 0.13), 'logA': (2.95, 3.12), 'm_ncdm': (0.03, 0.3)}
+EMU_K = np.geomspace(1e-3, 5., 64)
+EMU_Z = np.array([0., 1., 2.])
+EMU_POINTS = np.array([[0.685, 0.122, 3.05, 0.12], [0.65, 0.115, 2.98, 0.05], [0.70, 0.128, 3.10, 0.25],
+                       [0.67, 0.119, 3.02, 0.2]])
+BAO_K = np.linspace(0.02, 0.3, 29)
+
+
+def emulator_reference():
+    """The cosmology emulator of ``tests/test_boltzmann_emulator.py``'s
+    fixture, in float32: Sobol X (512 rows, seed 5), the EH99 truth tables,
+    the targets, weights trained 20000 Adam steps (seed 2); the initial
+    weights of ``train_mlp`` at seed 2 and its loss after 20 steps; the
+    predicted tables at :data:`EMU_POINTS`."""
+    import jax
+    import jax.numpy as jnp
+    from desilike_tpu.cosmology import background as bg, linear as lin, eh
+    from desilike_tpu.cosmology import emulator as emu
+    names, X = emu.sobol_grid(EMU_RANGES, n=512, seed=5)
+    k = jnp.asarray(EMU_K)
+
+    @jax.jit
+    def row(theta):
+        p = bg.resolve({n: t for n, t in zip(names, theta)})
+        pk = jnp.stack([lin.pk_lin(p, k, float(z)) * eh.neutrino_ratio(p, k, float(z)) for z in EMU_Z])
+        return pk, bg.rs_drag(p) * (1.01 + 0.5 * (p['h'] - 0.6736))
+
+    tables = [row(jnp.asarray(x)) for x in X]
+    pk_tables = np.asarray([np.asarray(t[0]) for t in tables])
+    rs = np.asarray([float(t[1]) for t in tables])
+    Y = emu.make_targets(names, X, pk_tables, rs, EMU_K, EMU_Z)
+    weights = emu.train_pk_emulator(names, X, Y, EMU_K, EMU_Z, hidden=(64, 64), nsteps=20000, learning_rate=1e-3,
+                                    seed=2)
+    short = emu.train_mlp(names, X, Y, hidden=(64, 64), nsteps=20, learning_rate=1e-3, seed=2)
+    # the initial weights train_mlp draws at seed 2 (its key splitting)
+    key = jax.random.key(2)
+    sizes = (X.shape[1], 64, 64, Y.shape[1])
+    arrays = {}
+    for i, (fan_in, fan_out) in enumerate(zip(sizes[:-1], sizes[1:])):
+        key, sub = jax.random.split(key)
+        arrays['emu_init_W%d' % i] = np.asarray(jax.random.normal(sub, (fan_in, fan_out), dtype=jnp.float32)
+                                                / np.sqrt(fan_in))
+    lnr, rs_ratio = zip(*[emu.predict_tables(weights, jnp.asarray(point)) for point in EMU_POINTS])
+    arrays.update({'emu_names': np.array(names), 'emu_X': X, 'emu_Y': Y, 'emu_pk_tables': pk_tables, 'emu_rs': rs,
+                   'emu_loss_20': short['loss'], 'emu_holdout_err': weights['holdout_err'], 'emu_loss': weights['loss'],
+                   'emu_points': EMU_POINTS, 'emu_lnr': np.asarray(lnr), 'emu_rs_ratio': np.asarray(rs_ratio)})
+    for key in ('x_mean', 'x_std', 'y_mean', 'y_std', 'k_grid', 'z_grid'):
+        arrays['emu_w_' + key] = np.asarray(weights[key])
+    for i, (W, b) in enumerate(weights['layers']):
+        arrays['emu_w_W%d' % i], arrays['emu_w_b%d' % i] = np.asarray(W), np.asarray(b)
+    return arrays
+
+
+def emulator_weights(arrays):
+    """The weights dict of :func:`emulator_reference`'s arrays."""
+    weights = {key[6:]: arrays[key] for key in arrays if key.startswith('emu_w_') and key[6] not in 'Wb'}
+    weights['param_names'] = tuple(str(name) for name in arrays['emu_names'])
+    n = len([key for key in arrays if key.startswith('emu_w_W')])
+    weights['layers'] = [(arrays['emu_w_W%d' % i], arrays['emu_w_b%d' % i]) for i in range(n)]
+    return weights
+
+
+def theory_vector(theory, values, attr='power'):
+    from desilike_tpu.core import Pipeline
+    pipe = Pipeline(theory)
+    allowed = set(pipe.params.basenames())
+    pipe.evaluate({key: value for key, value in values.items() if key in allowed})
+    return np.asarray(getattr(theory, attr), dtype='f8')
+
+
+# two chains of the TNS xi theories (``tests/test_torch_tns.py`` evaluates both in one batch)
+TNS_XI_CHAINS = ({'qpar': 1.02, 'qper': 0.98, 'df': 1.05, 'dm': 0.02, 'b1': 1.8, 'b2': 0.5, 'bs': -0.2, 'b3': 0.3,
+                  'sigmav': 3., 'sn0': 0.5, 'ct0_2': 10., 'ct2_2': 5.},
+                 {'qpar': 0.99, 'qper': 1.01, 'df': 0.97, 'dm': -0.01, 'b1': 2.1, 'b2': -0.3, 'bs': 0.1, 'b3': -0.4,
+                  'sigmav': 5., 'sn0': -0.3, 'ct0_2': -5., 'ct2_2': 2.})
+
+
+def theory_cases():
+    """(name, constructor, values, attribute) of the theory vectors the
+    ``theories`` mode freezes in x64."""
+    from desilike_tpu import theories as T
+    values = dict(GOLDEN_VALUES, ml0_0=1., ml2_1=0.5, fnl_loc=10., p=1., sigmav=4., bphi=1.5, bfnl_loc=20., bv=1.2,
+                  sigmau=3., bs2=-0.3, snB=0.5, al0_1=200., al2_2=-100., al0_4=50.)
+    cases = []
+    for kernel in ('ngp', 'cic', 'tsc', 'pcs'):
+        cases.append(('bao_' + kernel, lambda kernel=kernel: T.DampedBAOWigglesTracerPowerSpectrumMultipoles(
+            ells=(0, 2), k=BAO_K, broadband=kernel, template=T.BAOPowerSpectrumTemplate(z=0.8)), values, 'power'))
+    for mode in ('recsym', 'reciso'):
+        cases.append(('resummed_' + mode, lambda mode=mode: T.ResummedBAOWigglesTracerPowerSpectrumMultipoles(
+            ells=(0, 2), k=BAO_K, mode=mode, template=T.BAOPowerSpectrumTemplate(z=0.8)), values, 'power'))
+    for name in ('SimpleBAOWigglesCorrelationFunctionMultipoles', 'ResummedBAOWigglesCorrelationFunctionMultipoles',
+                 'FlexibleBAOWigglesCorrelationFunctionMultipoles', 'SimpleBAOWigglesTracerCorrelationFunctionMultipoles',
+                 'ResummedBAOWigglesTracerCorrelationFunctionMultipoles',
+                 'FlexibleBAOWigglesTracerCorrelationFunctionMultipoles'):
+        cases.append((name, lambda name=name: getattr(T, name)(ells=(0, 2), s=GOLDEN_S,
+                                                               template=T.BAOPowerSpectrumTemplate(z=0.8)),
+                      dict(values, **{'al0_0': 1e-3, 'al2_-1': 0.1}), 'corr'))
+    for mode in ('b-p', 'bphi', 'bfnl'):
+        cases.append(('png_' + mode, lambda mode=mode: T.PNGTracerPowerSpectrumMultipoles(ells=(0, 2), k=BAO_K, mode=mode),
+                      values, 'power'))
+        cases.append(('png_velocity_' + mode, lambda mode=mode: T.PNGTracerVelocityPowerSpectrumMultipoles(
+            k=BAO_K, mode=mode), values, 'power'))
+    cases.append(('bispectrum_1loop', lambda: T.TreeLevelBispectrumMultipoles(
+        template=T.ShapeFitPowerSpectrumTemplate(z=0.8), pt='1loop', ells=(0, 2, (0, 2, 0))), values, 'bispectrum'))
+    for name in ('EFTLikeTNSTracerCorrelationFunctionMultipoles', 'TNSTracerCorrelationFunctionMultipoles'):
+        for i, chain in enumerate(TNS_XI_CHAINS):
+            cases.append(('{}_{:d}'.format(name, i), lambda name=name: getattr(T, name)(
+                ells=(0, 2), s=GOLDEN_S, nq_tns=40, nmu_tns=8, template=T.ShapeFitPowerSpectrumTemplate(z=0.8)),
+                chain, 'corr'))
+    return cases
+
+
+BISPECTRUM_TRIANGLES = [(0.05, 0.05, 0.05), (0.05, 0.08, 0.1), (0.08, 0.08, 0.1), (0.1, 0.1, 0.12),
+                        (0.04, 0.07, 0.09)]
+
+
+def build_bispectrum_likelihood():
+    """The bispectrum observable (monopole and quadrupole, 5 triangles) in
+    a Gaussian likelihood with an explicit diagonal covariance."""
+    from desilike_tpu.theories import TreeLevelBispectrumMultipoles, ShapeFitPowerSpectrumTemplate
+    from desilike_tpu.observables.bispectrum import TracerBispectrumMultipolesObservable
+    from desilike_tpu.likelihoods import ObservablesGaussianLikelihood
+    theory = TreeLevelBispectrumMultipoles(template=ShapeFitPowerSpectrumTemplate(z=0.8))
+    data = {'b1': 2., 'b2': 0.3}
+    obs = TracerBispectrumMultipolesObservable(data=data, triangles=BISPECTRUM_TRIANGLES, ells=(0, 2), theory=theory)
+    obs.runtime_info.initialize()
+    cov = np.diag((0.05 * np.abs(obs.flatdata)) ** 2 + 1e3)
+    obs = TracerBispectrumMultipolesObservable(data=data, covariance=cov, triangles=BISPECTRUM_TRIANGLES, ells=(0, 2),
+                                               theory=TreeLevelBispectrumMultipoles(
+                                                   template=ShapeFitPowerSpectrumTemplate(z=0.8)))
+    return ObservablesGaussianLikelihood(observables=[obs])
+
+
+LYA_POINTS = np.array([[0.6736, 0.12, 3.036394], [0.65, 0.115, 2.98], [0.70, 0.126, 3.10], [0.68, 0.118, 3.05]])
+
+
+def theories_x64(path):
+    """The x64 child of :func:`theories_reference`: adds the x64 arrays to
+    ``path``, which holds the emulator's arrays."""
+    from desilike_tpu.core import Pipeline
+    from desilike_tpu import theories as T
+    arrays = dict(np.load(path))
+    for name, build, values, attr in theory_cases():
+        theory = build()
+        arrays['vector:' + name] = theory_vector(theory, values, attr)
+        if name.startswith('bao_'):
+            arrays['fixed:' + name] = np.array([p.basename for p in Pipeline(theory).params
+                                                if p.basename.startswith('al') and p.fixed], dtype='U16')
+    like = build_bispectrum_likelihood()
+    names = like.pipeline.varied_params.names()
+    points = reference_points(names, npoints=4).astype('f4').astype('f8')
+    values, grads, _ = evaluate_likelihood(like, names, points)
+    arrays.update({'bispectrum_like_names': np.array(names), 'bispectrum_like_points': points,
+                   'bispectrum_like_flatdata': np.asarray(like.flatdata, dtype='f8'),
+                   'bispectrum_like_logpost_x64': values, 'bispectrum_like_grad_x64': grads})
+    lya = []
+    for point in LYA_POINTS:
+        extractor = T.P1DPowerSpectrumExtractor(cosmo=T.Cosmology(fixed=('h', 'omega_cdm', 'logA')))
+        Pipeline(extractor).evaluate(dict(zip(('h', 'omega_cdm', 'logA'), point)))
+        lya.append([float(extractor.delta2_star), float(extractor.n_star)])
+    arrays['lya_points'], arrays['lya_x64'] = LYA_POINTS, np.array(lya)
+    weights = emulator_weights(arrays)
+    template = T.DirectPowerSpectrumTemplate(z=0.8, k=BAO_K, engine='emulator', emulator=weights)
+    pipe = Pipeline(template)
+    pk, pknow, fk, rs = [], [], [], []
+    for point in EMU_POINTS:
+        pipe.evaluate({'h': point[0], 'omega_cdm': point[1], 'logA': point[2]})
+        pk.append(np.asarray(template.pk_dd))
+        pknow.append(np.asarray(template.pknow_dd))
+        fk.append(np.asarray(template.fk))
+        rs.append(float(template.cosmo.rs_drag()))
+    arrays.update({'emu_template_pk_x64': np.array(pk), 'emu_template_pknow_x64': np.array(pknow),
+                   'emu_template_fk_x64': np.array(fk), 'emu_template_rs_x64': np.array(rs)})
+    np.savez(path, **arrays)
+
+
+def theories_reference():
+    import jax
+    jax.config.update('jax_platforms', 'cpu')
+    env = dict(os.environ, JAX_PLATFORMS='cpu', JAX_ENABLE_X64='1', DESILIKE_TPU_X64='1')
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'theories.npz')
+        np.savez(path, **emulator_reference())
+        subprocess.run([sys.executable, os.path.abspath(__file__), '--x64-theories', path], env=env, check=True)
+        return dict(np.load(path))
+
+
+def build_reduced_joint(step=0.02):
+    """Config 4 with wider k bins (``tests/test_torch_joint_reduced.py``)."""
+    from desilike_tpu import theories
+    from desilike_tpu.theories import full_shape
+    from desilike_tpu import observables as observables_module
+    from desilike_tpu import likelihoods
+    observables, footprints = [], []
+    for tracer, z, b1 in [('LRG', 0.8, 2.0), ('ELG', 1.1, 1.3)]:
+        fs_theory = full_shape.EFTLikeKaiserTracerPowerSpectrumMultipoles(
+            ells=(0, 2), template=theories.ShapeFitPowerSpectrumTemplate(z=z, namespace=tracer), namespace=tracer)
+        fs_theory.init.params = {'ct*': dict(derived='.marg'), 'sn*': dict(derived='.marg')}
+        observables.append(observables_module.TracerPowerSpectrumMultipolesObservable(
+            data={'{}.b1'.format(tracer): b1}, klim={0: (0.02, 0.2, step), 2: (0.02, 0.2, step)}, theory=fs_theory))
+        footprints.append(observables_module.BoxFootprint(volume=2e9, nbar=5e-4))
+        bao_theory = theories.DampedBAOWigglesTracerPowerSpectrumMultipoles(
+            ells=(0, 2), template=theories.BAOPowerSpectrumTemplate(z=z, namespace=tracer + 'bao'),
+            namespace=tracer + 'bao')
+        bao_theory.init.params = {'al*': dict(derived='.marg')}
+        observables.append(observables_module.TracerPowerSpectrumMultipolesObservable(
+            data={'{}bao.b1'.format(tracer): b1}, klim={0: (0.02, 0.3, step), 2: (0.02, 0.3, step)},
+            theory=bao_theory))
+        footprints.append(observables_module.BoxFootprint(volume=2e9, nbar=5e-4))
+    return likelihoods.ObservablesGaussianLikelihood(observables=observables, footprints=footprints)
+
+
+def tier1_reference():
+    """``torch_port_tier1_reference.npz`` (float32, as the tests ran them
+    live): the reduced config 4 at the first 4 points of the joint reference
+    with the directions of ``tests/test_torch_joint_reduced.py`` (one eager
+    ``jax.jvp`` over all points and directions), its theory vector and
+    whitened residual at 2 points with the solved parameters given; the EPT
+    theory with quadrature loops (nr 32, nx 16) at the golden point and 1.01
+    times it; the simple damped-Kaiser tracer on a Standard template at b1
+    1.8 and 1.818; the Kaiser tracer on a Direct template with the eh99
+    engine at h 0.66 and 0.7."""
+    import jax
+    import jax.numpy as jnp
+    from desilike_tpu.core import Pipeline
+    from desilike_tpu.theories import EPTTracerPowerSpectrumMultipoles, ShapeFitPowerSpectrumTemplate
+    jax.config.update('jax_platforms', 'cpu')
+    joint = np.load(OUTPUTS['joint'])
+    ref = build_reduced_joint()
+    names = ref.pipeline.varied_params.names()
+    solved_names = ref.pipeline.solved_params.names()
+    logpost = ref.logpost_fn(jit=False)
+
+    def scalar(theta):
+        value, aux = logpost(dict(zip(names, theta)))
+        return value, jnp.stack([aux['solved'][name] for name in solved_names])
+
+    def with_derivative(theta, direction):
+        value, derivative, solved = jax.jvp(scalar, (theta,), (direction,), has_aux=True)
+        return value, solved, derivative
+
+    rows = [np.eye(len(names))[names.index(name)] for name in ('LRG.dm', 'ELG.dm', 'LRG.df', 'ELG.df')]
+    rng = np.random.default_rng(11)
+    rows += [v / np.linalg.norm(v) for v in rng.normal(size=(3, len(names)))]
+    toward = np.array(rows, dtype='f4')
+    points = joint['points'][:4].astype('f4')
+    values, solved, derivatives = jax.vmap(jax.vmap(with_derivative, in_axes=(0, None)), in_axes=(None, 0))(
+        jnp.asarray(points), jnp.asarray(toward))
+    arrays = {'reduced_names': np.array(names), 'reduced_solved_names': np.array(solved_names),
+              'reduced_param_names': np.array(ref.pipeline.params.names()),
+              'reduced_calculators': np.array([type(c).__name__ for c in ref.pipeline.calculators]),
+              'reduced_sizes': np.array([len(obs.flatdata) for obs in ref.observables]),
+              'reduced_flatdata': np.asarray(ref.flatdata, dtype='f8'),
+              'reduced_covariance': np.asarray(ref.covariance, dtype='f8'),
+              'reduced_static': np.array(ref._static_linear_indices(ref.pipeline, ref.pipeline.solved_params,
+                                                                    ref.likelihoods)),
+              'reduced_points': points, 'reduced_directions': toward,
+              'reduced_logpost': np.asarray(values[0], dtype='f8'), 'reduced_solved': np.asarray(solved[0], dtype='f8'),
+              'reduced_derivatives': np.asarray(derivatives, dtype='f8').T}
+    # the theory vector and whitened residual with all 48 parameters given (seeded solved values)
+    rng = np.random.default_rng(3)
+    theory, residual, given = [], [], []
+    for row in points[:2]:
+        point = dict(zip(names, (float(v) for v in row)))
+        for name in solved_names:
+            point[name] = float(np.float32(rng.normal() * (1. if '.ct' in name else 100.)))
+        ref.pipeline.evaluate(point)
+        given.append([point[name] for name in solved_names])
+        theory.append(np.asarray(ref.flattheory(), dtype='f8'))
+        residual.append(np.asarray(ref.flatdiff_white, dtype='f8'))
+    arrays.update({'reduced_given_solved': np.array(given), 'reduced_flattheory': np.array(theory),
+                   'reduced_flatdiff_white': np.array(residual)})
+    golden = {'qpar': 1.02, 'qper': 0.98, 'b1': 1.8, 'df': 1.05, 'dm': 0.02, 'sn0': 500., 'ct0_2': 10., 'ct2_2': 5.,
+              'b2': 0.5, 'bs': -0.2}
+    theory = EPTTracerPowerSpectrumMultipoles(template=ShapeFitPowerSpectrumTemplate(z=0.8), ells=(0, 2),
+                                              k=np.linspace(0.02, 0.3, 29), loop_method='quadrature', nr=32, nx=16)
+    pipe = Pipeline(theory)
+    values = {key: value for key, value in golden.items() if key in set(pipe.params.basenames())}
+    powers = []
+    for scale in (1., 1.01):
+        pipe.evaluate({key: scale * value for key, value in values.items()})
+        powers.append(np.asarray(theory.power, dtype='f8'))
+    arrays['ept_quadrature_power'] = np.array(powers)
+    from desilike_tpu.theories import SimpleTracerPowerSpectrumMultipoles, StandardPowerSpectrumTemplate
+    theory = SimpleTracerPowerSpectrumMultipoles(ells=(0, 2, 4), k=np.linspace(0.02, 0.3, 29),
+                                                 template=StandardPowerSpectrumTemplate(z=0.8))
+    pipe = Pipeline(theory)
+    values = {'qpar': 1.02, 'qper': 0.98, 'b1': 1.8, 'sn0': 500., 'sigmapar': 4., 'sigmaper': 2., 'df': 1.05}
+    powers = []
+    for b1 in (1.8, 1.818):
+        pipe.evaluate(dict(values, b1=b1))
+        powers.append(np.asarray(theory.power, dtype='f8'))
+    arrays['simple_tracer_power'] = np.array(powers)
+    arrays['simple_tracer_params'] = np.array(pipe.params.names())
+    from desilike_tpu.theories import KaiserTracerPowerSpectrumMultipoles, DirectPowerSpectrumTemplate
+    theory = KaiserTracerPowerSpectrumMultipoles(ells=(0, 2), k=np.linspace(0.02, 0.3, 29),
+                                                 template=DirectPowerSpectrumTemplate(z=0.8, engine='eh99'))
+    pipe = Pipeline(theory)
+    powers = []
+    for h in (0.66, 0.7):
+        pipe.evaluate({'b1': 1.8, 'h': h})
+        powers.append(np.asarray(theory.power, dtype='f8'))
+    arrays['kaiser_eh99_power'] = np.array(powers)
+    return arrays
+
+
 def build_jax_likelihood(config):
     if config == 'bao':
         import __graft_entry__
@@ -954,6 +1322,16 @@ if __name__ == '__main__':
         jax.config.update('jax_platforms', 'cpu')
         templates_reference(sys.argv[2])
         sys.exit(0)
+    if sys.argv[1:2] == ['--x64-tns']:
+        import jax
+        jax.config.update('jax_platforms', 'cpu')
+        tns_reference(sys.argv[2])
+        sys.exit(0)
+    if sys.argv[1:2] == ['--x64-theories']:
+        import jax
+        jax.config.update('jax_platforms', 'cpu')
+        theories_x64(sys.argv[2])
+        sys.exit(0)
     if sys.argv[1:2] == ['--x64-emu']:
         import jax
         jax.config.update('jax_platforms', 'cpu')
@@ -975,6 +1353,12 @@ if __name__ == '__main__':
             arrays = build_emulated_reference()
         elif config == 'templates':
             arrays = run_x64('--x64-templates')
+        elif config == 'tns':
+            arrays = run_x64('--x64-tns')
+        elif config == 'theories':
+            arrays = theories_reference()
+        elif config == 'tier1':
+            arrays = tier1_reference()
         else:
             arrays = build_reference(config)
         np.savez_compressed(OUTPUTS[config], **arrays)

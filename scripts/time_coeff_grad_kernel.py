@@ -64,7 +64,7 @@ ROUNDS = 3
 
 def bind(lib):
     """Set the argument types of a library built from a source of the checkout's interface."""
-    lib.clenshaw_coeff_grad_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib.clenshaw_coeff_grad_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     lib.clenshaw_coeff_grad_occupancy.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
     return lib
 
@@ -86,7 +86,7 @@ def launch(geometry, x, w, y, order, lib=None):
     gc = torch.empty((rows, order), dtype=torch.float32, device=x.device)
     err = (lib or cuda_kernels.library()).clenshaw_coeff_grad_f32(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), gc.data_ptr(), rows, q, order, 1, geometry.nq, int(geometry.prefetch),
-        geometry.warps, geometry.smem, geometry.grid, torch.cuda.current_stream().cuda_stream)
+        geometry.warps, geometry.smem, geometry.grid, 0, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError('launch at {} failed with cudaError {}'.format(geometry, err))
     return gc

@@ -322,17 +322,18 @@ def test_coeff_grad_reference_matches_jax_grad(tables, shared, log_values):
 
 def test_cpu_coeff_grad_takes_plain_version(tables):
     """On the CPU the wrapper takes the plain version and launches nothing;
-    clenshaw() differentiates through the plain recurrence by autograd, and
-    the two gradients agree (float64: to rounding)."""
+    its gradient and that of autograd through the plain recurrence agree
+    (float64: to rounding), and clenshaw()'s backward gives it too."""
     coeffs, x = torch.from_numpy(tables[2]).double(), torch.from_numpy(tables[3]).double()
     w = torch.from_numpy(np.random.default_rng(9).normal(size=tuple(x.shape)))
     before = cuda_kernels.COEFF_GRAD_LAUNCHES
     got = cuda_kernels.clenshaw_coeff_grad(x, w, coeffs.shape[-1])
     assert torch.equal(got, cuda_kernels.clenshaw_coeff_grad_reference(x, w, coeffs.shape[-1]))
-    c = coeffs.clone().requires_grad_(True)
-    (clenshaw(x, c, log_values=False) * w).sum().backward()
+    for series in (clenshaw_reference, clenshaw):
+        c = coeffs.clone().requires_grad_(True)
+        (series(x, c, log_values=False) * w).sum().backward()
+        np.testing.assert_allclose(got.numpy(), c.grad.numpy(), rtol=0., atol=1e-12 * float(c.grad.abs().max()))
     assert cuda_kernels.COEFF_GRAD_LAUNCHES == before
-    np.testing.assert_allclose(got.numpy(), c.grad.numpy(), rtol=0., atol=1e-12 * float(c.grad.abs().max()))
     with pytest.raises(ValueError, match='CUDA tensor'):
         cuda_kernels.clenshaw_coeff_grad(torch.empty((2, 3), device='meta'), torch.empty((2, 3), device='meta'), 5)
 

@@ -163,10 +163,13 @@ def test_linearize_path_through_the_functions(full_width, monkeypatch):
     """Config 3xi with its lookups through the autograd Functions the card
     launches (on CPU tensors they run the plain recurrence, with their own
     derivative rules): the log-posterior, its gradient and the solved
-    counterterms at 4 frozen points as the plain path's (1e-5 relative), and
-    the coefficient gradient's Function reached."""
+    counterterms at 4 frozen points as those of autograd through the plain
+    recurrence (1e-5 relative), and the coefficient gradient's Function
+    reached."""
     names, points = list(REFERENCE['ept_xi_names']), REFERENCE['ept_xi_points'][:4]
-    expected = evaluate(full_width, names, points)
+    with monkeypatch.context() as plain:
+        plain.setattr(chebyshev, 'clenshaw', clenshaw_reference)
+        expected = evaluate(full_width, names, points)
     calls = []
     original = _ClenshawCoeffGrad.forward
 
@@ -175,7 +178,6 @@ def test_linearize_path_through_the_functions(full_width, monkeypatch):
         return original(*args)
 
     monkeypatch.setattr(_ClenshawCoeffGrad, 'forward', staticmethod(counted))
-    monkeypatch.setattr(chebyshev, 'clenshaw', lambda x, c, log_values=True: _Clenshaw.apply(x, c, bool(log_values)))
     got = evaluate(full_width, names, points)
     assert calls
     for g, e in zip(got, expected):

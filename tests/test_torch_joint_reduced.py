@@ -1,26 +1,26 @@
 """The joint two-tracer likelihood (BASELINE config 4) on a reduced build
 (k bins of 0.02 instead of 0.005, 4 points) in the PyTorch port, on the CPU,
-against the live JAX package: parameter names and order, data and
-covariance, log-posterior, best-fit solved parameters, theory vector and
-whitened residual, directional derivatives of the log-posterior, and the
-consistency of the solved hessian.
+against the JAX package: parameter names and order, data and covariance,
+log-posterior, best-fit solved parameters, theory vector and whitened
+residual, directional derivatives of the log-posterior, and the consistency
+of the solved hessian.
 
-The JAX side is built once and evaluated once: one forward-mode derivative
-(``jax.jvp``, which returns the values with the derivatives), eagerly over
-all points and directions at once. Compiling it takes twice as long on a CPU
-as running it op by op, and reverse mode over this graph (eight unrolled
-order-202 recurrences) takes minutes. The port's gradient comes from one
-backward pass and is projected on the same directions; on the CPU it runs
-through the plain versions of the kernels and autograd, the coefficients of
-the ShapeFit tables included. The full-width build is tested in
-``tests/test_torch_joint_likelihood.py``.
+The JAX side is frozen in ``tests/data/torch_port_tier1_reference.npz``
+(``scripts/make_torch_port_reference.py tier1``; it took ~80 worker-seconds
+of the tier-1 run live): the reduced build evaluated once, in float32, by
+one forward-mode derivative (``jax.jvp``, which returns the values with the
+derivatives), eagerly over all points and directions at once. The port's
+gradient comes from one backward pass and is projected on the same
+directions; on the CPU it runs through the plain versions of the kernels
+and autograd, the coefficients of the ShapeFit tables included. The
+full-width build is tested in ``tests/test_torch_joint_likelihood.py``.
 """
+
+import os
 
 import numpy as np
 import pytest
 import torch
-import jax
-import jax.numpy as jnp
 
 from desilike_tpu_torch import config
 from test_torch_joint_likelihood import NAMES, REFERENCE, SOLVED, evaluate, expected_names
@@ -68,48 +68,35 @@ def directions():
 
 @pytest.fixture(scope='module')
 def reduced():
-    """(port likelihood, JAX likelihood, points, JAX logpost, solved, directions,
-    JAX directional derivatives (points, directions)) of the reduced build."""
+    """(port likelihood, the frozen JAX arrays, points, JAX logpost, solved,
+    directions, JAX directional derivatives (points, directions)) of the
+    reduced build."""
     port = build_reduced('desilike_tpu_torch', device='cpu')
-    ref = build_reduced('desilike_tpu')
-    names = ref.pipeline.varied_params.names()
-    assert names == NAMES
-    solved_names = ref.pipeline.solved_params.names()
-    logpost = ref.logpost_fn(jit=False)
-
-    def scalar(theta):
-        value, aux = logpost(dict(zip(names, theta)))
-        return value, jnp.stack([aux['solved'][name] for name in solved_names])
-
-    def with_derivative(theta, direction):  # the solved parameters ride along, not differentiated
-        value, derivative, solved = jax.jvp(scalar, (theta,), (direction,), has_aux=True)
-        return value, solved, derivative
-
+    ref = np.load(os.path.join(os.path.dirname(__file__), 'data', 'torch_port_tier1_reference.npz'))
+    assert list(ref['reduced_names']) == NAMES
     points = REFERENCE['points'][:4].astype('f4')
-    toward = directions()
-    # eager: op by op, every point and direction at once (see the module docstring)
-    values, solved, derivatives = jax.vmap(jax.vmap(with_derivative, in_axes=(0, None)), in_axes=(None, 0))(
-        jnp.asarray(points), jnp.asarray(toward))
-    return (port, ref, points, np.asarray(values[0], dtype='f8'), np.asarray(solved[0], dtype='f8'), toward,
-            np.asarray(derivatives, dtype='f8').T)
+    np.testing.assert_array_equal(ref['reduced_points'], points)
+    np.testing.assert_array_equal(ref['reduced_directions'], directions())
+    return (port, ref, points, ref['reduced_logpost'], ref['reduced_solved'], ref['reduced_directions'],
+            ref['reduced_derivatives'])
 
 
 def test_reduced_layout_matches_jax(reduced):
     port, ref = reduced[:2]
     varied, solved = expected_names()
-    assert port.pipeline.varied_params.names() == ref.pipeline.varied_params.names() == varied == NAMES
-    assert port.pipeline.solved_params.names() == ref.pipeline.solved_params.names() == solved == SOLVED
-    assert port.pipeline.params.names() == ref.pipeline.params.names()
-    assert [type(c).__name__ for c in port.pipeline.calculators] == [type(c).__name__ for c in ref.pipeline.calculators]
-    assert [len(obs.flatdata) for obs in port.observables] == [len(obs.flatdata) for obs in ref.observables] \
-        == [18, 28, 18, 28]
-    np.testing.assert_allclose(port.flatdata, ref.flatdata, rtol=2e-5, atol=2e-5 * np.abs(ref.flatdata).max())
+    assert port.pipeline.varied_params.names() == list(ref['reduced_names']) == varied == NAMES
+    assert port.pipeline.solved_params.names() == list(ref['reduced_solved_names']) == solved == SOLVED
+    assert port.pipeline.params.names() == list(ref['reduced_param_names'])
+    assert [type(c).__name__ for c in port.pipeline.calculators] == list(ref['reduced_calculators'])
+    assert [len(obs.flatdata) for obs in port.observables] == list(ref['reduced_sizes']) == [18, 28, 18, 28]
+    flatdata, covariance = ref['reduced_flatdata'], ref['reduced_covariance']
+    np.testing.assert_allclose(port.flatdata, flatdata, rtol=2e-5, atol=2e-5 * np.abs(flatdata).max())
     # block-diagonal over the four observables (each has its own footprint), equal within a block
-    scale = np.sqrt(np.outer(np.diag(ref.covariance), np.diag(ref.covariance)))
-    np.testing.assert_allclose(port.covariance / scale, ref.covariance / scale, rtol=0., atol=1e-4)
+    scale = np.sqrt(np.outer(np.diag(covariance), np.diag(covariance)))
+    np.testing.assert_allclose(port.covariance / scale, covariance / scale, rtol=0., atol=1e-4)
     assert not port.covariance[:18, 18:].any() and not port.covariance[46:64, 64:].any()
     static = port._static_linear_indices(port.pipeline, port.pipeline.solved_params)
-    assert static == ref._static_linear_indices(ref.pipeline, ref.pipeline.solved_params, ref.likelihoods)
+    assert static == list(ref['reduced_static'])
     assert [SOLVED[i] for i in range(30) if i not in static] == ['ELG.ct0_2', 'ELG.ct2_2', 'LRG.ct0_2', 'LRG.ct2_2']
 
 
@@ -161,13 +148,14 @@ def test_reduced_theory_and_residual_match_jax(reduced):
     largest entry (measured 1.1e-7 and 1.1e-6)."""
     port, ref, points = reduced[:3]
     rng = np.random.default_rng(3)
-    for row in points[:2]:
+    for i, row in enumerate(points[:2]):
         values = dict(zip(NAMES, (float(v) for v in row)))
         for name in SOLVED:
             values[name] = float(np.float32(rng.normal() * (1. if '.ct' in name else 100.)))
-        ref.pipeline.evaluate(values)
+        np.testing.assert_array_equal([values[name] for name in SOLVED], ref['reduced_given_solved'][i])
         port.pipeline.evaluate(values)
-        for expected, got in [(ref.flattheory(), port.flattheory()), (ref.flatdiff_white, port.flatdiff_white)]:
+        for expected, got in [(ref['reduced_flattheory'][i], port.flattheory()),
+                              (ref['reduced_flatdiff_white'][i], port.flatdiff_white)]:
             expected = np.asarray(expected, dtype='f8')
             got = got.detach().numpy().astype('f8').reshape(expected.shape)
             np.testing.assert_allclose(got, expected, rtol=0., atol=1e-5 * np.abs(expected).max())

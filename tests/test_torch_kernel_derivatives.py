@@ -138,8 +138,8 @@ def test_coeff_grad_function(per_row):
 
 
 def test_device_rule_on_the_cpu():
-    """On CPU tensors the public wrapper is the plain recurrence itself, and
-    the Functions reach it too (no launch), with the same values."""
+    """On CPU tensors the public wrapper goes through the Functions, which
+    reach the plain recurrence (no launch), with its values."""
     for per_row in (False, True):
         x, c = inputs(per_row)
         expected = clenshaw_reference(x, c)

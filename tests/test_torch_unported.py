@@ -11,8 +11,9 @@ through xi (a few seconds), which raised before the linearize path was
 ported and is now held against the frozen JAX values, and the default
 template of the EPT theory (a few seconds to build its FFTLog tables): that
 and the template options and eh99's growth rate raised before the per-chain
-cosmology was ported, and the cases that held the raises now hold the
-behaviour.
+cosmology was ported, the remaining BAO xi models and the emulator engine
+before the other theories were: the cases that held the raises now hold
+the behaviour.
 """
 
 import os
@@ -30,9 +31,11 @@ from desilike_tpu_torch import (Pipeline, ShapeFitPowerSpectrumTemplate, BAOPowe
                                 ObservablesGaussianLikelihood)
 from desilike_tpu_torch import theories
 from test_golden import K
+from test_torch_bao_models import VALUES as BAO_VALUES
 
 SLIM = {0: (48., 152., 4.), 2: (48., 152., 4.)}
 REFERENCE = np.load(os.path.join(os.path.dirname(__file__), 'data', 'torch_port_marg_reference.npz'))
+THEORIES = os.path.join(os.path.dirname(__file__), 'data', 'torch_port_theories_reference.npz')
 
 
 @pytest.mark.parametrize('kwargs, match', [(dict(with_now='wallish2018'), 'peakaverage'), (dict(only_now=True), 'only_now')])
@@ -94,8 +97,26 @@ def test_eh99_scale_dependent_growth_raises():
                          ids=['theta', 'emulator', 'external', 'inject'])
 def test_unported_cosmology_options_raise(kwargs, match):
     """What the ``Cosmology`` node leaves for later: h solved from 100
-    theta_* (the recombination-era quantities, A13), the trained emulator
-    engine (A11c), the external engine and state injection (A17)."""
+    theta_* (the recombination-era quantities, A13), the external engine and
+    state injection (A17). The trained emulator engine (A11c), which raised
+    before it was ported, now builds from the JAX package's weights
+    (``tests/data/torch_port_theories_reference.npz``) and gives, in float64
+    for 4 cosmologies in one batch, the JAX package's x64 pk_dd and rs_drag
+    within 1e-6 (relative; both networks in float32)."""
+    if match == 'A11c':
+        reference = np.load(THEORIES)
+        from test_torch_cosmo_emulator import jax_weights
+        from desilike_tpu_torch.interop import pk_emulator_weights_from_jax
+        cosmo = Cosmology(device='cpu', emulator=pk_emulator_weights_from_jax(jax_weights(reference)), **kwargs)
+        points = reference['emu_points']
+        cosmo.init.params = {name: dict(fixed=False) for name in ('h', 'omega_cdm', 'logA')}
+        pipe = Pipeline(cosmo)
+        pipe.evaluate({name: torch.tensor(points[:, i]) for i, name in enumerate(('h', 'omega_cdm', 'logA'))},
+                      dtype=torch.float64)
+        np.testing.assert_allclose(cosmo.pk_dd(np.linspace(0.02, 0.3, 29), 0.8).numpy(),
+                                   reference['emu_template_pk_x64'], rtol=1e-6)
+        np.testing.assert_allclose(cosmo.rs_drag().numpy(), reference['emu_template_rs_x64'], rtol=1e-6)
+        return
     with pytest.raises(NotImplementedError, match=match):
         if kwargs is None:
             Cosmology(device='cpu').inject(pk_tab=np.ones(3))
@@ -110,10 +131,21 @@ def test_unported_cosmology_options_raise(kwargs, match):
                                   'ResummedBAOWigglesTracerCorrelationFunctionMultipoles',
                                   'FlexibleBAOWigglesTracerCorrelationFunctionMultipoles'])
 def test_remaining_bao_correlation_functions_raise(name):
-    """The simple, resummed and flexible BAO xi models wait for their P(k)
-    models (A11)."""
-    with pytest.raises(NotImplementedError, match='A11'):
-        Pipeline(getattr(theories, name)(template=BAOPowerSpectrumTemplate(z=0.8), device='cpu'))
+    """The simple, resummed and flexible BAO xi models, which raised before
+    their P(k) models were ported: each builds and, in float32 (the pk ->
+    xi step in float64), gives the JAX package's x64 multipoles (0, 2) on s
+    = 40-140 Mpc/h frozen in ``tests/data/torch_port_theories_reference.npz``
+    within 2e-5 of their largest value (measured 5.9e-7 to 1.0e-6)."""
+    reference = np.load(THEORIES)
+    theory = getattr(theories, name)(ells=(0, 2), s=np.linspace(40., 140., 26),
+                                     template=BAOPowerSpectrumTemplate(z=0.8), device='cpu')
+    pipe = Pipeline(theory)
+    allowed = set(pipe.params.basenames())
+    pipe.evaluate({key: value for key, value in dict(BAO_VALUES, **{'al0_0': 1e-3, 'al2_-1': 0.1}).items()
+                   if key in allowed})
+    got, expected = theory.corr[0].numpy().astype('f8'), reference['vector:' + name]
+    assert theory.corr.dtype == torch.float32 and got.shape == expected.shape
+    np.testing.assert_allclose(got, expected, rtol=0., atol=2e-5 * np.abs(expected).max())
 
 
 def test_solved_counterterms_through_xi_raise():
