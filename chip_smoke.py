@@ -19,7 +19,10 @@ its templates emulated: MLP for ShapeFit, Taylor for BAO,
 :func:`build_emulated_likelihood`); the batched config-tns log-posterior
 (config 3's calls with the EFT-like TNS theory, whose A/B tables look the
 template's pk up at 460800 points a chain, :func:`build_tns_likelihood`);
-and the gradient samplers (ChEES, NUTS) over config 4, ChEES over config 3,
+the batched config-3f log-posterior (BASELINE's config 3 fed from files:
+measured data, 1000 mocks, a window file, fiber collisions and systematic
+templates, :func:`build_files_likelihood` over the files :func:`write_files`
+writes) and the BAO compression likelihood; and the gradient samplers (ChEES, NUTS) over config 4, ChEES over config 3,
 NUTS over config 5.
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions, the
@@ -47,7 +50,9 @@ NUTS over config 5.
    config 3xi's (:func:`ept_xi_cases`); both at config tns's
    (:func:`tns_cases`: (1024, 460800, 320) per-row exp'd with one row of x
    shared by every coefficient row, and the shared x at a ragged Q and at
-   the float4 layout), and both past 2^31 queries (:func:`check_tns_overflow`:
+   the float4 layout), both at config 3f's (:func:`files_cases`: (B, 2800,
+   144) series and (B, 2800, 320) exp'd, per-row, B in {4096, 16384}), and
+   both past 2^31 queries (:func:`check_tns_overflow`:
    (4700, 460800), the last rows); and the derivatives of the
    Functions that launch them (:func:`check_derivatives`:
    ``torch.func.jvp``, ``jacfwd``, ``vmap``, double backward and reverse
@@ -99,7 +104,15 @@ NUTS over config 5.
    one forward call, the forward call at 4096 by kind (the Clenshaw
    lookup, B10's operators, the rest), its frozen JAX x64 values in
    ``tests/data/torch_port_tns_reference.npz``, the CPU path at 4 points,
-   and the goldens of the theories ported with it;
+   and the goldens of the theories ported with it. Config 3f
+   (:func:`check_config3f`): its files written into a temporary directory,
+   the likelihood built from them (its Hartlap and Percival factors against
+   the JAX package's), forward at B = 4096 and 16384 and with the gradient
+   at 4096 (launches, peak memory, wall and device milliseconds beside
+   config 3d's, the shapes each kernel launch gets), its frozen JAX x64
+   values in ``tests/data/torch_port_observables_reference.npz`` and the CPU
+   path at 4 points. The BAO compression likelihood
+   (:func:`check_bao_compression`): B = 4096, its frozen JAX x64 values;
 4. times (reported, not gated): the Clenshaw kernel's device time from
    CUDA-graph replay of 50 launches at (4096, 560, 202) shared and per-row,
    (4096, 288, 202) per-row and (65536, 560, 202) shared, the coefficient
@@ -123,7 +136,8 @@ NUTS over config 5.
    both kernels at config tns's shape (:func:`time_ept_kernels` with a
    shared x, B = 1024 and 4096, beside their bounds, the plain versions at
    1024 and the one-GEMM library route) and config tns's evals/s beside
-   config 3's;
+   config 3's; both kernels at the shapes config 3f's launches got in phase
+   3, and at 16384 (:func:`time_ept_kernels`), and config 3f's evals/s;
 5. the samplers (:func:`run_samplers`): on config 4 ChEES over B = 4096
    chains (24 warmup and 8 sampling iterations, at most 32 leapfrog steps)
    and NUTS over 64 chains (max_depth 5); on config 3 ChEES over B = 4096
@@ -224,6 +238,18 @@ COSMO_WIDTH = {'h': 0.02, 'omega_cdm': 0.006, 'omega_b': 0.0008, 'logA': 0.1, 'n
 # the emulated tables have config 4's shapes and Chebyshev order
 EMU_FS_K = np.geomspace(1e-3, 1., 500)
 EMU_BAO_K = np.geomspace(1e-4, 1., 2000)
+# config 3f: config 3d fed from files (write_files, build_files_likelihood)
+FILES_SEED = 0
+FILES_ELLS = (0, 2, 4)
+FILES_NMOCKS = 1000
+FILES_BATCHES = (4096, 16384)  # config 3f forward; with the gradient at the first
+FILES_NQUERY = 350 * 8  # config 3f's lookups: the window's 350 input k a multipole x 8 mu nodes a chain
+FILES_WORK_ORDER = 144  # config 3f's loop tables on the working grid (96 points from 6e-4 to 0.595 h/Mpc)
+FILES_NBAR, FILES_VOLUME = 5e-4, 2e9  # config 3d's footprint: the shot noise and the mocks' Gaussian covariance
+FILES_WNORM = 7.3  # the normalization the files store the power with, as pypower does
+FILES_KINLIM = (1e-4, 20.)  # the window's input grid cut to the EPT template's k range (theories/ept.py _klim_template)
+FILES_FIBER_COLLISIONS = dict(fs=0.5, Dfc=0.5)  # the JAX package's test values (tests/test_fiber_collisions.py:121)
+SYSTEMATIC_TEMPLATES = {'syst_a': lambda k: 1e2 / k, 'syst_b': lambda k: 0. * k + 50.}  # tests/test_fiber_collisions.py:141
 
 
 def build_likelihood(device):
@@ -393,6 +419,142 @@ def build_ept_direct_likelihood(device):
     like = ObservablesGaussianLikelihood(observables=[observable], footprints=[BoxFootprint(volume=2e9, nbar=5e-4)],
                                          device=device)
     like.pipeline
+    return like
+
+
+def files_layout(small=False):
+    """The grids of config 3f's files: the window's input grid (``kin``, one
+    per input multipole), its output bins' centres (``kout``, 0.001 h/Mpc
+    bins at full width, five to a data bin), the data bins' edges, the number
+    of mocks and the window's coupling width; the data's k step, and the EPT
+    node's settings and the template's varied parameters at that width (the
+    small width: the reduced build of ``tests/test_ept.py:91-112``)."""
+    if small:
+        return dict(kin=5e-3 * np.arange(1, 71), kout=1e-3 + 2e-3 * np.arange(200), edges=1e-2 * np.arange(41),
+                    nmocks=100, width=0.02, step=0.01, ept=dict(nk_loop=64, mu=6, nk_template=500),
+                    varied=('h', 'omega_cdm', 'logA'))
+    return dict(kin=1e-3 * np.arange(1, 351), kout=5e-4 + 1e-3 * np.arange(400), edges=5e-3 * np.arange(81),
+                nmocks=FILES_NMOCKS, width=0.01, step=0.005, ept={}, varied=None)
+
+
+def legendre_product_integral(ells):
+    """The integral over [-1, 1] of the product of the Legendre polynomials of ``ells``."""
+    from numpy.polynomial import legendre
+    poly = np.array([1.])
+    for ell in ells:
+        poly = legendre.legmul(poly, np.eye(ell + 1)[ell])
+    integ = legendre.legint(poly)
+    return float(legendre.legval(1., integ) - legendre.legval(-1., integ))
+
+
+def gaussian_covariance(kin, power, edges, volume, shotnoise, ells=FILES_ELLS, resolution=3):
+    """The Gaussian covariance of the power spectrum multipoles ``ells`` in
+    the k bins ``edges`` of a box of ``volume`` with ``shotnoise``, from the
+    multipoles ``power`` (nells, nk) on ``kin``: the formula of the port's
+    ``ObservablesCovarianceMatrix`` (pk-pk) at its ``resolution`` points a bin
+    (config 3d's analytic covariance), in numpy."""
+    nbins = len(edges) - 1
+    products = {(la, lb, l1, l2): legendre_product_integral((la, lb, l1, l2))
+                for la in ells for lb in ells for l1 in ells for l2 in ells}
+    cov = np.zeros((len(ells) * nbins,) * 2)
+    for ibin, (lo, hi) in enumerate(zip(edges[:-1], edges[1:])):
+        kq = np.linspace(lo, hi, resolution + 2)[1:-1]
+        pk = {ell: np.interp(kq, kin, power[i] + (ell == 0) * shotnoise) for i, ell in enumerate(ells)}
+        for i1, l1 in enumerate(ells):
+            for i2, l2 in enumerate(ells):
+                sigma = (2 * l1 + 1) * (2 * l2 + 1) / volume * sum(
+                    pk[la] * pk[lb] * products[la, lb, l1, l2] for la in ells for lb in ells)
+                cov[i1 * nbins + ibin, i2 * nbins + ibin] = (2. * np.pi) ** 3 / (4. / 3. * np.pi * (hi ** 3 - lo ** 3)) \
+                    * np.sum(kq ** 2 * sigma) / np.sum(kq ** 2)
+    return cov
+
+
+def write_files(directory, seed=FILES_SEED, small=False, fiducial_power=None):
+    """Write config 3f's measured products into ``directory``, with numpy
+    alone, in the formats the readers take (pypower-style ``.npy`` state
+    dicts, as ``tests/test_interop.py:14-26``, :77-95 write them):
+
+    - ``wmatrix.npy``: a window from the input multipoles (0, 2, 4) on
+      ``kin`` to the output multipoles (0, 2, 4) on ``kout`` (a Gaussian
+      coupling of ``width`` in k, normalized over the inputs, 0.05 between
+      different multipoles) with a shot-noise response ``vectorout``;
+    - ``data.npy`` and ``mock_0000.npy`` ... : the fiducial windowed theory
+      (``fiducial_power``, the EPT multipoles (0, 2, 4) on ``kin`` at b1 =
+      2, by default the JAX package's x64 ones frozen in
+      ``tests/data/torch_port_observables_reference.npz``, through the
+      window and its shot-noise response, averaged five output bins to a
+      data bin), each plus a Gaussian draw from config 3d's analytic
+      covariance on the data bins (:func:`gaussian_covariance`), from
+      ``np.random.default_rng(seed)``; with the shot noise 1 / nbar in the
+      monopole and a normalization, as pypower stores them.
+
+    Returns the paths of the window, the data and the mocks' glob pattern."""
+    layout = files_layout(small)
+    if fiducial_power is None:
+        reference = np.load(os.path.join(ROOT, 'tests', 'data', 'torch_port_observables_reference.npz'))
+        fiducial_power = reference[('small_' if small else '') + 'fiducial_power']
+    kin, kout, edges, nmocks = layout['kin'], layout['kout'], layout['edges'], layout['nmocks']
+    ells, nbins = FILES_ELLS, len(edges) - 1
+    coupling = np.exp(-((kout[None, :] - kin[:, None]) / layout['width']) ** 2)
+    coupling /= coupling.sum(axis=0, keepdims=True)
+    value = np.block([[(1. if ellin == ellout else 0.05) * coupling for ellout in ells] for ellin in ells])
+    vectorout = [1. - 0.05 * np.exp(-kout / 0.02), 0.02 * np.exp(-kout / 0.05), 0.01 * np.exp(-kout / 0.05)]
+    window = {'xin': [kin] * len(ells), 'xout': [kout] * len(ells), 'value': value, 'vectorout': vectorout,
+              'projsin': [{'ell': ell, 'wa_order': 0} for ell in ells],
+              'projsout': [{'ell': ell, 'wa_order': None} for ell in ells]}
+    shotnoise = 1. / FILES_NBAR
+    monopole = np.array([ell == 0 for ell in ells], dtype='f8')[:, None]
+    fine = value.T @ np.ravel(fiducial_power) + shotnoise * (np.concatenate(vectorout) - np.repeat(monopole[:, 0], len(kout)))
+    mean = fine.reshape(len(ells), nbins, -1).mean(axis=-1).ravel()
+    cov = gaussian_covariance(kin, fiducial_power, edges, FILES_VOLUME, shotnoise, ells)
+    noise = np.random.default_rng(seed).standard_normal((1 + nmocks, cov.shape[0])) @ np.linalg.cholesky(cov).T
+    k = (edges[:-1] + edges[1:]) / 2.
+
+    def state(power):
+        return {'k': k, 'ells': np.array(ells), 'edges': [edges], 'wnorm': FILES_WNORM,
+                'power_nonorm': (power.reshape(len(ells), nbins) + shotnoise * monopole) * FILES_WNORM,
+                'shotnoise_nonorm': shotnoise * FILES_WNORM}
+
+    os.makedirs(directory, exist_ok=True)
+    paths = dict(wmatrix=os.path.join(directory, 'wmatrix.npy'), data=os.path.join(directory, 'data.npy'),
+                 mocks=os.path.join(directory, 'mock_*.npy'))
+    np.save(paths['wmatrix'], window)
+    np.save(paths['data'], state(mean + noise[0]))
+    for imock in range(nmocks):
+        np.save(os.path.join(directory, 'mock_{:04d}.npy'.format(imock)), state(mean + noise[1 + imock]))
+    return paths
+
+
+def build_files_likelihood(device, directory, small=False):
+    """Config 3f in the port: BASELINE's config 3 (config 3d,
+    :func:`build_ept_direct_likelihood`) fed from the files that
+    :func:`write_files` wrote into ``directory``: the measured data, 1000
+    mocks for the covariance (the Hartlap factor at build, the Percival
+    factor in ``logpost_fn``), the window file (rebinned 5:1 to the data's
+    bins, its input grid limited to the EPT template's range), top-hat fiber
+    collisions folded into it, and two systematic templates whose amplitudes
+    ``syst_*`` are solved with a static design matrix beside ``ct*`` (per
+    chain) and ``sn*`` (static); the EPT loop tables in float64; 9 varied, 8
+    solved, 108 data at full width (the small width: :func:`files_layout`,
+    7 varied, 54 data, 100 mocks). ``device=None``: the card."""
+    from desilike_tpu_torch import (EPTTracerPowerSpectrumMultipoles, DirectPowerSpectrumTemplate,
+                                    TracerPowerSpectrumMultipolesObservable, ObservablesGaussianLikelihood)
+    from desilike_tpu_torch.observables import TopHatFiberCollisionsPowerSpectrumMultipoles
+    import torch
+    layout = files_layout(small)
+    template = DirectPowerSpectrumTemplate(z=0.8, **({'varied': layout['varied']} if layout['varied'] else {}))
+    theory = EPTTracerPowerSpectrumMultipoles(ells=FILES_ELLS, template=template, **layout['ept'])
+    # the loop tables in float64, as config 3xi's: in float32 the gradient missed its 5e-4 gate against JAX x64 on
+    # the card (5.4e-4 of its norm at 16 points; the loops on a working grid that reaches down to 6e-4 h/Mpc)
+    theory._loop_dtype = torch.float64
+    theory.init.params = {'ct*': dict(derived='.marg'), 'sn*': dict(derived='.marg')}
+    observable = TracerPowerSpectrumMultipolesObservable(
+        data=os.path.join(directory, 'data.npy'), covariance=[os.path.join(directory, 'mock_*.npy')],
+        wmatrix=os.path.join(directory, 'wmatrix.npy'), klim={ell: (0.02, 0.2, layout['step']) for ell in FILES_ELLS},
+        kinlim=FILES_KINLIM, fiber_collisions=TopHatFiberCollisionsPowerSpectrumMultipoles(**FILES_FIBER_COLLISIONS),
+        systematic_templates=SYSTEMATIC_TEMPLATES, theory=theory)
+    like = ObservablesGaussianLikelihood(observables=[observable], device=device)
+    like.pipeline.params.update({'syst_*': dict(derived='.marg')}, basename=True)
     return like
 
 
@@ -619,7 +781,7 @@ def kernel_cases():
         for k in (2, 8):
             cases.append(dict(rows=BATCH, q=NQUERY, order=202, per_row=per_row, log_values=True, k=k))
     cases.append(dict(rows=56, q=1, order=202, per_row=False, log_values=True))  # the kobs lookup
-    cases += ept_cases() + xi_cases() + ept_xi_cases() + template_cases() + tns_cases()
+    cases += ept_cases() + xi_cases() + ept_xi_cases() + template_cases() + tns_cases() + files_cases()
     return cases
 
 
@@ -699,6 +861,16 @@ def ept_xi_cases():
     return [dict(rows=rows, q=EPT_XI_NQUERY, order=order, per_row=True, log_values=log_values)
             for rows in (BATCH, EPT_XI_BIG_BATCH) for order, log_values in ((EPT_XI_WORK_ORDER, False),
                                                                          (EPT_ORDER, True))]
+
+
+def files_cases():
+    """Config 3f's launches: the loop tables' series at (B, 2800, 144) and
+    the template's exp'd lookups at (B, 2800, 320), one coefficient row a
+    chain, at B = 4096 and 16384 (the EPT theory on the window's 350 input
+    points a multipole x 8 mu nodes; the working grid from 0.6 x 0.001 to
+    1.7 x 0.35 h/Mpc)."""
+    return [dict(rows=rows, q=FILES_NQUERY, order=order, per_row=True, log_values=log_values)
+            for rows in FILES_BATCHES for order, log_values in ((FILES_WORK_ORDER, False), (EPT_ORDER, True))]
 
 
 def case_label(case):
@@ -788,7 +960,8 @@ def coeff_grad_cases():
     cases.append(dict(rows=70000, q=FS_NQUERY, order=ORDER, per_row=True, log_values=True, max_grid=7))
     cases.append(dict(rows=BATCH, q=FS_NQUERY, order=ORDER, per_row=True, log_values=True, offset=1))
     cases.append(dict(rows=56, q=100, order=ORDER, per_row=True, log_values=True))  # 9 queries a lane, prefetched
-    cases += ept_cases() + ept_xi_cases() + [case for case in template_cases() if case['per_row']] + tns_cases()
+    cases += ept_cases() + ept_xi_cases() + [case for case in template_cases() if case['per_row']] + tns_cases() \
+        + files_cases()
     return cases
 
 
@@ -1524,6 +1697,197 @@ def check_config_tns(golden, smi, ept):
     theory_golden('phase 3', theories.TreeLevelBispectrumMultipoles(template=theories.ShapeFitPowerSpectrumTemplate(
         z=0.8)), golden, 'bispectrum')
     return like, fn, out
+
+
+class record_launch_shapes(object):
+    """Within the block, the shapes each kernel launch gets: {(rows,
+    queries, order, per-row, exp'd (for the coefficient gradient: with y),
+    shared x): [Clenshaw launches, coefficient-gradient launches]}; the
+    counters count as before."""
+
+    def __enter__(self):
+        from desilike_tpu_torch.ops import cuda_kernels
+        self.shapes = {}
+        self.saved = launch, launch_grad = cuda_kernels._launch_clenshaw, cuda_kernels._launch_coeff_grad
+
+        def clenshaw(x, coeffs, log_values, *args, **kwargs):
+            shared_x = cuda_kernels._shared_x(x, coeffs)
+            rows = coeffs.shape[0] if shared_x else x.shape[0]
+            self.add((rows, x.shape[1], coeffs.shape[-1], coeffs.ndim == 2 and rows > 1, bool(log_values), shared_x), 0)
+            return launch(x, coeffs, log_values, *args, **kwargs)
+
+        def coeff_grad(x, grad_y, y, order, per_row, *args, **kwargs):
+            shared_x = bool(per_row) and x.shape[0] == 1 and grad_y.shape[0] > 1
+            self.add(tuple(grad_y.shape) + (order, bool(per_row), y is not None, shared_x), 1)
+            return launch_grad(x, grad_y, y, order, per_row, *args, **kwargs)
+
+        cuda_kernels._launch_clenshaw, cuda_kernels._launch_coeff_grad = clenshaw, coeff_grad
+        return self
+
+    def add(self, key, kernel):
+        self.shapes.setdefault(key, [0, 0])[kernel] += 1
+
+    def __exit__(self, *exc):
+        from desilike_tpu_torch.ops import cuda_kernels
+        cuda_kernels._launch_clenshaw, cuda_kernels._launch_coeff_grad = self.saved
+
+    def cases(self):
+        """The distinct launch shapes as :func:`time_ept_kernels`'s cases, one
+        a (rows, queries, order): the exp'd one where both run (the series of
+        the x-gradient costs as much)."""
+        shapes = {}
+        for rows, q, order, per_row, log_values, shared_x in sorted(self.shapes):
+            shapes[rows, q, order] = dict(rows=rows, q=q, order=order, per_row=per_row, log_values=log_values,
+                                          shared_x=shared_x)
+        return list(shapes.values())
+
+
+def check_config3f(smi, direct, dfn):
+    """Phase 3, config 3f (BASELINE's config 3 fed from files,
+    :func:`build_files_likelihood`) on the card: the files written into a
+    temporary directory (:func:`write_files`: 1000 mocks), the likelihood
+    built from them on the card (its Hartlap factor at build and Percival
+    factor in ``logpost_fn`` against the frozen JAX ones, 1e-12); the
+    log-posterior over FILES_BATCHES forward and with its gradient at B =
+    4096 (finite, the 8 solved parameters, both kernels launched, counted;
+    peak device memory; the shapes each kernel launch gets); wall and
+    device milliseconds a call beside config 3d's (``direct``, ``dfn``) on
+    the same batch, evaluations a second; the frozen JAX x64 values of
+    ``tests/data/torch_port_observables_reference.npz`` at 16 points and the
+    port's CPU plain path at 4. Returns (likelihood, its logpost_fn, the
+    numbers, the launch shapes)."""
+    import tempfile
+    import torch
+    from desilike_tpu_torch.ops import cuda_kernels
+    reference = np.load(os.path.join(ROOT, 'tests', 'data', 'torch_port_observables_reference.npz'))
+    out = dict(launches={}, max_memory_gib={}, wall_ms={}, device_ms={}, config3d_wall_ms={}, config3d_device_ms={})
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_files(tmp)
+        out['write_s'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        like = build_files_likelihood(None, tmp)  # no device: the card
+        pipe = like.pipeline
+        fn = like.logpost_fn()
+        out['build_s'] = time.perf_counter() - t0
+        names, solved = pipe.varied_params.names(), pipe.solved_params.names()
+        out.update(hartlap=like.hartlap, percival=like._mock_factor, nmocks=like._nmocks)
+        line = ('phase 3: config 3f: {} files written in {:.2f} s, the likelihood built from them on {!r} in {:.2f} s: '
+                '{} data, {} varied, {} solved ({}), {} mocks; Hartlap {:.12f} (JAX {:.12f}), Percival {:.12f} (JAX '
+                '{:.12f})'.format(FILES_NMOCKS + 2, out['write_s'], smi, out['build_s'], like.size, len(names),
+                                  len(solved), ', '.join(solved), like._nmocks, like.hartlap, float(reference['hartlap']),
+                                  like._mock_factor, float(reference['percival'])))
+        print(line)
+        if names != list(reference['names']) or solved != list(reference['solved_names']) or like.size != 108 \
+                or pipe.device.type != 'cuda' or abs(like.hartlap / reference['hartlap'] - 1.) > 1e-12 \
+                or abs(like._mock_factor / reference['percival'] - 1.) > 1e-12:
+            raise AssertionError(line)
+        dnames = direct.pipeline.varied_params.names()
+        for batch in FILES_BATCHES:
+            values = chains(names, batch, seed=0, device=pipe.device)
+            dvalues = chains(dnames, batch, seed=0, device=pipe.device)
+            for mode in ('forward', 'with gradient') if batch == BATCH else ('forward',):
+                torch.cuda.empty_cache()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                cuda_kernels.CLENSHAW_LAUNCHES = cuda_kernels.COEFF_GRAD_LAUNCHES = 0
+                if mode == 'forward':
+                    with torch.no_grad():
+                        logpost, aux = fn(values)
+                    grad = torch.zeros(batch, len(names), device=pipe.device)
+                else:
+                    logpost, grad = logpost_and_grad(fn, values)
+                torch.cuda.synchronize()
+                launches = out['launches'][mode, batch] = (cuda_kernels.CLENSHAW_LAUNCHES,
+                                                           cuda_kernels.COEFF_GRAD_LAUNCHES)
+                out['max_memory_gib'][mode, batch] = torch.cuda.max_memory_allocated() / 2 ** 30
+                finite = bool(torch.isfinite(logpost).all() and torch.isfinite(grad).all())
+                print('phase 3: config 3f {} over B={} chains on {!r}: shape {}, all finite {}, mean logpost {:.4f}; '
+                      'launches: Clenshaw {}, coefficient gradient {}; peak device memory {:.2f} GiB'.format(
+                          mode, batch, smi, tuple(logpost.shape), finite, float(logpost.mean()), launches[0],
+                          launches[1], out['max_memory_gib'][mode, batch]))
+                expect_grad = mode != 'forward'
+                if logpost.shape != (batch,) or not finite or launches[0] <= 0 or (launches[1] > 0) != expect_grad:
+                    raise AssertionError('config 3f main path failed {} at B={}'.format(mode, batch))
+                if mode == 'forward' and (list(aux['solved']) != solved or len(solved) != 8 or not all(
+                        bool(torch.isfinite(v).all()) and v.shape == (batch,) for v in aux['solved'].values())):
+                    raise AssertionError('config 3f: aux[\'solved\'] does not hold the 8 solved parameters')
+                del logpost, grad
+                aux = None
+                for key, function, args in (('', fn, values), ('config3d_', dfn, dvalues)):
+                    torch.cuda.empty_cache()
+                    if mode == 'forward':
+                        def call():
+                            with torch.no_grad():
+                                function(args)
+                    else:
+                        def call():  # gradients accumulate; harmless
+                            function(args)[0].sum().backward()
+                    out[key + 'wall_ms'][mode, batch] = time_cuda(call, 5, warmup=1)
+                    out[key + 'device_ms'][mode, batch] = device_ms(call)
+                print('phase 3: config 3f {} at B={} on {!r}: {:.2f} ms a call wall, {:.2f} ms device, {:.0f} evals/s '
+                      '(config 3d on the same batch: {:.2f} / {:.2f} ms); device time {:.2f}x config 3d\'s'.format(
+                          mode, batch, smi, out['wall_ms'][mode, batch], out['device_ms'][mode, batch],
+                          batch / out['wall_ms'][mode, batch] * 1e3, out['config3d_wall_ms'][mode, batch],
+                          out['config3d_device_ms'][mode, batch],
+                          out['device_ms'][mode, batch] / out['config3d_device_ms'][mode, batch]))
+            if batch == BATCH:
+                with record_launch_shapes() as shapes:
+                    with torch.no_grad():
+                        fn(values)
+                    logpost_and_grad(fn, values)
+                    torch.cuda.synchronize()
+                print('phase 3: config 3f at B={}: the kernels\' launches, ((rows, queries), order, per-row, exp\'d): '
+                      '[Clenshaw, coefficient gradient] launches of a forward call and one with the gradient: {}'.format(
+                          batch, shapes.shapes))
+            del values, dvalues
+            torch.cuda.empty_cache()
+        points = reference['points']
+        lp, g = at_points(like, names, points)
+        check_close('phase 3: config 3f: card vs JAX float64 (x64) at 16 points', lp, reference['logpost_x64'],
+                    EPT_X64_ATOL, g, reference['grad_x64'], EPT_X64_GRAD_RTOL)
+        lp_cpu, g_cpu = at_points(build_files_likelihood('cpu', tmp), names, points[:4])
+        check_close('phase 3: config 3f: card vs the port\'s CPU plain path at 4 points', lp[:4], lp_cpu, EPT_X64_ATOL,
+                    g[:4], g_cpu, EPT_X64_GRAD_RTOL)
+    return like, fn, out, shapes
+
+
+def check_bao_compression(smi):
+    """Phase 3, the BAO compression likelihood (DM/rd and DH/rd at z = 0.8,
+    h, omega_cdm and omega_b varied, the distances per chain on the
+    ``Cosmology`` node; ``scripts/make_torch_port_reference.py``'s
+    ``build_bao_compression_likelihood``) at B = 4096 on the card (finite),
+    and at the 16 points of its frozen JAX x64 values (config 1's limits).
+    Returns its wall milliseconds a call at 4096."""
+    import torch
+    from desilike_tpu_torch import Cosmology, BAOCompressionObservable, ObservablesGaussianLikelihood
+    reference = np.load(os.path.join(ROOT, 'tests', 'data', 'torch_port_observables_reference.npz'))
+    cosmo = Cosmology()
+    cosmo.init.params = {name: dict(fixed=False) for name in ('h', 'omega_cdm', 'omega_b')}
+    sigma = np.array([0.015 * 17.9, 0.025 * 20.5])
+    observable = BAOCompressionObservable(data=[17.9, 20.5], covariance=np.outer(sigma, sigma) * np.array(
+        [[1., -0.4], [-0.4, 1.]]), z=0.8, cosmo=cosmo)
+    like = ObservablesGaussianLikelihood(observables=[observable])  # no device: the card
+    names = like.pipeline.varied_params.names()
+    fn = like.logpost_fn()
+    values = chains(names, BATCH, seed=0, device=like.pipeline.device)
+    logpost, grad = logpost_and_grad(fn, values)
+    finite = bool(torch.isfinite(logpost).all() and torch.isfinite(grad).all())
+
+    def call():
+        with torch.no_grad():
+            fn(values)
+
+    wall_ms = time_cuda(call, 10, warmup=2)
+    print('phase 3: BAO compression likelihood over B={} chains on {!r}: shape {}, all finite {}, mean logpost {:.4f}; '
+          '{:.2f} ms a call'.format(BATCH, smi, tuple(logpost.shape), finite, float(logpost.mean()), wall_ms))
+    if logpost.shape != (BATCH,) or not finite or names != list(reference['bao_compression_names']):
+        raise AssertionError('the BAO compression likelihood failed on the card ({})'.format(names))
+    lp, g = at_points(like, names, reference['bao_compression_points'])
+    check_close('phase 3: BAO compression: card vs JAX float64 (x64) at 16 points', lp,
+                reference['bao_compression_logpost_x64'], XI_X64_ATOL, g, reference['bao_compression_grad_x64'],
+                XI_X64_GRAD_RTOL)
+    return wall_ms
 
 
 def tns_forward_profile(fn, values, smi, nq=300, nk=96):
@@ -2406,6 +2770,10 @@ def main(kernels_only=False):
     tns, tfn, config_tns = check_config_tns(golden, smi, ept)
     tnames = tns.pipeline.varied_params.names()
     lap('phase 3: config tns')
+    files, ffn, config3f, files_shapes = check_config3f(smi, direct, dfn)
+    fnames = files.pipeline.varied_params.names()
+    bao_compression_ms = check_bao_compression(smi)
+    lap('phase 3: config 3f and the BAO compression likelihood')
     fisher_sum = check_fisher_and_sum(xi, ept, smi)
     lap('phase 3: the Fisher forecast and the sum')
     emulated, _, config5 = check_config5(smi, jfn)
@@ -2499,6 +2867,8 @@ def main(kernels_only=False):
     tns_timed = time_ept_kernels(smi, cuda, [dict(rows=rows, q=TNS_NQUERY, order=EPT_ORDER, per_row=True, log_values=True,
                                                   shared_x=True, plain=rows == TNS_CHECK_ROWS)
                                              for rows in TNS_BATCHES], 'config tns')
+    files_timed = time_ept_kernels(smi, cuda, files_shapes.cases() + [case for case in files_cases()
+                                                                      if case['rows'] != BATCH], 'config 3f')
     cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES = saved
 
     rates = {}
@@ -2507,7 +2877,8 @@ def main(kernels_only=False):
                                              ('config 3', efn, enames, (BATCH, EPT_BIG_BATCH)),
                                              ('config 3d', dfn, dnames, (BATCH, EPT_BIG_BATCH)),
                                              ('config xi', xfn, xnames, (BATCH, BIG_BATCH)),
-                                             ('config tns', tfn, tnames, TNS_BATCHES)):
+                                             ('config tns', tfn, tnames, TNS_BATCHES),
+                                             ('config 3f', ffn, fnames, FILES_BATCHES)):
         for batch in batches:
             torch.cuda.empty_cache()
             fixed = chains(varied, batch, seed=1, device=cuda)
@@ -2519,7 +2890,7 @@ def main(kernels_only=False):
             # config 3d with the gradient at 32768 (66 GiB) is timed in phase 3: here, beside the other
             # likelihoods' blocks, the card cannot hold it
             if (batch in TNS_GRAD_BATCHES) if label == 'config tns' else \
-                    (batch == BATCH or label in ('config 3', 'config xi')):
+                    (batch == BATCH or label in ('config 3', 'config xi')) and label != 'config 3f':
                 # gradients accumulate; harmless
                 backward_ms = time_cuda(lambda: function(fixed)[0].sum().backward(),
                                         10 if batch == BATCH and label != 'config tns' else 3)
@@ -2582,6 +2953,10 @@ def main(kernels_only=False):
            for (mode, batch), value in config_tns['launches'].items()},
         **{key + '_config_tns': {label: entry[key] for label, entry in tns_timed.items()}
            for key in ('ms', 'bound_ms', 'plain_ms', 'library_ms')},
+        **{'launches_config3f_{}_{}'.format(mode.replace(' ', '_'), batch): value[0]
+           for (mode, batch), value in config3f['launches'].items()},
+        **{key + '_config3f': {label: entry[key] for label, entry in files_timed.items()}
+           for key in ('ms', 'bound_ms', 'plain_ms', 'library_ms')},
         'max_rel_err_past_2_31': tns_overflow[0]}, {
         'name': 'clenshaw_coeff_grad', 'route': 'cuda', 'source': 'desilike_tpu_torch/csrc/clenshaw_coeff_grad.cu',
         'replaces': 'desilike_tpu/ops/pallas_kernels.py:30', 'launches': launches4[1],
@@ -2614,6 +2989,10 @@ def main(kernels_only=False):
         **{'launches_config_tns_{}_{}'.format(mode.replace(' ', '_'), batch): value[1]
            for (mode, batch), value in config_tns['launches'].items()},
         **{key + '_config_tns': {label: entry['grad_' + key] for label, entry in tns_timed.items()}
+           for key in ('ms', 'bound_ms', 'plain_ms', 'library_ms')},
+        **{'launches_config3f_{}_{}'.format(mode.replace(' ', '_'), batch): value[1]
+           for (mode, batch), value in config3f['launches'].items()},
+        **{key + '_config3f': {label: entry['grad_' + key] for label, entry in files_timed.items()}
            for key in ('ms', 'bound_ms', 'plain_ms', 'library_ms')},
         'max_rel_err_past_2_31': tns_overflow[1]}],
         'evals_per_s': {' '.join(str(part) for part in key): rate for key, rate in rates.items()},
@@ -2649,7 +3028,16 @@ def main(kernels_only=False):
                        **{key: {'{} {}'.format(*k): v for k, v in config_tns[key].items()}
                           for key in ('launches', 'max_memory_gib', 'wall_ms', 'device_ms', 'config3_wall_ms',
                                       'config3_device_ms')},
-                       'evals_per_s': {'{} {}'.format(*k): k[1] / v * 1e3 for k, v in config_tns['wall_ms'].items()}}}))
+                       'evals_per_s': {'{} {}'.format(*k): k[1] / v * 1e3 for k, v in config_tns['wall_ms'].items()}},
+        'config3f': {'write_s': config3f['write_s'], 'build_s': config3f['build_s'], 'hartlap': config3f['hartlap'],
+                     'percival': config3f['percival'], 'nmocks': config3f['nmocks'],
+                     'launch_shapes': {' '.join(str(part) for part in key): value
+                                       for key, value in files_shapes.shapes.items()},
+                     **{key: {'{} {}'.format(*k): v for k, v in config3f[key].items()}
+                        for key in ('launches', 'max_memory_gib', 'wall_ms', 'device_ms', 'config3d_wall_ms',
+                                    'config3d_device_ms')},
+                     'evals_per_s': {'{} {}'.format(*k): k[1] / v * 1e3 for k, v in config3f['wall_ms'].items()}},
+        'bao_compression_ms_4096': bao_compression_ms}))
     print(json.dumps({'samplers': samplers, 'card': smi}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
                                              'count': torch.cuda.device_count()}}))

@@ -20,7 +20,12 @@ node. The other theories: the simple, resummed and flexible BAO models
 (spline broadbands too), the simple damped Kaiser model, TNS with its A/B
 tables, local-fNL PNG (density and velocity), the tree-level bispectrum
 and its observable, the Lyman-alpha P1D extractor, and the cosmology
-node's trained ``emulator`` engine (``cosmology.emulator``).
+node's trained ``emulator`` engine (``cosmology.emulator``). The
+observables layer: measured data and window files (``interop``), mock
+covariances with the Hartlap and Percival factors, fiber collisions and
+systematic templates folded into the window, cut-sky footprints, the
+``ObservableArray`` / ``ObservableCovariance`` containers, and the
+compression observables.
 Per-evaluation compute runs on a batch of chains, in float32, on the CUDA
 card unless the caller asks for the CPU by name (``device='cpu'``); the
 Chebyshev lookups and their gradients run through hand-written CUDA kernels
@@ -48,7 +53,15 @@ from .theories import (DampedBAOWigglesTracerPowerSpectrumMultipoles, BAOPowerSp
                        PNGTracerPowerSpectrumMultipoles, PNGTracerVelocityPowerSpectrumMultipoles,
                        TreeLevelBispectrumMultipoles, P1DPowerSpectrumExtractor)
 from .observables import (TracerPowerSpectrumMultipolesObservable, TracerCorrelationFunctionMultipolesObservable,
-                          TracerBispectrumMultipolesObservable, BoxFootprint)
+                          TracerBispectrumMultipolesObservable, BoxFootprint, CutskyFootprint,
+                          WindowedPowerSpectrumMultipoles, WindowedCorrelationFunctionMultipoles,
+                          ObservablesCovarianceMatrix, ObservableArray, ObservableCovariance,
+                          BAOCompressionObservable, ShapeFitCompressionObservable, StandardCompressionObservable,
+                          WiggleSplitCompressionObservable, BandVelocityCompressionObservable,
+                          TurnOverCompressionObservable, P1DCompressionObservable, BAOPhaseShiftCompressionObservable,
+                          TopHatFiberCollisionsPowerSpectrumMultipoles, FiberCollisionsPowerSpectrumMultipoles,
+                          SystematicTemplatePowerSpectrumMultipoles, TopHatFiberCollisionsCorrelationFunctionMultipoles,
+                          FiberCollisionsCorrelationFunctionMultipoles, SystematicTemplateCorrelationFunctionMultipoles)
 from .likelihoods import (BaseLikelihood, BaseGaussianLikelihood, ObservablesGaussianLikelihood,
                           FisherGaussianLikelihood, SumLikelihood)
 from .differentiation import Differentiation

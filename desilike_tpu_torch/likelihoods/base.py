@@ -40,8 +40,15 @@ Per-chain rows add the Schur complement of that block, one small matrix per
 chain, equilibrated and factored in float32 with ``torch.linalg.cholesky_ex``;
 a chain whose matrix does not factor reads -inf, as the reference's clipped
 pivots give a value for every chain (its ``info`` is returned in ``aux``, not
-read on the host). The Percival/Hartlap factors of mock covariances wait for
-ROADMAP A12.
+read on the host).
+
+A covariance estimated from mocks enters through the Hartlap 2007 factor on
+its precision, at build (``hartlap``), and the Percival 2014 factor m
+(arXiv:1312.4841), which depends on the number of varied and solved
+parameters of the pipeline that calls ``logpost_fn``: each build applies it
+from the unscaled whitening, so that rebuilding never stacks it, and falls
+back to the Hartlap factor alone, with a warning, where m is undefined
+(nmocks <= ndata + 4).
 """
 
 import fnmatch
@@ -68,6 +75,7 @@ class BaseLikelihood(Calculator):
     _params = {'loglikelihood': dict(derived=True, latex=r'\ln\mathcal{L}'),
                'logprior': dict(derived=True, latex=r'\ln p')}
     solved_default = '.marg'
+    name = None
 
     @property
     def likelihoods(self):
@@ -135,7 +143,7 @@ class BaseLikelihood(Calculator):
                 b = theory[row] - theory[0]
                 if np.any(b != 0.):
                     cov = cov + p.prior.scale ** 2 * np.outer(b, b)
-            like._set_whitening(cov)
+            like._set_whitening(cov, hartlap=like.hartlap)
         for p in prec_params:
             pipe.params[p.name].update(value=p.prior.loc)
 
@@ -151,6 +159,13 @@ class BaseLikelihood(Calculator):
                 if getattr(obs, 'transform', None) is not None:
                     calcs.extend(Pipeline(obs).calculators)
         return calcs
+
+    @staticmethod
+    def _nvaried_and_solved(pipe):
+        """The parameters a fit of ``pipe`` determines: varied, and solved
+        but not folded into the covariance ('.prec'); the Percival factor's
+        count."""
+        return len(pipe.varied_params) + len([p for p in pipe.solved_params if _status(p) != '.prec'])
 
     def _static_linear_indices(self, pipe, solved, likelihoods=None):
         """Indices of solved params whose theory contribution is exactly
@@ -241,6 +256,9 @@ class BaseLikelihood(Calculator):
         device, dtype = pipe.device, config.get_dtype()
         names, solved, marg_idx, prior_loc, prior_prec = self._solved_setup(pipe)
         likelihoods, gauss = self.likelihoods, self._gaussian()
+        nvaried = self._nvaried_and_solved(pipe)
+        for like in gauss:
+            like._apply_mock_factor(nvaried)
         others = [like for like in likelihoods if not isinstance(like, BaseGaussianLikelihood)]
         nsolved = len(names)
 
@@ -436,7 +454,12 @@ class BaseGaussianLikelihood(BaseLikelihood):
     r"""Gaussian likelihood of a flat data vector:
     loglike = -1/2 (t - d)^T C^{-1} (t - d), on the whitened residual.
     Subclasses set ``flatdata`` and the whitening (``initialize(data=...,
-    covariance=...)`` or ``_set_whitening``) and define ``flattheory``."""
+    covariance=...)`` or ``_set_whitening``) and define ``flattheory``.
+    ``hartlap`` and ``_nmocks``: the mock factors' inputs (1 and 0 without
+    mocks)."""
+
+    hartlap = 1.
+    _nmocks = 0
 
     def initialize(self, data=None, covariance=None, precision=None, **kwargs):
         self.flatdata = np.ravel(np.asarray(data, dtype='f8'))
@@ -446,11 +469,42 @@ class BaseGaussianLikelihood(BaseLikelihood):
             raise ValueError('provide covariance or precision')
         self._set_whitening(np.atleast_2d(np.asarray(covariance, dtype='f8')))
 
-    def _set_whitening(self, covariance):
+    def _set_whitening(self, covariance, hartlap=1.):
+        """The covariance, and its precision and whitening with the Hartlap
+        factor ``hartlap``; the Percival factor applies on top of them at the
+        next ``logpost_fn`` build (:meth:`_apply_mock_factor`)."""
         self.covariance = covariance
-        self._whiten = whiten_factor(covariance)
+        self.precision = self._precision_base = np.linalg.inv(covariance) * hartlap
+        self._whiten = self._whiten_base = whiten_factor(covariance) * np.sqrt(hartlap)
+        self._mock_factor = 1.
         self._static_J = {}  # depends on the whitening
         self.__dict__.pop('_logpost_fn', None)
+
+    def _percival_factor(self, nvaried):
+        """The Percival 2014 factor m (arXiv:1312.4841) of a covariance from
+        ``_nmocks`` mocks, for ``nvaried`` varied and solved parameters; 1
+        without mocks, and 1 with a warning outside its regime (nmocks <=
+        ndata + 4), where the Hartlap factor applies alone."""
+        nm, nd = self._nmocks, self.size
+        if not nm:
+            return 1.
+        if nm < nd + 5:
+            self.log.warning('Percival 2014 factor needs nmocks > ndata + 4 (got nmocks={}, ndata={}); '
+                             'applying the Hartlap factor only'.format(nm, nd))
+            return 1.
+        A = 2. / ((nm - nd - 1.) * (nm - nd - 4.))
+        B = (nm - nd - 2.) / ((nm - nd - 1.) * (nm - nd - 4.))
+        return (1. + B * (nd - nvaried)) / (1. + A + B * (nvaried + 1.))
+
+    def _apply_mock_factor(self, nvaried):
+        """Scale the precision by 1 / m (the Percival factor for ``nvaried``
+        parameters) from the unscaled whitening: idempotent."""
+        factor = self._percival_factor(nvaried)
+        if factor != self._mock_factor:
+            self._whiten = self._whiten_base / np.sqrt(factor)
+            self.precision = self._precision_base / factor
+            self._mock_factor = factor
+            self._static_J = {}
 
     def flattheory(self):
         raise NotImplementedError
@@ -473,35 +527,61 @@ class BaseGaussianLikelihood(BaseLikelihood):
 class ObservablesGaussianLikelihood(BaseGaussianLikelihood):
     """Gaussian likelihood over a list of observables.
 
-    covariance: explicit matrix of the concatenated data vectors, or None ->
-    the observables' own explicit matrices, block-diagonal (where each has
-    one), else computed analytically from ``footprints``.
+    covariance: explicit matrix of the concatenated data vectors or an
+    ``ObservableCovariance`` (its ``nobs`` mocks count), or None -> the
+    observables' own covariances (one observable: its covariance, with its
+    mocks' global Hartlap and Percival factors; several: block-diagonal,
+    each block estimated from mocks carrying its own Hartlap factor and no
+    joint Percival factor), else computed analytically from ``footprints``.
+    ``scale_covariance`` multiplies the covariance.
     """
 
-    def initialize(self, observables=None, covariance=None, footprints=None):
+    def initialize(self, observables=None, covariance=None, footprints=None, scale_covariance=1., name=None):
         if not is_sequence(observables):
             observables = [observables]
         self.observables = list(observables)
+        self.name = name
         for obs in self.observables:
             obs.runtime_info.initialize()
-            if getattr(obs, 'nmocks', 0):
-                raise NotImplementedError('a covariance estimated from mocks (the Hartlap and Percival factors) '
-                                          'is ROADMAP A12')
+        sizes = [len(obs.flatdata) for obs in self.observables]
         self.flatdata = np.concatenate([obs.flatdata for obs in self.observables])
-        covs = [getattr(obs, 'covariance', None) for obs in self.observables]
-        if covariance is None and all(cov is not None for cov in covs):
-            covariance = np.zeros((self.flatdata.size,) * 2)
-            start = 0
-            for cov in covs:
-                stop = start + len(cov)
-                covariance[start:stop, start:stop] = cov
-                start = stop
+        nmocks = 0
+        if covariance is not None and hasattr(covariance, 'hartlap2007_factor'):
+            nmocks = covariance.nobs or 0
+            covariance = covariance.value
         if covariance is None:
-            if footprints is None:
-                raise ValueError('provide covariance, observables with a covariance, or footprints')
-            from ..observables.covariance import ObservablesCovarianceMatrix
-            covariance = ObservablesCovarianceMatrix(self.observables, footprints=footprints)()
-        self._set_whitening(np.atleast_2d(np.asarray(covariance, dtype='f8')))
+            covs = [getattr(obs, 'covariance', None) for obs in self.observables]
+            if all(cov is not None for cov in covs):
+                if len(covs) == 1:
+                    covariance = np.asarray(covs[0], dtype='f8')
+                    nmocks = self.observables[0].nmocks or 0
+                else:
+                    # separately estimated covariances: each block from mocks carries its own Hartlap factor,
+                    # with its own mocks and block size, folded into the precision
+                    covariance = np.zeros((self.flatdata.size,) * 2)
+                    start = 0
+                    for obs, cov, size in zip(self.observables, covs, sizes):
+                        cov = np.asarray(cov, dtype='f8')
+                        if getattr(obs, 'nmocks', 0):
+                            factor = (obs.nmocks - size - 2.) / (obs.nmocks - 1.)
+                            if factor <= 0:
+                                raise ValueError('too few mocks ({}) for observable block size {}'.format(obs.nmocks, size))
+                            cov = cov / factor
+                        covariance[start:start + size, start:start + size] = cov
+                        start += size
+            elif footprints is not None:
+                from ..observables.covariance import ObservablesCovarianceMatrix
+                covariance = ObservablesCovarianceMatrix(self.observables, footprints=footprints)()
+            else:
+                raise ValueError('provide covariance, observables with a covariance or mocks, or footprints')
+        covariance = np.atleast_2d(np.asarray(covariance, dtype='f8')) * scale_covariance
+        hartlap = 1.
+        if nmocks:
+            hartlap = (nmocks - len(self.flatdata) - 2.) / (nmocks - 1.)
+            if hartlap <= 0:
+                raise ValueError('too few mocks ({}) for data size {}'.format(nmocks, len(self.flatdata)))
+        self.hartlap, self._nmocks = hartlap, nmocks
+        self._set_whitening(covariance, hartlap=hartlap)
 
     def flattheory(self):
         return torch.cat([obs.flattheory for obs in self.observables], dim=-1)

@@ -2,13 +2,14 @@
 
 Counterpart of ``desilike_tpu/observables/bispectrum.py``: the theory
 B_l(k1, k2, k3) on given triangles against a flat data vector, with an
-explicit covariance. A covariance estimated from mocks (and its Hartlap
-and Percival factors) waits for ROADMAP A12.
+explicit covariance or one estimated from mock vectors (the likelihood then
+applies the Hartlap and Percival factors).
 """
 
 import numpy as np
 
 from ..core import Calculator, Pipeline
+from .power_spectrum import _flat_covariance
 
 
 class TracerBispectrumMultipolesObservable(Calculator):
@@ -16,8 +17,8 @@ class TracerBispectrumMultipolesObservable(Calculator):
 
     data : dict (generated from the theory at these parameter values, a
         host-side float64 evaluation) or array.
-    covariance : the explicit (ndata, ndata) matrix, or None (then the
-        likelihood takes one).
+    covariance : the explicit (ndata, ndata) matrix, a list of mock vectors
+        (their sample covariance), or None (then the likelihood takes one).
     """
 
     _state_attrs = ['flattheory']
@@ -32,11 +33,7 @@ class TracerBispectrumMultipolesObservable(Calculator):
         self.theory.runtime_info.initialize()
         self.triangles = self.theory.triangles
         self.ells = tuple(self.theory.ells)
-        self.mocks = None
-        if isinstance(covariance, (list, tuple)) and len(covariance) and np.ndim(covariance[0]) >= 1:
-            raise NotImplementedError('a covariance estimated from mocks (with the Hartlap and Percival factors) '
-                                      'is ROADMAP A12: pass the covariance matrix')
-        self.covariance = None if covariance is None else np.atleast_2d(np.asarray(covariance, dtype='f8'))
+        self.mocks, self._covariance_input = _flat_covariance(covariance)
         if isinstance(data, dict):
             self.flatdata = Pipeline(self.theory).host_evaluate(data)[0].numpy().ravel()
         elif data is not None:
@@ -45,11 +42,19 @@ class TracerBispectrumMultipolesObservable(Calculator):
             self.flatdata = None
 
     @property
+    def covariance(self):
+        return self._covariance_input
+
+    @property
     def nmocks(self):
-        return 0
+        return len(self.mocks) if self.mocks is not None else 0
 
     def calculate(self, **params):
         self.flattheory = self.theory.bispectrum.reshape(self.theory.bispectrum.shape[0], -1)
+
+    @property
+    def flatdiff(self):
+        return self.flattheory - self.const('flatdata')
 
     def get(self):
         return self.flattheory

@@ -2,7 +2,8 @@
 
 Counterpart of ``desilike_tpu/observables/covariance.py``: host-side
 float64 numpy, assembled once at initialization, for the pk-pk, xi-xi and
-pk-xi blocks. Cut-sky footprints wait for ROADMAP A12.
+pk-xi blocks; box and cut-sky footprints (the latter's volume from the
+port's own background cosmology, on the host in float64).
 """
 
 import numpy as np
@@ -11,21 +12,28 @@ from scipy import special
 
 from ..utils import BaseClass, is_sequence
 from ..ops.legendre import trapz_weights
+from ..cosmology import background as bg
 
 
-def integral_legendre_product(ells):
-    """Integral over [-1, 1] of a product of Legendre polynomials."""
+def integral_legendre_product(ells, range=(-1, 1), norm=False):
+    """Integral over ``range`` of a product of Legendre polynomials (divided
+    by the range's length if ``norm``)."""
     poly = special.legendre(0)
+    if np.ndim(ells) == 0:
+        ells = [ells]
     for ell in ells:
         poly *= special.legendre(ell)
     integ = poly.integ()
-    return float(integ(1.) - integ(-1.))
+    out = integ(range[-1]) - integ(range[0])
+    if norm:
+        out /= (range[-1] - range[0])
+    return float(out)
 
 
 class BaseFootprint(BaseClass):
     """3D footprint: density and volume."""
 
-    def __init__(self, nbar=None, size=None, volume=None):
+    def __init__(self, nbar=None, size=None, volume=None, attrs=None):
         if nbar is None and size is None:
             raise ValueError('provide "nbar" [(h/Mpc)^3] or "size" (number of objects)')
         if volume is None:
@@ -33,6 +41,7 @@ class BaseFootprint(BaseClass):
         self._volume = np.asarray(volume, dtype='f8')
         self._size = None if size is None else np.asarray(size, dtype='f8')
         self._nbar = (self._size / self._volume) if nbar is None else np.asarray(nbar, dtype='f8')
+        self.attrs = dict(attrs or {})
 
     @property
     def volume(self):
@@ -57,6 +66,33 @@ class BaseFootprint(BaseClass):
 
 class BoxFootprint(BaseFootprint):
     """Cubic box footprint."""
+
+
+class CutskyFootprint(BaseFootprint):
+    """Sky-area + redshift-range footprint: the volume of the comoving shell
+    of the fiducial cosmology (``cosmo``: a dict of parameters, default the
+    DESI fiducial), and the density of an nbar(z) profile (one value a
+    redshift bin of ``zrange``, or a constant over it); ``zeff`` weighs the
+    bins' centres by nbar^2 times their volume."""
+
+    def __init__(self, area=None, zrange=None, nbar=None, cosmo=None, attrs=None):
+        if area is None or zrange is None:
+            raise ValueError('provide area [deg^2] and zrange')
+        p = bg.resolve(cosmo if isinstance(cosmo, dict) else None)
+        zrange = np.asarray(zrange, dtype='f8')
+        fsky = float(area) * (np.pi / 180.) ** 2 / (4. * np.pi)
+        if np.ndim(nbar) == 0:
+            zedges = np.array([zrange.min(), zrange.max()])
+            nbarz = np.array([float(nbar)])
+        else:
+            zedges = zrange
+            nbarz = np.asarray(nbar, dtype='f8')
+        dc = np.asarray(bg.comoving_radial_distance(p, zedges), dtype='f8')
+        shell = 4. / 3. * np.pi * (dc[1:] ** 3 - dc[:-1] ** 3) * fsky
+        zmid = (zedges[1:] + zedges[:-1]) / 2.
+        self.zeff = float((nbarz ** 2 * shell * zmid).sum() / (nbarz ** 2 * shell).sum())
+        self.area = float(area)
+        super().__init__(size=(nbarz * shell).sum(), volume=shell.sum(), attrs=attrs)
 
 
 class ObservablesCovarianceMatrix(BaseClass):

@@ -1,18 +1,135 @@
 """Window-matrix convolution of theory multipoles.
 
-Counterpart of ``desilike_tpu/observables/window.py`` on the continuous
-bin-integration path (P(k): ``wmatrix=None`` or ``{'resolution': n}``;
-xi(s): resolution 3, or the window of measured RR(s, mu) pair counts): the
-matrix is assembled host-side in float64, and the per-evaluation path is
-one batched matmul, flat theory (B, nell * nin) -> (B, nflat). Output
-grids given as k centers, shot-noise subtraction, external window formats,
-explicit (kin, matrix) windows, fiber collisions and systematic templates
-wait for ROADMAP A12.
+Counterpart of ``desilike_tpu/observables/window.py``. The matrix is
+assembled host-side in float64 from (a) bin integration in the continuous
+limit (P(k): ``wmatrix=None`` or ``{'resolution': n}``; xi(s): resolution
+3, or the window of measured RR(s, mu) pair counts), (b) an explicit
+``(kin, matrix)`` pair, or (c) a measured window file (pypower-style
+objects, their ``.npy`` state dicts, or the canonical dict; read by
+:func:`~..interop.read_window_matrix`). A fiber-collision kernel is folded
+into it and every constant term (the kernel's uncorrelated part, the shot
+noise and the window's response to it) into one host offset, so that the
+per-evaluation path is one batched matmul plus a constant: flat theory (B,
+nell * nin) -> (B, nflat). Systematic templates add ``amplitudes @
+templates``, their amplitudes ``syst_*`` solved with a static design
+matrix.
 """
 
+from collections.abc import Mapping
+
 import numpy as np
+import torch
 
 from ..core import Calculator
+
+
+def _template_names(spec):
+    """Parameter names for a systematic-templates spec (dict keys, or
+    generated syst_i for sequences / a single template)."""
+    if spec is None:
+        return []
+    if isinstance(spec, Mapping):
+        return [str(name) for name in spec.keys()]
+    if callable(spec) or getattr(spec, 'ndim', None) is not None:
+        spec = [spec]
+    return ['syst_{:d}'.format(i) for i in range(len(spec))]
+
+
+def _template_params(init):
+    """_params hook shared by the windowed observables: one linear amplitude
+    per template, added after the window."""
+    names = _template_names(init.get('systematic_templates', None))
+    return {name: dict(value=0., prior=dict(dist='norm', loc=0., scale=10.),
+                       ref=dict(limits=[-1e-3, 1e-3]),
+                       latex='s_{{{}}}'.format(i))
+            for i, name in enumerate(names)}
+
+
+def _flat_templates(spec, x_list):
+    """Evaluate a templates spec to a static (ntemplates, nflat) matrix on
+    the flat output data vector: callables are evaluated per multipole grid
+    and concatenated; arrays are flat vectors or per-ell stacks."""
+    nflat = sum(len(x) for x in x_list)
+    if isinstance(spec, Mapping):
+        values = list(spec.values())
+    elif callable(spec) or getattr(spec, 'ndim', None) is not None:
+        values = [spec]
+    else:
+        values = list(spec)
+    rows = []
+    for t in values:
+        if callable(t):
+            flat = np.concatenate([np.asarray(t(np.asarray(x)), dtype='f8') for x in x_list])
+        else:
+            t = np.asarray(t, dtype='f8')
+            if t.ndim == 1 and t.size == nflat:
+                flat = t
+            elif t.ndim == 2 and t.shape[0] == len(x_list):
+                flat = np.concatenate([np.asarray(row)[:len(x)] for row, x in zip(t, x_list)])
+            else:
+                raise ValueError('template shape {} does not match flat data size {} '
+                                 '(per-ell sizes {})'.format(t.shape, nflat, [len(x) for x in x_list]))
+        if flat.size != nflat:
+            raise ValueError('template size {} != flat data size {}'.format(flat.size, nflat))
+        rows.append(flat)
+    return np.stack(rows)
+
+
+def _centre_edges(x):
+    """(n, 2) bin edges halfway between the centres ``x``, the outer ones as far out as the inner ones."""
+    edges = np.concatenate([[x[0] - (x[1] - x[0]) / 2.], (x[1:] + x[:-1]) / 2., [x[-1] + (x[-1] - x[-2]) / 2.]])
+    return np.column_stack([edges[:-1], edges[1:]])
+
+
+class _WindowedMultipoles(Calculator):
+    """What the P(k) and xi windows share: the systematic templates'
+    parameters, the fold of a fiber-collision kernel into the matrix, and
+    the per-evaluation GEMM plus the constant offset and the templates."""
+
+    _static_linear_solved = ('syst_*',)
+
+    @staticmethod
+    def _params(init):
+        return _template_params(init)
+
+    def _fold(self, fiber_collisions, diagonal):
+        """Fold ``fiber_collisions``'s static kernel into the window (host
+        float64, once): W -> W K, and its uncorrelated term into the offset,
+        W k_unc. ``diagonal``: a configuration-space kernel, (nell_out,
+        nell_in, ns), diagonal in s."""
+        grid = 's' if diagonal else 'k'
+        fiber_collisions.init.update(**{grid: self._xin, 'ells': self.ellsin, 'theory': self.theory})
+        fiber_collisions.runtime_info.initialize()
+        kernel = fiber_collisions.kernel_correlated
+        K = np.block([[np.diag(kernel[io, ii]) if diagonal else kernel[io, ii]
+                       for ii in range(len(fiber_collisions.ellsin))] for io in range(len(fiber_collisions.ells))])
+        if fiber_collisions.with_uncorrelated:
+            self.offset = self.offset + self.wmatrix @ fiber_collisions.kernel_uncorrelated.reshape(-1)
+        self.wmatrix = self.wmatrix @ K
+        xin = np.asarray(fiber_collisions.sin if diagonal else fiber_collisions.kin)
+        ellsin = tuple(fiber_collisions.ellsin)
+        if not (np.array_equal(xin, self._xin) and ellsin == self.ellsin):
+            self._xin, self.ellsin = xin, ellsin
+            self.theory.init.update(**{grid: xin, 'ells': ellsin})
+
+    def _set_templates(self, systematic_templates, x_list):
+        self._template_param_names = _template_names(systematic_templates)
+        self.templates = _flat_templates(systematic_templates, x_list) if self._template_param_names else None
+
+    def _set_offset(self, offset):
+        self.offset = offset if np.any(offset) else None
+
+    def _windowed(self, theory, params):
+        """(B, nell_in, nin) theory -> (B, nflat): one GEMM, the constant
+        offset, and the templates' amplitudes (in ``params``) times the
+        templates."""
+        flat = theory.reshape(theory.shape[:-2] + (-1,)) @ self.const('wmatrix').T
+        if self.offset is not None:
+            flat = flat + self.const('offset')
+        if self.templates is not None:
+            amplitudes = torch.stack([params[name] for name in self._template_param_names], dim=-1)
+            flat = flat + amplitudes @ self.const('templates')
+        return flat
 
 
 def matrix_lininterp(xout, xin):
@@ -129,56 +246,150 @@ def window_matrix_RR(soutedges, sedges, muedges, wcounts, ellsin=(0, 2, 4), reso
     return sin, np.block(blocks)
 
 
-class WindowedPowerSpectrumMultipoles(Calculator):
+class WindowedPowerSpectrumMultipoles(_WindowedMultipoles):
     """Window-convolved theory P_l(k).
 
     Parameters
     ----------
-    klim : dict ell -> (kmin, kmax[, step])
+    klim : dict ell -> (kmin, kmax[, step]) or None
         Output limits/binning per multipole.
-    wmatrix : None or {'resolution': n}
-        None = evaluate theory at volume-weighted bin centers; resolution =
-        continuous bin-integration with n points per bin.
-    theory : theory multipoles calculator
+    k, ells : output k centers (an array, or one per multipole) and
+        multipoles, instead of ``klim`` (default: 39 centers over 0.01-0.2
+        h/Mpc, ells (0, 2, 4)).
+    wmatrix : None, {'resolution': n}, (kin, matrix), or a window file
+        None: the theory at volume-weighted bin centers; resolution:
+        continuous bin integration with n points per bin; an explicit matrix
+        with its input theory grid (``kinlim`` cuts the grid); a measured
+        window (pypower-style object, its ``.npy`` state dict or a path to
+        it, or the canonical dict; ``kin``, ``kinrebin``, ``kinlim``,
+        ``ellsin`` select and re-grid its input side, see
+        :func:`~..interop.read_window_matrix`), whose output rows are
+        rebinned to ``k`` (the measured data's grid) or ``klim``.
+    theory : theory multipoles calculator (default: the Kaiser tracer)
+    shotnoise : float
+        Shot noise of the measurement: added to the theory monopole before
+        the window and subtracted after it, or, where the window file holds
+        its response to a constant (``wshotnoise``), subtracted as
+        ``shotnoise * (delta_l0 - wshotnoise)``.
+    fiber_collisions : fiber-collision calculator, optional
+        Its static kernel is folded into the window matrix at
+        initialization, so the per-evaluation cost is unchanged.
+    systematic_templates : templates spec, optional
+        Additive post-window templates with linear amplitude parameters
+        (dict name -> template, sequence, callable(k), flat or per-ell
+        arrays), solved with a static design matrix when marked solved.
     """
 
-    def initialize(self, klim=None, wmatrix=None, theory=None, **kwargs):
-        unsupported = sorted(name for name, value in kwargs.items() if value)
-        if unsupported:
-            raise NotImplementedError('window options {} (output grids given as k, shot noise, external '
-                                      'windows, fiber collisions, systematic templates) are ROADMAP A12'.format(unsupported))
-        if klim is None or theory is None:
-            raise NotImplementedError('pass klim= and theory=: the default grids and the default theory '
-                                      'are ROADMAP A12')
+    def initialize(self, klim=None, k=None, ells=None, wmatrix=None, theory=None,
+                   kin=None, kinrebin=None, ellsin=None,
+                   kinlim=None, shotnoise=0., fiber_collisions=None, systematic_templates=None):
+        if theory is None:
+            from ..theories.full_shape import KaiserTracerPowerSpectrumMultipoles
+            theory = KaiserTracerPowerSpectrumMultipoles()
         self.theory = theory
-        self.ells = tuple(sorted(klim.keys()))
-        self.kedges, self.k = [], []
-        for ell in self.ells:
-            lim = klim[ell]
-            step = lim[2] if len(lim) > 2 else 0.005
-            edges = np.arange(lim[0], lim[1] + step / 2., step)
-            self.kedges.append(np.column_stack([edges[:-1], edges[1:]]))
-            self.k.append((edges[:-1] + edges[1:]) / 2.)
-        if wmatrix is None:
-            resolution = 1
-        elif isinstance(wmatrix, dict) and 'resolution' in wmatrix:
-            resolution = int(wmatrix['resolution'])
+        self.shotnoise = float(shotnoise)
+        wshotnoise = None
+        from ..interop import is_path, read_window_matrix
+        external = wmatrix is not None and (
+            is_path(wmatrix)
+            or (isinstance(wmatrix, dict) and ('matrix' in wmatrix or 'value' in wmatrix))
+            or (not isinstance(wmatrix, (dict, tuple, list)) and hasattr(wmatrix, 'value')))
+        if external:
+            # the matrix defines the output k grids (rebinned/sliced to the
+            # data's k or to klim) and the input theory grid
+            if klim is not None:
+                self.ells = tuple(sorted(klim.keys()))
+            elif ells is not None:
+                self.ells = tuple(ells)
+            else:
+                raise ValueError('pass klim= or ells= with an external window matrix')
+            kout = None
+            if k is not None:
+                kout = [np.asarray(kk, dtype='f8') for kk in (k if np.ndim(k[0]) else [k] * len(self.ells))]
+            self.kin, self.wmatrix, self.k, self.ellsin, wshotnoise = read_window_matrix(
+                wmatrix, ells=self.ells, klim=klim, kout=kout, kin=kin, kinrebin=kinrebin, kinlim=kinlim, ellsin=ellsin)
+            self.kedges = [_centre_edges(kk) for kk in self.k]
         else:
-            raise NotImplementedError('window matrix {!r}: external and explicit windows are ROADMAP A12'.format(
-                type(wmatrix)))
-        self.kin, self.wmatrix = window_matrix_bininteg(self.kedges, resolution=resolution)
-        self.theory.init.update(k=self.kin, ells=self.ells)
+            if klim is not None:
+                self.ells = tuple(sorted(klim.keys()))
+                self.kedges, self.k = [], []
+                for ell in self.ells:
+                    lim = klim[ell]
+                    step = lim[2] if len(lim) > 2 else 0.005
+                    edges = np.arange(lim[0], lim[1] + step / 2., step)
+                    self.kedges.append(np.column_stack([edges[:-1], edges[1:]]))
+                    self.k.append((edges[:-1] + edges[1:]) / 2.)
+            else:
+                if k is None:
+                    k = np.linspace(0.01, 0.2, 39)
+                self.ells = tuple(ells) if ells is not None else (0, 2, 4)
+                self.k = [np.asarray(k, dtype='f8')] * len(self.ells) if np.ndim(k[0]) == 0 \
+                    else [np.asarray(kk) for kk in k]
+                self.kedges = [_centre_edges(kk) for kk in self.k]
+            self._set_matrix(wmatrix, kinlim)
+            self.ellsin = self.ells
+        self._xin = self.kin
+        self.theory.init.update(k=self.kin, ells=self.ellsin)
+        self.offset = np.zeros(self.wmatrix.shape[0])
+        if fiber_collisions is not None:
+            self._fold(fiber_collisions, diagonal=False)
+            self.kin = self._xin
+        self._set_offset(self.offset + self._shotnoise_offset(wshotnoise))
+        self._set_templates(systematic_templates, self.k)
+
+    def _shotnoise_offset(self, wshotnoise):
+        """The shot noise's constant contribution to the windowed flat vector
+        (the JAX package adds it per evaluation, in this order: the window's
+        response, then the fiber collisions' offset and the templates)."""
+        monopole = np.concatenate([np.full(len(kk), float(ell == 0)) for ell, kk in zip(self.ells, self.k)])
+        if not self.shotnoise:
+            return np.zeros_like(monopole)
+        if wshotnoise is not None:
+            # measured window response to a constant (shot-noise) input: the
+            # bare theory is convolved, then sn * (delta_l0 - Wsn) subtracted
+            return -self.shotnoise * (monopole - wshotnoise)
+        offset = -self.shotnoise * monopole
+        if 0 in self.ellsin:
+            # the shot noise added to the theory monopole (ells may come in any order:
+            # the monopole's row is not assumed first), through the window
+            nin, i0 = len(self.kin), self.ellsin.index(0)
+            offset = offset + self.shotnoise * self.wmatrix[:, i0 * nin:(i0 + 1) * nin].sum(axis=1)
+        return offset
+
+    def _set_matrix(self, wmatrix, kinlim):
+        if wmatrix is None:
+            # direct evaluation on volume-weighted bin centers
+            self.kin, self.wmatrix = window_matrix_bininteg(self.kedges, resolution=1)
+        elif isinstance(wmatrix, dict) and 'resolution' in wmatrix:
+            self.kin, self.wmatrix = window_matrix_bininteg(self.kedges, resolution=int(wmatrix['resolution']))
+        elif isinstance(wmatrix, (tuple, list)) and len(wmatrix) == 2:
+            kin, matrix = wmatrix
+            self.kin = np.asarray(kin, dtype='f8')
+            matrix = np.asarray(matrix, dtype='f8')
+            nout = sum(len(kk) for kk in self.k)
+            if matrix.shape[0] != nout:
+                raise ValueError('window matrix rows {} != data size {}'.format(matrix.shape[0], nout))
+            self.wmatrix = matrix
+            if kinlim is not None:
+                mask = (self.kin >= kinlim[0]) & (self.kin <= kinlim[1])
+                self.kin = self.kin[mask]
+                self.wmatrix = matrix[:, np.tile(mask, matrix.shape[1] // mask.size)]
+        else:
+            raise ValueError('unsupported wmatrix specification: {}'.format(type(wmatrix)))
 
     def calculate(self, **params):
-        theory = self.theory.power
-        flat = theory.reshape(theory.shape[:-2] + (-1,))
-        self.flatpower = flat @ self.const('wmatrix').T
+        self.flatpower = self._windowed(self.theory.power, params)
+
+    @property
+    def power(self):
+        """Windowed multipoles, a list of (B, nk_ell) tensors."""
+        return list(torch.split(self.flatpower, [len(kk) for kk in self.k], dim=-1))
 
     def get(self):
         return self.flatpower
 
 
-class WindowedCorrelationFunctionMultipoles(Calculator):
+class WindowedCorrelationFunctionMultipoles(_WindowedMultipoles):
     """Window-convolved (binned) theory xi_l(s).
 
     Parameters
@@ -189,13 +400,15 @@ class WindowedCorrelationFunctionMultipoles(Calculator):
     wmatrix : {'sedges', 'muedges', 'wcounts'[, 'ellsin', 'resolution']}, optional
         The window of measured RR(s, mu) pair counts (:func:`window_matrix_RR`);
         otherwise bin integration at resolution 3.
-    theory : theory xi multipoles calculator
+    theory : theory xi multipoles calculator (default: damped BAO wiggles)
+    fiber_collisions : a xi fiber-collision calculator, optional
+        Its s-diagonal kernel is folded into the matrix at initialization.
+    systematic_templates : templates spec, optional
+        Additive templates with linear amplitudes (see the P(k) window).
     """
 
     def initialize(self, slim=None, s=None, ells=None, theory=None, wmatrix=None, fiber_collisions=None,
                    systematic_templates=None):
-        if fiber_collisions is not None or systematic_templates is not None:
-            raise NotImplementedError('window options fiber_collisions= and systematic_templates= are ROADMAP A12')
         if theory is None:
             from ..theories.bao import DampedBAOWigglesTracerCorrelationFunctionMultipoles
             theory = DampedBAOWigglesTracerCorrelationFunctionMultipoles()
@@ -214,11 +427,7 @@ class WindowedCorrelationFunctionMultipoles(Calculator):
                 s = np.linspace(20., 150., 33)
             self.ells = tuple(ells) if ells is not None else (0, 2)
             self.s = [np.asarray(s, dtype='f8')] * len(self.ells)
-            self.sedges = []
-            for ss in self.s:
-                edges = np.concatenate([[ss[0] - (ss[1] - ss[0]) / 2.], (ss[1:] + ss[:-1]) / 2.,
-                                        [ss[-1] + (ss[-1] - ss[-2]) / 2.]])
-                self.sedges.append(np.column_stack([edges[:-1], edges[1:]]))
+            self.sedges = [_centre_edges(ss) for ss in self.s]
         if isinstance(wmatrix, dict) and 'wcounts' in wmatrix:
             self.ellsin = tuple(wmatrix.get('ellsin', (0, 2, 4)))
             self.sin, self.wmatrix = window_matrix_RR(dict(zip(self.ells, self.sedges)), wmatrix['sedges'],
@@ -227,11 +436,21 @@ class WindowedCorrelationFunctionMultipoles(Calculator):
         else:
             self.ellsin = self.ells
             self.sin, self.wmatrix = window_matrix_bininteg(self.sedges, resolution=3)
+        self._xin = self.sin
         self.theory.init.update(s=self.sin, ells=self.ellsin)
+        self.offset = np.zeros(self.wmatrix.shape[0])
+        if fiber_collisions is not None:
+            self._fold(fiber_collisions, diagonal=True)
+        self._set_offset(self.offset)
+        self._set_templates(systematic_templates, self.s)
 
     def calculate(self, **params):
-        corr = self.theory.corr
-        self.flatcorr = corr.reshape(corr.shape[:-2] + (-1,)) @ self.const('wmatrix').T
+        self.flatcorr = self._windowed(self.theory.corr, params)
+
+    @property
+    def corr(self):
+        """Windowed multipoles, a list of (B, ns_ell) tensors."""
+        return list(torch.split(self.flatcorr, [len(ss) for ss in self.s], dim=-1))
 
     def get(self):
         return self.flatcorr

@@ -1,7 +1,7 @@
 """Small host-side utilities: base class, name matching, safe expression evaluation.
 
-Counterpart of ``desilike_tpu/utils.py``, limited to what the BAO slice
-imports (``BaseClass``, ``is_sequence``, ``find_names``, ``evaluate``);
+Counterpart of ``desilike_tpu/utils.py``, limited to what the port imports
+(``BaseClass``, ``is_sequence``, ``find_names``, ``evaluate``);
 logging setup and the contour helpers wait for the samplers and profilers.
 """
 
@@ -14,11 +14,21 @@ import torch
 
 
 class BaseClass(object):
-    """Mixin providing a class logger."""
+    """Mixin providing a class logger and shallow-copy helper."""
 
     @property
     def log(self):
         return logging.getLogger(self.__class__.__name__)
+
+    def copy(self, **kwargs):
+        import copy
+        new = copy.copy(self)
+        new.__dict__.update(kwargs)
+        return new
+
+    def deepcopy(self):
+        import copy
+        return copy.deepcopy(self)
 
 
 def is_sequence(item):

@@ -66,6 +66,15 @@ writes its reference file under ``tests/data``:
   ``tests/test_torch_ept.py`` at two points, and
   ``SimpleTracerPowerSpectrumMultipoles`` and the Kaiser tracer on the
   eh99 engine (a scale-dependent growth rate) at two points each;
+- ``observables``: the observables layer, in float64 (x64)
+  (:func:`observables_reference`) -> ``torch_port_observables_reference.npz``:
+  config 3f (config 3d fed from the files that ``chip_smoke.write_files``
+  writes: measured data, 1000 mocks, a window file, fiber collisions and
+  systematic templates; :func:`build_files_likelihood`) at full width and
+  small, the fiducial multipoles the files are made from, the small build's
+  host state, the xi observable's options, the compression observables and
+  the BAO compression likelihood, the bispectrum likelihood with mocks and
+  the cut-sky footprints;
 - ``hessian``: config 4's log-density in the gradient samplers' unconstrained
   space (``NUTSSampler._logdens_grad``: the logit transform of the bounded
   parameters and its log-Jacobian), its gradient and its Hessian, in
@@ -103,8 +112,8 @@ with numpy alone, and ``tests/test_torch_bao_likelihood.py`` and
 JAX package so that the files cannot go stale.
 
 Run from the repository root:
-``JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py [bao|joint|ept|xi|marg|hessian|emu|direct|templates|tns|theories|tier1]``
-(all twelve when no name is given).
+``JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py [bao|joint|ept|xi|marg|hessian|emu|direct|templates|tns|theories|tier1|observables]``
+(all thirteen when no name is given).
 """
 
 import os
@@ -117,7 +126,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUTPUTS = {name: os.path.join(ROOT, 'tests', 'data', 'torch_port_{}_reference.npz'.format(name))
            for name in ('bao', 'joint', 'ept', 'xi', 'marg', 'hessian', 'direct', 'templates', 'tns', 'theories',
-                        'tier1')}
+                        'tier1', 'observables')}
 OUTPUTS['emu'] = os.path.join(ROOT, 'tests', 'data', 'torch_port_emulator_reference.npz')
 NPOINTS = 16
 HESSIAN_STEP = 1e-4  # central differences of the x64 gradient in the unconstrained space
@@ -1171,6 +1180,226 @@ def tier1_reference():
     return arrays
 
 
+def build_files_likelihood(directory, small=False):
+    """Config 3f in the JAX package: config 3d (:func:`build_ept_direct_likelihood`)
+    fed from the files that ``chip_smoke.write_files`` wrote into
+    ``directory``, as ``chip_smoke.build_files_likelihood`` builds it in the
+    port (the same layout, fiber collisions and systematic templates)."""
+    import chip_smoke
+    from desilike_tpu.theories import EPTTracerPowerSpectrumMultipoles, DirectPowerSpectrumTemplate
+    from desilike_tpu.observables import (TracerPowerSpectrumMultipolesObservable,
+                                          TopHatFiberCollisionsPowerSpectrumMultipoles)
+    from desilike_tpu.likelihoods import ObservablesGaussianLikelihood
+    layout = chip_smoke.files_layout(small)
+    template = DirectPowerSpectrumTemplate(z=0.8, **({'varied': layout['varied']} if layout['varied'] else {}))
+    theory = EPTTracerPowerSpectrumMultipoles(ells=chip_smoke.FILES_ELLS, template=template, **layout['ept'])
+    theory.init.params = {'ct*': dict(derived='.marg'), 'sn*': dict(derived='.marg')}
+    observable = TracerPowerSpectrumMultipolesObservable(
+        data=os.path.join(directory, 'data.npy'), covariance=[os.path.join(directory, 'mock_*.npy')],
+        wmatrix=os.path.join(directory, 'wmatrix.npy'),
+        klim={ell: (0.02, 0.2, layout['step']) for ell in chip_smoke.FILES_ELLS}, kinlim=chip_smoke.FILES_KINLIM,
+        fiber_collisions=TopHatFiberCollisionsPowerSpectrumMultipoles(**chip_smoke.FILES_FIBER_COLLISIONS),
+        systematic_templates=chip_smoke.SYSTEMATIC_TEMPLATES, theory=theory)
+    like = ObservablesGaussianLikelihood(observables=[observable])
+    like.pipeline.params.update({'syst_*': dict(derived='.marg')}, basename=True)
+    return like
+
+
+def files_fiducial_power(small=False):
+    """The EPT multipoles (0, 2, 4) of config 3f's theory on the window's
+    input grid at b1 = 2 (the other parameters at their defaults), from
+    which ``chip_smoke.write_files`` makes the data and the mocks."""
+    import chip_smoke
+    from desilike_tpu.theories import EPTTracerPowerSpectrumMultipoles, DirectPowerSpectrumTemplate
+    layout = chip_smoke.files_layout(small)
+    template = DirectPowerSpectrumTemplate(z=0.8, **({'varied': layout['varied']} if layout['varied'] else {}))
+    theory = EPTTracerPowerSpectrumMultipoles(ells=chip_smoke.FILES_ELLS, k=layout['kin'], template=template,
+                                              **layout['ept'])
+    theory.pipeline.evaluate({'b1': 2.})
+    return np.asarray(theory.power, dtype='f8')
+
+
+def window_offset(window):
+    """The constant that the JAX package's P(k) window adds per evaluation,
+    as one vector: its folded fiber-collision term and its shot-noise
+    response (``desilike_tpu/observables/window.py:363-392``)."""
+    flat_ells = np.concatenate([np.full(len(kk), float(ell == 0)) for ell, kk in zip(window.ells, window.k)])
+    offset = np.zeros(flat_ells.size) if window._offset is None else np.asarray(window._offset, dtype='f8')
+    sn = window.shotnoise
+    if sn and window._wshotnoise is not None:
+        offset = offset - sn * (flat_ells - np.asarray(window._wshotnoise))
+    elif sn:
+        nin = len(window.kin)
+        if 0 in window.ellsin:
+            i0 = window.ellsin.index(0)
+            offset = offset + sn * np.asarray(window.wmatrix)[:, i0 * nin:(i0 + 1) * nin].sum(axis=1)
+        offset = offset - sn * flat_ells
+    return offset
+
+
+def files_state(like, prefix):
+    """The host state of config 3f's JAX likelihood (its ``logpost_fn``
+    built, so its whitening holds the Percival factor): what
+    ``desilike_tpu_torch.interop.state_from_numpy`` loads, the mock factors
+    and the inputs they come from."""
+    pipe = like.pipeline
+    window = like.observables[0].wmatrix
+    solved = pipe.solved_params
+    static_idx = like._static_linear_indices(pipe, solved, like.likelihoods)
+    (static_J,) = like._compute_static_J(pipe, solved.names(), static_idx, like.likelihoods)
+    whiten, base = np.asarray(like._whiten, dtype='f8'), np.asarray(like._whiten_base, dtype='f8')
+    arrays = dict(flatdata=like.flatdata, whiten=whiten, whiten_base=base, static_J=static_J,
+                  static_names=np.array([solved[i].name for i in static_idx]),
+                  wmatrix=window.wmatrix, offset=window_offset(window), templates=window._templates, kin=window.kin,
+                  k=np.array(window.k), covariance=like.observables[0].covariance, hartlap=like.hartlap,
+                  percival=np.sum(base ** 2) / np.sum(whiten ** 2), nmocks=like._nmocks,
+                  pk_dd_fid=window.theory.template.pk_dd_fid, pknow_dd_fid=window.theory.template.pknow_dd_fid)
+    return {prefix + key: np.asarray(value) for key, value in arrays.items()}
+
+
+# the options of the xi observable whose raises tests/test_torch_unported.py held, now compared: the theory, its
+# bins, and the log-posterior at two points (b1, and the template amplitude where there is one)
+XI_OPTION_SLIM = {0: (48., 152., 4.), 2: (48., 152., 4.)}
+XI_OPTION_POINTS = {'fiber_collisions': [[2.0], [2.1]], 'systematic_templates': [[2.0, 0.], [2.1, 3e-4]],
+                    'array_data': [[2.0], [2.1]], 'covariance': [[2.0], [2.1]]}
+
+
+def xi_option_likelihood(case, data=None):
+    """The damped BAO xi observable of :data:`XI_OPTION_SLIM` with the
+    option ``case`` in a Gaussian likelihood (footprint 2e9, 5e-4 unless
+    the observable carries its covariance)."""
+    from desilike_tpu.theories import DampedBAOWigglesTracerCorrelationFunctionMultipoles, BAOPowerSpectrumTemplate
+    from desilike_tpu.observables import (TracerCorrelationFunctionMultipolesObservable, BoxFootprint,
+                                          TopHatFiberCollisionsCorrelationFunctionMultipoles)
+    from desilike_tpu.likelihoods import ObservablesGaussianLikelihood
+    theory = DampedBAOWigglesTracerCorrelationFunctionMultipoles(ells=(0, 2), template=BAOPowerSpectrumTemplate(z=0.8))
+    kwargs = {'fiber_collisions': dict(fiber_collisions=TopHatFiberCollisionsCorrelationFunctionMultipoles(fs=0.5, Dfc=20.)),
+              'systematic_templates': dict(systematic_templates={'syst': np.ones(52)}),
+              'array_data': dict(data=data), 'covariance': dict(covariance=1e-6 * np.eye(52))}[case]
+    observable = TracerCorrelationFunctionMultipolesObservable(slim=XI_OPTION_SLIM, theory=theory,
+                                                               **dict(dict(data={'b1': 2.}), **kwargs))
+    footprints = None if case == 'covariance' else [BoxFootprint(volume=2e9, nbar=5e-4)]
+    return ObservablesGaussianLikelihood(observables=[observable], footprints=footprints)
+
+
+# the compression observables at the extractors' settings of tests/test_torch_templates.py
+COMPRESSION_CASES = {'BAOCompressionObservable': dict(z=0.8), 'ShapeFitCompressionObservable': dict(z=0.8),
+                     'StandardCompressionObservable': dict(z=0.8), 'WiggleSplitCompressionObservable': dict(z=0.8),
+                     'BandVelocityCompressionObservable': dict(z=0.8, kp=BAND_KP),
+                     'TurnOverCompressionObservable': dict(z=0.8), 'P1DCompressionObservable': dict(z=3.),
+                     'BAOPhaseShiftCompressionObservable': dict(z=0.8)}
+# the BAO compression likelihood: DM/rd and DH/rd at z = 0.8 with 1.5% and 2.5% errors, correlated at -0.4, and
+# h, omega_cdm, omega_b varied
+BAO_COMPRESSION = dict(z=0.8, data=[17.9, 20.5], varied=('h', 'omega_cdm', 'omega_b'))
+
+
+def bao_compression_covariance():
+    sigma = np.array([0.015 * 17.9, 0.025 * 20.5])
+    return np.outer(sigma, sigma) * np.array([[1., -0.4], [-0.4, 1.]])
+
+
+def build_bao_compression_likelihood():
+    from desilike_tpu.theories import Cosmology
+    from desilike_tpu.observables import BAOCompressionObservable
+    from desilike_tpu.likelihoods import ObservablesGaussianLikelihood
+    cosmo = Cosmology()
+    cosmo.init.params = {name: dict(fixed=False) for name in BAO_COMPRESSION['varied']}
+    observable = BAOCompressionObservable(data=BAO_COMPRESSION['data'], covariance=bao_compression_covariance(),
+                                          z=BAO_COMPRESSION['z'], cosmo=cosmo)
+    return ObservablesGaussianLikelihood(observables=[observable])
+
+
+def cutsky_cases():
+    """The cut-sky footprints of the port's tests: one redshift bin with a
+    constant density, and an n(z) profile over three bins."""
+    return [dict(area=1000., zrange=(0.6, 1.0), nbar=5e-4),
+            dict(area=14000., zrange=(0.4, 0.6, 0.8, 1.1), nbar=(3e-4, 5e-4, 2e-4))]
+
+
+def observables_reference(path):
+    """``torch_port_observables_reference.npz`` in x64, written to ``path``:
+    config 3f's fiducial multipoles (``fiducial_power``, and
+    ``small_fiducial_power`` at the small width) on its window's input grid;
+    config 3f at the small width, from files written with them, its host
+    state (:func:`files_state`, prefixed ``small_``) and its log-posterior,
+    gradient and solved parameters at 16 points; config 3f at full width,
+    its mock factors and the same at 16 points; the xi observable's options
+    (:func:`xi_option_likelihood`) at two points each; the compression
+    observables' flat theories at the extractors' two points and the BAO
+    compression likelihood at 16 points; the bispectrum likelihood with a
+    covariance from 40 mocks at its 4 points; the cut-sky footprints."""
+    import chip_smoke
+    from desilike_tpu.core import Pipeline
+    from desilike_tpu import observables as O
+    from desilike_tpu.theories import Cosmology
+    arrays = {'fiducial_power': files_fiducial_power(), 'small_fiducial_power': files_fiducial_power(small=True)}
+    for prefix, small in (('small_', True), ('', False)):
+        with tempfile.TemporaryDirectory() as tmp:
+            chip_smoke.write_files(tmp, chip_smoke.FILES_SEED, small=small,
+                                   fiducial_power=arrays[prefix + 'fiducial_power'])
+            like = build_files_likelihood(tmp, small=small)
+            names = like.pipeline.varied_params.names()
+            points = reference_points(names).astype('f4').astype('f8')
+            values, grads, solved = evaluate_likelihood(like, names, points)
+            arrays.update({prefix + 'names': np.array(names), prefix + 'points': points,
+                           prefix + 'solved_names': np.array(returned_solved_names(like)),
+                           prefix + 'logpost_x64': values, prefix + 'grad_x64': grads, prefix + 'solved_x64': solved})
+            state = files_state(like, prefix)
+            if small:
+                arrays.update(state)
+            else:
+                arrays.update({key: state[key] for key in ('hartlap', 'percival', 'nmocks', 'flatdata', 'offset')})
+    data = None
+    for case, points in XI_OPTION_POINTS.items():
+        like = xi_option_likelihood(case, data=data)
+        like.runtime_info.initialize()
+        if case == 'fiber_collisions':
+            data = 1.0005 * np.asarray(like.flatdata)  # the array case's data: 0.05% off the generated data
+            arrays['xi_option_array_data'] = data
+        names = ['b1'] + [name for name in ('syst',) if name in like.pipeline.varied_params.names()]
+        values, grads, _ = evaluate_likelihood(like, names, np.array(points, dtype='f8'))
+        arrays['xi_option_{}_logpost_x64'.format(case)] = values
+        arrays['xi_option_{}_flatdata'.format(case)] = np.asarray(like.flatdata, dtype='f8')
+    for case, kwargs in COMPRESSION_CASES.items():
+        cosmo = Cosmology()
+        cosmo.init.params = {name: dict(fixed=False) for name in EXTRACTOR_POINTS[0]}
+        cls = getattr(O, case)
+        nquantities = len(cls._quantities_default(kwargs))
+        observable = cls(data=np.ones(nquantities), covariance=np.eye(nquantities), cosmo=cosmo, **kwargs)
+        pipe = Pipeline(observable)
+        rows = []
+        for values in EXTRACTOR_POINTS:
+            pipe.evaluate(values)
+            rows.append(np.asarray(observable.flattheory, dtype='f8'))
+        arrays['compression_' + case] = np.array(rows)
+    like = build_bao_compression_likelihood()
+    names = like.pipeline.varied_params.names()
+    points = reference_points(names).astype('f4').astype('f8')
+    values, grads, _ = evaluate_likelihood(like, names, points)
+    arrays.update({'bao_compression_names': np.array(names), 'bao_compression_points': points,
+                   'bao_compression_logpost_x64': values, 'bao_compression_grad_x64': grads})
+    like = build_bispectrum_likelihood()
+    names = like.pipeline.varied_params.names()
+    points = reference_points(names, npoints=4).astype('f4').astype('f8')
+    flatdata = np.asarray(like.flatdata, dtype='f8')
+    mocks = flatdata * (1. + 0.05 * np.random.default_rng(7).standard_normal((40, flatdata.size)))
+    from desilike_tpu.theories import TreeLevelBispectrumMultipoles, ShapeFitPowerSpectrumTemplate
+    from desilike_tpu.likelihoods import ObservablesGaussianLikelihood
+    observable = O.TracerBispectrumMultipolesObservable(
+        data=flatdata, covariance=list(mocks), triangles=BISPECTRUM_TRIANGLES, ells=(0, 2),
+        theory=TreeLevelBispectrumMultipoles(template=ShapeFitPowerSpectrumTemplate(z=0.8)))
+    like = ObservablesGaussianLikelihood(observables=[observable])
+    values, grads, _ = evaluate_likelihood(like, names, points)
+    arrays.update({'bispectrum_mocks': mocks, 'bispectrum_mocks_logpost_x64': values,
+                   'bispectrum_mocks_grad_x64': grads, 'bispectrum_mocks_hartlap': like.hartlap,
+                   'bispectrum_mocks_whiten': np.asarray(like._whiten, dtype='f8')})
+    for i, kwargs in enumerate(cutsky_cases()):
+        footprint = O.CutskyFootprint(**kwargs)
+        arrays['cutsky_{:d}'.format(i)] = np.array([float(footprint.volume), float(footprint.size), footprint.zeff,
+                                                    float(np.mean(footprint.nbar)), float(footprint.shotnoise)])
+    np.savez(path, **{key: np.asarray(value) for key, value in arrays.items()})
+
+
 def build_jax_likelihood(config):
     if config == 'bao':
         import __graft_entry__
@@ -1332,6 +1561,11 @@ if __name__ == '__main__':
         jax.config.update('jax_platforms', 'cpu')
         theories_x64(sys.argv[2])
         sys.exit(0)
+    if sys.argv[1:2] == ['--x64-observables']:
+        import jax
+        jax.config.update('jax_platforms', 'cpu')
+        observables_reference(sys.argv[2])
+        sys.exit(0)
     if sys.argv[1:2] == ['--x64-emu']:
         import jax
         jax.config.update('jax_platforms', 'cpu')
@@ -1355,6 +1589,8 @@ if __name__ == '__main__':
             arrays = run_x64('--x64-templates')
         elif config == 'tns':
             arrays = run_x64('--x64-tns')
+        elif config == 'observables':
+            arrays = run_x64('--x64-observables')
         elif config == 'theories':
             arrays = theories_reference()
         elif config == 'tier1':

@@ -1,5 +1,6 @@
 """The port's general marginalization path on the CPU: the likelihood tests of
-``tests/test_likelihood.py`` (except its Percival tests, ROADMAP A12) and the
+``tests/test_likelihood.py`` (its Percival tests are in
+``tests/test_torch_files_likelihood.py``, with the other mock covariances) and the
 cubic transform of ``tests/test_interop.py``, on the port's own pipelines.
 
 Like the JAX package's tests these hold the port against closed forms and

@@ -9,7 +9,10 @@ multipoles, 1.0e-6 to 1.1e-6 for its velocity multipoles, 1.6e-6 for the
 1-loop bispectrum); the bispectrum observable's likelihood (float32) at 4
 points within 2e-2 on the log-posterior and 5e-4 of the gradient's norm
 (configs 3 and 4's limits against x64; measured 2.7e-3, 1e-5 of the
-log-posterior, which sums residuals of 1e9-sized bispectra in float32); the Lyman-alpha extractor in float64
+log-posterior, which sums residuals of 1e9-sized bispectra in float32), and
+the same with a covariance from 40 mocks (its Hartlap factor 1e-12, its
+whitening with the Percival factor 1e-10, frozen in
+``tests/data/torch_port_observables_reference.npz``); the Lyman-alpha extractor in float64
 within 1e-10 (relative).
 """
 
@@ -55,7 +58,8 @@ def test_bispectrum_one_loop():
 def test_bispectrum_observable_likelihood():
     """The bispectrum observable (monopole and quadrupole on 5 triangles,
     data generated from the theory) in a Gaussian likelihood with its
-    explicit diagonal covariance, at 4 points."""
+    explicit diagonal covariance, at 4 points; then with a covariance from
+    40 mocks."""
     reference = np.load(REFERENCE)
     data = {'b1': 2., 'b2': 0.3}
     flatdata = reference['bispectrum_like_flatdata']
@@ -74,9 +78,24 @@ def test_bispectrum_observable_likelihood():
     np.testing.assert_allclose(logpost.detach().numpy(), reference['bispectrum_like_logpost_x64'], rtol=0., atol=2e-2)
     grad, ref = torch.stack([values[n].grad for n in names], dim=-1).numpy(), reference['bispectrum_like_grad_x64']
     assert np.max(np.linalg.norm(grad - ref, axis=-1) / np.linalg.norm(ref, axis=-1)) < 5e-4
-    with pytest.raises(NotImplementedError, match='A12'):
-        TracerBispectrumMultipolesObservable(data=data, covariance=[flatdata, flatdata * 1.01], triangles=TRIANGLES,
-                                             ells=(0, 2)).runtime_info.initialize()
+    # a covariance from 40 mocks (which raised before the observables layer was ported): the Hartlap factor at
+    # build, the Percival factor in logpost_fn, against the JAX package's (tests/data/torch_port_observables_reference.npz)
+    mocks_reference = np.load(os.path.join(os.path.dirname(__file__), 'data', 'torch_port_observables_reference.npz'))
+    observable = TracerBispectrumMultipolesObservable(
+        data=flatdata, covariance=list(mocks_reference['bispectrum_mocks']), triangles=TRIANGLES, ells=(0, 2),
+        theory=theories.TreeLevelBispectrumMultipoles(template=theories.ShapeFitPowerSpectrumTemplate(z=0.8)))
+    like = ObservablesGaussianLikelihood(observables=[observable], device='cpu')
+    values = {n: torch.tensor(points[:, i], dtype=torch.float32, requires_grad=True) for i, n in enumerate(names)}
+    logpost, _ = like.logpost_fn()(values)
+    logpost.sum().backward()
+    assert observable.nmocks == 40
+    assert like.hartlap == pytest.approx(float(mocks_reference['bispectrum_mocks_hartlap']), rel=1e-12)
+    np.testing.assert_allclose(like._whiten, mocks_reference['bispectrum_mocks_whiten'], rtol=1e-10,
+                               atol=1e-10 * np.abs(mocks_reference['bispectrum_mocks_whiten']).max())
+    np.testing.assert_allclose(logpost.detach().numpy(), mocks_reference['bispectrum_mocks_logpost_x64'], rtol=0.,
+                               atol=2e-2)
+    grad, ref = torch.stack([values[n].grad for n in names], dim=-1).numpy(), mocks_reference['bispectrum_mocks_grad_x64']
+    assert np.max(np.linalg.norm(grad - ref, axis=-1) / np.linalg.norm(ref, axis=-1)) < 5e-4
 
 
 def test_lya_extractor():

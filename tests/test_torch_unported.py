@@ -1,6 +1,6 @@
 """Options of the port's theories, observables and likelihood that are not
 ported yet raise ``NotImplementedError`` naming what is missing or its
-ROADMAP item. The modules themselves are held against the JAX package in
+ROADMAP item (no raise names A12: the observables layer is ported). The modules themselves are held against the JAX package in
 ``tests/test_torch_full_shape.py``, ``tests/test_torch_xi.py`` and the
 likelihood files; these cases live apart so that those files hold fewer
 tests than ``tests/test_bindings.py``: pytest-xdist's ``--dist loadfile``
@@ -12,8 +12,9 @@ ported and is now held against the frozen JAX values, and the default
 template of the EPT theory (a few seconds to build its FFTLog tables): that
 and the template options and eh99's growth rate raised before the per-chain
 cosmology was ported, the remaining BAO xi models and the emulator engine
-before the other theories were: the cases that held the raises now hold
-the behaviour.
+before the other theories were, and the xi observable's options and the
+windows' default theories before the observables layer was: the cases that
+held the raises now hold the behaviour.
 """
 
 import os
@@ -182,14 +183,79 @@ def test_solved_counterterms_through_xi_raise():
     assert np.all(np.abs(got - ref) <= 1e-3 * np.maximum(width, np.abs(ref)))
 
 
-@pytest.mark.parametrize('kwargs', [dict(fiber_collisions=object()), dict(systematic_templates={'syst': np.ones(52)}),
-                                    dict(data=np.zeros(52)), dict(covariance=np.eye(52))],
+@pytest.mark.parametrize('kwargs', [dict(fiber_collisions=True), dict(systematic_templates={'syst': np.ones(52)}),
+                                    dict(data='array'), dict(covariance=1e-6 * np.eye(52))],
                          ids=['fiber_collisions', 'systematic_templates', 'array_data', 'covariance'])
-def test_unported_xi_observable_options_raise(kwargs):
-    """Fiber collisions, systematic templates, measured data vectors and
-    covariances attached to the observable wait for A12."""
+def test_unported_xi_observable_options_raise(request, kwargs):
+    """The options of the xi observable that raised before the observables
+    layer was ported (top-hat fiber collisions, fs = 0.5, Dfc = 20 Mpc/h,
+    folded into the window; a flat systematic template with its amplitude
+    varied; a measured data vector, 0.05% off the generated one; a
+    covariance attached to the observable), each in a Gaussian likelihood
+    (the footprint's covariance unless the observable carries one), against
+    the JAX package's x64 log-posterior at two points frozen in
+    ``tests/data/torch_port_observables_reference.npz``: within 2e-3 (config
+    1's limit), in float32."""
+    case = request.node.callspec.id
+    from desilike_tpu_torch.observables import TopHatFiberCollisionsCorrelationFunctionMultipoles
+    reference = np.load(os.path.join(os.path.dirname(__file__), 'data', 'torch_port_observables_reference.npz'))
+    if case == 'fiber_collisions':
+        kwargs = dict(fiber_collisions=TopHatFiberCollisionsCorrelationFunctionMultipoles(fs=0.5, Dfc=20.))
+    elif case == 'array_data':
+        kwargs = dict(data=reference['xi_option_array_data'])
     theory = DampedBAOWigglesTracerCorrelationFunctionMultipoles(ells=(0, 2), template=BAOPowerSpectrumTemplate(z=0.8))
     observable = TracerCorrelationFunctionMultipolesObservable(slim=SLIM, theory=theory, device='cpu',
                                                                **dict(dict(data={'b1': 2.}), **kwargs))
-    with pytest.raises(NotImplementedError, match='A12'):
-        observable.runtime_info.initialize()
+    footprints = None if case == 'covariance' else [BoxFootprint(volume=2e9, nbar=5e-4)]
+    like = ObservablesGaussianLikelihood(observables=[observable], footprints=footprints, device='cpu')
+    like.runtime_info.initialize()
+    np.testing.assert_allclose(like.flatdata, reference['xi_option_{}_flatdata'.format(case)], rtol=1e-5,
+                               atol=1e-5 * np.abs(like.flatdata).max())
+    names = ['b1'] + (['syst'] if case == 'systematic_templates' else [])
+    assert set(names) <= set(like.pipeline.varied_params.names())
+    points = [[2.0], [2.1]] if case != 'systematic_templates' else [[2.0, 0.], [2.1, 3e-4]]
+    values = {name: torch.tensor([point[i] for point in points]) for i, name in enumerate(names)}
+    logpost, _ = like.logpost_fn()(values)
+    np.testing.assert_allclose(logpost.numpy(), reference['xi_option_{}_logpost_x64'.format(case)], rtol=0., atol=2e-3)
+
+
+def test_no_a12_raise():
+    """No ``NotImplementedError`` of the port names ROADMAP A12 (the
+    observables layer is ported); plotting and ``Profiles`` sources raise
+    naming A15, where they go."""
+    import re
+    from desilike_tpu_torch import interop, ObservableArray, TracerPowerSpectrumMultipolesObservable
+    root = os.path.join(os.path.dirname(os.path.dirname(__file__)), 'desilike_tpu_torch')
+    for directory, _, files in os.walk(root):
+        for name in files:
+            if name.endswith('.py'):
+                with open(os.path.join(directory, name)) as file:
+                    source = file.read()
+                for raised in re.findall(r'NotImplementedError\((.*?)\)\n', source, flags=re.S):
+                    assert 'A12' not in raised, (name, raised)
+    with pytest.raises(NotImplementedError, match='A15'):
+        ObservableArray(x=[K]).plot()
+    with pytest.raises(NotImplementedError, match='A15'):
+        TracerPowerSpectrumMultipolesObservable(data=np.zeros(K.size), k=K, ells=(0,)).plot()
+
+    class Profiles(object):
+        bestfit = {}
+
+    with pytest.raises(NotImplementedError, match='A15'):
+        interop.load_source(Profiles())
+
+
+def test_default_window_theories():
+    """The windows' default theories, which raised before the observables
+    layer was ported, as the JAX package's (``observables/window.py:230-232``,
+    :424-426): the Kaiser tracer multipoles in P(k), on the window's input
+    grid; the damped BAO wiggles in xi."""
+    from desilike_tpu_torch import WindowedPowerSpectrumMultipoles, WindowedCorrelationFunctionMultipoles
+    window = WindowedPowerSpectrumMultipoles(klim={0: (0.02, 0.2, 0.01)}, device='cpu')
+    window.runtime_info.initialize()
+    assert isinstance(window.theory, KaiserTracerPowerSpectrumMultipoles)
+    np.testing.assert_array_equal(window.theory.k, window.kin)
+    window = WindowedCorrelationFunctionMultipoles(slim=SLIM, device='cpu')
+    window.runtime_info.initialize()
+    assert isinstance(window.theory, DampedBAOWigglesTracerCorrelationFunctionMultipoles)
+    np.testing.assert_array_equal(window.theory.s, window.sin)
