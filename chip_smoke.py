@@ -22,7 +22,9 @@ template's pk up at 460800 points a chain, :func:`build_tns_likelihood`);
 the batched config-3f log-posterior (BASELINE's config 3 fed from files:
 measured data, 1000 mocks, a window file, fiber collisions and systematic
 templates, :func:`build_files_likelihood` over the files :func:`write_files`
-writes) and the BAO compression likelihood; and the gradient samplers (ChEES, NUTS) over config 4, ChEES over config 3,
+writes) and the BAO compression likelihood; the batched config-3j
+log-posterior (config 3d + the CMB distance prior + DES-Y5 supernovae + BBN,
+:func:`build_probes_likelihood`), ``Cosmology(theta=True)``; and the gradient samplers (ChEES, NUTS) over config 4, ChEES over config 3,
 NUTS over config 5.
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions, the
@@ -112,7 +114,19 @@ NUTS over config 5.
    config 3d's, the shapes each kernel launch gets), its frozen JAX x64
    values in ``tests/data/torch_port_observables_reference.npz`` and the CPU
    path at 4 points. The BAO compression likelihood
-   (:func:`check_bao_compression`): B = 4096, its frozen JAX x64 values;
+   (:func:`check_bao_compression`): B = 4096, its frozen JAX x64 values.
+   Config 3j (:func:`check_config3j`: config 3d + the CMB distance prior +
+   DES-Y5 supernovae + BBN on one ``Cosmology`` node): its 1829 supernovae
+   written and read, forward at B = 4096 and 32768 and with the gradient at
+   4096 (launches, peak memory, the solved ``Mb``, wall and device
+   milliseconds and busy share beside config 3d's), its frozen JAX x64
+   values and solved parameters in
+   ``tests/data/torch_port_probes_reference.npz``, the CPU path at 4 points;
+   ``Cosmology(theta=True)`` at B = 4096 (:func:`check_theta`: converged
+   share, residual, gradient, h against JAX x64); the CMB family
+   (:func:`check_cmb_family`: each likelihood from files the port's writers
+   wrote, at B = 4096 forward and with the gradient, against the port's
+   CPU path at CMB_CHECK_ROWS chains);
 4. times (reported, not gated): the Clenshaw kernel's device time from
    CUDA-graph replay of 50 launches at (4096, 560, 202) shared and per-row,
    (4096, 288, 202) per-row and (65536, 560, 202) shared, the coefficient
@@ -249,6 +263,27 @@ FILES_NBAR, FILES_VOLUME = 5e-4, 2e9  # config 3d's footprint: the shot noise an
 FILES_WNORM = 7.3  # the normalization the files store the power with, as pypower does
 FILES_KINLIM = (1e-4, 20.)  # the window's input grid cut to the EPT template's k range (theories/ept.py _klim_template)
 FILES_FIBER_COLLISIONS = dict(fs=0.5, Dfc=0.5)  # the JAX package's test values (tests/test_fiber_collisions.py:121)
+# config 3j: config 3d + the CMB distance prior + DES-Y5 supernovae + BBN (write_probe_files, build_probes_likelihood)
+PROBES_SEED = 0
+CMB_SEED = 5
+PROBES_NSN = 1829  # the DES-SN5YR sample (arXiv:2401.02929)
+# h solved from 100 theta_* in float32 against JAX x64: float32's rounding of theta_* (~3.5e-7 of it) is ~1.2e-6 of h
+# through d h / d theta_* ~ 3.4 (6.0e-7 measured on the CPU at the 16 frozen points)
+THETA_H_ATOL = 5e-6
+# the CMB family's points, by basename: the ClTheory response (amp, tilt), the calibrations and the foregrounds around
+# their defaults (``cmb_points``)
+CMB_CENTER = {'amp': 1., 'tilt': 0., 'A_planck': 1., 'Aradio': 60., 'Adusty': 6., 'Acib': 4., 'beta_cib': 1.75,
+              'Atsz': 3., 'Aksz': 1., 'xi': 0.1, 'AdustT': 1., 'beta_dustT': 1.51, 'AdustP': 1., 'beta_dustP': 1.59,
+              'cal0': 1., 'cal2': 1., 'calTE': 1., 'calEE': 1., 'amp_143': 10., 'amp_217': 10., 'amp_143x217': 10.,
+              'n_143': 1., 'n_217': 1., 'n_143x217': 1., 'amp_100': 0., 'n_100': 1.,
+              **{'cal' + m: 1. for m in ('100A', '100B', '143B', '217A', '217B')}}
+CMB_WIDTH = {'amp': 0.02, 'tilt': 0.01, 'A_planck': 0.003, 'Aradio': 5., 'Adusty': 1., 'Acib': 1., 'beta_cib': 0.05,
+             'Atsz': 1., 'Aksz': 0.5, 'xi': 0.05, 'AdustT': 0.1, 'beta_dustT': 0.01, 'AdustP': 0.1,
+             'beta_dustP': 0.02, 'cal0': 0.002, 'cal2': 0.002, 'calTE': 0.01, 'calEE': 0.01, 'amp_143': 2.,
+             'amp_217': 2., 'amp_143x217': 2., 'n_143': 0.1, 'n_217': 0.1, 'n_143x217': 0.1, 'amp_100': 1.,
+             'n_100': 0.1, **{'cal' + m: 0.005 for m in ('100A', '100B', '143B', '217A', '217B')}}
+CMB_CHECK_ROWS = 8  # the chains at which each CMB likelihood on the card is held against the port on the CPU
+PROBES_BATCHES = (4096, 32768)  # config 3j forward; with the gradient at the first (7.5 GiB reckoned, PERF.md)
 SYSTEMATIC_TEMPLATES = {'syst_a': lambda k: 1e2 / k, 'syst_b': lambda k: 0. * k + 50.}  # tests/test_fiber_collisions.py:141
 
 
@@ -555,6 +590,63 @@ def build_files_likelihood(device, directory, small=False):
         systematic_templates=SYSTEMATIC_TEMPLATES, theory=theory)
     like = ObservablesGaussianLikelihood(observables=[observable], device=device)
     like.pipeline.params.update({'syst_*': dict(derived='.marg')}, basename=True)
+    return like
+
+
+def write_probe_files(directory, seed=PROBES_SEED, small=False):
+    """Write config 3j's supernova sample into ``directory`` in the DES-Y5
+    layout (``DESY5SNLikelihood``'s reader: a 'key = value' config file, a CSV
+    light-curve table with a '#' comment line and the columns zHD, zHEL, MU
+    and MUERR_FINAL, and the systematic covariance as its size then the
+    flattened matrix), through the port's ``write_sn_dataset``. PROBES_NSN
+    supernovae (the DES-SN5YR size, arXiv:2401.02929: 194 at 0.025 < z < 0.1
+    and the rest up to z = 1.13), 64 with ``small``; seeded and synthetic: a
+    dense systematic covariance (a smooth kernel in z and a low-z calibration
+    mode), per-supernova errors MUERR_FINAL, and MU the fiducial cosmology's
+    distance modulus (with the heliocentric term) plus noise drawn from the
+    full covariance. Returns the number of supernovae."""
+    from desilike_tpu_torch.cosmology import background as bg
+    from desilike_tpu_torch.likelihoods.supernovae import write_sn_dataset
+    rng = np.random.default_rng(seed)
+    n = 64 if small else PROBES_NSN
+    nlow = int(round(n * 194 / PROBES_NSN))
+    z = np.sort(np.concatenate([rng.uniform(0.025, 0.1, nlow), 0.1 + 1.03 * rng.beta(2., 3., n - nlow)]))
+    zhel = z + rng.normal(0., 5e-4, n)
+    muerr = 0.1 + 0.1 * z + 0.03 * rng.uniform(size=n)
+    lowz = (z < 0.1).astype('f8')
+    cov = 0.02 ** 2 * np.exp(-0.5 * ((z[:, None] - z[None, :]) / 0.25) ** 2) + 0.01 ** 2 * np.outer(lowz, lowz) \
+        + 1e-6 * np.eye(n)
+    fiducial = bg.resolve({})
+    dm = bg.comoving_angular_distance(fiducial, z)
+    mu = 5. * np.log10((1. + z) * dm / fiducial['h']) + 25. + 5. * np.log10((1. + zhel) / (1. + z))
+    mu = mu + np.linalg.cholesky(cov + np.diag(muerr ** 2)) @ rng.standard_normal(n)
+    write_sn_dataset(directory, {'zHD': z, 'zHEL': zhel, 'MU': mu, 'MUERR_FINAL': muerr}, cov, header='', sep=',')
+    table = os.path.join(directory, 'lcparams.txt')
+    with open(table) as fh:
+        text = fh.read()
+    with open(table, 'w') as fh:
+        fh.write('# synthetic DES-Y5-layout sample (seed {:d}, {:d} supernovae)\n'.format(seed, n) + text)
+    return n
+
+
+def build_probes_likelihood(device, directory, small=False):
+    """Config 3j in the port: config 3d (:func:`build_ept_direct_likelihood`)
+    + the CMB distance prior (``CMBDistancePriorLikelihood``, Chen, Huang &
+    Wang 2019) + DES-Y5 supernovae (``DESY5SNLikelihood`` over the files
+    :func:`write_probe_files` wrote into ``directory``, ``Mb`` solved) + BBN
+    (``Schoneberg2024BBNLikelihood``), all four on config 3d's one
+    ``Cosmology`` node, as one ``SumLikelihood``: 9 varied, 7 solved
+    (``ct*``, ``sn*``, ``Mb``), 108 + 3 + 1829 + 2 data (64 supernovae with
+    ``small``). ``device=None``: the card."""
+    from desilike_tpu_torch import (SumLikelihood, CMBDistancePriorLikelihood, DESY5SNLikelihood,
+                                    Schoneberg2024BBNLikelihood)
+    direct = build_ept_direct_likelihood(device)
+    cosmo = direct_template(direct).cosmo
+    supernovae = DESY5SNLikelihood(data_dir=directory, cosmo=cosmo)
+    supernovae.init.params = {'Mb': dict(derived='.marg')}
+    like = SumLikelihood(likelihoods=[direct, CMBDistancePriorLikelihood(cosmo=cosmo), supernovae,
+                                      Schoneberg2024BBNLikelihood(cosmo=cosmo)], device=device)
+    like.pipeline
     return like
 
 
@@ -1890,6 +1982,401 @@ def check_bao_compression(smi):
     return wall_ms
 
 
+def check_config3j(smi, direct, dfn):
+    """Phase 3, config 3j (config 3d + the CMB distance prior + DES-Y5
+    supernovae + BBN on one ``Cosmology`` node, :func:`build_probes_likelihood`)
+    on the card: its 1829 supernovae written into a temporary directory
+    (:func:`write_probe_files`) and the likelihood built from them; the
+    log-posterior over PROBES_BATCHES forward and with its gradient at B =
+    4096 (finite, the 7 solved parameters and the mean solved ``Mb``, both
+    kernels launched, counted; peak device memory); wall and device
+    milliseconds a call, the device's busy share of the wall, and config
+    3d's (``direct``, ``dfn``) on the same batch; the frozen JAX x64 values
+    of ``tests/data/torch_port_probes_reference.npz`` at 16 points (config
+    3d's limits, the solved parameters within SOLVED_RTOL of their prior
+    width) and the port's CPU plain path at 4. Returns (likelihood, its
+    logpost_fn, the numbers)."""
+    import tempfile
+    import torch
+    from desilike_tpu_torch.ops import cuda_kernels
+    reference = np.load(os.path.join(ROOT, 'tests', 'data', 'torch_port_probes_reference.npz'))
+    out = dict(launches={}, max_memory_gib={}, wall_ms={}, device_ms={}, busy={}, mb_mean={}, config3d_wall_ms={},
+               config3d_device_ms={})
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        nsn = write_probe_files(tmp)
+        out['write_s'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        like = build_probes_likelihood(None, tmp)  # no device: the card
+        pipe = like.pipeline
+        fn = like.logpost_fn()
+        out['build_s'] = time.perf_counter() - t0
+        names, solved = pipe.varied_params.names(), pipe.solved_params.names()
+        sizes = [likelihood.size for likelihood in like.likelihoods]
+        line = ('phase 3: config 3j: {} supernovae written in {:.2f} s, the likelihood built on {!r} in {:.2f} s: '
+                '{} data ({}), {} varied, {} solved ({})'.format(nsn, out['write_s'], smi, out['build_s'], sum(sizes),
+                                                                 ' + '.join(map(str, sizes)), len(names), len(solved),
+                                                                 ', '.join(solved)))
+        print(line)
+        if names != list(reference['probes_names']) or solved != list(reference['probes_solved_names']) \
+                or sizes != [108, 3, PROBES_NSN, 2] or pipe.device.type != 'cuda':
+            raise AssertionError(line)
+        dnames = direct.pipeline.varied_params.names()
+        for batch in PROBES_BATCHES:
+            values = chains(names, batch, seed=0, device=pipe.device)
+            dvalues = chains(dnames, batch, seed=0, device=pipe.device)
+            for mode in ('forward', 'with gradient') if batch == BATCH else ('forward',):
+                torch.cuda.empty_cache()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                cuda_kernels.CLENSHAW_LAUNCHES = cuda_kernels.COEFF_GRAD_LAUNCHES = 0
+                if mode == 'forward':
+                    with torch.no_grad():
+                        logpost, aux = fn(values)
+                    grad = torch.zeros(batch, len(names), device=pipe.device)
+                else:
+                    logpost, grad = logpost_and_grad(fn, values)
+                torch.cuda.synchronize()
+                launches = out['launches'][mode, batch] = (cuda_kernels.CLENSHAW_LAUNCHES,
+                                                           cuda_kernels.COEFF_GRAD_LAUNCHES)
+                out['max_memory_gib'][mode, batch] = torch.cuda.max_memory_allocated() / 2 ** 30
+                finite = bool(torch.isfinite(logpost).all() and torch.isfinite(grad).all())
+                if mode == 'forward':
+                    if list(aux['solved']) != solved or len(solved) != 7 or not all(
+                            bool(torch.isfinite(v).all()) and v.shape == (batch,) for v in aux['solved'].values()):
+                        raise AssertionError('config 3j: aux[\'solved\'] does not hold the 7 solved parameters')
+                    out['mb_mean'][batch] = float(aux['solved']['Mb'].mean())
+                print('phase 3: config 3j {} over B={} chains on {!r}: shape {}, all finite {}, mean logpost {:.4f}, '
+                      'mean solved Mb {:.5f}; launches: Clenshaw {}, coefficient gradient {}; peak device memory '
+                      '{:.2f} GiB'.format(mode, batch, smi, tuple(logpost.shape), finite, float(logpost.mean()),
+                                          out['mb_mean'][batch], launches[0], launches[1],
+                                          out['max_memory_gib'][mode, batch]))
+                expect_grad = mode != 'forward'
+                if logpost.shape != (batch,) or not finite or launches[0] <= 0 or (launches[1] > 0) != expect_grad:
+                    raise AssertionError('config 3j main path failed {} at B={}'.format(mode, batch))
+                del logpost, grad
+                aux = None
+                for key, function, args in (('', fn, values), ('config3d_', dfn, dvalues)):
+                    torch.cuda.empty_cache()
+                    if mode == 'forward':
+                        def call():
+                            with torch.no_grad():
+                                function(args)
+                    else:
+                        def call():  # gradients accumulate; harmless
+                            function(args)[0].sum().backward()
+                    out[key + 'wall_ms'][mode, batch] = time_cuda(call, 5, warmup=1)
+                    out[key + 'device_ms'][mode, batch] = device_ms(call)
+                out['busy'][mode, batch] = out['device_ms'][mode, batch] / out['wall_ms'][mode, batch]
+                print('phase 3: config 3j {} at B={} on {!r}: {:.2f} ms a call wall, {:.2f} ms device (busy {:.0%}), '
+                      '{:.0f} evals/s (config 3d on the same batch: {:.2f} / {:.2f} ms); device time {:.2f}x config '
+                      '3d\'s'.format(mode, batch, smi, out['wall_ms'][mode, batch], out['device_ms'][mode, batch],
+                                     out['busy'][mode, batch], batch / out['wall_ms'][mode, batch] * 1e3,
+                                     out['config3d_wall_ms'][mode, batch], out['config3d_device_ms'][mode, batch],
+                                     out['device_ms'][mode, batch] / out['config3d_device_ms'][mode, batch]))
+            del values, dvalues
+            torch.cuda.empty_cache()
+        points = reference['probes_points']
+        lp, g = at_points(like, names, points)
+        check_close('phase 3: config 3j: card vs JAX float64 (x64) at 16 points', lp, reference['probes_logpost_x64'],
+                    EPT_X64_ATOL, g, reference['probes_grad_x64'], EPT_X64_GRAD_RTOL)
+        width = np.array([p.prior.scale if p.prior is not None and p.prior.dist == 'norm' else 1.
+                          for p in pipe.solved_params])
+        check_solved('phase 3: config 3j: solved ct*, sn*, Mb on the card vs JAX x64 at 16 points',
+                     solved_at_points(like, names, points), reference['probes_solved_x64'], width)
+        lp_cpu, g_cpu = at_points(build_probes_likelihood('cpu', tmp), names, points[:4])
+        check_close('phase 3: config 3j: card vs the port\'s CPU plain path at 4 points', lp[:4], lp_cpu, EPT_X64_ATOL,
+                    g[:4], g_cpu, EPT_X64_GRAD_RTOL)
+    return like, fn, out
+
+
+def check_theta(smi):
+    """Phase 3, ``Cosmology(theta=True)`` on the card (theta_MC_100,
+    omega_cdm and omega_b varied, h solved per chain from 100 theta_* in
+    float32): over B = 4096 seeded chains the share that converge (the
+    JAX package's gate, a residual below 1e-6 of the target: each chain
+    must pass it), the largest |100 theta_*(h) - target| among them in
+    float64, a finite gradient of h, milliseconds a call forward and with
+    the gradient; h and its gradient at the 16 frozen points of
+    ``tests/data/torch_port_probes_reference.npz`` against JAX x64 (h within
+    THETA_H_ATOL, the gradient within 1e-5 of its norm). Returns the
+    numbers."""
+    import torch
+    from desilike_tpu_torch import Cosmology, Pipeline
+    from desilike_tpu_torch.cosmology import background as bg
+    reference = np.load(os.path.join(ROOT, 'tests', 'data', 'torch_port_probes_reference.npz'))
+    names = list(reference['theta_names'])
+    cosmo = Cosmology(theta=True)  # no device: the card
+    cosmo.init.params = {name: dict(fixed=False) for name in names}
+    pipe = Pipeline(cosmo)
+    rng = np.random.default_rng(0)
+    center, width = dict(theta_MC_100=1.04109, omega_cdm=0.12, omega_b=0.02237), \
+        dict(theta_MC_100=0.002, omega_cdm=0.006, omega_b=0.0008)
+    values = {name: torch.tensor(center[name] + width[name] * rng.uniform(-1., 1., BATCH), dtype=torch.float32,
+                                 device=pipe.device, requires_grad=True) for name in names}
+    pipe.evaluate(values)
+    h = cosmo.h
+    grad = torch.stack(torch.autograd.grad(h.sum(), list(values.values())), dim=-1)
+    converged = torch.isfinite(h)
+    p = bg.resolve({name: v.detach().double() for name, v in values.items() if name != 'theta_MC_100'})
+    p['h'] = h.detach().double()
+    p['_massless_ncdm'] = False
+    residual = (bg.theta_star_100(p) - values['theta_MC_100'].detach().double()).abs()[converged]
+    out = dict(converged=float(converged.float().mean()), max_residual=float(residual.max()),
+               finite_grad=bool(torch.isfinite(grad[converged]).all()))
+
+    def forward():
+        with torch.no_grad():
+            pipe.evaluate(values)
+
+    def backward():
+        pipe.evaluate(values)
+        torch.autograd.grad(cosmo.h.sum(), list(values.values()))
+
+    out['ms'] = time_cuda(forward, 10, warmup=1)
+    out['grad_ms'] = time_cuda(backward, 10, warmup=1)
+    at = {name: torch.tensor(reference['theta_points'][:, i], dtype=torch.float32, device=pipe.device,
+                             requires_grad=True) for i, name in enumerate(names)}
+    pipe.evaluate(at)
+    hgrad = torch.stack(torch.autograd.grad(cosmo.h.sum(), list(at.values())), dim=-1).cpu().numpy()
+    out['h_error'] = float(np.abs(cosmo.h.detach().cpu().numpy() - reference['theta_h_x64']).max())
+    expected = reference['theta_grad_x64']
+    out['grad_error'] = float((np.linalg.norm(hgrad - expected, axis=-1) / np.linalg.norm(expected, axis=-1)).max())
+    line = ('phase 3: Cosmology(theta=True) over B={} chains on {!r}: {:.2%} converged, max |100 theta_*(h) - target| '
+            '{:.2e} (gate 1e-6 of the target), gradient finite {}; {:.2f} ms a call, {:.2f} ms with the gradient; at 16 '
+            'points vs JAX x64: max |d h| {:.2e} (tol {:.0e}), max |d grad|/|grad| {:.2e} (tol 1e-5)'.format(
+                BATCH, smi, out['converged'], out['max_residual'], out['finite_grad'], out['ms'], out['grad_ms'],
+                out['h_error'], THETA_H_ATOL, out['grad_error']))
+    print(line)
+    if not (out['converged'] == 1. and out['finite_grad'] and out['h_error'] <= THETA_H_ATOL
+            and out['grad_error'] <= 1e-5):
+        raise AssertionError(line)
+    return out
+
+
+def cmb_tables(lmax=1500):
+    """Synthetic C_ell (``synthetic_cl_tables``, numpy) and their response in
+    (amp, tilt): d/d amp (exact: the tables are linear in amp), d/d tilt and
+    d2/d tilt2 by central differences (step 1e-3), as the keywords of
+    ``ClTheory(tables=..., derivatives=..., derivatives2=..., center=...)``."""
+    from desilike_tpu_torch.likelihoods.cmb import synthetic_cl_tables
+    tables = synthetic_cl_tables(lmax=lmax)
+    plus, minus = synthetic_cl_tables(lmax=lmax, tilt=1e-3), synthetic_cl_tables(lmax=lmax, tilt=-1e-3)
+    derivatives = {'amp': dict(tables), 'tilt': {xy: (plus[xy] - minus[xy]) / 2e-3 for xy in tables}}
+    derivatives2 = {('tilt', 'tilt'): {xy: (plus[xy] - 2. * tables[xy] + minus[xy]) / 1e-6 for xy in tables}}
+    return dict(tables=tables, derivatives=derivatives, derivatives2=derivatives2, center={'amp': 1., 'tilt': 0.})
+
+
+def cmb_points(names, npoints=4, seed=6, fine=False):
+    """Points of the CMB likelihoods, exact in float32, one column a name;
+    ``fine``: near the data of a likelihood whose errors are 0.01% of the
+    signal (hillipop): the responses and calibrations within 1e-3 of their
+    widths, the foregrounds nearly off."""
+    center, width = CMB_CENTER, CMB_WIDTH
+    if fine:
+        center = dict(CMB_CENTER, **{name: 0.002 for name in ('Aradio', 'Adusty', 'Acib', 'Atsz', 'Aksz', 'AdustT',
+                                                               'AdustP')})
+        width = {name: 1e-3 * value for name, value in CMB_WIDTH.items()}
+        width.update({name: 0.001 for name in ('Aradio', 'Adusty', 'Acib', 'Atsz', 'Aksz', 'AdustT', 'AdustP')})
+    rng = np.random.default_rng(seed)
+    return np.column_stack([center[name] + width[name] * rng.uniform(-1., 1., npoints)
+                            for name in names]).astype('f4').astype('f8')
+
+
+def plik_release_bins():
+    """plik-lite's release binning: width 5 from ell = 30, then 9 from 100,
+    17 from 1504 and 33 from 2014 to 2508: 215 bins (TT); TE and EE use the
+    first 199 (to 1996)."""
+    edges = np.concatenate([np.arange(30, 100, 5), np.arange(100, 1504, 9), np.arange(1504, 2014, 17),
+                            np.arange(2014, 2509, 33)])
+    return edges, np.append(edges[1:], 2509) - 1
+
+
+def write_cmb_files(directory, seed=CMB_SEED):
+    """Write the CMB family's data into ``directory`` (a folder a case) in
+    each reader's layout with the port's writers, numpy only: plik-lite at
+    the release bin counts (215, 199, 199) over ell 30-2508, the others at
+    the widths of the JAX tests' fixtures (``tests/test_cmb.py``: commander
+    and simall on ell 2-29, lollipop to ell 30, ACT DR6 to L = 1400 with its
+    dense correction matrices, Planck lensing to L = 400 with the CMB to
+    1400, CamSpec's six blocks to 2500, hillipop's compact fixture with
+    zero weights below ell = 2). Returns {case: dict(cls=class name,
+    kwargs=its keywords, ee=the theory's EE table where the case has its
+    own, fine=whether its points are :func:`cmb_points`'s fine ones)}."""
+    from desilike_tpu_torch.likelihoods import cmb
+    rng = np.random.default_rng(seed)
+    tables = cmb_tables(2600)['tables']
+    muk2 = (2.7255 * 1e6) ** 2
+    out = {}
+
+    def folder(name):
+        path = os.path.join(directory, name)
+        os.makedirs(path, exist_ok=True)
+        return path
+
+    ellmin, ellmax = plik_release_bins()
+    weights = np.zeros(2600)
+    blocks = []
+    for cl, nbin in zip(('tt', 'te', 'ee'), (215, 199, 199)):
+        binning = np.zeros((nbin, ellmax[nbin - 1] + 1))
+        for i, (lo, hi) in enumerate(zip(ellmin[:nbin], ellmax[:nbin])):
+            weights[lo:hi + 1] = 1. / (hi - lo + 1)
+            binning[i, lo:hi + 1] = 1. / (hi - lo + 1)
+        blocks.append(binning @ (tables[cl][:binning.shape[1]] * muk2))
+    flatdata = np.concatenate(blocks)
+    sigma = 0.01 * np.abs(flatdata) + 1e-3 * np.median(np.abs(flatdata))
+    cmb.planck2018.write_plik_lite_data(folder('plik'), dict(
+        flatdata=flatdata + sigma * rng.standard_normal(flatdata.size), covariance=np.diag(sigma ** 2), ellmin=ellmin,
+        ellmax=ellmax, weights=weights))
+    out['plik_ttteee'] = dict(cls='TTTEEEHighlPlanck2018LiteLikelihood', kwargs=dict(data_dir=folder('plik')))
+    ells = np.arange(2, 30)
+    dl_tt = tables['tt'][2:30] * muk2 * ells * (ells + 1) / (2 * np.pi)
+    sig = 0.1 * np.abs(dl_tt) + 10.
+    grid = dl_tt[:, None] + np.linspace(-8, 8, 200)[None, :] * sig[:, None]
+    cmb.planck2018.write_commander_data(folder('commander'), dict(
+        cl2x=np.stack([grid, (grid - dl_tt[:, None]) / sig[:, None]], axis=-1), mu=np.zeros(28),
+        covariance=np.eye(28), mu_sigma=dl_tt))
+    out['commander'] = dict(cls='TTLowlPlanck2018Likelihood', kwargs=dict(data_dir=folder('commander')))
+    dl_ee = np.clip(tables['ee'][2:30] * muk2 * ells * (ells + 1) / (2 * np.pi), 1e-3, 0.25)
+    bins = 1e-4 * (0.5 + np.arange(3000))
+    cmb.planck2018.write_simall_data(folder('simall'), dict(
+        prob=-0.5 * ((bins[None, :] - dl_ee[:, None]) / (0.1 * dl_ee[:, None])) ** 2))
+    simall_ee = tables['ee'].copy()
+    simall_ee[2:30] = dl_ee * 2 * np.pi / (ells * (ells + 1)) / muk2
+    out['simall'] = dict(cls='EELowlPlanck2018Likelihood', kwargs=dict(data_dir=folder('simall')), ee=simall_ee)
+    ell = np.arange(31).astype('f8')
+    dl = np.stack([tables['ee'][:31], 1.1 * tables['bb'][:31], np.zeros(31)]) * ell * (ell + 1) / (2 * np.pi) * muk2
+    var = (0.2 * np.abs(np.concatenate([dl[0, 2:], dl[1, 2:], 0.1 * dl[0, 2:] + 1e-6])) + 1e-8) ** 2
+    fiducial = dl.copy()
+    fiducial[1] /= 1.1
+    cmb.lollipop.write_lollipop_data(folder('lollipop'), dict(cl=dl, fiducial=fiducial, covariance=np.diag(var)))
+    for mode in ('EE', 'BB', 'EB'):
+        out['lollipop_' + mode.lower()] = dict(cls='{}LowlPlanck2020LollipopLikelihood'.format(mode),
+                                               kwargs=dict(data_dir=folder('lollipop')))
+    lmax = 1400
+    ell = np.arange(lmax + 2).astype('f8')
+    clkk = tables['pp'][:lmax + 2] * (ell * (ell + 1)) ** 2 / 4.
+    edges = np.linspace(40, lmax, 21).astype(int)
+    binmat = np.zeros((20, lmax + 2))
+    for i in range(20):
+        binmat[i, edges[i]:edges[i + 1]] = 1. / (edges[i + 1] - edges[i])
+    act = dict(data_binned_clkk=binmat @ clkk, covariance=np.diag((0.05 * np.abs(binmat @ clkk) + 1e-12) ** 2),
+               binmat_act=binmat, fiducial_cl_kk=clkk, dN1_kk=np.zeros((lmax + 2,) * 2),
+               dAL_dC=np.zeros((4, lmax + 2, lmax + 2)), fAL=np.ones(lmax + 2))
+    act['dAL_dC'][0] = 1e-8 * np.eye(lmax + 2)
+    for xy in ('tt', 'ee', 'bb', 'te'):
+        act['fiducial_cl_' + xy] = tables[xy][:lmax + 2] * muk2
+        act['dN1_' + xy] = np.full((lmax + 2,) * 2, 1e-9) if xy == 'tt' else np.zeros((lmax + 2,) * 2)
+    cmb.act_dr6_lensing.write_act_dr6_data(folder('act'), act)
+    out['act'] = dict(cls='ACTDR6LensingLikelihood', kwargs=dict(data_dir=folder('act')))
+    for variant, name in (('consext8', 'lensing'), ('CMBmarged', 'lensing_marged')):
+        cmb.planck2018_lensing.write_planck2018_lensing_data(folder(name), cmb.synthetic_planck2018_lensing_data(
+            variant=variant, ellmax_pp=400, ellmax_cmb=1400, cl_tables=tables), variant=variant)
+        out[name] = dict(cls='Planck2018LensingLikelihood', kwargs=dict(data_dir=folder(name), variant=variant))
+    cmb.camspec.write_camspec_data(folder('camspec'), cmb.synthetic_camspec_data(tables, seed=11, params=dict(
+        amp_143=12., amp_217=25., amp_143x217=17., n_143=1.2, n_217=0.8, n_143x217=1., cal2=1.003, calTE=0.995,
+        calEE=1.002, A_planck=1.001)))
+    out['camspec_ttteee'] = dict(cls='TTTEEEHighlPlanckNPIPECamspecLikelihood', kwargs=dict(data_dir=folder('camspec')))
+    lmax, nxspec, nxfreq = 200, 15, 6
+    ell = np.arange(lmax + 1).astype('f8')
+    dlth = {m: tables[m.lower()][:lmax + 1] * ell * (ell + 1) / (2 * np.pi) * muk2 for m in ('TT', 'EE', 'TE')}
+    flat = np.concatenate([dlth[m][50:181] for m in ('TT', 'EE', 'TE') for _ in range(nxfreq)])
+    dlweight = {m: 1. + rng.random((nxspec, lmax + 1)) for m in ('TT', 'EE', 'TE')}
+    for value in dlweight.values():
+        value[:, :2] = 0.
+    cmb.hillipop.write_hillipop_data(folder('hillipop'), dict(
+        dldata={m: np.tile(dlth[m], (nxspec, 1)) for m in ('TT', 'EE', 'TE')}, dlweight=dlweight,
+        lmins={m: np.full(nxfreq, 50) for m in ('TT', 'EE', 'TE')}, lmaxs={m: np.full(nxfreq, 180) for m in ('TT', 'EE', 'TE')},
+        invcov=np.diag(1. / (1e-4 * np.abs(flat) + 1e-3) ** 2),
+        templates={'dust_TT': rng.random((nxfreq, lmax + 1)), 'tsz': rng.random(lmax + 1), 'ksz': rng.random(lmax + 1)}))
+    out['hillipop_ttteee'] = dict(cls='TTTEEEHighlPlanck2020HillipopLikelihood', kwargs=dict(data_dir=folder('hillipop')),
+                                  fine=True)
+    return out
+
+
+def build_cmb_likelihood(case, device):
+    """One likelihood of :func:`write_cmb_files` (``case`` its entry) on a
+    ``ClTheory`` with the (amp, tilt) response of :func:`cmb_tables` on
+    ``device`` (simall: its own tables, no response)."""
+    from desilike_tpu_torch.likelihoods import cmb
+    response = cmb_tables(2600)
+    if case.get('ee') is not None:  # simall: its own EE at ell 2-29, no response
+        response = dict(tables=dict(response['tables'], ee=case['ee']))
+    return getattr(cmb, case['cls'])(theory=cmb.ClTheory(device=device, **response), **case['kwargs'])
+
+
+def check_cmb_family(smi):
+    """Phase 3, the CMB family on the card: each likelihood of
+    :func:`write_cmb_files` built from its files (and
+    ``Planck2018GaussianLikelihood`` on a Cosmology node), the log-posterior
+    over B = 4096 chains forward and with its gradient (finite; milliseconds
+    a call, peak device memory), held against the port on the CPU at
+    CMB_CHECK_ROWS chains (config 3d's limits). Returns {case: numbers}."""
+    import tempfile
+    import torch
+    from desilike_tpu_torch import Cosmology
+    from desilike_tpu_torch.likelihoods import cmb
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        cases = write_cmb_files(tmp)
+        print('phase 3: the CMB family\'s files written in {:.2f} s'.format(time.perf_counter() - t0))
+
+        def gaussian(device):
+            cosmo = Cosmology(device=device)
+            cosmo.init.params = {name: dict(fixed=False) for name in ('h', 'omega_cdm', 'omega_b')}
+            return cmb.Planck2018GaussianLikelihood(cosmo=cosmo)
+
+        for case in list(cases) + ['gaussian']:
+            t0 = time.perf_counter()
+            like = gaussian(None) if case == 'gaussian' else build_cmb_likelihood(cases[case], None)
+            names = like.pipeline.varied_params.names()
+            fn = like.logpost_fn()
+            build_s = time.perf_counter() - t0
+            if case == 'gaussian':
+                rng = np.random.default_rng(6)
+                rows = np.column_stack([COSMO_CENTER[name] + COSMO_WIDTH[name] * rng.uniform(-1., 1., BATCH)
+                                        for name in names]).astype('f4').astype('f8')
+            else:
+                rows = cmb_points(names, BATCH, fine=cases[case].get('fine', False))
+            values = {name: torch.tensor(rows[:, i], dtype=torch.float32, device=like.pipeline.device,
+                                         requires_grad=True) for i, name in enumerate(names)}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            logpost, grad = logpost_and_grad(fn, values)
+            torch.cuda.synchronize()
+            memory = torch.cuda.max_memory_allocated() / 2 ** 30
+            finite = bool(torch.isfinite(logpost).all() and torch.isfinite(grad).all())
+
+            def forward():
+                with torch.no_grad():
+                    fn(values)
+
+            entry = dict(build_s=build_s, ms=time_cuda(forward, 3, warmup=1),
+                         grad_ms=time_cuda(lambda: fn(values)[0].sum().backward(), 3, warmup=1),
+                         max_memory_gib=memory, ndata=sum(getattr(item, 'size', 0) for item in like.likelihoods))
+            lp, g = at_points(like, names, rows[:CMB_CHECK_ROWS])
+            cpu = gaussian('cpu') if case == 'gaussian' else build_cmb_likelihood(cases[case], 'cpu')
+            lp_cpu, g_cpu = at_points(cpu, names, rows[:CMB_CHECK_ROWS])
+            entry['logpost_error'] = float(np.abs(lp - lp_cpu).max())
+            entry['grad_error'] = float((np.linalg.norm(g - g_cpu, axis=-1) / np.linalg.norm(g_cpu, axis=-1)).max())
+            out[case] = entry
+            line = ('phase 3: CMB {} ({}) over B={} chains on {!r}: {} varied, all finite {}, mean logpost {:.4f}; '
+                    'built in {:.2f} s; {:.2f} ms a call, {:.2f} ms with the gradient, peak device memory {:.2f} GiB; '
+                    'card vs the port\'s CPU plain path at {} chains: max |d logpost| {:.3e} (tol {:.0e}), max |d '
+                    'grad|/|grad| {:.3e} (tol {:.0e})'.format(
+                        case, type(like).__name__, BATCH, smi, len(names), finite, float(logpost.mean()),
+                        entry['build_s'], entry['ms'], entry['grad_ms'], memory, CMB_CHECK_ROWS,
+                        entry['logpost_error'], EPT_X64_ATOL, entry['grad_error'], EPT_X64_GRAD_RTOL))
+            print(line)
+            if logpost.shape != (BATCH,) or not finite or entry['logpost_error'] > EPT_X64_ATOL \
+                    or entry['grad_error'] > EPT_X64_GRAD_RTOL:
+                raise AssertionError(line)
+            del like, fn, values, logpost, grad, cpu
+            torch.cuda.empty_cache()
+    return out
+
+
 def tns_forward_profile(fn, values, smi, nq=300, nk=96):
     """Config tns's forward call at the batch of ``values`` by kind
     (``torch.profiler``, one call after one of warm-up), in device ms: the
@@ -2774,6 +3261,11 @@ def main(kernels_only=False):
     fnames = files.pipeline.varied_params.names()
     bao_compression_ms = check_bao_compression(smi)
     lap('phase 3: config 3f and the BAO compression likelihood')
+    _, _, config3j = check_config3j(smi, direct, dfn)
+    theta = check_theta(smi)
+    lap('phase 3: config 3j and Cosmology(theta=True)')
+    cmb_family = check_cmb_family(smi)
+    lap('phase 3: the CMB family')
     fisher_sum = check_fisher_and_sum(xi, ept, smi)
     lap('phase 3: the Fisher forecast and the sum')
     emulated, _, config5 = check_config5(smi, jfn)
@@ -2957,6 +3449,8 @@ def main(kernels_only=False):
            for (mode, batch), value in config3f['launches'].items()},
         **{key + '_config3f': {label: entry[key] for label, entry in files_timed.items()}
            for key in ('ms', 'bound_ms', 'plain_ms', 'library_ms')},
+        **{'launches_config3j_{}_{}'.format(mode.replace(' ', '_'), batch): value[0]
+           for (mode, batch), value in config3j['launches'].items()},
         'max_rel_err_past_2_31': tns_overflow[0]}, {
         'name': 'clenshaw_coeff_grad', 'route': 'cuda', 'source': 'desilike_tpu_torch/csrc/clenshaw_coeff_grad.cu',
         'replaces': 'desilike_tpu/ops/pallas_kernels.py:30', 'launches': launches4[1],
@@ -2994,6 +3488,8 @@ def main(kernels_only=False):
            for (mode, batch), value in config3f['launches'].items()},
         **{key + '_config3f': {label: entry['grad_' + key] for label, entry in files_timed.items()}
            for key in ('ms', 'bound_ms', 'plain_ms', 'library_ms')},
+        **{'launches_config3j_{}_{}'.format(mode.replace(' ', '_'), batch): value[1]
+           for (mode, batch), value in config3j['launches'].items()},
         'max_rel_err_past_2_31': tns_overflow[1]}],
         'evals_per_s': {' '.join(str(part) for part in key): rate for key, rate in rates.items()},
         'host_syncs_forward': host_syncs,
@@ -3037,7 +3533,13 @@ def main(kernels_only=False):
                         for key in ('launches', 'max_memory_gib', 'wall_ms', 'device_ms', 'config3d_wall_ms',
                                     'config3d_device_ms')},
                      'evals_per_s': {'{} {}'.format(*k): k[1] / v * 1e3 for k, v in config3f['wall_ms'].items()}},
-        'bao_compression_ms_4096': bao_compression_ms}))
+        'bao_compression_ms_4096': bao_compression_ms,
+        'config3j': {'write_s': config3j['write_s'], 'build_s': config3j['build_s'],
+                     'mb_mean': {str(k): v for k, v in config3j['mb_mean'].items()},
+                     **{key: {'{} {}'.format(*k): v for k, v in config3j[key].items()}
+                        for key in ('launches', 'max_memory_gib', 'wall_ms', 'device_ms', 'busy', 'config3d_wall_ms',
+                                    'config3d_device_ms')}},
+        'theta': theta, 'cmb_family': cmb_family}))
     print(json.dumps({'samplers': samplers, 'card': smi}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
                                              'count': torch.cuda.device_count()}}))

@@ -25,7 +25,10 @@ observables layer: measured data and window files (``interop``), mock
 covariances with the Hartlap and Percival factors, fiber collisions and
 systematic templates folded into the window, cut-sky footprints, the
 ``ObservableArray`` / ``ObservableCovariance`` containers, and the
-compression observables.
+compression observables. The external likelihoods (BBN, H0, Mb, the CMB
+distance prior), the supernova samples and the CMB family
+(``likelihoods.cmb``), with the recombination-era quantities and h solved
+from 100 theta_* (``Cosmology(theta=True)``).
 Per-evaluation compute runs on a batch of chains, in float32, on the CUDA
 card unless the caller asks for the CPU by name (``device='cpu'``); the
 Chebyshev lookups and their gradients run through hand-written CUDA kernels
@@ -63,7 +66,9 @@ from .observables import (TracerPowerSpectrumMultipolesObservable, TracerCorrela
                           SystematicTemplatePowerSpectrumMultipoles, TopHatFiberCollisionsCorrelationFunctionMultipoles,
                           FiberCollisionsCorrelationFunctionMultipoles, SystematicTemplateCorrelationFunctionMultipoles)
 from .likelihoods import (BaseLikelihood, BaseGaussianLikelihood, ObservablesGaussianLikelihood,
-                          FisherGaussianLikelihood, SumLikelihood)
+                          FisherGaussianLikelihood, SumLikelihood, Schoneberg2024BBNLikelihood,
+                          Riess2020H0Likelihood, Riess2020MbLikelihood, CMBDistancePriorLikelihood,
+                          DESY5SNLikelihood)
 from .differentiation import Differentiation
 from .fisher import Fisher, LikelihoodFisher, PriorFisher
 from .emulators import (Emulator, EmulatedCalculator, PointEmulatorEngine, TaylorEmulatorEngine,

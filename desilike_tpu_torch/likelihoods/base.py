@@ -58,7 +58,7 @@ import torch
 from torch.func import jvp, vmap
 
 from ..core import Calculator, Pipeline
-from ..ops.linalg import whiten_factor, cholesky, cholesky_equilibrated
+from ..ops.linalg import whiten_factor, inverse, cholesky, cholesky_equilibrated
 from ..parameters import ParameterCollection
 from ..utils import is_sequence
 from .. import config
@@ -464,7 +464,7 @@ class BaseGaussianLikelihood(BaseLikelihood):
     def initialize(self, data=None, covariance=None, precision=None, **kwargs):
         self.flatdata = np.ravel(np.asarray(data, dtype='f8'))
         if precision is not None:
-            covariance = np.linalg.inv(np.atleast_2d(np.asarray(precision, dtype='f8')))
+            covariance = inverse(precision)
         if covariance is None:
             raise ValueError('provide covariance or precision')
         self._set_whitening(np.atleast_2d(np.asarray(covariance, dtype='f8')))
@@ -474,7 +474,7 @@ class BaseGaussianLikelihood(BaseLikelihood):
         factor ``hartlap``; the Percival factor applies on top of them at the
         next ``logpost_fn`` build (:meth:`_apply_mock_factor`)."""
         self.covariance = covariance
-        self.precision = self._precision_base = np.linalg.inv(covariance) * hartlap
+        self.precision = self._precision_base = inverse(covariance) * hartlap
         self._whiten = self._whiten_base = whiten_factor(covariance) * np.sqrt(hartlap)
         self._mock_factor = 1.
         self._static_J = {}  # depends on the whitening

@@ -12,14 +12,32 @@ import numpy as np
 import torch
 
 
+def is_diagonal(matrix):
+    """Whether the square ``matrix`` has nothing off its diagonal."""
+    return not np.count_nonzero(matrix - np.diag(np.diagonal(matrix)))
+
+
 def whiten_factor(covariance):
     """Return L such that chi2(d) = ||L d||^2, i.e. L^T L = C^{-1}.
 
-    Host-side float64; L = inv(cholesky(C)) so that L C L^T = I.
+    Host-side float64; L = inv(cholesky(C)) so that L C L^T = I. A diagonal
+    C gives diag(1 / sqrt(C_ii)) at once (the same numbers: an 11086 x 11086
+    one, the CamSpec fixture's, took 25 s through the general path on an
+    8-core CPU).
     """
     cov = np.atleast_2d(np.asarray(covariance, dtype='f8'))
+    if is_diagonal(cov):
+        return np.diag(1. / np.sqrt(np.diagonal(cov)))
     chol = np.linalg.cholesky(cov)
     return np.linalg.solve(chol, np.eye(cov.shape[0]))
+
+
+def inverse(matrix):
+    """The inverse of a square float64 host matrix; a diagonal one at once."""
+    matrix = np.atleast_2d(np.asarray(matrix, dtype='f8'))
+    if is_diagonal(matrix):
+        return np.diag(1. / np.diagonal(matrix))
+    return np.linalg.inv(matrix)
 
 
 def cholesky(matrix):

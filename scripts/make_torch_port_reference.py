@@ -75,6 +75,12 @@ writes its reference file under ``tests/data``:
   host state, the xi observable's options, the compression observables and
   the BAO compression likelihood, the bispectrum likelihood with mocks and
   the cut-sky footprints;
+- ``probes``: the external, supernova and CMB likelihoods, in float64 (x64)
+  (:func:`probes_reference`) -> ``torch_port_probes_reference.npz``: config
+  3j (config 3d + the CMB distance prior + DES-Y5 supernovae + BBN, from the
+  files ``chip_smoke.write_probe_files`` writes) at full width and small,
+  ``Cosmology(theta=True)``, the recombination-era quantities, the external
+  likelihoods, the supernova dataset classes and the CMB family;
 - ``hessian``: config 4's log-density in the gradient samplers' unconstrained
   space (``NUTSSampler._logdens_grad``: the logit transform of the bounded
   parameters and its log-Jacobian), its gradient and its Hessian, in
@@ -112,8 +118,8 @@ with numpy alone, and ``tests/test_torch_bao_likelihood.py`` and
 JAX package so that the files cannot go stale.
 
 Run from the repository root:
-``JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py [bao|joint|ept|xi|marg|hessian|emu|direct|templates|tns|theories|tier1|observables]``
-(all thirteen when no name is given).
+``JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py [bao|joint|ept|xi|marg|hessian|emu|direct|templates|tns|theories|tier1|observables|probes]``
+(all fourteen when no name is given).
 """
 
 import os
@@ -126,7 +132,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUTPUTS = {name: os.path.join(ROOT, 'tests', 'data', 'torch_port_{}_reference.npz'.format(name))
            for name in ('bao', 'joint', 'ept', 'xi', 'marg', 'hessian', 'direct', 'templates', 'tns', 'theories',
-                        'tier1', 'observables')}
+                        'tier1', 'observables', 'probes')}
 OUTPUTS['emu'] = os.path.join(ROOT, 'tests', 'data', 'torch_port_emulator_reference.npz')
 NPOINTS = 16
 HESSIAN_STEP = 1e-4  # central differences of the x64 gradient in the unconstrained space
@@ -1400,6 +1406,303 @@ def observables_reference(path):
     np.savez(path, **{key: np.asarray(value) for key, value in arrays.items()})
 
 
+def build_probes_likelihood(directory):
+    """Config 3j in the JAX package, as ``chip_smoke.build_probes_likelihood``
+    builds it in the port: config 3d + the CMB distance prior + DES-Y5
+    supernovae (the files ``chip_smoke.write_probe_files`` wrote into
+    ``directory``, ``Mb`` marginalized) + BBN, on config 3d's one
+    ``Cosmology`` node."""
+    from desilike_tpu.likelihoods import (SumLikelihood, CMBDistancePriorLikelihood, DESY5SNLikelihood,
+                                          Schoneberg2024BBNLikelihood)
+    from desilike_tpu.theories import DirectPowerSpectrumTemplate
+    direct = build_ept_direct_likelihood()
+    cosmo = next(calc for calc in direct.pipeline.calculators if isinstance(calc, DirectPowerSpectrumTemplate)).cosmo
+    supernovae = DESY5SNLikelihood(data_dir=directory, cosmo=cosmo)
+    supernovae.init.params = {'Mb': dict(derived='.marg')}
+    return SumLikelihood(likelihoods=[direct, CMBDistancePriorLikelihood(cosmo=cosmo), supernovae,
+                                      Schoneberg2024BBNLikelihood(cosmo=cosmo)])
+
+
+def varied_cosmology(names, **kwargs):
+    from desilike_tpu.theories import Cosmology
+    cosmo = Cosmology(**kwargs)
+    cosmo.init.params = {name: dict(fixed=False) for name in names}
+    return cosmo
+
+
+# the points of the theta=True check and of the external likelihoods: uniform draws from np.random.default_rng(2)
+# within these half-widths of the centres
+THETA_CENTER = {'theta_MC_100': 1.04109, 'omega_cdm': 0.12, 'omega_b': 0.02237}
+THETA_WIDTH = {'theta_MC_100': 0.002, 'omega_cdm': 0.006, 'omega_b': 0.0008}
+EXTERNAL_CENTER = {'h': 0.6736, 'omega_cdm': 0.12, 'omega_b': 0.02237, 'N_ur': 2.0328, 'Mb': -19.263, 'dM': -9.2}
+EXTERNAL_WIDTH = {'h': 0.02, 'omega_cdm': 0.006, 'omega_b': 0.0008, 'N_ur': 0.3, 'Mb': 0.1, 'dM': 0.1}
+
+
+def uniform_points(names, center, width, npoints, seed):
+    rng = np.random.default_rng(seed)
+    return np.column_stack([center[name] + width[name] * rng.uniform(-1., 1., npoints) for name in names])
+
+
+def external_cases():
+    """{case: (the JAX likelihood, its varied names)} of the external
+    likelihoods frozen by the ``probes`` mode."""
+    from desilike_tpu.likelihoods import (Schoneberg2024BBNLikelihood, Riess2020H0Likelihood, Riess2020MbLikelihood,
+                                          CMBDistancePriorLikelihood)
+    return {'bbn': Schoneberg2024BBNLikelihood(cosmo=varied_cosmology(('omega_b', 'N_ur'))),
+            'h0': Riess2020H0Likelihood(cosmo=varied_cosmology(('h',))),
+            'mb': Riess2020MbLikelihood(),
+            'cmb_prior': CMBDistancePriorLikelihood(cosmo=varied_cosmology(('h', 'omega_cdm', 'omega_b')))}
+
+
+# the supernova dataset fixtures of the ``probes`` mode: {case: (class name, columns, writer keywords, config name)}
+SN_CASES = {'pantheon': ('PantheonSNLikelihood', ('zcmb', 'zhel', 'mb'), dict(config_fn='full_long.dataset')),
+            'pantheonplus': ('PantheonPlusSNLikelihood', ('zHD', 'zHEL', 'm_b_corr'), dict(header='')),
+            'pantheonplus_shoes': ('PantheonPlusSHOESSNLikelihood',
+                                   ('zHD', 'zHEL', 'm_b_corr', 'IS_CALIBRATOR', 'CEPH_DIST'), dict(header='')),
+            'union3': ('Union3SNLikelihood', ('zcmb', 'mb'), {}),
+            'desy5': ('DESY5SNLikelihood', ('zHD', 'zHEL', 'MU', 'MUERR_FINAL'), dict(header='', sep=','))}
+
+
+def sn_fixture(case, n=30, seed=5):
+    """The light-curve columns and the covariance of supernova fixture
+    ``case`` (its columns of :data:`SN_CASES`): redshifts from 0.004 (two
+    below the Pantheon+ cut) to 1.4, magnitudes from the fiducial cosmology
+    (``Mb`` -19.3, ``dM`` -9.2) plus 0.05 of scatter, a dense covariance."""
+    from desilike_tpu.cosmology import background as bg
+    rng = np.random.default_rng(seed)
+    z = np.concatenate([[0.004, 0.008], np.linspace(0.02, 1.4, n - 2)])
+    zhel = z + rng.normal(0., 5e-4, n)
+    p = bg.resolve()
+    dl = (1. + z) * np.asarray(bg.comoving_angular_distance(p, z), dtype='f8')
+    mu = 5. * np.log10(dl / p['h']) + 25.
+    scatter = 0.05 * rng.standard_normal(n)
+    covariance = 0.03 ** 2 * np.exp(-0.5 * ((z[:, None] - z[None, :]) / 0.3) ** 2) + 0.05 ** 2 * np.eye(n)
+    columns = {'zcmb': z, 'zHD': z, 'zhel': zhel, 'zHEL': zhel, 'mb': mu - 19.3 + scatter,
+               'm_b_corr': mu - 19.3 + scatter, 'MU': mu + scatter, 'MUERR_FINAL': np.full(n, 0.05),
+               'IS_CALIBRATOR': (np.arange(n) % 6 == 0).astype('f8'), 'CEPH_DIST': mu + 0.01 * scatter}
+    if case == 'union3':
+        columns['mb'] = 5. * np.log10(100. * dl) + 25. - 9.2 + scatter
+    return {name: columns[name] for name in SN_CASES[case][1]}, covariance
+
+
+def probes_reference(path):
+    """``torch_port_probes_reference.npz`` in x64, written to ``path``:
+    config 3j (:func:`build_probes_likelihood`) at full width (1829
+    supernovae) and small (64), its log-posterior, gradient and solved
+    parameters at 16 points (``probes_`` and ``probes_small_`` keys);
+    ``Cosmology(theta=True)``'s h and its gradient in (theta_MC_100,
+    omega_cdm, omega_b) at 16 points; each external likelihood and each
+    supernova dataset class (from files written by the JAX package's writer
+    from :func:`sn_fixture`) at 4 points; the recombination-era quantities
+    at the fiducial and at the theta points; the CMB family (:func:`cmb_reference`)."""
+    import chip_smoke
+    import jax
+    import jax.numpy as jnp
+    from desilike_tpu.cosmology import background as bg
+    from desilike_tpu import likelihoods as L
+    from desilike_tpu.likelihoods.supernovae import write_sn_dataset
+    arrays = cmb_reference()
+    for prefix, small in (('probes_small_', True), ('probes_', False)):
+        with tempfile.TemporaryDirectory() as tmp:
+            arrays[prefix + 'nsn'] = chip_smoke.write_probe_files(tmp, chip_smoke.PROBES_SEED, small=small)
+            like = build_probes_likelihood(tmp)
+            names = like.pipeline.varied_params.names()
+            points = reference_points(names).astype('f4').astype('f8')
+            values, grads, solved = evaluate_likelihood(like, names, points)
+            arrays.update({prefix + 'names': np.array(names), prefix + 'points': points,
+                           prefix + 'solved_names': np.array(returned_solved_names(like)),
+                           prefix + 'logpost_x64': values, prefix + 'grad_x64': grads, prefix + 'solved_x64': solved})
+    names = list(THETA_CENTER)
+    points = uniform_points(names, THETA_CENTER, THETA_WIDTH, NPOINTS, seed=2).astype('f4').astype('f8')
+    cosmo = varied_cosmology(names, theta=True)
+    cosmo.runtime_info.initialize()
+
+    def solved_h(x):
+        cosmo.calculate(**dict(zip(names, x)))
+        return cosmo.h
+
+    h, dh = jax.jit(jax.vmap(jax.value_and_grad(solved_h)))(jnp.asarray(points))
+    arrays.update({'theta_names': np.array(names), 'theta_points': points, 'theta_h_x64': np.asarray(h),
+                   'theta_grad_x64': np.asarray(dh)})
+    recombination = []
+    for row in [None] + list(points):
+        p = bg.resolve({} if row is None else {'h': 0.6736, 'omega_cdm': row[1], 'omega_b': row[2]})
+        zs = float(bg.z_star(p))
+        recombination.append([zs, float(bg.sound_horizon(p, zs)), float(bg.comoving_angular_distance(p, zs)),
+                              float(bg.theta_star_100(p))])
+    arrays['recombination_x64'] = np.array(recombination)  # z_*, r_s(z_*), D_M(z_*), 100 theta_*
+    for case, like in external_cases().items():
+        names = like.pipeline.varied_params.names()
+        points = uniform_points(names, EXTERNAL_CENTER, EXTERNAL_WIDTH, 4, seed=3).astype('f4').astype('f8')
+        values, grads, _ = evaluate_likelihood(like, names, points)
+        arrays.update({case + '_names': np.array(names), case + '_points': points, case + '_logpost_x64': values,
+                       case + '_grad_x64': grads})
+    for case, (cls, _, kwargs) in SN_CASES.items():
+        columns, covariance = sn_fixture(case)
+        with tempfile.TemporaryDirectory() as tmp:
+            write_sn_dataset(tmp, columns, covariance, **kwargs)
+            like = getattr(L, cls)(data_dir=tmp, cosmo=varied_cosmology(('h', 'omega_cdm')))
+            names = like.pipeline.varied_params.names()
+            center = dict(EXTERNAL_CENTER, Mb=0.) if case == 'desy5' else EXTERNAL_CENTER
+            points = uniform_points(names, center, EXTERNAL_WIDTH, 4, seed=4).astype('f4').astype('f8')
+            values, grads, _ = evaluate_likelihood(like, names, points)
+        arrays.update({'sn_{}_{}'.format(case, name): value for name, value in columns.items()})
+        arrays.update({'sn_{}_covariance'.format(case): covariance, 'sn_{}_names'.format(case): np.array(names),
+                       'sn_{}_points'.format(case): points, 'sn_{}_logpost_x64'.format(case): values,
+                       'sn_{}_grad_x64'.format(case): grads})
+    np.savez(path, **{key: np.asarray(value) for key, value in arrays.items()})
+
+
+def cmb_fixtures():
+    """The data of the CMB cases (numpy, from ``tests/test_cmb.py``'s
+    fixtures and the JAX package's numpy fixture generators)."""
+    sys.path.insert(0, os.path.join(ROOT, 'tests'))
+    import test_cmb as T
+    from desilike_tpu.likelihoods.cmb import synthetic_camspec_data, synthetic_planck2018_lensing_data
+    out = {}
+    plik = T.plik_lite_fixture()
+    plik['weights'] = np.full(T.LMAX + 1, 1. / 30)
+    out['plik'] = plik
+    ells = np.arange(2, 30)
+    dl_true = T.TABLES['tt'][2:30] * T.MUK2 * ells * (ells + 1) / (2 * np.pi)
+    sig = 0.1 * np.abs(dl_true) + 10.
+    grid = dl_true[:, None] + np.linspace(-8, 8, 200)[None, :] * sig[:, None]
+    out['commander'] = dict(cl2x=np.stack([grid, (grid - dl_true[:, None]) / sig[:, None]], axis=-1),
+                            mu=np.zeros(28), covariance=np.eye(28), mu_sigma=dl_true)
+    # simall: the EE D_ell of ell = 2-29 moved inside the table's domain, as in test_eelowl_prob_table
+    dl_ee = np.clip(T.TABLES['ee'][2:30] * T.MUK2 * ells * (ells + 1) / (2 * np.pi), 1e-3, 0.25)
+    bins = 1e-4 * (0.5 + np.arange(3000))
+    out['simall_ee'] = T.TABLES['ee'].copy()
+    out['simall_ee'][2:30] = dl_ee * 2 * np.pi / (ells * (ells + 1)) / T.MUK2
+    out['simall'] = dict(prob=-0.5 * ((bins[None, :] - dl_ee[:, None]) / (0.1 * dl_ee[:, None])) ** 2)
+    # lollipop: the data's BB 10% above the model's, so that the two fields' H&L eigenvalues differ
+    out['lollipop'] = T.lollipop_fixture()
+    out['lollipop']['cl'][1] *= 1.1
+    act = T.act_fixture()
+    act['dN1_tt'] = np.full(act['dN1_tt'].shape, 1e-9)
+    act['dAL_dC'][0] = 1e-8 * np.eye(act['dAL_dC'].shape[1])
+    out['act'] = act
+    out['lensing'] = synthetic_planck2018_lensing_data(variant='consext8', ellmax_pp=400, ellmax_cmb=1400,
+                                                       cl_tables=T.TABLES)
+    out['lensing_marged'] = synthetic_planck2018_lensing_data(variant='CMBmarged', ellmax_pp=400, ellmax_cmb=1400,
+                                                              cl_tables=T.TABLES)
+    out['camspec'] = synthetic_camspec_data(T.TABLES, seed=11, params=dict(
+        amp_143=12., amp_217=25., amp_143x217=17., n_143=1.2, n_217=0.8, n_143x217=1., cal2=1.003, calTE=0.995,
+        calEE=1.002, A_planck=1.001))
+    out['hillipop'] = hillipop_fixture(T.TABLES, T.MUK2)
+    return out
+
+
+def hillipop_fixture(tables, muk2, lmax=200, nxspec=15, nxfreq=6, zero_weights=False):
+    """The compact hillipop fixture of ``tests/test_cmb.py::test_hillipop_real_file_roundtrip``
+    (multipoles 50-180, errors 0.01% of the signal, non-trivial weights, dust
+    and tSZ/kSZ templates); with ``zero_weights``, the weights at ell < 2
+    zero as there (the JAX package's gradient is then NaN: its weighted
+    average divides 0 by 0 at ell < 2, outside the selected multipoles, and
+    the NaN reaches the gradient through them)."""
+    ells = np.arange(lmax + 1).astype('f8')
+    fac = ells * (ells + 1) / (2 * np.pi) * muk2
+    dlth = {m: tables[m.lower()][:lmax + 1] * fac for m in ('TT', 'EE', 'TE')}
+    flat = np.concatenate([dlth[m][50:181] for m in ('TT', 'EE', 'TE') for _ in range(nxfreq)])
+    data = dict(dldata={m: np.tile(dlth[m], (nxspec, 1)) for m in ('TT', 'EE', 'TE')},
+                lmins={m: np.full(nxfreq, 50) for m in ('TT', 'EE', 'TE')},
+                lmaxs={m: np.full(nxfreq, 180) for m in ('TT', 'EE', 'TE')},
+                invcov=np.diag(1. / (1e-4 * np.abs(flat) + 1e-3) ** 2))
+    rng = np.random.default_rng(3)
+    data['dlweight'] = {m: 1. + rng.random(data['dldata'][m].shape) for m in data['dldata']}
+    for m in data['dlweight']:
+        data['dlweight'][m][:, :2] = 0. if zero_weights else data['dlweight'][m][:, :2]
+    data['templates'] = {'dust_TT': rng.random((nxfreq, lmax + 1)), 'tsz': rng.random(lmax + 1),
+                         'ksz': rng.random(lmax + 1)}
+    return data
+
+
+def hillipop_data(fixture, modes):
+    """The hillipop fixture cut to ``modes`` (its precision to their blocks)."""
+    sizes = {m: len(fixture['lmins'][m]) * int(fixture['lmaxs'][m][0] - fixture['lmins'][m][0] + 1)
+             for m in ('TT', 'EE', 'TE')}
+    start = np.cumsum([0] + [sizes[m] for m in ('TT', 'EE', 'TE')])
+    keep = np.concatenate([np.arange(start[i], start[i + 1]) for i, m in enumerate(('TT', 'EE', 'TE')) if m in modes])
+    return dict(fixture, invcov=fixture['invcov'][np.ix_(keep, keep)])
+
+
+def cmb_cases(cmb, fixtures, **kwargs):
+    """{case: likelihood} of the CMB family, built the same way from the
+    module ``cmb`` (the JAX package's ``likelihoods.cmb`` or the port's) on
+    the data of :func:`cmb_fixtures`; ``kwargs`` go to each ``ClTheory``
+    (the port's ``device``)."""
+    import chip_smoke
+    response = chip_smoke.cmb_tables()
+
+    def theory(**extra):
+        return cmb.ClTheory(**dict(response, **extra, **kwargs))
+
+    simall_tables = dict(response['tables'], ee=fixtures['simall_ee'])
+    cases = {
+        'plik_ttteee': cmb.TTTEEEHighlPlanck2018LiteLikelihood(theory=theory(), data=fixtures['plik'],
+                                                               elllim=(30, 1500)),
+        'plik_tt': cmb.TTHighlPlanck2018LiteLikelihood(theory=theory(), data=fixtures['plik'], elllim=(30, 1500)),
+        'commander': cmb.TTLowlPlanck2018Likelihood(theory=theory(), data=fixtures['commander']),
+        'simall': cmb.EELowlPlanck2018Likelihood(theory=cmb.ClTheory(tables=simall_tables, **kwargs),
+                                                 data=fixtures['simall']),
+        'lollipop_ee': cmb.EELowlPlanck2020LollipopLikelihood(theory=theory(), data=fixtures['lollipop']),
+        'lollipop_bb': cmb.BBLowlPlanck2020LollipopLikelihood(theory=theory(), data=fixtures['lollipop']),
+        'lollipop_eb': cmb.EBLowlPlanck2020LollipopLikelihood(theory=theory(), data=fixtures['lollipop']),
+        'act': cmb.ACTDR6LensingLikelihood(theory=theory(), data=fixtures['act']),
+        'lensing': cmb.Planck2018LensingLikelihood(theory=theory(), data=fixtures['lensing']),
+        'lensing_marged': cmb.Planck2018LensingLikelihood(theory=theory(), data=fixtures['lensing_marged'],
+                                                          variant='CMBmarged'),
+        'camspec_ttteee': cmb.TTTEEEHighlPlanckNPIPECamspecLikelihood(theory=theory(), data=fixtures['camspec']),
+        'camspec_tt': cmb.TTHighlPlanckNPIPECamspecLikelihood(theory=theory(), data=fixtures['camspec']),
+    }
+    for modes, cls in ((('TT', 'EE', 'TE'), 'TTTEEE'), (('TT',), 'TT'), (('EE',), 'EE'), (('TE',), 'TE')):
+        cases['hillipop_' + cls.lower()] = getattr(cmb, '{}HighlPlanck2020HillipopLikelihood'.format(cls))(
+            theory=theory(), data=hillipop_data(fixtures['hillipop'], modes))
+    return cases
+
+
+def cmb_reference():
+    """The CMB family's arrays of the ``probes`` mode: each case of
+    :func:`cmb_cases` at 4 points (``cmb_<case>_{names,points,logpost_x64,
+    grad_x64}``); the golden Cl emulator through ``ClTheory(emulator=...)``
+    (its C_ell at the golden theta, ``cl_emulator_<xy>_x64``); the
+    compressed Gaussian likelihoods and the S/N-weighted P(k) likelihood."""
+    import chip_smoke
+    from desilike_tpu.likelihoods import cmb
+    from desilike_tpu.likelihoods import SNWeightedPowerSpectrumLikelihood
+    from desilike_tpu.theories import KaiserTracerPowerSpectrumMultipoles, ShapeFitPowerSpectrumTemplate
+    from desilike_tpu.observables import BoxFootprint
+    arrays = {}
+    cases = cmb_cases(cmb, cmb_fixtures())
+    cases['gaussian'] = cmb.Planck2018GaussianLikelihood(cosmo=varied_cosmology(('h', 'omega_cdm', 'omega_b')))
+    cases['gaussian_derived'] = cmb.BasePlanck2018GaussianLikelihood(
+        cosmo=varied_cosmology(('h', 'omega_cdm', 'omega_b')), quantities=GAUSSIAN_QUANTITIES,
+        mean=GAUSSIAN_MEAN, covariance=np.diag(GAUSSIAN_STD) ** 2)
+    cases['sn_weighted'] = SNWeightedPowerSpectrumLikelihood(
+        theories=[KaiserTracerPowerSpectrumMultipoles(ells=(0, 2), template=ShapeFitPowerSpectrumTemplate(z=1.),
+                                                      mu=6)],
+        data={'b1': 2.0}, footprints=BoxFootprint(volume=1e9, nbar=1e-3), klim=(0.02, 0.2), mu=10)
+    for case, like in cases.items():
+        names = like.pipeline.varied_params.names()
+        if case.startswith('gaussian'):
+            points = uniform_points(names, EXTERNAL_CENTER, EXTERNAL_WIDTH, 4, seed=6).astype('f4').astype('f8')
+        elif case == 'sn_weighted':  # b1 within 0.1 of its data's, the template at its defaults (test_inference.py:186)
+            points = uniform_points(names, {**CENTERS, 'b1': 2.}, {name: 0.1 if name == 'b1' else 0. for name in names},
+                                    4, seed=6).astype('f4').astype('f8')
+        else:
+            points = chip_smoke.cmb_points(names, fine=case.startswith('hillipop'))
+        values, grads, _ = evaluate_likelihood(like, names, points)
+        arrays.update({'cmb_{}_names'.format(case): np.array(names), 'cmb_{}_points'.format(case): points,
+                       'cmb_{}_logpost_x64'.format(case): values, 'cmb_{}_grad_x64'.format(case): grads})
+    return arrays
+
+
+# a compressed Gaussian on derived quantities of the Cosmology node (``BasePlanck2018GaussianLikelihood``)
+GAUSSIAN_QUANTITIES = ('H0', 'Omega_m', 'rs_drag_mpc', 'theta_star_100', 'z_star', 'sigma8', 'N_eff', 'logA')
+GAUSSIAN_MEAN = (67.4, 0.315, 147.1, 1.0411, 1089.9, 0.811, 3.046, 3.044)
+GAUSSIAN_STD = (0.5, 0.007, 0.3, 0.0003, 0.2, 0.006, 0.2, 0.014)
+
+
 def build_jax_likelihood(config):
     if config == 'bao':
         import __graft_entry__
@@ -1566,6 +1869,11 @@ if __name__ == '__main__':
         jax.config.update('jax_platforms', 'cpu')
         observables_reference(sys.argv[2])
         sys.exit(0)
+    if sys.argv[1:2] == ['--x64-probes']:
+        import jax
+        jax.config.update('jax_platforms', 'cpu')
+        probes_reference(sys.argv[2])
+        sys.exit(0)
     if sys.argv[1:2] == ['--x64-emu']:
         import jax
         jax.config.update('jax_platforms', 'cpu')
@@ -1591,6 +1899,8 @@ if __name__ == '__main__':
             arrays = run_x64('--x64-tns')
         elif config == 'observables':
             arrays = run_x64('--x64-observables')
+        elif config == 'probes':
+            arrays = run_x64('--x64-probes')
         elif config == 'theories':
             arrays = theories_reference()
         elif config == 'tier1':

@@ -1,6 +1,6 @@
 """Where a log-posterior call spends its time on one CUDA card.
 
-Builds config 1, 3, 4, xi or 3xi of ``chip_smoke.py`` on the card and, for the
+Builds config 1, 3, 3d, 3j, 4, xi or 3xi of ``chip_smoke.py`` on the card and, for the
 forward call and for the call with its gradient, at each batch of seeded
 chains:
 
@@ -29,15 +29,19 @@ chains:
 Prints one JSON line per (mode, batch), each with the card's name and power
 limit, and writes them to ``--out`` if given.
 
-    python3 scripts/profile_logpost.py [--config 1|3|4|xi|3xi] [--batches 4096 32768] [--calls 5] [--out FILE]
+    python3 scripts/profile_logpost.py [--config 1|3|3d|3j|4|xi|3xi] [--batches 4096 32768] [--calls 5] [--out FILE]
+
+(config 3j writes its supernova files into a temporary directory first).
 """
 
 import argparse
 import collections
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 
@@ -84,7 +88,7 @@ def xi_stage(shapes):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
-    parser.add_argument('--config', choices=('1', '3', '4', 'xi', '3xi'), default='4')
+    parser.add_argument('--config', choices=('1', '3', '3d', '3j', '4', 'xi', '3xi'), default='4')
     parser.add_argument('--batches', type=int, nargs='+', default=[4096, 32768])
     parser.add_argument('--out', default=None, help='file the JSON lines are also written to')
     parser.add_argument('--calls', type=int, default=5,
@@ -98,9 +102,15 @@ def main():
     import chip_smoke
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    like = {'1': chip_smoke.build_likelihood, '3': chip_smoke.build_ept_likelihood,
-            '4': chip_smoke.build_joint_likelihood, 'xi': chip_smoke.build_xi_likelihood,
-            '3xi': chip_smoke.build_ept_xi_likelihood}[args.config](None)
+    if args.config == '3j':
+        directory = tempfile.mkdtemp()
+        chip_smoke.write_probe_files(directory)
+        like = chip_smoke.build_probes_likelihood(None, directory)
+        shutil.rmtree(directory)
+    else:
+        like = {'1': chip_smoke.build_likelihood, '3': chip_smoke.build_ept_likelihood,
+                '3d': chip_smoke.build_ept_direct_likelihood, '4': chip_smoke.build_joint_likelihood,
+                'xi': chip_smoke.build_xi_likelihood, '3xi': chip_smoke.build_ept_xi_likelihood}[args.config](None)
     fn = like.logpost_fn()
     names = like.pipeline.varied_params.names()
     lines = []

@@ -97,13 +97,27 @@ def test_eh99_scale_dependent_growth_raises():
                                            (dict(engine='external'), 'A17'), (None, 'A17')],
                          ids=['theta', 'emulator', 'external', 'inject'])
 def test_unported_cosmology_options_raise(kwargs, match):
-    """What the ``Cosmology`` node leaves for later: h solved from 100
-    theta_* (the recombination-era quantities, A13), the external engine and
+    """What the ``Cosmology`` node leaves for later: the external engine and
     state injection (A17). The trained emulator engine (A11c), which raised
     before it was ported, now builds from the JAX package's weights
     (``tests/data/torch_port_theories_reference.npz``) and gives, in float64
     for 4 cosmologies in one batch, the JAX package's x64 pk_dd and rs_drag
-    within 1e-6 (relative; both networks in float32)."""
+    within 1e-6 (relative; both networks in float32). h solved from 100
+    theta_* (A13), which raised before the recombination-era quantities were
+    ported, gives in float32 the JAX package's x64 h at the 16 points of
+    ``tests/data/torch_port_probes_reference.npz`` within 5e-6, in one batch
+    (the limit of ``tests/test_torch_external.py``)."""
+    if match == 'A13':
+        probes = np.load(os.path.join(os.path.dirname(__file__), 'data', 'torch_port_probes_reference.npz'))
+        names = list(probes['theta_names'])
+        cosmo = Cosmology(device='cpu', **kwargs)
+        cosmo.init.params = {name: dict(fixed=False) for name in names}
+        pipe = Pipeline(cosmo)
+        assert pipe.varied_params.names()[-1] == 'theta_MC_100' and 'h' not in pipe.varied_params.names()
+        pipe.evaluate({name: torch.tensor(probes['theta_points'][:, i], dtype=torch.float32)
+                       for i, name in enumerate(names)}, dtype=torch.float32)
+        np.testing.assert_allclose(cosmo.h.numpy(), probes['theta_h_x64'], rtol=0., atol=5e-6)
+        return
     if match == 'A11c':
         reference = np.load(THEORIES)
         from test_torch_cosmo_emulator import jax_weights
@@ -259,3 +273,24 @@ def test_default_window_theories():
     window.runtime_info.initialize()
     assert isinstance(window.theory, DampedBAOWigglesTracerCorrelationFunctionMultipoles)
     np.testing.assert_array_equal(window.theory.s, window.sin)
+
+
+def test_installer_path_raises():
+    """Without data=, data_dir= or arrays, the JAX package's supernova and
+    CMB likelihoods look their data up through its installer
+    (``desilike_tpu/install.py``): in the port that path is ROADMAP A17, and
+    each class says so at its first initialization."""
+    from desilike_tpu_torch.likelihoods import supernovae, cmb
+    classes = [getattr(supernovae, name) for name in ('PantheonSNLikelihood', 'PantheonPlusSNLikelihood',
+                                                      'PantheonPlusSHOESSNLikelihood', 'Union3SNLikelihood',
+                                                      'DESY5SNLikelihood')]
+    classes += [getattr(cmb, name) for name in ('TTTEEEHighlPlanck2018LiteLikelihood', 'TTLowlPlanck2018Likelihood',
+                                                'EELowlPlanck2018Likelihood', 'EELowlPlanck2020LollipopLikelihood',
+                                                'ACTDR6LensingLikelihood', 'Planck2018LensingLikelihood',
+                                                'TTTEEEHighlPlanckNPIPECamspecLikelihood',
+                                                'TTTEEEHighlPlanck2020HillipopLikelihood')]
+    for cls in classes:
+        with pytest.raises(NotImplementedError, match='A17'):
+            cls(theory=cmb.ClTheory(tables=cmb.synthetic_cl_tables(lmax=100)), device='cpu').runtime_info.initialize()
+    with pytest.raises(NotImplementedError, match='A17'):
+        cmb.FullGridPlanck2018GaussianLikelihood(device='cpu').runtime_info.initialize()
