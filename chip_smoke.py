@@ -161,7 +161,28 @@ NUTS over config 5.
    the launch counters set to 0 just before and read just after;
    iterations/s, chain-gradient evaluations/s, launches a leapfrog step,
    step size, trajectory length, acceptance, leaves and host reads an
-   iteration.
+   iteration;
+A15. the samplers, profilers and profile containers of ROADMAP A15
+   (:func:`run_a15`), each run with the launch counters set to 0 just
+   before and read just after (seconds, iterations/s, chain evaluations/s,
+   launches of both kernels, host reads, acceptance, peak device memory):
+   on config 3d, Metropolis over 4096 chains (16 adaptation and 8 frozen
+   steps), the stretch ensemble over 4096 walkers (16 steps), the slice
+   ensemble over 1024 (4 steps), the grid (size 3, 3^9 points) and QMC
+   (4096 points); nested sampling on config 1 (4096 live points, 1024 a
+   batch step, dlogz 0.5, at most 16 batch steps; logz and logzerr) and one
+   batch step timed reading ``done.all()`` and with 32 fixed iterations;
+   the Metropolis chain reweighted under config 3j; on config 3d the
+   L-BFGS-B profiler from 2 starts with its parabolic errors (the best fit
+   re-evaluated on the port's CPU path within 2e-2, no lower than its
+   start) and the Adam profiler over 256 starts in one batch (200 steps);
+   the blocked sampler over 8 chains on a likelihood with a host-evaluated
+   node (at most nsteps + 2 host calls); and each new step given the same
+   draws on the card and on the CPU path (:func:`check_same_draws`, within
+   1e-5 relative). Raises unless every record is finite, the Metropolis and
+   stretch acceptance lies in (0, 1), the Clenshaw kernel was launched in
+   every run on configs 3d, 1 and 3j and the coefficient-gradient kernel
+   under the profilers.
 
 Any failure raises (exit code 1). The last three lines of standard output
 are a JSON object describing the kernels, one with the samplers' numbers,
@@ -3035,6 +3056,378 @@ def run_samplers(joint, ept, smi):
     return out
 
 
+A15_CHAINS = 4096       # MCMC chains and stretch walkers on config 3d
+A15_SLICE_WALKERS = 1024
+A15_NESTED = dict(nlive=4096, nbatch=1024, dlogz=0.5, max_iterations=16 * 1024)  # 16 batch steps at most
+A15_OPTAX_STARTS, A15_OPTAX_STEPS = 256, 200
+A15_BLOCKED = dict(nchains=8, nsteps=40)
+SAME_DRAWS_RTOL = 1e-5
+
+
+def gaussian_likelihoods(device):
+    """The 2-parameter linear Gaussian of tests/test_samplers.py:10-31 in the
+    port, on ``device``, and a likelihood with one host-evaluated node
+    (tests/test_samplers.py:365-424): omega through a host code, b fast.
+    Returns (gaussian, host-node likelihood, the host node's class)."""
+    import torch
+    from desilike_tpu_torch.core import Calculator
+    from desilike_tpu_torch.likelihoods.base import BaseGaussianLikelihood
+    xgrid, hgrid = np.linspace(-1, 1, 50), np.linspace(0., 1., 40)
+
+    class GaussianModel(BaseGaussianLikelihood):
+        _params = dict(BaseGaussianLikelihood._params,
+                       a=dict(value=1.0, prior=dict(limits=[-4, 4]), ref=dict(dist='norm', loc=1.0, scale=0.2)),
+                       b=dict(value=-0.5, prior=dict(limits=[-4, 4]), ref=dict(dist='norm', loc=-0.5, scale=0.2)))
+
+        def initialize(self):
+            self.flatdata = 1. * xgrid - 0.5
+            self._set_whitening(np.eye(50) * 0.04)
+
+        def flattheory(self):
+            return self._a[..., None] * torch.as_tensor(xgrid, dtype=self._a.dtype, device=self._a.device) \
+                + self._b[..., None]
+
+        def calculate(self, a=1., b=0.):
+            self._a, self._b = a, b
+            super().calculate()
+
+    class SlowHost(Calculator):
+        _host_eval = True
+        _state_attrs = ['shape']
+        _params = {'omega': dict(value=0.3, prior=dict(limits=[0.1, 0.5]),
+                                 ref=dict(dist='norm', loc=0.3, scale=0.01), proposal=0.01)}
+        ncalls = 0
+
+        def calculate(self, omega=0.3):
+            SlowHost.ncalls += 1
+            omega = omega.detach().cpu().numpy().astype('f8')  # the host code
+            self.shape = torch.as_tensor(np.exp(-omega[:, None] * hgrid), dtype=self.dtype, device=self.device)
+
+        def get(self):
+            return self.shape
+
+    class HostLike(BaseGaussianLikelihood):
+        _params = dict(BaseGaussianLikelihood._params,
+                       b=dict(value=2., prior=dict(limits=[0.5, 4.]), ref=dict(dist='norm', loc=2., scale=0.05),
+                              proposal=0.02))
+
+        def initialize(self):
+            self.host = SlowHost()
+            self.flatdata = 2. * np.exp(-0.3 * hgrid)
+            self._set_whitening(np.eye(40) * 0.01 ** 2)
+
+        def flattheory(self):
+            return self._b[..., None] * self.host.shape
+
+        def calculate(self, b=2.):
+            self._b = b
+            super().calculate()
+
+    return GaussianModel(device=device), HostLike(device=device), SlowHost
+
+
+def same_draws_error(label, got, expected):
+    """max |got - expected| / max |expected| over tensors (or tuples of them)
+    on any device; raises above SAME_DRAWS_RTOL."""
+    import torch
+    got = got if isinstance(got, (tuple, list)) else [got]
+    expected = expected if isinstance(expected, (tuple, list)) else [expected]
+    err = 0.
+    for g, e in zip(got, expected):
+        g, e = (torch.as_tensor(v).detach().double().cpu() for v in (g, e))
+        err = max(err, float((g - e).abs().max() / max(float(e.abs().max()), 1e-30)))
+    if not err <= SAME_DRAWS_RTOL:
+        raise AssertionError('phase A15: {}: card vs the CPU path given the same draws: {:.3e} > {:.0e}'.format(
+            label, err, SAME_DRAWS_RTOL))
+    return err
+
+
+def check_same_draws(cuda):
+    """Phase A15: each new step on the 2-parameter Gaussian, on the card and
+    on the CPU path, given the same draws (seeded numpy): 8 Metropolis steps
+    (6 adapting: the scale, the pooled Welford moments and the Cholesky), a
+    stretch and a slice ensemble step of 64 walkers, a nested batch step
+    (16 of 64 live points, 5 slices), 20 Adam steps of the Optax profiler.
+    Returns {step: max relative error}."""
+    import torch
+    from desilike_tpu_torch.samplers import MCMCSampler, EnsembleSampler, EnsembleSliceSampler, NestedSampler
+    from desilike_tpu_torch.profilers import OptaxProfiler
+    from desilike_tpu_torch.profilers.base import adam_update, warmup_cosine_decay
+    rng = np.random.default_rng(15)
+    likes = (('card', cuda, gaussian_likelihoods(cuda)[0]), ('cpu', torch.device('cpu'), gaussian_likelihoods('cpu')[0]))
+    errors = {}
+
+    def on(device, *arrays):
+        return [torch.as_tensor(a, device=device) for a in arrays]
+
+    # Metropolis
+    x0 = (np.array([1., -0.5]) + 0.1 * rng.normal(size=(8, 2))).astype('f4')
+    z, u = rng.normal(size=(8, 8, 2)).astype('f4'), rng.uniform(size=(8, 8)).astype('f4')
+    out = {}
+    for side, device, like in likes:
+        sampler = MCMCSampler(like, nchains=8)
+        x, zz, uu = on(device, x0, z, u)
+        lp, aux = sampler.logpost_batch(x)
+        zero = torch.zeros((), device=device)
+        state = (x, lp, aux, zero, torch.as_tensor(sampler._chol, dtype=torch.float32, device=device),
+                 torch.zeros(2, device=device), torch.zeros((2, 2), device=device), zero, zero)
+        step = sampler._build_step(6)
+        for i in range(8):
+            state, _ = step(state, zz[i], uu[i], i < 6)
+        out[side] = [state[i] for i in (0, 1, 3, 4, 5, 6, 7)]
+    errors['mcmc'] = same_draws_error('Metropolis steps', out['card'], out['cpu'])
+    # stretch and slice ensemble steps
+    xw = (np.array([1., -0.5]) + 0.1 * rng.normal(size=(64, 2))).astype('f4')
+    stretch = [(rng.integers(0, 32, 32), rng.uniform(size=32).astype('f4'), rng.uniform(size=32).astype('f4'))
+               for _ in range(2)]
+    slice_draws = []
+    for _ in range(2):
+        ia = rng.integers(0, 32, 32)
+        ib = rng.integers(0, 31, 32)
+        slice_draws.append((ia, np.where(ib >= ia, ib + 1, ib), rng.uniform(size=32).astype('f4'),
+                            rng.uniform(size=32).astype('f4'), rng.uniform(size=(16, 32)).astype('f4')))
+    for name, cls, draws in (('stretch', EnsembleSampler, stretch), ('slice', EnsembleSliceSampler, slice_draws)):
+        out = {}
+        for side, device, like in likes:
+            sampler = cls(like, nwalkers=64)
+            x = torch.as_tensor(xw, device=device)
+            lp, aux = sampler.logpost_batch(x)
+            zero = torch.zeros((), dtype=torch.int64, device=device)
+            state = (x, lp, aux, zero) + ((zero,) if name == 'slice' else ())
+            state, _ = sampler.step(state, on(device, *draws[0]), on(device, *draws[1]))
+            out[side] = [state[0], state[1]] + [s.double() for s in state[3:]]
+        errors[name] = same_draws_error('{} ensemble step'.format(name), out['card'], out['cpu'])
+    # a nested batch step
+    u0 = rng.uniform(size=(64, 2)).astype('f4')
+    d = rng.normal(size=(5, 16, 2))
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype('f4')
+    nested = (rng.integers(0, 48, 16), d, rng.uniform(size=(5, 32, 16)).astype('f4'))
+    out = {}
+    for side, device, like in likes:
+        sampler = NestedSampler(like, nlive=64, nbatch=16)
+        uu = torch.as_tensor(u0, device=device)
+        u_live, L_live, u_dead, L_dead, ncall = sampler.batch_step(uu, sampler._nsloglike(uu), *on(device, *nested))
+        out[side] = [u_live, L_live, u_dead, L_dead, ncall.double()]
+    errors['nested'] = same_draws_error('nested batch step', out['card'], out['cpu'])
+    # Adam steps of the Optax profiler
+    out = {}
+    for side, device, like in likes:
+        profiler = OptaxProfiler(like, nsteps=300)
+        scales = torch.as_tensor(profiler._scales, dtype=torch.float32, device=device)
+        uu = torch.as_tensor(np.array([1.2, -0.3]) / profiler._scales, dtype=torch.float32, device=device)
+        m, v, path = torch.zeros_like(uu), torch.zeros_like(uu), []
+        for i in range(20):
+            with torch.enable_grad():
+                ug = uu.clone().requires_grad_(True)
+                (g,) = torch.autograd.grad(profiler.chi2(ug * scales), ug)
+            update, m, v = adam_update(g, m, v, i + 1, warmup_cosine_decay(i, 0.1, 31, 300))
+            uu = uu + update
+            path.append(uu)
+        out[side] = torch.stack(path)
+    errors['adam'] = same_draws_error('Adam steps', out['card'], out['cpu'])
+    print('phase A15: the new steps given the same draws, card vs the CPU path (max relative error, tol {:.0e}): '
+          '{}'.format(SAME_DRAWS_RTOL, json.dumps(errors)))
+    return errors
+
+
+def a15_run(label, smi, make, run, config=None):
+    """One run of phase A15 with the launch counters set to 0 just before it
+    and read just after, its peak device memory, seconds and rates. ``make``
+    builds the sampler or profiler, ``run(obj)`` drives it and returns
+    (numbers, finite). Raises unless every record is finite and, on configs
+    3d and 1 (``config``), the Clenshaw kernel was launched."""
+    import torch
+    from desilike_tpu_torch.ops import cuda_kernels
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_kernels.CLENSHAW_LAUNCHES = cuda_kernels.COEFF_GRAD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    obj = make()
+    numbers, finite = run(obj)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    entry = dict(config=config, seconds=seconds, launches_clenshaw=cuda_kernels.CLENSHAW_LAUNCHES,
+                 launches_coeff_grad=cuda_kernels.COEFF_GRAD_LAUNCHES,
+                 max_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 evaluated_points=obj.evaluated_points, chain_evaluations_per_s=obj.evaluated_points / seconds,
+                 **numbers)
+    if 'iterations' in entry:
+        entry['iterations_per_s'] = entry['iterations'] / seconds
+    print('phase A15: {} on {!r}: {}'.format(label, smi, json.dumps(entry)))
+    if not finite:
+        raise AssertionError('phase A15: {}: a record is not finite'.format(label))
+    if config is not None and entry['launches_clenshaw'] <= 0:
+        raise AssertionError('phase A15: {}: the Clenshaw kernel was not launched'.format(label))
+    return obj, entry
+
+
+def chain_finite(chain):
+    return bool(all(np.isfinite(chain[name]).all() for name in chain.names() if name != 'aweight'))
+
+
+def run_a15(like, direct, probes, smi, cuda):
+    """Phase A15: the samplers, profilers and profile containers of ROADMAP
+    A15 on the card, through the CUDA Clenshaw kernels: Metropolis (16
+    adaptation + 8 frozen steps) and the stretch ensemble (16 steps) at 4096
+    chains, the slice ensemble at 1024 walkers (4 steps), grid (size 3, 3^9
+    points) and QMC (4096 points) on config 3d; nested sampling on config 1
+    (4096 live points, 1024 a batch step, dlogz 0.5, at most 16 batch steps),
+    with one batch step from its last live set timed reading ``done.all()``
+    and with 32 fixed iterations, in turns; the Metropolis chain reweighted
+    under config 3j; the L-BFGS-B profiler from 2 starts with its parabolic
+    errors, its best fit re-evaluated on the port's CPU path, and the Adam
+    profiler with 256 starts in one batch (200 steps) on config 3d; the
+    blocked sampler over 8 chains on a likelihood with a host-evaluated node;
+    and the new steps given the same draws, card vs CPU path. Each run with
+    the launch counters read around it. Returns the numbers."""
+    import torch
+    from desilike_tpu_torch.samplers import (MCMCSampler, EnsembleSampler, EnsembleSliceSampler, NestedSampler,
+                                             GridSampler, QMCSampler, ImportanceSampler, BlockedMCMCSampler)
+    from desilike_tpu_torch.profilers import ScipyProfiler, OptaxProfiler
+    t_a15 = time.perf_counter()
+    out, kept = {}, {}  # the numbers; the Metropolis chain and the profiler's best fit, kept for later runs
+
+    def sampled(chain_of):
+        def run(sampler):
+            chain = kept[type(sampler).__name__] = chain_of(sampler)
+            d = sampler.diagnostics
+            numbers = dict(shape=list(chain.shape), iterations=d.get('iterations'), host_reads=d.get('host_reads'),
+                           acceptance_rate=d.get('acceptance_rate'))
+            return {k: v for k, v in numbers.items() if v is not None}, chain_finite(chain)
+        return run
+
+    mcmc, out['mcmc'] = a15_run('MCMCSampler, config 3d, {} chains, 16 adaptation + 8 frozen steps'.format(
+        A15_CHAINS), smi, lambda: MCMCSampler(direct, nchains=A15_CHAINS, seed=11),
+        sampled(lambda s: s.run(nsteps=24, nadapt=16)), config='3d')
+    out['mcmc']['proposal_scale'] = mcmc.diagnostics['proposal_scale']
+    _, out['ensemble'] = a15_run('EnsembleSampler, config 3d, {} walkers, 16 steps'.format(A15_CHAINS), smi,
+                                 lambda: EnsembleSampler(direct, nwalkers=A15_CHAINS, seed=12),
+                                 sampled(lambda s: s.run(nsteps=16)), config='3d')
+    slice_sampler, out['ensemble_slice'] = a15_run(
+        'EnsembleSliceSampler, config 3d, {} walkers, 4 steps'.format(A15_SLICE_WALKERS), smi,
+        lambda: EnsembleSliceSampler(direct, nwalkers=A15_SLICE_WALKERS, seed=13),
+        sampled(lambda s: s.run(nsteps=4)), config='3d')
+    out['ensemble_slice'].update(ncall=slice_sampler.diagnostics['ncall'],
+                                 batched_calls=slice_sampler.diagnostics['evaluations'])
+    # a Metropolis or stretch move is refused at times; a slice move finds a point unless its loops run out
+    for key, high in (('mcmc', 1.), ('ensemble', 1.), ('ensemble_slice', 1. + 1e-12)):
+        if not 0. < out[key]['acceptance_rate'] < high:
+            raise AssertionError('phase A15: {} acceptance {} outside (0, {})'.format(
+                key, out[key]['acceptance_rate'], 1 if high == 1. else '1]'))
+
+    def nested_run(sampler):
+        chain = sampler.run(dlogz=A15_NESTED['dlogz'], max_iterations=A15_NESTED['max_iterations'])
+        d = sampler.diagnostics
+        return (dict(logz=d['logz'], logzerr=d['logzerr'], iterations=d['niterations'], ncall=d['ncall'],
+                     host_reads=d['host_reads'], host_reads_per_batch_step=d['host_reads_per_batch_step'],
+                     batched_calls=d['evaluations'], shape=list(chain.shape)),
+                chain_finite(chain) and np.isfinite(d['logz']) and np.isfinite(d['logzerr']))
+
+    nested, out['nested'] = a15_run(
+        'NestedSampler, config 1, nlive {nlive}, nbatch {nbatch}, dlogz {dlogz}, max_iterations {max_iterations}'.format(
+            **A15_NESTED), smi, lambda: NestedSampler(like, nlive=A15_NESTED['nlive'], nbatch=A15_NESTED['nbatch'],
+                                                      seed=14), nested_run, config='1')
+    # one batch step from the last live set, reading done.all() an iteration and with 32 fixed masked
+    # iterations, in turns, on the same draws
+    draws = nested._draws()
+    u_live, L_live = nested._live
+    timed = {True: [], False: []}
+    for read_done in (True, False, False, True):
+        nested.read_done = read_done
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = nested.batch_step(u_live, L_live, *draws)
+        torch.cuda.synchronize()
+        timed[read_done].append(time.perf_counter() - t0)
+    del nested.read_done  # back to the class's choice
+    out['nested'].update(batch_step_s_read_done=timed[True], batch_step_s_fixed_32=timed[False])
+    print('phase A15: nested batch step on config 1 from the last live set: reading done.all() {} s, 32 fixed '
+          'masked iterations {} s'.format(['%.4f' % t for t in timed[True]], ['%.4f' % t for t in timed[False]]))
+
+    def grid_run(sampler):
+        samples = sampler.run()
+        return dict(points=len(samples['logposterior'])), bool(np.isfinite(samples['logposterior']).all())
+
+    _, out['grid'] = a15_run('GridSampler, config 3d, size 3', smi, lambda: GridSampler(direct, size=3), grid_run,
+                             config='3d')
+
+    def qmc_run(sampler):
+        samples = sampler.run(niterations=4096, evaluate=True)
+        return dict(points=len(samples['logposterior'])), bool(np.isfinite(samples['logposterior']).all())
+
+    _, out['qmc'] = a15_run('QMCSampler, config 3d, 4096 points', smi, lambda: QMCSampler(direct, seed=15), qmc_run,
+                            config='3d')
+
+    def importance_run(sampler):
+        new = sampler.run(kept['MCMCSampler'])
+        w = np.asarray(new['aweight'])
+        return (dict(points=int(np.prod(new.shape)), effective_fraction=float(w.sum() ** 2 / (w ** 2).sum() / w.size)),
+                bool(np.isfinite(new['logposterior']).all() and np.isfinite(w).all()))
+
+    _, out['importance'] = a15_run('ImportanceSampler, the config-3d Metropolis chain under config 3j', smi,
+                                   lambda: ImportanceSampler(probes), importance_run, config='3j')
+
+    def scipy_run(profiler):
+        with torch.no_grad():
+            start_lp = float(profiler.logpost(profiler._tensor([p.value for p in profiler.varied_params])))
+        profiles = profiler.maximize(niterations=2)
+        best = profiles.choice()
+        kept['best'] = best
+        return (dict(start_logposterior=start_lp, bestfit_logposterior=best['logposterior'],
+                     error={n: profiles.error.get(n) for n in profiler.names}, evaluations=profiler.evaluations),
+                bool(np.isfinite(profiles.covariance).all() and np.isfinite(best['logposterior'])))
+
+    scipy_profiler, out['scipy_profiler'] = a15_run('ScipyProfiler.maximize, config 3d, 2 starts, parabolic errors',
+                                                    smi, lambda: ScipyProfiler(direct, seed=16), scipy_run, config='3d')
+    best = kept['best']
+    entry = out['scipy_profiler']
+    if entry['launches_coeff_grad'] <= 0:
+        raise AssertionError('phase A15: the profiler launched no coefficient-gradient kernel')
+    if entry['bestfit_logposterior'] < entry['start_logposterior']:
+        raise AssertionError('phase A15: the profiler ended below its start: {} < {}'.format(
+            entry['bestfit_logposterior'], entry['start_logposterior']))
+    t0 = time.perf_counter()
+    cpu = build_ept_direct_likelihood('cpu')
+    with torch.no_grad():
+        lp_cpu = float(cpu.logpost_fn()({n: torch.tensor([best[n]]) for n in scipy_profiler.names})[0][0])
+    entry.update(bestfit_logposterior_cpu=lp_cpu, cpu_check_s=time.perf_counter() - t0)
+    print('phase A15: the profiler\'s best fit on config 3d: card {:.5f}, CPU path {:.5f} (tol 2e-2), start {:.5f}'.format(
+        entry['bestfit_logposterior'], lp_cpu, entry['start_logposterior']))
+    if not abs(lp_cpu - entry['bestfit_logposterior']) <= 2e-2:
+        raise AssertionError('phase A15: the profiler\'s best fit reads {} on the CPU path, {} on the card'.format(
+            lp_cpu, entry['bestfit_logposterior']))
+
+    def optax_run(profiler):
+        profiles = profiler.maximize(niterations=A15_OPTAX_STARTS)
+        lps = np.asarray(profiles.bestfit['logposterior'])
+        return (dict(starts=A15_OPTAX_STARTS, steps=A15_OPTAX_STEPS, iterations=A15_OPTAX_STEPS,
+                     bestfit_logposterior=float(lps.max()), median_logposterior=float(np.median(lps)),
+                     evaluations=profiler.evaluations),
+                bool(np.isfinite(lps).all() and np.isfinite(profiles.covariance).all()))
+
+    _, out['optax_profiler'] = a15_run('OptaxProfiler, config 3d, {} starts batched, {} steps'.format(
+        A15_OPTAX_STARTS, A15_OPTAX_STEPS), smi, lambda: OptaxProfiler(direct, nsteps=A15_OPTAX_STEPS, seed=17),
+        optax_run, config='3d')
+    if out['optax_profiler']['launches_coeff_grad'] <= 0:
+        raise AssertionError('phase A15: the Adam profiler launched no coefficient-gradient kernel')
+
+    _, host_like, SlowHost = gaussian_likelihoods(None)
+    SlowHost.ncalls = 0
+    blocked, out['blocked'] = a15_run('BlockedMCMCSampler, a host-evaluated node, {nchains} chains, {nsteps} '
+                                      'steps'.format(**A15_BLOCKED), smi,
+                                      lambda: BlockedMCMCSampler(host_like, nchains=A15_BLOCKED['nchains'], seed=18),
+                                      sampled(lambda s: s.run(nsteps=A15_BLOCKED['nsteps'])))
+    out['blocked'].update(host_node_calls=SlowHost.ncalls, blocks=[list(b) for b, _ in blocked.blocks])
+    if SlowHost.ncalls > A15_BLOCKED['nsteps'] + 2:
+        raise AssertionError('phase A15: the host node ran {} times in {} steps'.format(SlowHost.ncalls,
+                                                                                        A15_BLOCKED['nsteps']))
+    out['same_draws'] = check_same_draws(cuda)
+    out['seconds'] = time.perf_counter() - t_a15
+    print('phase A15 took {:.1f} s'.format(out['seconds']))
+    return out
+
+
 def main(kernels_only=False):
     import torch
     if not torch.cuda.is_available():
@@ -3261,7 +3654,7 @@ def main(kernels_only=False):
     fnames = files.pipeline.varied_params.names()
     bao_compression_ms = check_bao_compression(smi)
     lap('phase 3: config 3f and the BAO compression likelihood')
-    _, _, config3j = check_config3j(smi, direct, dfn)
+    probes, _, config3j = check_config3j(smi, direct, dfn)
     theta = check_theta(smi)
     lap('phase 3: config 3j and Cosmology(theta=True)')
     cmb_family = check_cmb_family(smi)
@@ -3397,7 +3790,12 @@ def main(kernels_only=False):
     samplers = run_samplers(joint, ept, smi)
     samplers['nuts_config5'] = run_emulated_nuts(joint, emulated, smi)
     samplers['seconds'] = time.perf_counter() - t5
-    print('phase 5 took {:.1f} s; all phases took {:.1f} s'.format(samplers['seconds'], time.perf_counter() - started))
+    print('phase 5 took {:.1f} s'.format(samplers['seconds']))
+    # --- phase A15: the samplers, profilers and profile containers on configs 3d, 1 and 3j ---
+    samplers['a15'] = run_a15(like, direct, probes, smi, cuda)
+    print('all phases took {:.1f} s'.format(time.perf_counter() - started))
+    a15_launches = {run: [entry['launches_clenshaw'], entry['launches_coeff_grad']]
+                    for run, entry in samplers['a15'].items() if isinstance(entry, dict) and 'launches_clenshaw' in entry}
 
     fs = timed['per-row', BATCH, FS_NQUERY]
     launches3 = config3['launches']['with gradient', BATCH]
@@ -3436,6 +3834,7 @@ def main(kernels_only=False):
         **{'launches_config5_{}_{}'.format(mode.replace(' ', '_'), batch): value[0]
            for (mode, batch), value in config5['launches'].items()},
         'launches_nuts_config5': samplers['nuts_config5']['launches_clenshaw'],
+        'launches_a15': {run: value[0] for run, value in a15_launches.items()},
         'launches_config_xi': config_xi['launches']['with gradient', BATCH][0],
         'launches_config_xi_forward': config_xi['launches']['forward', BATCH][0],
         'launches_hessian_config_xi': config_xi['launches_hessian'][0],
@@ -3480,6 +3879,7 @@ def main(kernels_only=False):
         **{'launches_config5_{}_{}'.format(mode.replace(' ', '_'), batch): value[1]
            for (mode, batch), value in config5['launches'].items()},
         'launches_nuts_config5': samplers['nuts_config5']['launches_coeff_grad'],
+        'launches_a15': {run: value[1] for run, value in a15_launches.items()},
         **{'launches_config_tns_{}_{}'.format(mode.replace(' ', '_'), batch): value[1]
            for (mode, batch), value in config_tns['launches'].items()},
         **{key + '_config_tns': {label: entry['grad_' + key] for label, entry in tns_timed.items()}

@@ -28,7 +28,11 @@ systematic templates folded into the window, cut-sky footprints, the
 compression observables. The external likelihoods (BBN, H0, Mb, the CMB
 distance prior), the supernova samples and the CMB family
 (``likelihoods.cmb``), with the recombination-era quantities and h solved
-from 100 theta_* (``Cosmology(theta=True)``).
+from 100 theta_* (``Cosmology(theta=True)``). The other samplers
+(Metropolis, blocked Metropolis for pipelines with host-evaluated nodes,
+the stretch and slice ensembles, nested, grid, QMC, importance), the
+profilers (``profilers``), the ``Profiles`` and ``ParameterCovariance``
+containers and the plots (``plotting``).
 Per-evaluation compute runs on a batch of chains, in float32, on the CUDA
 card unless the caller asks for the CPU by name (``device='cpu'``); the
 Chebyshev lookups and their gradients run through hand-written CUDA kernels
@@ -39,7 +43,7 @@ __version__ = '0.1.0'
 
 from .config import set_dtype, get_dtype
 from .utils import BaseClass
-from .parameters import Parameter, ParameterCollection, Prior
+from .parameters import Parameter, ParameterCollection, Prior, ParameterCovariance, ParameterPrecision
 from .core import Calculator, Pipeline
 from .theories import (DampedBAOWigglesTracerPowerSpectrumMultipoles, BAOPowerSpectrumTemplate,
                        ShapeFitPowerSpectrumTemplate, DirectPowerSpectrumTemplate, Cosmology, KaiserTracerPowerSpectrumMultipoles,
@@ -73,3 +77,5 @@ from .differentiation import Differentiation
 from .fisher import Fisher, LikelihoodFisher, PriorFisher
 from .emulators import (Emulator, EmulatedCalculator, PointEmulatorEngine, TaylorEmulatorEngine,
                         MLPEmulatorEngine)
+from .samples import Chain, Profiles
+from . import plotting, utils  # noqa: E402

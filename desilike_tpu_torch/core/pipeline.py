@@ -4,10 +4,14 @@ batch of parameter vectors.
 Counterpart of ``desilike_tpu/core/pipeline.py``. Where the JAX package
 traces the walk once and lets ``vmap`` add the chain dimension, here every
 parameter is a ``(B,)`` tensor and each calculator broadcasts over the
-leading batch dimension itself. Host-evaluated nodes, injected external
-state and the per-calculator profiler wait for ROADMAP A15 and A17.
+leading batch dimension itself. A calculator flagged ``_host_eval`` (a host
+code that cannot run on the card) is memoized on its parameter footprint,
+so that moves of the other parameters skip it: ``block_params`` splits the
+varied parameters on that footprint for the blocked sampler. Injected
+external state and the per-calculator profiler wait for ROADMAP A17.
 """
 
+import numpy as np
 import torch
 
 from ..utils import BaseClass, evaluate as safe_evaluate
@@ -21,6 +25,7 @@ class Pipeline(BaseClass):
     def __init__(self, root):
         self.root = root
         self.calculators = []
+        self.host_reads = 0  # footprint reads of host-evaluated nodes (one a call)
 
         def callback(calc):
             calc.runtime_info.initialize()
@@ -155,9 +160,104 @@ class Pipeline(BaseClass):
                     [p.name for p in pending]))
         return full
 
+    def param_footprint(self, calc):
+        """Input parameter names influencing ``calc`` directly or through its
+        transitive dependencies (the reference's footprint, base.py:737)."""
+        names = {p.name for p in calc.runtime_info.params if p.derived is not True and not p.drop}
+        for req in calc.runtime_info.requires:
+            names |= self.param_footprint(req)
+        return names
+
+    def host_calculators(self):
+        """Calculators flagged ``_host_eval`` (host codes that cannot run on
+        the card): ``run_once`` memoizes them on their parameter footprint."""
+        return [c for c in self.calculators if getattr(c, '_host_eval', False)]
+
+    def block_params(self, oversample_power=0.4):
+        """Split the varied parameters into (slow, fast) blocks by whether
+        their footprint touches a host-evaluated calculator, the fast block
+        oversampled Cobaya-style (reference base.py:737-857): [(names,
+        repeat), ...], one block when there is nothing to split."""
+        hosts = self.host_calculators()
+        slow_names = set()
+        for host in hosts:
+            slow_names |= self.param_footprint(host)
+        fast, slow = [], []
+        for p in self.varied_params:
+            (slow if p.name in slow_names else fast).append(p.name)
+        if not hosts or not fast or not slow:
+            return [(self.varied_params.names(), 1)]
+        # the host call dominates a slow move: without timings, take it as >= 10x a fast one
+        factor = max(2, int(round(10 ** oversample_power * 2)))
+        return [(slow, 1), (fast, factor)]
+
+    _HOST_CACHE_SIZE = 4
+
+    def _host_inputs(self, calc, full_values):
+        """The batch's values of the footprint of a host node, copied to the
+        host: (nfootprint, B) float64, one read a call."""
+        names = sorted(self.param_footprint(calc))
+        self.host_reads += 1
+        if not names:
+            return np.zeros((0, self.batch))
+        return torch.stack([full_values[n] for n in names]).detach().cpu().numpy().astype('f8')
+
+    def _host_lookup(self, calc, inputs):
+        """Restore the cached ``_state_attrs`` for these inputs; True on a
+        hit. A small LRU (not a last-call memo) keeps a Metropolis
+        accept/reject ping-pong from re-running the host code. Chains are
+        matched one by one: when each chain's footprint values are in some
+        cached call (a batch in which some chains took a move and others did
+        not), its rows are gathered from there (attributes with a leading
+        batch dimension; the others come from the most recent such call)."""
+        cache = calc.__dict__.setdefault('_host_cache', [])
+        for i, (key, state) in enumerate(cache):
+            if key.shape == inputs.shape and np.array_equal(key, inputs):
+                for attr, value in state.items():
+                    setattr(calc, attr, value)
+                cache.insert(0, cache.pop(i))
+                return True
+        batch = inputs.shape[1]
+        source = np.full(batch, -1)
+        row = np.zeros(batch, dtype=int)
+        for i, (key, _) in enumerate(cache):
+            if key.shape[0] != inputs.shape[0]:
+                continue
+            match = (key[:, None, :] == inputs[:, :, None]).all(0)  # (batch, cached batch)
+            new = (source < 0) & match.any(1)
+            source[new], row[new] = i, match.argmax(1)[new]
+        if (source < 0).any():
+            return False
+        state = {}
+        for attr, value in cache[source[0]][1].items():
+            batched = [isinstance(cache[i][1].get(attr), torch.Tensor) and cache[i][1][attr].ndim
+                       and cache[i][1][attr].shape[0] == cache[i][0].shape[1] for i in set(source)]
+            if not all(batched):
+                state[attr] = value
+                continue
+            out = value.new_empty((batch,) + tuple(value.shape[1:]))
+            for i in set(source):
+                mask = source == i
+                out[torch.as_tensor(np.flatnonzero(mask), device=out.device)] = \
+                    cache[i][1][attr][torch.as_tensor(row[mask], device=out.device)]
+            state[attr] = out
+        for attr, value in state.items():
+            setattr(calc, attr, value)
+        cache.insert(0, (inputs, state))
+        del cache[self._HOST_CACHE_SIZE:]
+        return True
+
+    def _host_store(self, calc, inputs):
+        state = {attr: getattr(calc, attr) for attr in getattr(calc, '_state_attrs', ()) if hasattr(calc, attr)}
+        cache = calc.__dict__.setdefault('_host_cache', [])
+        cache.insert(0, (inputs, state))
+        del cache[self._HOST_CACHE_SIZE:]
+
     def run_once(self, full_values):
         """Per-evaluation walk. ``full_values``: every input param as a
         ``(B,)`` tensor; their dtype and device set the evaluation context.
+        A host-evaluated node runs only when its footprint's values are not
+        among those of its last few calls.
 
         Returns (root_get, derived dict of full-name -> value).
         """
@@ -168,6 +268,13 @@ class Pipeline(BaseClass):
             cvals = {p.basename: full_values[p.name] for p in calc.runtime_info.params
                      if p.derived is not True and not p.drop}
             calc.dtype, calc.device = dtype, device
+            if getattr(calc, '_host_eval', False):
+                inputs = self._host_inputs(calc, full_values)
+                if self._host_lookup(calc, inputs):
+                    continue
+                calc.calculate(**cvals)
+                self._host_store(calc, inputs)
+                continue
             calc.calculate(**cvals)
         derived = {}
         for calc in self.calculators:

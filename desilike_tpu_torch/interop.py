@@ -15,7 +15,8 @@ The readers of measured products, counterparts of the JAX package's
 ``interop.py``: pypower-style power spectrum multipoles and window
 matrices (objects, their ``.npy`` state dicts, or canonical dicts, and
 paths to them; glob patterns for mocks), pycorr-style correlation function
-multipoles, and :func:`load_source` for chains. Host-side numpy: the
+multipoles, and :func:`load_source` and :func:`get_params_in_source` for
+chains and profiles. Host-side numpy: the
 manipulations pypower's methods do (rebin, slice, projection selection,
 re-gridding, the shot-noise response) are on plain arrays.
 """
@@ -421,35 +422,67 @@ def read_window_matrix(source, ells, klim=None, kout=None, kin=None, kinrebin=No
     return kin_out, matrix, list_kout, ellsin, wshotnoise
 
 
+def get_params_in_source(source, params=None):
+    """Parameter names available in a source (Chain / Profiles / Samples /
+    path), optionally restricted to ``params`` (reference
+    samples/__init__.py:108); bookkeeping columns (logposterior, ...) excluded."""
+    from .samples import Chain, Profiles
+    if is_path(source):
+        source = Chain.load(source)
+    if isinstance(source, Profiles):
+        names = source.bestfit.names()
+    elif hasattr(source, 'names'):
+        names = source.names()
+    else:
+        names = list(source or [])
+    names = [n for n in names if n not in ('logposterior', 'loglikelihood', 'logprior', 'aweight', 'fweight')]
+    if params is not None:
+        keep = [getattr(p, 'name', p) for p in params]
+        names = [n for n in names if n in keep]
+    return names
+
+
 def load_source(source, choice=None, cov=False, burnin=None, params=None):
-    """Uniform loader of :class:`~.samples.Chain` sources (instances or
-    paths, or a list of them): the best fit (``choice={'index': 'argmax'}``)
-    or the mean as a dict name -> value, or with ``cov=True`` (names,
-    covariance matrix). A ``Profiles`` source waits for ROADMAP A15."""
-    from .samples import Chain
+    """Uniform loader of :class:`~.samples.Chain` and :class:`~.samples.Profiles`
+    sources (instances or paths, or a list of them; reference
+    samples/__init__.py:17): the best fit (``choice={'index': 'argmax'}``) or
+    the mean as a dict name -> value, or with ``cov=True`` (names,
+    covariance matrix). A Profiles source gives its best fit, or its
+    parabolic covariance."""
+    from .samples import Chain, Profiles
 
     sources = source if is_sequence(source) else [source]
     loaded = []
     for src in sources:
         if is_path(src):
             src = Chain.load(src)
-        if not isinstance(src, Chain):
-            if hasattr(src, 'bestfit'):
-                raise NotImplementedError('Profiles sources are ROADMAP A15')
-            raise ValueError('unsupported source type: {}'.format(type(src)))
-        if burnin is not None:
+        if isinstance(src, Chain) and burnin is not None:
             src = src.remove_burnin(burnin)
         loaded.append(src)
-    chain = Chain.concatenate(loaded, axis=0) if len(loaded) > 1 else loaded[0]
-    names = list(params) if params is not None else [n for n in chain.names()
-                                                     if n not in ('logposterior', 'loglikelihood', 'logprior')]
-    if cov:
-        return names, chain.covariance(names)
-    if choice and choice.get('index') == 'argmax':
-        flat = {n: np.asarray(chain[n]).ravel() for n in names + ['logposterior']}
-        i = int(np.argmax(flat['logposterior']))
-        return {n: float(flat[n][i]) for n in names}
-    return {n: float(chain.mean(n)) for n in names}
+    chains = [s for s in loaded if isinstance(s, Chain)]
+    if chains:
+        chain = Chain.concatenate(chains, axis=0) if len(chains) > 1 else chains[0]
+        names = list(params) if params is not None else [n for n in chain.names()
+                                                         if n not in ('logposterior', 'loglikelihood', 'logprior')]
+        if cov:
+            return names, chain.covariance(names)
+        if choice and choice.get('index') == 'argmax':
+            flat = {n: np.asarray(chain[n]).ravel() for n in names + ['logposterior']}
+            i = int(np.argmax(flat['logposterior']))
+            return {n: float(flat[n][i]) for n in names}
+        return {n: float(chain.mean(n)) for n in names}
+    profs = [s for s in loaded if isinstance(s, Profiles)]
+    if profs:
+        prof = profs[0]
+        best = prof.bestfit
+        names = list(params) if params is not None else [n for n in best.names() if n != 'logposterior']
+        i = int(np.argmax(np.atleast_1d(np.asarray(best['logposterior']))))
+        if cov:
+            if getattr(prof, 'covariance', None) is not None:
+                return names, np.asarray(prof.covariance)
+            raise ValueError('profiles carry no covariance')
+        return {n: float(np.atleast_1d(np.asarray(best[n]))[i]) for n in names}
+    raise ValueError('unsupported source type(s): {}'.format([type(s) for s in loaded]))
 
 
 def mlp_state_from_flax(params, norm):

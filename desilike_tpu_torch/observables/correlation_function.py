@@ -5,13 +5,13 @@ theory xi_l(s) against a flat data vector, measured (an array, an
 ``ObservableArray``) or generated from the theory itself (``data={...}``, a
 host-side float64 evaluation), with an optional covariance (a matrix, mock
 vectors, or an ``ObservableCovariance``), fiber collisions and systematic
-templates. Plotting waits for ROADMAP A15.
+templates. ``plot`` draws data and theory (matplotlib, imported there).
 """
 
 import numpy as np
 
 from ..core import Calculator, Pipeline
-from .power_spectrum import _flat_covariance, _split
+from .power_spectrum import _flat_covariance, _split, _theory_row
 from .window import WindowedCorrelationFunctionMultipoles
 
 
@@ -94,5 +94,31 @@ class TracerCorrelationFunctionMultipolesObservable(Calculator):
     def get(self):
         return self.flattheory
 
-    def plot(self, *args, **kwargs):
-        raise NotImplementedError('plotting is ROADMAP A15')
+    def plot(self, fn=None, show=False):
+        """Plot data vs theory multipoles with residuals; the theory is the
+        first chain of the last evaluation (the parameters' values on the
+        host, if there was none)."""
+        from matplotlib import pyplot as plt
+        fig, lax = plt.subplots(2, sharex=True, figsize=(6, 6), gridspec_kw={'height_ratios': [3, 1]})
+        flattheory, start = _theory_row(self), 0
+        for ill, ss in enumerate(self.s):
+            th = flattheory[start:start + len(ss)]
+            color = 'C{:d}'.format(ill)
+            lax[0].plot(ss, ss ** 2 * th, color=color, label=r'$\ell={:d}$'.format(self.ells[ill]))
+            if self.flatdata is not None:
+                dat = self.data[ill]
+                std = None
+                if self._covariance_input is not None:
+                    std = np.sqrt(np.diag(self._covariance_input))[start:start + len(ss)]
+                if std is not None:
+                    lax[0].errorbar(ss, ss ** 2 * dat, ss ** 2 * std, color=color, linestyle='none', marker='.')
+                    lax[1].plot(ss, (dat - th) / std, color=color)
+            start += len(ss)
+        lax[0].legend()
+        lax[0].set_ylabel(r'$s^2 \xi_\ell(s)$')
+        lax[1].set_xlabel(r'$s$ [$\mathrm{Mpc}/h$]')
+        if fn:
+            fig.savefig(fn, bbox_inches='tight')
+        if show:
+            plt.show()
+        return fig

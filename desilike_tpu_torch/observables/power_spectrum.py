@@ -6,7 +6,8 @@ theory P_l(k) against a flat data vector, which is measured (arrays, an
 :mod:`~..interop`) or generated from the theory itself (``data={...}``, a
 host-side float64 evaluation). A covariance may come with it: a matrix, mock
 vectors or mock files (then the likelihood applies the Hartlap and Percival
-factors), or an ``ObservableCovariance``. Plotting waits for ROADMAP A15.
+factors), or an ``ObservableCovariance``. ``plot`` draws data and theory
+(matplotlib, imported there).
 """
 
 import numpy as np
@@ -176,5 +177,45 @@ class TracerPowerSpectrumMultipolesObservable(Calculator):
     def get(self):
         return self.flattheory
 
-    def plot(self, *args, **kwargs):
-        raise NotImplementedError('plotting is ROADMAP A15')
+    def plot(self, fn=None, show=False):
+        """Plot data vs theory multipoles with residuals; the theory is the
+        first chain of the last evaluation (the parameters' values on the
+        host, if there was none)."""
+        from matplotlib import pyplot as plt
+        fig, lax = plt.subplots(2, sharex=True, figsize=(6, 6), gridspec_kw={'height_ratios': [3, 1]})
+        flattheory, start = _theory_row(self), 0
+        for ill, kk in enumerate(self.k):
+            th = flattheory[start:start + len(kk)]
+            dat = self.data[ill] if self.flatdata is not None else None
+            std = None
+            if self._covariance_input is not None:
+                std = np.sqrt(np.diag(self._covariance_input))[start:start + len(kk)]
+            color = 'C{:d}'.format(ill)
+            lax[0].plot(kk, kk * th, color=color, label=r'$\ell={:d}$'.format(self.ells[ill]))
+            if dat is not None:
+                if std is not None:
+                    lax[0].errorbar(kk, kk * dat, kk * std, color=color, linestyle='none', marker='.')
+                    lax[1].plot(kk, (dat - th) / std, color=color)
+                else:
+                    lax[0].plot(kk, kk * dat, color=color, linestyle='none', marker='.')
+            start += len(kk)
+        lax[0].legend()
+        lax[0].set_ylabel(r'$k P_\ell(k)$ [$(\mathrm{Mpc}/h)^2$]')
+        lax[1].set_xlabel(r'$k$ [$h/\mathrm{Mpc}$]')
+        lax[1].set_ylabel(r'$\Delta P_\ell / \sigma$')
+        if fn:
+            fig.savefig(fn, bbox_inches='tight')
+        if show:
+            plt.show()
+        return fig
+
+
+def _theory_row(observable):
+    """The observable's flat theory as a host vector: the first chain of its
+    last evaluation, else one host evaluation at the parameters' values."""
+    theory = getattr(observable, 'flattheory', None)
+    if theory is None:
+        Pipeline(observable).host_evaluate()
+        theory = observable.flattheory
+    theory = theory.detach().cpu().numpy() if hasattr(theory, 'detach') else np.asarray(theory)
+    return theory.reshape(-1, theory.shape[-1])[0].astype('f8')

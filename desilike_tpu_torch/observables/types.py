@@ -7,8 +7,8 @@ coordinate matching (``xmatch``), flat views, mock-covariance estimation
 (``from_observations`` and the Hartlap/Percival factors), template
 marginalization, and the same npz files as the JAX package writes (a file
 written by either loads in the other). Per projection: ``x``/``value``/
-``weights`` vectors and an ``(n, 2)`` bin-edge array. Plotting waits for
-ROADMAP A15.
+``weights`` vectors and an ``(n, 2)`` bin-edge array. ``plot`` draws with
+matplotlib, imported there.
 """
 
 import json
@@ -311,8 +311,24 @@ class ObservableArray(BaseClass):
               for key in ('x', 'value', 'edges', 'weights')}
         return cls(projs=projs, name=meta.get('name'), attrs=meta.get('attrs'), **kw)
 
-    def plot(self, *args, **kwargs):
-        raise NotImplementedError('plotting is ROADMAP A15')
+    def plot(self, xlabel=None, ylabel=None, fn=None, show=False, fig=None):
+        from matplotlib import pyplot as plt
+        if fig is None:
+            fig, ax = plt.subplots()
+        else:
+            ax = fig.axes[0]
+        for proj, xx, vv in zip(self.projs, self.x, self.value):
+            ax.plot(xx, vv, marker='.', label=str(proj))
+        ax.legend()
+        if xlabel:
+            ax.set_xlabel(xlabel)
+        if ylabel:
+            ax.set_ylabel(ylabel)
+        if fn:
+            fig.savefig(fn, bbox_inches='tight')
+        if show:
+            plt.show()
+        return fig
 
     def __repr__(self):
         return 'ObservableArray(name={}, projs={}, sizes={})'.format(
@@ -654,8 +670,9 @@ class ObservableCovariance(BaseClass):
         return cls(loaded['value'], observables=observables, nobs=meta.get('nobs'),
                    attrs=meta.get('attrs'))
 
-    def plot(self, *args, **kwargs):
-        raise NotImplementedError('plotting is ROADMAP A15')
+    def plot(self, corrcoef=True, fn=None, show=False, **kwargs):
+        from ..samples.plotting import plot_covariance_matrix
+        return plot_covariance_matrix(self.value, corrcoef=corrcoef, fn=fn, show=show, **kwargs)
 
     def __repr__(self):
         return 'ObservableCovariance(shape={}, observables={})'.format(

@@ -2,8 +2,9 @@
 
 Counterpart of ``desilike_tpu/parameters/prior.py``. Draws come from a
 ``torch.Generator`` (``sample``); ``ppf``, the percent-point function, is
-host numpy (the MLP emulator's quasi-random draws). The batched prior
-transform of the nested sampler waits for ROADMAP A15.
+host numpy (the MLP emulator's quasi-random draws) and ``ppf_torch`` its
+batched counterpart on a tensor's device (the nested sampler's prior
+transform).
 """
 
 import math
@@ -65,6 +66,11 @@ class Prior(BaseClass):
             self._lognorm = -np.log(np.log(hi / lo))
         else:
             raise ValueError('unknown distribution {}'.format(self.dist))
+
+    @property
+    def is_proper(self):
+        """Whether the prior integrates to 1 (finite support or proper dist)."""
+        return self.dist != 'uniform' or np.isfinite(self.limits).all()
 
     @property
     def is_limited(self):
@@ -131,6 +137,31 @@ class Prior(BaseClass):
             a = stats.expon.cdf(lo, loc=self.loc, scale=self.scale) if np.isfinite(lo) else 0.
             b = stats.expon.cdf(hi, loc=self.loc, scale=self.scale) if np.isfinite(hi) else 1.
             return stats.expon.ppf(a + (b - a) * u, loc=self.loc, scale=self.scale)
+        if self.dist == 'loguniform':
+            return lo * (hi / lo) ** u
+        raise ValueError(self.dist)
+
+    def ppf_torch(self, u):
+        """Percent-point function of the tensor ``u``, on its device and in
+        its dtype: the nested sampler's prior transform. The truncation
+        constants are folded on the host with scipy. In float32 the clip at
+        1 - 1e-15 rounds to 1 (as in the JAX package, ``ppf_jax``), where
+        ``ndtri`` is inf: u of exactly 1 maps there."""
+        lo, hi = self.limits
+        if self.dist == 'uniform':
+            if not np.isfinite([lo, hi]).all():
+                raise ValueError('cannot prior-transform an improper uniform prior')
+            return lo + (hi - lo) * u
+        if self.dist == 'norm':
+            a = stats.norm.cdf((lo - self.loc) / self.scale)
+            b = stats.norm.cdf((hi - self.loc) / self.scale)
+            up = torch.clamp(a + (b - a) * u, 1e-15, 1. - 1e-15)
+            return self.loc + self.scale * torch.special.ndtri(up)
+        if self.dist == 'expon':
+            a = stats.expon.cdf(lo, loc=self.loc, scale=self.scale) if np.isfinite(lo) else 0.
+            b = stats.expon.cdf(hi, loc=self.loc, scale=self.scale) if np.isfinite(hi) else 1.
+            up = a + (b - a) * u
+            return self.loc - self.scale * torch.log1p(-torch.clamp(up, 0., 1. - 1e-15))
         if self.dist == 'loguniform':
             return lo * (hi / lo) ** u
         raise ValueError(self.dist)

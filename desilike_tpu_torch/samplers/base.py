@@ -65,6 +65,7 @@ class BasePosteriorSampler(BaseClass):
         self.device = self.pipeline.device
         self.generator = torch.Generator(self.device).manual_seed(int(seed))
         self._logpost_aux_fn = None
+        self.evaluated_points = 0  # the points evaluated through logpost_flat
         self._resume_chain = chains if isinstance(chains, Chain) else (Chain.load(chains) if chains else None)
         self.diagnostics = {}
         self.diagnostics_history = Diagnostics()
@@ -89,6 +90,7 @@ class BasePosteriorSampler(BaseClass):
         """thetas (B, ndim) -> ((B,) logposterior with NaN read as -inf, aux
         dict of (B,) values and, for solved parameters, their best fits and
         'solved_hessian' (B, n, n))."""
+        self.evaluated_points += thetas.shape[0]
         lp, aux = self._logpost_aux(dict(zip(self.names, thetas.unbind(-1))))
         lp = torch.where(torch.isnan(lp), torch.full_like(lp, -np.inf), lp)
         keep = {name: aux[name] for name in ('loglikelihood', 'logprior') if name in aux}

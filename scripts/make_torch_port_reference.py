@@ -81,6 +81,16 @@ writes its reference file under ``tests/data``:
   files ``chip_smoke.write_probe_files`` writes) at full width and small,
   ``Cosmology(theta=True)``, the recombination-era quantities, the external
   likelihoods, the supernova dataset classes and the CMB family;
+- ``samplers``: the samplers and profilers of ROADMAP A15 (:func:`samplers_reference`)
+  -> ``torch_port_samplers_reference.npz``: on the 2-parameter Gaussian of
+  ``tests/test_samplers.py``, in float32, each step of the Metropolis
+  (every carry of 6 adaptation and 2 frozen steps), stretch, slice and
+  nested samplers from a key, with the draws derived from that key, the
+  blocked sampler's run of one chain on the host-node likelihood (with and
+  without dragging) from a fixed start and numpy seed, the profilers' best
+  fits, Hessian, intervals, contour grid and 1D profile from fixed starts,
+  20 optax Adam steps and the warmup-cosine schedule; and in x64, config
+  1's grid (size 3) and the importance weights of a 64-point chain;
 - ``hessian``: config 4's log-density in the gradient samplers' unconstrained
   space (``NUTSSampler._logdens_grad``: the logit transform of the bounded
   parameters and its log-Jacobian), its gradient and its Hessian, in
@@ -118,8 +128,8 @@ with numpy alone, and ``tests/test_torch_bao_likelihood.py`` and
 JAX package so that the files cannot go stale.
 
 Run from the repository root:
-``JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py [bao|joint|ept|xi|marg|hessian|emu|direct|templates|tns|theories|tier1|observables|probes]``
-(all fourteen when no name is given).
+``JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py [bao|joint|ept|xi|marg|hessian|emu|direct|templates|tns|theories|tier1|observables|probes|samplers]``
+(all fifteen when no name is given).
 """
 
 import os
@@ -132,7 +142,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUTPUTS = {name: os.path.join(ROOT, 'tests', 'data', 'torch_port_{}_reference.npz'.format(name))
            for name in ('bao', 'joint', 'ept', 'xi', 'marg', 'hessian', 'direct', 'templates', 'tns', 'theories',
-                        'tier1', 'observables', 'probes')}
+                        'tier1', 'observables', 'probes', 'samplers')}
 OUTPUTS['emu'] = os.path.join(ROOT, 'tests', 'data', 'torch_port_emulator_reference.npz')
 NPOINTS = 16
 HESSIAN_STEP = 1e-4  # central differences of the x64 gradient in the unconstrained space
@@ -1781,6 +1791,277 @@ def build_reference(config):
     return arrays
 
 
+SAMPLERS_NCHAINS = 8       # the Metropolis steps' batch on the 2-parameter Gaussian
+SAMPLERS_NWALKERS = 16     # the ensembles' walkers there
+SAMPLERS_NLIVE, SAMPLERS_NBATCH = 64, 16  # the nested batch step's live points and batch there
+
+
+def host_node_likelihood():
+    """The JAX package's likelihood with one host-evaluated node of
+    ``tests/test_samplers.py:365-424`` (omega through the host code, b fast)."""
+    import jax.numpy as jnp
+    from desilike_tpu.core import Calculator
+    from desilike_tpu.likelihoods import BaseGaussianLikelihood
+
+    xgrid = np.linspace(0., 1., 40)
+
+    class SlowHost(Calculator):
+        _host_eval = True
+        _state_attrs = ['shape']
+        _params = {'omega': dict(value=0.3, prior=dict(limits=[0.1, 0.5]),
+                                 ref=dict(dist='norm', loc=0.3, scale=0.01), proposal=0.01)}
+
+        def calculate(self, omega=0.3, **kw):
+            self.shape = jnp.asarray(np.exp(-float(omega) * xgrid))
+
+        def get(self):
+            return self.shape
+
+    class HostLike(BaseGaussianLikelihood):
+        _params = dict(BaseGaussianLikelihood._params)
+        _params.update({'b': dict(value=2., prior=dict(limits=[0.5, 4.]),
+                                  ref=dict(dist='norm', loc=2., scale=0.05), proposal=0.02)})
+
+        def initialize(self, **kw):
+            self.host = SlowHost()
+            super().initialize(data=2. * np.exp(-0.3 * xgrid), covariance=np.eye(40) * 0.01 ** 2)
+
+        def flattheory(self):
+            return self._b * self.host.shape
+
+        def calculate(self, b=2., **kw):
+            self._b = b
+            super().calculate()
+
+    return HostLike()
+
+
+def eager_scan(log):
+    """A stand-in for ``lax.scan`` that loops in Python and appends each
+    carry to ``log``: the JAX package's step closures then run eagerly, step
+    by step, with their carries read out."""
+    import jax
+    import jax.numpy as jnp
+
+    def scan(f, carry, xs):
+        ys = []
+        for x in xs:
+            carry, y = f(carry, x)
+            log.append(carry)
+            ys.append(y)
+        return carry, (jax.tree.map(lambda *a: jnp.stack(a), *ys) if ys and ys[0] is not None else None)
+    return scan
+
+
+def mcmc_draws(key, nchains, ndim):
+    """The draws of one Metropolis step of the JAX package from its key."""
+    import jax
+    k1, k2 = jax.random.split(key)
+    return np.asarray(jax.random.normal(k1, (nchains, ndim))), np.asarray(jax.random.uniform(k2, (nchains,)))
+
+
+def stretch_draws(key, half):
+    import jax
+    out = []
+    for k in jax.random.split(key):
+        k1, k2, k3 = jax.random.split(k, 3)
+        out.append([np.asarray(jax.random.randint(k1, (half,), 0, half)), np.asarray(jax.random.uniform(k2, (half,))),
+                    np.asarray(jax.random.uniform(k3, (half,)))])
+    return out
+
+
+def slice_draws(key, half, maxsteps):
+    """ia, ib, the slice height's uniform, the bracket offset's and one
+    shrink uniform an iteration (maxsteps, half), of both halves."""
+    import jax
+    import jax.numpy as jnp
+    out = []
+    for k in jax.random.split(key):
+        ia, ib, uy, w, shrink = [], [], [], [], []
+        for kk in jax.random.split(k, half):
+            ka, kb, ku, kw, ks = jax.random.split(kk, 5)
+            a = jax.random.randint(ka, (), 0, half)
+            b = jax.random.randint(kb, (), 0, half - 1)
+            ia.append(int(a))
+            ib.append(int(jnp.where(b >= a, b + 1, b)))
+            uy.append(float(jax.random.uniform(ku)))
+            w.append(float(jax.random.uniform(kw)))
+            row, key_ = [], ks
+            for _ in range(maxsteps):
+                key_, kt = jax.random.split(key_)
+                row.append(float(jax.random.uniform(kt)))
+            shrink.append(row)
+        out.append([np.array(ia), np.array(ib), np.array(uy, dtype='f4'), np.array(w, dtype='f4'),
+                    np.array(shrink, dtype='f4').T])
+    return out
+
+
+def nested_draws(key, nlive, K, S, ndim, iterations=32):
+    """pick (K,), the unit directions (S, K, ndim) and the shrink uniforms
+    (S, iterations, K) of one batch step of the JAX package from its key."""
+    import jax
+    import jax.numpy as jnp
+    kpick, krep = jax.random.split(key)
+    pick = np.asarray(jax.random.randint(kpick, (K,), 0, nlive - K))
+    dirs, shrink = np.zeros((S, K, ndim), dtype='f4'), np.zeros((S, iterations, K), dtype='f4')
+    for j, kj in enumerate(jax.random.split(krep, K)):
+        for i, ki in enumerate(jax.random.split(kj, S)):
+            kd, kw = jax.random.split(ki)
+            d = jax.random.normal(kd, (ndim,))
+            dirs[i, j] = np.asarray(d / jnp.linalg.norm(d))
+            key_ = kw
+            for it in range(iterations):
+                key_, kt = jax.random.split(key_)
+                shrink[i, it, j] = float(jax.random.uniform(kt))
+    return pick, dirs, shrink
+
+
+def samplers_reference():
+    """The JAX package's samplers and profilers on the 2-parameter Gaussian
+    of ``tests/test_samplers.py`` and the host-node likelihood, in float32,
+    and, from a child in x64, grid and importance on config 1."""
+    import jax
+    import jax.numpy as jnp
+    jax.config.update('jax_platforms', 'cpu')
+    sys.path.insert(0, os.path.join(ROOT, 'tests'))
+    from test_torch_sampler_steps import JaxGaussianModel
+    from desilike_tpu.samplers import (MCMCSampler, BlockedMCMCSampler, EnsembleSampler, EnsembleSliceSampler,
+                                       NestedSampler, mcmc as jax_mcmc)
+    from desilike_tpu.profilers import ScipyProfiler, OptaxProfiler
+    import optax
+    arrays = {}
+    rng = np.random.default_rng(42)
+    like = JaxGaussianModel()
+
+    # Metropolis: 6 adaptation steps and 2 frozen ones from a start, every carry read out
+    sampler = MCMCSampler(like, nchains=SAMPLERS_NCHAINS, seed=3)
+    x0 = (np.array([1., -0.5]) + 0.1 * rng.normal(size=(SAMPLERS_NCHAINS, 2))).astype('f4')
+    lp0, aux0 = sampler.logpost_batch(jnp.asarray(x0))
+    keys = jax.random.split(jax.random.key(11), 8)
+    log, scan = [], jax_mcmc.lax.scan
+    jax_mcmc.lax.scan = eager_scan(log)
+    try:
+        sampler._build_phases(6, 2)(jnp.asarray(x0), lp0, aux0, jnp.zeros(()), jnp.asarray(sampler._chol, dtype='f4'),
+                                    keys)
+    finally:
+        jax_mcmc.lax.scan = scan
+    draws = [mcmc_draws(k, SAMPLERS_NCHAINS, 2) for k in keys]
+    arrays.update(mcmc_x0=x0, mcmc_lp0=np.asarray(lp0), mcmc_chol=sampler._chol, mcmc_z=np.stack([d[0] for d in draws]),
+                  mcmc_u=np.stack([d[1] for d in draws]))
+    for i, name in enumerate(('x', 'lp', 'aux', 'logscale', 'L', 'wmean', 'wm2', 'count', 'istep')):
+        if name != 'aux':
+            arrays['mcmc_' + name] = np.stack([np.asarray(c[i]) for c in log[:6]] +
+                                              ([np.asarray(c[i]) for c in log[6:]] if i < 5 else []))
+
+    # the blocked sampler on the host-node likelihood, one chain, without and with dragging
+    for drag in (0, 2):
+        blocked = BlockedMCMCSampler(host_node_likelihood(), nchains=1, seed=5, drag=drag)
+        start = np.array([[0.31, 2.02]])
+        lp_start = float(blocked.logpost_flat(jnp.asarray(start[0]))[0])
+        blocked.get_start = lambda nchains, start=start, lp=lp_start: (start.copy(), np.array([lp]))
+        _, sub = jax.random.split(jax.random.key(5))
+        seed = int(jax.random.randint(sub, (), 0, 2 ** 31 - 1))
+        chain = blocked.run(nsteps=60)
+        prefix = 'blocked{}_'.format(drag)
+        arrays.update({prefix + 'seed': seed, prefix + 'start': start, prefix + 'names': np.array(blocked.names),
+                       prefix + 'x': np.stack([chain[n] for n in blocked.names], axis=-1),
+                       prefix + 'lp': chain['logposterior'], prefix + 'acceptance': blocked.diagnostics['acceptance_rate']})
+
+    # stretch and slice ensemble steps from one key each
+    half = SAMPLERS_NWALKERS // 2
+    xw = (np.array([1., -0.5]) + 0.1 * rng.normal(size=(SAMPLERS_NWALKERS, 2))).astype('f4')
+    for name, cls in (('stretch', EnsembleSampler), ('slice', EnsembleSliceSampler)):
+        ens = cls(like, nwalkers=SAMPLERS_NWALKERS, seed=1)
+        lpw, auxw = ens.logpost_batch(jnp.asarray(xw))
+        state = (jnp.asarray(xw), lpw, auxw, jnp.zeros((), dtype=jnp.int32)) + \
+            ((jnp.zeros((), dtype=jnp.int32),) if name == 'slice' else ())
+        key = jax.random.key(21)
+        new, _ = ens._build_step()(state, key)
+        draws = stretch_draws(key, half) if name == 'stretch' else slice_draws(key, half, ens.maxsteps)
+        arrays.update({'{}_x0'.format(name): xw, '{}_lp0'.format(name): np.asarray(lpw),
+                       '{}_x'.format(name): np.asarray(new[0]), '{}_lp'.format(name): np.asarray(new[1]),
+                       '{}_naccept'.format(name): int(new[3])})
+        if name == 'slice':
+            arrays['slice_ncall'] = int(new[4])
+        for ihalf, d in enumerate(draws):
+            for j, v in enumerate(d):
+                arrays['{}_draws{}_{}'.format(name, ihalf, j)] = v
+
+    # one nested batch step
+    nested = NestedSampler(like, nlive=SAMPLERS_NLIVE, nbatch=SAMPLERS_NBATCH, seed=2)
+    u_live = jax.random.uniform(jax.random.key(4), (SAMPLERS_NLIVE, 2))
+    L_live = jax.vmap(nested._nsloglike)(u_live)
+    key = jax.random.key(8)
+    (u_new, L_new), (u_dead, L_dead, ncall) = nested._build_batch_step()((u_live, L_live), key)
+    pick, dirs, shrink = nested_draws(key, SAMPLERS_NLIVE, SAMPLERS_NBATCH, nested.num_slices, 2)
+    arrays.update(nested_u0=np.asarray(u_live), nested_L0=np.asarray(L_live), nested_pick=pick, nested_dirs=dirs,
+                  nested_shrink=shrink, nested_u=np.asarray(u_new), nested_L=np.asarray(L_new),
+                  nested_u_dead=np.asarray(u_dead), nested_L_dead=np.asarray(L_dead), nested_ncall=int(ncall))
+
+    # the profilers from three fixed starts
+    starts = np.array([[1.2, -0.3], [0.7, -0.8], [1.05, -0.45]])
+    profiler = ScipyProfiler(like)
+    results = [profiler._minimize_one(s) for s in starts]
+    xs, lps = np.array([r[0] for r in results]), np.array([r[1] for r in results])
+    profiler.profiles.bestfit['a'], profiler.profiles.bestfit['b'] = xs[:, 0], xs[:, 1]
+    profiler.profiles.bestfit['logposterior'] = lps
+    best = xs[int(np.argmax(lps))]
+    hessian = np.asarray(jax.hessian(profiler.logpost)(jnp.asarray(best)), dtype='f8')
+    cov = np.linalg.inv(-hessian)
+    profiler.profiles.covariance = cov
+    profiler.profiles.error.update({n: float(np.sqrt(cov[i, i])) for i, n in enumerate('ab')})
+    profiler.interval()
+    profiler.contour('a', 'b', size=7)
+    profiler.grid('a', np.linspace(0.9, 1.1, 5))
+    entry = profiler.profiles.contour[('a', 'b')]
+    arrays.update(profiler_starts=starts, profiler_x=xs, profiler_lp=lps, profiler_hessian=hessian,
+                  profiler_interval=np.array([profiler.profiles.interval[n] for n in 'ab']),
+                  profiler_contour_grid=np.stack(entry['grid'][:2]), profiler_contour_chi2=entry['grid'][2],
+                  profiler_profile=np.stack(profiler.profiles.profile['a']))
+    optax_profiler = OptaxProfiler(like, nsteps=300)
+    results = [optax_profiler._minimize_one(s) for s in starts]
+    arrays.update(optax_x=np.array([r[0] for r in results]), optax_lp=np.array([r[1] for r in results]))
+    # 20 Adam steps from the first start, every state read out
+    sched = optax.warmup_cosine_decay_schedule(0., 0.1, int(0.1 * 300) + 1, 300)
+    opt = optax.adam(sched)
+    scales = jnp.asarray(optax_profiler._scales)
+    vg = jax.value_and_grad(lambda u: optax_profiler.chi2(u * scales))
+    u = jnp.asarray(starts[0]) / scales
+    state = opt.init(u)
+    adam = []
+    for _ in range(20):
+        v, g = vg(u)
+        updates, state = opt.update(g, state, u)
+        u = optax.apply_updates(u, updates)
+        adam.append(np.concatenate([np.asarray(g), np.asarray(updates), np.asarray(u)]))
+    arrays.update(adam_u0=np.asarray(starts[0]) / optax_profiler._scales, adam=np.array(adam),
+                  schedule=np.array([float(sched(i)) for i in range(300)]))
+    arrays.update(run_x64('--x64-samplers'))
+    return arrays
+
+
+def samplers_x64(path):
+    """Config 1 in x64: ``GridSampler(size=3)`` and ``ImportanceSampler`` of
+    a 64-point chain (seeded points, logposterior 0) -> ``path``."""
+    sys.path.insert(0, ROOT)
+    from __graft_entry__ import _build_likelihood
+    from desilike_tpu.samplers import GridSampler, ImportanceSampler
+    from desilike_tpu.samples.chain import Chain
+    like = _build_likelihood()
+    grid = GridSampler(like, size=3).run()
+    names = like.pipeline.varied_params.names()
+    rng = np.random.default_rng(7)
+    chain = Chain()
+    for name in names:
+        p = like.pipeline.varied_params[name]
+        chain[p] = (p.value + 0.5 * p.proposal * rng.normal(size=(16, 4))).astype('f4')
+    weighted = ImportanceSampler(like).run(chain)
+    np.savez(path, grid_names=np.array(names), grid_points=np.stack([grid[n] for n in names], axis=-1),
+             grid_logpost_x64=grid['logposterior'], grid_shape=np.array(grid.attrs['grid_shape']),
+             importance_points=np.stack([chain[n] for n in names], axis=-1),
+             importance_logpost_x64=weighted['logposterior'], importance_aweight_x64=weighted['aweight'])
+
+
 def run_x64(mode):
     """Run this script with ``mode`` (a child mode that writes one .npz) in
     float64 in a child process; returns its arrays."""
@@ -1874,6 +2155,11 @@ if __name__ == '__main__':
         jax.config.update('jax_platforms', 'cpu')
         probes_reference(sys.argv[2])
         sys.exit(0)
+    if sys.argv[1:2] == ['--x64-samplers']:
+        import jax
+        jax.config.update('jax_platforms', 'cpu')
+        samplers_x64(sys.argv[2])
+        sys.exit(0)
     if sys.argv[1:2] == ['--x64-emu']:
         import jax
         jax.config.update('jax_platforms', 'cpu')
@@ -1905,6 +2191,8 @@ if __name__ == '__main__':
             arrays = theories_reference()
         elif config == 'tier1':
             arrays = tier1_reference()
+        elif config == 'samplers':
+            arrays = samplers_reference()
         else:
             arrays = build_reference(config)
         np.savez_compressed(OUTPUTS[config], **arrays)

@@ -176,7 +176,8 @@ def test_window_matrix_reader(tmp_path, kwargs):
 def test_load_source(tmp_path):
     """A chain, saved and loaded by path, as a compression source: its best
     fit, mean and covariance as the JAX package's load_source gives them
-    from the same samples; a Profiles-like source raises naming A15."""
+    from the same samples; a Profiles source gives its best fit as the JAX
+    package's does; a source of another type raises."""
     rng = np.random.default_rng(3)
     data = {'DM_over_rd': 17.9 + 0.2 * rng.normal(size=500), 'DH_over_rd': 20.5 + 0.4 * rng.normal(size=500),
             'logposterior': -rng.uniform(size=500)}
@@ -190,8 +191,16 @@ def test_load_source(tmp_path):
     np.testing.assert_allclose(interop.load_source(str(tmp_path / 'chain.npz'), cov=True, params=names)[1],
                                jax_interop.load_source(ref, cov=True, params=names)[1], rtol=1e-12)
 
-    class Profiles(object):
+    from desilike_tpu_torch.samples import Profiles
+    from desilike_tpu.samples.profiles import Profiles as JaxProfiles
+    profiles, jax_profiles = Profiles(names), JaxProfiles(names)
+    for prof in (profiles, jax_profiles):
+        for name in names + ['logposterior']:
+            prof.bestfit[name] = data[name][:3]
+    assert interop.load_source(profiles, params=names) == jax_interop.load_source(jax_profiles, params=names)
+
+    class NotASource(object):
         bestfit = {}
 
-    with pytest.raises(NotImplementedError, match='A15'):
-        interop.load_source(Profiles())
+    with pytest.raises(ValueError):
+        interop.load_source(NotASource())

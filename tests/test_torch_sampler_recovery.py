@@ -6,8 +6,8 @@ tolerances, on the port's twin of the 2-parameter linear Gaussian
 draws from a ``torch.Generator`` seeded by ``seed``; the JAX package's
 threefry streams cannot be replayed, so whole runs are compared with the
 posterior, not with the JAX package's chains. ``sample()``'s convergence
-loop drives ChEES here: the JAX test drives the ensemble sampler, which the
-port does not have (ROADMAP A15). Runs are shared through module fixtures:
+loop drives ChEES here: the JAX test drives the ensemble sampler, whose
+port is held to it in ``tests/test_torch_ensemble.py``. Runs are shared through module fixtures:
 one NUTS and one HMC run through ``sample()``'s batch loop serve both the
 recovery and the resume tests, and one 1024-chain ChEES run through its
 convergence loop serves the convergence and the many-chain mixing tests.

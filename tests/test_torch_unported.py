@@ -1,6 +1,7 @@
 """Options of the port's theories, observables and likelihood that are not
 ported yet raise ``NotImplementedError`` naming what is missing or its
-ROADMAP item (no raise names A12: the observables layer is ported). The modules themselves are held against the JAX package in
+ROADMAP item (no raise names A12 or A15: the observables layer, the
+samplers, profilers and plots are ported). The modules themselves are held against the JAX package in
 ``tests/test_torch_full_shape.py``, ``tests/test_torch_xi.py`` and the
 likelihood files; these cases live apart so that those files hold fewer
 tests than ``tests/test_bindings.py``: pytest-xdist's ``--dist loadfile``
@@ -233,12 +234,17 @@ def test_unported_xi_observable_options_raise(request, kwargs):
     np.testing.assert_allclose(logpost.numpy(), reference['xi_option_{}_logpost_x64'.format(case)], rtol=0., atol=2e-3)
 
 
-def test_no_a12_raise():
+def test_no_a12_raise(tmp_path):
     """No ``NotImplementedError`` of the port names ROADMAP A12 (the
-    observables layer is ported); plotting and ``Profiles`` sources raise
-    naming A15, where they go."""
+    observables layer is ported) or A15 (the samplers, profilers, profile
+    containers and plots are): the plots of an ``ObservableArray`` and of
+    the P(k) observable write a figure, and ``load_source`` of a
+    ``Profiles`` returns its best fit."""
     import re
-    from desilike_tpu_torch import interop, ObservableArray, TracerPowerSpectrumMultipolesObservable
+    import matplotlib
+    matplotlib.use('Agg')
+    from matplotlib import pyplot as plt
+    from desilike_tpu_torch import interop, ObservableArray, TracerPowerSpectrumMultipolesObservable, Profiles
     root = os.path.join(os.path.dirname(os.path.dirname(__file__)), 'desilike_tpu_torch')
     for directory, _, files in os.walk(root):
         for name in files:
@@ -246,17 +252,16 @@ def test_no_a12_raise():
                 with open(os.path.join(directory, name)) as file:
                     source = file.read()
                 for raised in re.findall(r'NotImplementedError\((.*?)\)\n', source, flags=re.S):
-                    assert 'A12' not in raised, (name, raised)
-    with pytest.raises(NotImplementedError, match='A15'):
-        ObservableArray(x=[K]).plot()
-    with pytest.raises(NotImplementedError, match='A15'):
-        TracerPowerSpectrumMultipolesObservable(data=np.zeros(K.size), k=K, ells=(0,)).plot()
-
-    class Profiles(object):
-        bestfit = {}
-
-    with pytest.raises(NotImplementedError, match='A15'):
-        interop.load_source(Profiles())
+                    assert 'A12' not in raised and 'A15' not in raised, (name, raised)
+    for obj, fn in ((ObservableArray(x=[K], value=[np.ones_like(K)]), tmp_path / 'array.png'),
+                    (TracerPowerSpectrumMultipolesObservable(data=np.zeros(K.size), k=K, ells=(0,)), tmp_path / 'pk.png')):
+        obj.plot(fn=fn)
+        assert fn.stat().st_size > 0
+    plt.close('all')
+    profiles = Profiles(['a', 'b'])
+    profiles.bestfit['a'], profiles.bestfit['b'] = np.array([1., 2.]), np.array([3., 4.])
+    profiles.bestfit['logposterior'] = np.array([-2., -1.])
+    assert interop.load_source(profiles) == {'a': 2., 'b': 4.}
 
 
 def test_default_window_theories():
