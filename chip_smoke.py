@@ -25,7 +25,9 @@ templates, :func:`build_files_likelihood` over the files :func:`write_files`
 writes) and the BAO compression likelihood; the batched config-3j
 log-posterior (config 3d + the CMB distance prior + DES-Y5 supernovae + BBN,
 :func:`build_probes_likelihood`), ``Cosmology(theta=True)``; and the gradient samplers (ChEES, NUTS) over config 4, ChEES over config 3,
-NUTS over config 5.
+NUTS over config 5; the other samplers and the profilers over configs 3d and
+1; the samplers over a one-card NCCL mesh on config 4, and config 1 built
+from a YAML file.
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions, the
    kernel library's build time, ptxas's registers, and the blocks of each
@@ -182,7 +184,19 @@ A15. the samplers, profilers and profile containers of ROADMAP A15
    1e-5 relative). Raises unless every record is finite, the Metropolis and
    stretch acceptance lies in (0, 1), the Clenshaw kernel was launched in
    every run on configs 3d, 1 and 3j and the coefficient-gradient kernel
-   under the profilers.
+   under the profilers;
+A16. the chain mesh and the rest of the user-facing surface
+   (:func:`run_a16`): a world of one process over NCCL; Metropolis, ChEES
+   and NUTS on config 4 over 4096 chains, each with a one-card mesh and
+   with none from the same seed (the chains bit-identical, the on-mesh
+   Gelman-Rubin within 1e-6 of the host formula on the gathered records,
+   iterations/s both ways, the launches of each run); config 4's
+   log-posterior over 4096 chains through ``sharded_vmap_fn`` against the
+   plain call; config 1 built from a YAML file (``from_config``, build
+   seconds) against ``build_likelihood``'s log-posterior over 4096 chains;
+   ``vmap(errors='ref')`` over config 1 with one chain forced to fail (only
+   that row replaced); ``profile_speed`` on config 4 (milliseconds a
+   calculator); the process group torn down.
 
 Any failure raises (exit code 1). The last three lines of standard output
 are a JSON object describing the kernels, one with the samplers' numbers,
@@ -3428,6 +3442,238 @@ def run_a15(like, direct, probes, smi, cuda):
     return out
 
 
+A16_CHAINS = 4096  # the chains of phase A16 on config 4 and config 1
+A16_RUNS = (  # sampler, its options, its run (short runs like phase 5's), the order of its runs
+    ('mcmc', 'MCMCSampler', dict(seed=21), dict(nsteps=24, nadapt=16), ('none', 'mesh', 'mesh', 'none')),
+    ('chees', 'ChEESSampler', dict(max_leapfrog=32, seed=22), dict(nsteps=8, nwarmup=24),
+     ('none', 'mesh', 'mesh', 'none')),
+    ('nuts', 'NUTSSampler', dict(max_depth=4, seed=23), dict(nsteps=4, nwarmup=8), ('none', 'mesh')))
+A16_GR_RTOL = 1e-6  # the on-mesh Gelman-Rubin against the host formula on the gathered records
+A16_YAML_ATOL = 1e-4  # config 1 from YAML against build_likelihood's log-posterior (float32, |logpost| ~ 1e2)
+CONFIG1_YAML = """
+class: ObservablesGaussianLikelihood
+init:
+  observables:
+    - class: TracerPowerSpectrumMultipolesObservable
+      init:
+        data: {qpar: 1.0, qper: 1.0, b1: 2.0}
+        klim: {0: [0.02, 0.3, 0.005], 2: [0.02, 0.3, 0.005]}
+        theory:
+          class: DampedBAOWigglesTracerPowerSpectrumMultipoles
+          init:
+            ells: [0, 2]
+            template:
+              class: BAOPowerSpectrumTemplate
+              init: {z: 0.8, apmode: qparqper}
+          params:
+            'al*': {derived: .marg}
+  footprints:
+    - class: BoxFootprint
+      init: {volume: 2.0e+9, nbar: 5.0e-4}
+"""  # config 1 (__graft_entry__._build_likelihood, build_likelihood) as a YAML file
+
+
+class fail_power(object):
+    """Context in which chain ``index`` of every evaluation of config 1's BAO
+    theory (``likelihood``'s first observable's) has a NaN power spectrum."""
+
+    def __init__(self, likelihood, index):
+        self.theory = likelihood.observables[0].wmatrix.theory
+        self.index = index
+
+    def __enter__(self):
+        import torch
+        calculate = self.theory.calculate
+
+        def failing(*args, **kwargs):
+            calculate(*args, **kwargs)
+            power = self.theory.power
+            mask = (torch.arange(power.shape[0], device=power.device) == self.index).reshape(
+                (-1,) + (1,) * (power.ndim - 1))
+            self.theory.power = torch.where(mask, torch.full_like(power, float('nan')), power)
+
+        self.theory.calculate = failing
+        return self
+
+    def __exit__(self, *exc):
+        del self.theory.calculate
+
+
+def host_gelman_rubin(x):
+    """The split-R statistic of positions x (nsteps, nchains, ndim) in float64, numpy."""
+    x = np.asarray(x, dtype='f8')
+    nsteps = x.shape[0]
+    within = x.var(axis=0, ddof=1).mean(axis=0)
+    between = nsteps * x.mean(axis=0).var(axis=0, ddof=1)
+    return np.sqrt(((nsteps - 1.) / nsteps * within + between / nsteps) / within)
+
+
+def run_a16(like, joint, smi):
+    """Phase A16: the chain mesh and the rest of the user-facing surface on
+    the card. A world of one process over NCCL
+    (``parallel.distributed.initialize``); MCMC, ChEES and NUTS (its
+    jittered sampling, the default at 4096 chains) on config 4 over 4096
+    chains, with ``mesh=make_mesh(1)`` and with no mesh from the same seed
+    (Metropolis and ChEES in turns, none, mesh, mesh, none; NUTS once each),
+    the launch counters set to 0 just before each run and read just after:
+    the chains of every run must be bit-identical, and
+    ``gelman_rubin_mesh`` finite and within 1e-6 of the host formula on the
+    gathered records; config 4's log-posterior over 4096 chains through
+    ``sharded_vmap_fn`` against the plain call; config 1 from a YAML file
+    (``from_config``) against ``build_likelihood``'s log-posterior over 4096
+    chains; ``vmap(errors='ref')`` over config 1 with one chain forced to
+    fail (:class:`fail_power`): that row replaced by the output at the
+    reference values, the others bit-identical to the plain call;
+    ``profile_speed`` on config 4. Tears the process group down. Returns
+    the numbers."""
+    import tempfile
+    import torch
+    from desilike_tpu_torch.ops import cuda_kernels
+    from desilike_tpu_torch import samplers as samplers_module, from_config, vmap
+    from desilike_tpu_torch.parallel import distributed, make_mesh, sharded_vmap_fn
+    t_a16 = time.perf_counter()
+    t0 = time.perf_counter()
+    rank, world = distributed.initialize()
+    backend = torch.distributed.get_backend()
+    out = {'init_s': time.perf_counter() - t0, 'backend': backend, 'world': world}
+    print('phase A16: process group up in {:.2f} s: rank {} of {}, backend {}'.format(out['init_s'], rank, world,
+                                                                                        backend))
+    if (rank, world, backend) != (0, 1, 'nccl'):
+        raise AssertionError('phase A16: expected a world of one NCCL process, got rank {} of {} over {}'.format(
+            rank, world, backend))
+    try:
+        mesh = make_mesh(1)
+        if mesh.group is None or mesh.size != 1:
+            raise AssertionError('phase A16: make_mesh(1) gave {!r}'.format(mesh))
+        jnames = joint.pipeline.varied_params.names()
+        for label, cls_name, options, run, order in A16_RUNS:
+            entry = out[label] = {'chains': A16_CHAINS, **run, 'order': list(order)}
+            positions = []
+            for key in order:
+                m = mesh if key == 'mesh' else None
+                torch.cuda.synchronize()
+                cuda_kernels.CLENSHAW_LAUNCHES = cuda_kernels.COEFF_GRAD_LAUNCHES = 0
+                t0 = time.perf_counter()
+                sampler = getattr(samplers_module, cls_name)(joint, nchains=A16_CHAINS, mesh=m, **options)
+                chain = sampler.run(**run)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                d = sampler.diagnostics
+                positions.append(np.stack([np.asarray(chain[n]) for n in jnames], axis=-1))
+                entry.setdefault(key, []).append(dict(
+                    seconds=seconds, iterations=d['iterations'], iterations_per_s=d['iterations'] / seconds,
+                    launches_clenshaw=cuda_kernels.CLENSHAW_LAUNCHES,
+                    launches_coeff_grad=cuda_kernels.COEFF_GRAD_LAUNCHES,
+                    acceptance_rate=d.get('acceptance_rate'),
+                    logposterior_finite=bool(np.isfinite(chain['logposterior']).all()), shape=list(chain.shape)))
+                if m is not None:
+                    gr = np.asarray(d['gelman_rubin_mesh'])
+                    entry['gelman_rubin_mesh'] = gr.tolist()
+                    entry['gelman_rubin_rel_err'] = max(entry.get('gelman_rubin_rel_err', 0.), float(
+                        np.max(np.abs(gr / host_gelman_rubin(positions[-1]) - 1.))))
+            entry['identical'] = all(np.array_equal(positions[0], p) for p in positions[1:])
+            entry['mesh_over_none'] = (sum(r['seconds'] for r in entry['mesh'])
+                                       / sum(r['seconds'] for r in entry['none']))
+            print('phase A16: {} on config 4, {} chains, with and without a one-card NCCL mesh on {!r}: {}'.format(
+                cls_name, A16_CHAINS, smi, json.dumps(entry)))
+            if not entry['identical']:
+                raise AssertionError('phase A16: {}: the chains of the runs {} differ (max |dx| {:.3e})'.format(
+                    cls_name, order, max(float(np.abs(positions[0] - p).max()) for p in positions[1:])))
+            if not (np.isfinite(entry['gelman_rubin_mesh']).all() and entry['gelman_rubin_rel_err'] <= A16_GR_RTOL):
+                raise AssertionError('phase A16: {}: gelman_rubin_mesh {} against the host formula ({:.3e})'.format(
+                    cls_name, entry['gelman_rubin_mesh'], entry['gelman_rubin_rel_err']))
+            for key in ('none', 'mesh'):
+                if not all(r['logposterior_finite'] and r['launches_clenshaw'] > 0 for r in entry[key]):
+                    raise AssertionError('phase A16: {} ({}): a record is not finite, or the Clenshaw kernel was '
+                                         'not launched'.format(cls_name, key))
+
+        # config 4's log-posterior over the chains through the mesh's batch function
+        jfn = joint.logpost_fn()
+        jvalues = chains(jnames, A16_CHAINS, seed=5, device=joint.pipeline.device)
+        with torch.no_grad():
+            cuda_kernels.CLENSHAW_LAUNCHES = cuda_kernels.COEFF_GRAD_LAUNCHES = 0
+            sharded, _ = sharded_vmap_fn(jfn, mesh)(jvalues)
+            torch.cuda.synchronize()
+            out['launches_sharded_vmap'] = [cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES]
+            plain, _ = jfn(jvalues)
+        out['sharded_vmap_identical'] = bool(torch.equal(sharded, plain))
+        print('phase A16: config 4 through sharded_vmap_fn over {} chains: identical to the plain call {}, '
+              'launches {}'.format(A16_CHAINS, out['sharded_vmap_identical'], out['launches_sharded_vmap']))
+        if not out['sharded_vmap_identical'] or out['launches_sharded_vmap'][0] <= 0:
+            raise AssertionError('phase A16: sharded_vmap_fn differs from the plain call, or launched no kernel')
+
+        # config 1 from a YAML file, on the card
+        with tempfile.TemporaryDirectory() as tmp:
+            fn = os.path.join(tmp, 'config1.yaml')
+            with open(fn, 'w') as file:
+                file.write(CONFIG1_YAML)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            yaml_like = from_config(fn)
+            yaml_like.pipeline
+            out['yaml_build_s'] = time.perf_counter() - t0
+        names = like.pipeline.varied_params.names()
+        if yaml_like.pipeline.varied_params.names() != names or yaml_like.pipeline.device != like.pipeline.device:
+            raise AssertionError('phase A16: config 1 from YAML varies {} on {}'.format(
+                yaml_like.pipeline.varied_params.names(), yaml_like.pipeline.device))
+        values = chains(names, A16_CHAINS, seed=6, device=like.pipeline.device)
+        fn1 = like.logpost_fn()
+        with torch.no_grad():
+            cuda_kernels.CLENSHAW_LAUNCHES = cuda_kernels.COEFF_GRAD_LAUNCHES = 0
+            from_yaml = yaml_like.logpost_fn()(values)[0]
+            torch.cuda.synchronize()
+            out['launches_yaml'] = [cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES]
+            built = fn1(values)[0]
+        out['yaml_max_abs_diff'] = float((from_yaml - built).abs().max())
+        out['yaml_identical'] = bool(torch.equal(from_yaml, built))
+        print('phase A16: config 1 from YAML built in {:.2f} s on the card; over {} chains against '
+              'build_likelihood: max |d logpost| {:.3e} (tol {:.0e}), bit-identical {}, launches {}'.format(
+                  out['yaml_build_s'], A16_CHAINS, out['yaml_max_abs_diff'], A16_YAML_ATOL, out['yaml_identical'],
+                  out['launches_yaml']))
+        if not (bool(torch.isfinite(from_yaml).all()) and out['yaml_max_abs_diff'] <= A16_YAML_ATOL):
+            raise AssertionError('phase A16: config 1 from YAML disagrees with build_likelihood')
+
+        # the 'ref' policy of the batch facade over config 1, one chain forced to fail
+        index = A16_CHAINS // 3
+        ref_values = {p.name: p.value for p in like.pipeline.varied_params}
+        with torch.no_grad():
+            with fail_power(like, index):
+                raw = fn1(values)[0]
+                cuda_kernels.CLENSHAW_LAUNCHES = cuda_kernels.COEFF_GRAD_LAUNCHES = 0
+                replaced, aux = vmap(fn1, errors='ref', ref_values=ref_values)(values)
+                torch.cuda.synchronize()
+                out['launches_vmap_ref'] = [cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES]
+            at_ref = fn1({name: torch.full((1,), value, device=like.pipeline.device)
+                          for name, value in ref_values.items()})[0]
+        others = torch.arange(A16_CHAINS, device=built.device) != index
+        out['vmap_ref'] = dict(index=index, raw_failed=float(raw[index]), replaced=float(replaced[index]),
+                               at_ref=float(at_ref[0]), others_identical=bool(torch.equal(replaced[others],
+                                                                                          built[others])))
+        print('phase A16: vmap(errors=\'ref\') over config 1, {} chains, chain {} forced to fail: {}'.format(
+            A16_CHAINS, index, json.dumps(out['vmap_ref'])))
+        ref = out['vmap_ref']
+        if not (not np.isfinite(ref['raw_failed']) and ref['replaced'] == ref['at_ref'] and ref['others_identical']
+                and bool(torch.isfinite(replaced).all())):
+            raise AssertionError('phase A16: the \'ref\' policy did not replace only the failed row')
+
+        # the per-calculator profiler on config 4
+        cuda_kernels.CLENSHAW_LAUNCHES = cuda_kernels.COEFF_GRAD_LAUNCHES = 0
+        speed = joint.pipeline.profile_speed(niterations=3, batch=A16_CHAINS)
+        out['launches_profile_speed'] = [cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES]
+        out['profile_speed'] = dict(per_calculator_ms={k: v * 1e3 for k, v in speed['eager_per_calculator'].items()},
+                                    per_call_ms=speed['per_call'] * 1e3, evals_per_s=speed['compiled_evals_per_sec'],
+                                    batch=speed['batch'])
+        print('phase A16: profile_speed on config 4 at {} chains: {}'.format(A16_CHAINS,
+                                                                           json.dumps(out['profile_speed'])))
+        if not (speed['compiled_evals_per_sec'] > 0 and out['launches_profile_speed'][0] > 0):
+            raise AssertionError('phase A16: profile_speed measured nothing on the card')
+    finally:
+        distributed.shutdown()
+    out['seconds'] = time.perf_counter() - t_a16
+    print('phase A16 took {:.1f} s'.format(out['seconds']))
+    return out
+
+
 def main(kernels_only=False):
     import torch
     if not torch.cuda.is_available():
@@ -3793,9 +4039,16 @@ def main(kernels_only=False):
     print('phase 5 took {:.1f} s'.format(samplers['seconds']))
     # --- phase A15: the samplers, profilers and profile containers on configs 3d, 1 and 3j ---
     samplers['a15'] = run_a15(like, direct, probes, smi, cuda)
+    # --- phase A16: the chain mesh (one NCCL process), config 1 from YAML, the batch facade, the profiler ---
+    samplers['a16'] = run_a16(like, joint, smi)
     print('all phases took {:.1f} s'.format(time.perf_counter() - started))
     a15_launches = {run: [entry['launches_clenshaw'], entry['launches_coeff_grad']]
                     for run, entry in samplers['a15'].items() if isinstance(entry, dict) and 'launches_clenshaw' in entry}
+    a16 = samplers['a16']
+    a16_launches = {**{'{}_{}'.format(run, key): [a16[run][key][0]['launches_clenshaw'],
+                                                   a16[run][key][0]['launches_coeff_grad']]
+                       for run, _, _, _, _ in A16_RUNS for key in ('none', 'mesh')},
+                    **{key[len('launches_'):]: value for key, value in a16.items() if key.startswith('launches_')}}
 
     fs = timed['per-row', BATCH, FS_NQUERY]
     launches3 = config3['launches']['with gradient', BATCH]
@@ -3835,6 +4088,7 @@ def main(kernels_only=False):
            for (mode, batch), value in config5['launches'].items()},
         'launches_nuts_config5': samplers['nuts_config5']['launches_clenshaw'],
         'launches_a15': {run: value[0] for run, value in a15_launches.items()},
+        'launches_a16': {run: value[0] for run, value in a16_launches.items()},
         'launches_config_xi': config_xi['launches']['with gradient', BATCH][0],
         'launches_config_xi_forward': config_xi['launches']['forward', BATCH][0],
         'launches_hessian_config_xi': config_xi['launches_hessian'][0],
@@ -3880,6 +4134,7 @@ def main(kernels_only=False):
            for (mode, batch), value in config5['launches'].items()},
         'launches_nuts_config5': samplers['nuts_config5']['launches_coeff_grad'],
         'launches_a15': {run: value[1] for run, value in a15_launches.items()},
+        'launches_a16': {run: value[1] for run, value in a16_launches.items()},
         **{'launches_config_tns_{}_{}'.format(mode.replace(' ', '_'), batch): value[1]
            for (mode, batch), value in config_tns['launches'].items()},
         **{key + '_config_tns': {label: entry['grad_' + key] for label, entry in tns_timed.items()}

@@ -32,7 +32,10 @@ from 100 theta_* (``Cosmology(theta=True)``). The other samplers
 (Metropolis, blocked Metropolis for pipelines with host-evaluated nodes,
 the stretch and slice ensembles, nested, grid, QMC, importance), the
 profilers (``profilers``), the ``Profiles`` and ``ParameterCovariance``
-containers and the plots (``plotting``).
+containers and the plots (``plotting``). The chain mesh (``parallel``):
+samplers shard their chains over processes, one card each, through
+``torch.distributed``. The YAML configuration (``from_config``) and the
+batch facade (``vmap``).
 Per-evaluation compute runs on a batch of chains, in float32, on the CUDA
 card unless the caller asks for the CPU by name (``device='cpu'``); the
 Chebyshev lookups and their gradients run through hand-written CUDA kernels
@@ -42,9 +45,12 @@ Chebyshev lookups and their gradients run through hand-written CUDA kernels
 __version__ = '0.1.0'
 
 from .config import set_dtype, get_dtype
-from .utils import BaseClass
-from .parameters import Parameter, ParameterCollection, Prior, ParameterCovariance, ParameterPrecision
+from .utils import setup_logging, BaseClass
+from .parameters import (Parameter, ParameterCollection, Prior, Samples, Deriv, ParameterCovariance,
+                         ParameterPrecision)
 from .core import Calculator, Pipeline
+from .core.collection import CollectionCalculator, vmap
+from .io import BaseConfig, from_config
 from .theories import (DampedBAOWigglesTracerPowerSpectrumMultipoles, BAOPowerSpectrumTemplate,
                        ShapeFitPowerSpectrumTemplate, DirectPowerSpectrumTemplate, Cosmology, KaiserTracerPowerSpectrumMultipoles,
                        EFTLikeKaiserTracerPowerSpectrumMultipoles, EPTTracerPowerSpectrumMultipoles,
@@ -78,4 +84,10 @@ from .fisher import Fisher, LikelihoodFisher, PriorFisher
 from .emulators import (Emulator, EmulatedCalculator, PointEmulatorEngine, TaylorEmulatorEngine,
                         MLPEmulatorEngine)
 from .samples import Chain, Profiles
-from . import plotting, utils  # noqa: E402
+
+# reference top-level aliases (ref desilike/__init__.py re-exports)
+BaseCalculator = Calculator
+ParameterPrior = Prior
+from .parameters.samples import DerivArray as ParameterArray  # noqa: E402
+PipelineError = RuntimeError  # pipeline errors raise RuntimeError
+from . import plotting, utils, parallel  # noqa: E402

@@ -7,8 +7,9 @@ parameter is a ``(B,)`` tensor and each calculator broadcasts over the
 leading batch dimension itself. A calculator flagged ``_host_eval`` (a host
 code that cannot run on the card) is memoized on its parameter footprint,
 so that moves of the other parameters skip it: ``block_params`` splits the
-varied parameters on that footprint for the blocked sampler. Injected
-external state and the per-calculator profiler wait for ROADMAP A17.
+varied parameters on that footprint for the blocked sampler.
+``profile_speed`` times each calculator and the batched call. Injected
+external state waits for ROADMAP A17b.
 """
 
 import numpy as np
@@ -296,6 +297,55 @@ class Pipeline(BaseClass):
     def host_evaluate(self, values=None):
         """Initialization-time evaluation: float64 on the CPU."""
         return self.evaluate(values, device='cpu', dtype=config.HOST_DTYPE)
+
+    def profile_speed(self, niterations=10, batch=1):
+        """Per-calculator wall time and batched-call throughput (the
+        reference's Monitor/_set_speed analog, base.py:695-735; the JAX
+        package's ``profile_speed``). Every parameter at its default, ``batch``
+        chains, on the pipeline's device; on the card each
+        calculator's ``calculate`` and each whole call is bracketed by
+        ``torch.cuda.synchronize``. Returns {'eager_per_calculator': {name:
+        seconds a call}, 'compiled_per_eval': seconds an evaluation of the
+        whole batched call, 'compiled_evals_per_sec', 'per_call', 'batch'};
+        the JAX package's key names are kept, though nothing is compiled."""
+        import time
+        device, dtype = self.device, config.get_dtype()
+        sync = torch.cuda.synchronize if device.type == 'cuda' else (lambda: None)
+        names = [c.runtime_info.name for c in self.calculators]
+        counts = {n: names.count(n) for n in names}
+        ordinal, keys = {}, []
+        for n in names:  # unique per-instance keys (multi-tracer graphs repeat class names)
+            ordinal[n] = ordinal.get(n, 0) + 1
+            keys.append('{}#{}'.format(n, ordinal[n]) if counts[n] > 1 else n)
+        values = {p.name: torch.full((batch,), float(p.value), dtype=dtype, device=device)
+                  for p in self.varied_params}
+        full = self._resolve_values(values, device=device, dtype=dtype)
+        timings = dict.fromkeys(keys, 0.)
+        niterations = max(1, int(niterations))
+        with torch.no_grad():
+            self.run_once(full)  # first use (kernel builds, caches) outside the timings
+            for _ in range(niterations):
+                for key, calc in zip(keys, self.calculators):
+                    cvals = {p.basename: full[p.name] for p in calc.runtime_info.params
+                             if p.derived is not True and not p.drop}
+                    calc.dtype, calc.device = dtype, device
+                    sync()
+                    t0 = time.perf_counter()
+                    calc.calculate(**cvals)
+                    sync()
+                    timings[key] += time.perf_counter() - t0
+            nrep = max(3, niterations)
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(nrep):
+                self.evaluate(values)
+            sync()
+            per_call = (time.perf_counter() - t0) / nrep
+        per_eval = per_call / batch
+        return {'eager_per_calculator': {key: t / niterations for key, t in timings.items()},
+                'compiled_per_eval': per_eval,
+                'compiled_evals_per_sec': 1. / per_eval if per_eval > 0 else float('inf'),
+                'per_call': per_call, 'batch': int(batch)}
 
     def logprior(self, values):
         """Sum of log priors of varied params at given (resolved) values -> (B,)."""

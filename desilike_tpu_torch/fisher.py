@@ -8,7 +8,8 @@ and solved parameters, through the card's kernels where the pipeline reaches
 them; for the others the Hessian and gradient of the log-likelihood
 (``torch.func.hessian``, ``torch.func.grad``); ``method='finite'`` takes
 central differences instead, every stencil point in one batched pipeline
-call. The getdist readers and writers wait for ROADMAP A17.
+call. ``read_getdist`` reads a getdist ``.covmat`` with numpy alone;
+``to_getdist`` needs getdist.
 """
 
 import copy
@@ -160,12 +161,18 @@ class LikelihoodFisher(BaseClass):
 
     @classmethod
     def read_getdist(cls, base_fn):
-        """getdist-format reader: ROADMAP A17."""
-        raise NotImplementedError('the getdist readers and writers are ROADMAP A17')
+        """Build from a getdist-format .covmat (reference fisher.py
+        read_getdist): F = -H = C^-1 around a zero-filled center."""
+        from .parameters import ParameterCovariance
+        return ParameterCovariance.from_getdist(base_fn).to_fisher()
 
     def to_getdist(self, params=None, label=None):
-        """getdist export: ROADMAP A17."""
-        raise NotImplementedError('the getdist readers and writers are ROADMAP A17')
+        """Gaussian mixture in getdist form (reference fisher.py:567); raises
+        ImportError without getdist."""
+        from getdist.gaussian_mixtures import GaussianND
+        names = self._names if params is None else [getattr(p, 'name', p) for p in params]
+        return GaussianND(self.mean(params=list(names)), self.covariance(list(names)),
+                          names=names, label=label)
 
     @classmethod
     def sum(cls, *others):

@@ -14,7 +14,7 @@ reimplementations), per chain:
 
 The calibration parameter A_planck carries the standard Planck prior
 N(1, 0.0025). Without ``data=`` or ``data_dir=``, the JAX package looks the
-data up through its installer; that path is ROADMAP A17 here.
+data up through its installer; that path is ROADMAP A17b here.
 """
 
 import os
@@ -33,9 +33,9 @@ _CALIB_PARAMS = {'A_planck': dict(value=1., prior=dict(dist='norm', loc=1., scal
 
 def no_installer(name):
     """The JAX package's installer lookup, when neither data nor a data
-    directory is given: ROADMAP A17 here."""
+    directory is given: ROADMAP A17b here."""
     return NotImplementedError('{} without data= or data_dir= looks its data up through the installer: '
-                               'ROADMAP A17'.format(name))
+                               'ROADMAP A17b'.format(name))
 
 
 def interp_rows(x, grid, values, outside=None):

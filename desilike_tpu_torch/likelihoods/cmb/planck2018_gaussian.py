@@ -189,10 +189,10 @@ def planck2018_base_fn(basename, data_dir=None):
     ``<data_dir>/<model>/plikHM_<obs>/[dist/]<basename>`` for a chain
     basename like 'base_mnu_plikHM_TTTEEE_lowl_lowE_lensing'; returns
     (chain_fn, dist_fn) prefixes (reference planck2018_gaussian.py:20-43).
-    ``data_dir=None`` (the JAX package's installer lookup) is ROADMAP A17."""
+    ``data_dir=None`` (the JAX package's installer lookup) is ROADMAP A17b."""
     if data_dir is None:
         raise NotImplementedError('the Planck 2018 grid without data_dir= is looked up through the installer: '
-                                  'ROADMAP A17')
+                                  'ROADMAP A17b')
     try:
         base_dir, obs_dir = basename.split('_plikHM_')
     except ValueError as exc:

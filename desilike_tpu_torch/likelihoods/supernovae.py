@@ -23,7 +23,7 @@ magnitude offset, which is solved with a static design row
 (``_static_linear_solved``).
 
 Without ``data_dir=``, arrays or ``data_fn=``, the JAX package looks the
-data up through its installer; that path is ROADMAP A17 here.
+data up through its installer; that path is ROADMAP A17b here.
 """
 
 import os
@@ -142,7 +142,7 @@ class BaseSNLikelihood(BaseGaussianLikelihood):
                    config_fn=None, data_fn=None, cov_fn=None, **kwargs):
         if z is None and data_dir is None and data_fn is None:
             raise NotImplementedError('{} without data_dir=, data_fn= or arrays looks its data up through the '
-                                      'installer: ROADMAP A17'.format(type(self).__name__))
+                                      'installer: ROADMAP A17b'.format(type(self).__name__))
         if data_dir is not None:
             config = read_sn_config(os.path.join(data_dir, config_fn or self.config_fn))
             lc = read_light_curve_params(os.path.join(data_dir, config['data_file']), header=self.lc_header,

@@ -3,9 +3,8 @@
 Counterpart of ``desilike_tpu/parameters/covariance.py``, numpy on the host
 (bookkeeping, not a compute path): a covariance matrix whose rows and
 columns are named parameters, with view/marginalize/fix algebra, conversion
-to a ``LikelihoodFisher``, and ``.npz`` files in the JAX package's layout.
-The getdist ``.covmat`` readers and writers and ``to_getdist`` wait for
-ROADMAP A17.
+to a ``LikelihoodFisher``, ``.npz`` files in the JAX package's layout and
+getdist ``.covmat`` files (numpy alone; ``to_getdist`` needs getdist).
 """
 
 import numpy as np
@@ -109,17 +108,22 @@ class ParameterCovariance(BaseClass):
         return LikelihoodFisher(center=self.center, params=self.names(),
                                 hessian=-np.linalg.inv(self._value))
 
-    # --- getdist I/O: ROADMAP A17 ---
+    # --- getdist I/O (reference parameter.py to_getdist/covmat conventions) ---
 
     def write_getdist(self, filename):
-        """getdist-format ``.covmat`` writer: ROADMAP A17."""
-        raise NotImplementedError('the getdist readers and writers are ROADMAP A17')
+        """Write a getdist-format .covmat (header '# name1 name2 ...')."""
+        np.savetxt(str(filename), self._value, header=' '.join(self.names()))
+        return filename
 
     @classmethod
     def from_getdist(cls, filename):
-        """getdist-format ``.covmat`` reader: ROADMAP A17."""
-        raise NotImplementedError('the getdist readers and writers are ROADMAP A17')
+        """Read a getdist-format .covmat."""
+        with open(str(filename)) as f:
+            header = f.readline()
+        names = header.lstrip('#').split()
+        return cls(np.atleast_2d(np.loadtxt(str(filename))), names)
 
+    # reference parameter.py names for the same operations
     read_getdist = from_getdist
 
     def var(self, params=None):
@@ -139,8 +143,13 @@ class ParameterCovariance(BaseClass):
         return '\n'.join(lines)
 
     def to_getdist(self, params=None, label=None):
-        """getdist export: ROADMAP A17."""
-        raise NotImplementedError('the getdist readers and writers are ROADMAP A17')
+        """getdist.gaussian_mixtures.GaussianND (for triangle overlays);
+        raises ImportError without getdist."""
+        params = [getattr(p, 'name', p) for p in (params or self.names())]
+        idx = self.index(params)
+        from getdist.gaussian_mixtures import GaussianND
+        return GaussianND(self.center[idx], self._value[np.ix_(idx, idx)],
+                          names=params, label=label)
 
     # --- IO ---
 

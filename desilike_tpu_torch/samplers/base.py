@@ -7,7 +7,15 @@ all of them in lockstep, eagerly, on the likelihood's device. Randomness
 comes from a ``torch.Generator`` seeded with ``seed`` on that device: a run
 is reproducible for a fixed seed and device. The step functions take their
 draws as arguments, so that a step can be fed any draws (e.g. the JAX
-package's). Chains are not sharded across cards until ROADMAP A16.
+package's).
+
+With ``mesh=`` (``desilike_tpu_torch.parallel``: one process a card) each
+process steps its own rows of the chain batch. Every rank draws the whole
+batch's random numbers from the sampler's generator and keeps its rows, and
+each statistic across chains is taken on the batch gathered from every
+rank, so a mesh of one gives the same chains as no mesh, bit for bit, and a
+fixed (seed, world) gives the same chains again. The records are gathered,
+so every rank builds the whole ``Chain``.
 """
 
 import numpy as np
@@ -51,7 +59,10 @@ class BasePosteriorSampler(BaseClass):
     """Common machinery: batched flat-vector posterior, reference-distribution
     starts, chain assembly, the convergence loop and its checks."""
 
-    def __init__(self, likelihood, seed=42, max_tries=1000, save_fn=None, chains=None, ref_scale=None):
+    def __init__(self, likelihood, seed=42, max_tries=1000, save_fn=None, chains=None,
+                 mesh=None, mpicomm=None, ref_scale=None):
+        # mpicomm is accepted for reference-script compatibility and ignored:
+        # chain parallelism is the mesh (mesh=), one process a card
         self.ref_scale = float(ref_scale) if ref_scale is not None else 1.
         self.likelihood = likelihood
         self.pipeline = likelihood.pipeline
@@ -67,8 +78,35 @@ class BasePosteriorSampler(BaseClass):
         self._logpost_aux_fn = None
         self.evaluated_points = 0  # the points evaluated through logpost_flat
         self._resume_chain = chains if isinstance(chains, Chain) else (Chain.load(chains) if chains else None)
+        self.mesh = mesh
         self.diagnostics = {}
         self.diagnostics_history = Diagnostics()
+
+    # --- the chain mesh ---
+
+    def _shard_chains(self, *arrays, dim=0):
+        """This rank's rows (along ``dim``) of each whole-batch value (a
+        tensor or a dict of them). No-op without a mesh; raises ValueError
+        where the batch does not divide over the mesh."""
+        out = arrays if self.mesh is None else tuple(self.mesh.shard(a, dim=dim) for a in arrays)
+        return out if len(out) > 1 else out[0]
+
+    def _all_chains(self, value, dim=0):
+        """The whole batch of a per-chain value (a tensor or a dict of them),
+        gathered from every rank along ``dim``. No-op without a mesh."""
+        return value if self.mesh is None else self.mesh.gather(value, dim=dim)
+
+    def _sum_chains(self, value):
+        """The sum of ``value`` over the ranks of the mesh. No-op without a mesh."""
+        return value if self.mesh is None else self.mesh.sum(value)
+
+    def _mesh_gelman_rubin(self, positions):
+        """Split-R over this rank's chains (nsteps, nchains, ndim), the
+        cross-chain sums reduced over the mesh; recorded in diagnostics."""
+        from ..parallel.mesh import chain_gelman_rubin
+        gr = chain_gelman_rubin(positions, self.mesh)
+        self.diagnostics['gelman_rubin_mesh'] = gr.cpu().numpy()
+        return gr
 
     def normal(self, *shape):
         """Standard normal draws of ``shape`` from the sampler's generator."""

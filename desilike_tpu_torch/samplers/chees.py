@@ -47,7 +47,10 @@ class ChEESSampler(NUTSSampler):
         stats); state = (u, lp, grad, eps, log_T, inv_mass, (m, v, t)) with
         eps, log_T and the Adam moments 0-dim tensors and inv_mass (ndim,);
         noise (B, ndim) standard normal (the momenta before the mass),
-        uniform (B,) the Metropolis draws, halton the jitter (float32)."""
+        uniform (B,) the Metropolis draws, halton the jitter (float32). With a
+        mesh, B is this rank's chains, and the centring and the ChEES and
+        acceptance statistics are those of the whole batch, from sums over
+        the ranks (two all-reduces an iteration)."""
         max_leapfrog = self.max_leapfrog
 
         def step(state, noise, uniform, halton_value, adapting):
@@ -74,16 +77,17 @@ class ChEESSampler(NUTSSampler):
 
             # ChEES criterion (arXiv:2110.11576 eq. 8): cross-chain gradient
             # of the expected squared jump of the centered squared norm
-            center0 = u - u.mean(0)
-            center1 = u1 - u1.mean(0)
+            means = self._sum_chains(torch.stack([u.sum(0), u1.sum(0)])) / self.nchains
+            center0, center1 = u - means[0], u1 - means[1]
             jump = (center1 ** 2).sum(1) - (center0 ** 2).sum(1)
             dtraj = (center1 * (inv_mass * r1)).sum(1)
-            w = accept_prob / torch.clamp(accept_prob.sum(), min=1e-12)
-            # diverged chains have w == 0 but jump/dtraj == nan; 0 * nan = nan
-            # would poison the Adam state permanently: mask them out
+            # diverged chains have accept_prob == 0 but jump/dtraj == nan;
+            # 0 * nan = nan would poison the Adam state permanently: mask them out
             finite = torch.isfinite(jump) & torch.isfinite(dtraj)
-            contrib = torch.where(finite, w * jump * dtraj, torch.zeros_like(jump))
-            chees_grad = contrib.sum() * halton_value  # d/d log T direction
+            contrib = torch.where(finite, accept_prob * jump * dtraj, torch.zeros_like(jump))
+            sums = self._sum_chains(torch.stack([accept_prob.sum(), contrib.sum(), delta.abs().sum()]))
+            # the acceptance-weighted mean of jump * dtraj, d/d log T direction
+            chees_grad = sums[1] / torch.clamp(sums[0], min=1e-12) * halton_value
 
             # Adam on log T (only while adapting)
             m, v, t = adam
@@ -97,14 +101,14 @@ class ChEESSampler(NUTSSampler):
                 log_T = log_T - 0.025 * mhat / (torch.sqrt(vhat) + 1e-8)
             # keep T sane relative to eps
             log_T = torch.minimum(torch.maximum(log_T, torch.log(eps)), torch.log(eps * max_leapfrog))
-            stats = {'accept_prob': accept_prob.mean(), 'nsteps': nsteps, 'delta_energy': delta.abs().mean()}
+            stats = {'accept_prob': sums[0] / self.nchains, 'nsteps': nsteps, 'delta_energy': sums[2] / self.nchains}
             record = {'u': u_new, 'logposterior': lp_new}
             return (u_new, lp_new, grad_new, eps, log_T, inv_mass, (m, v, t)), record, stats
 
         return step
 
     def _draws(self):
-        return self.normal(self.nchains, self.ndim), self.uniform(self.nchains)
+        return self._shard_chains(self.normal(self.nchains, self.ndim), self.uniform(self.nchains))
 
     def _warm_phase(self, step, state0, hs, collect_from):
         """Dual averaging of the shared step size on the cross-chain mean
@@ -121,7 +125,7 @@ class ChEESSampler(NUTSSampler):
             log_eps, log_eps_bar, h_bar = dual_averaging_update(log_eps_bar, h_bar, stats['accept_prob'], i + 1.,
                                                                 mu, self.target_accept)
             if i >= collect_from:
-                var_sum = var_sum + state[0].var(0, unbiased=False)
+                var_sum = var_sum + self._all_chains(state[0]).var(0, unbiased=False)
                 count += 1
             state = state[:3] + (torch.exp(log_eps),) + state[4:]
         # eps_bar gates on whether the phase ran any iteration, not on the
@@ -192,6 +196,9 @@ class ChEESSampler(NUTSSampler):
         u_rec = torch.stack([record['u'] for record in records])[::thin]
         x_rec = self._constrain(u_rec)[0]
         lp_rec = torch.stack([record['logposterior'] for record in records])[::thin]
+        if self.mesh is not None:
+            self._mesh_gelman_rubin(x_rec)
+            x_rec, lp_rec = self._all_chains(x_rec, dim=1), self._all_chains(lp_rec, dim=1)
         return self._make_chain(x_rec.cpu().numpy(), {'logposterior': lp_rec.cpu().numpy()},
                                 attrs={'sampler': 'chees',
                                        'step_size': self.diagnostics['step_size'],

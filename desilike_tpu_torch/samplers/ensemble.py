@@ -5,6 +5,10 @@ Counterpart of ``desilike_tpu/samplers/ensemble.py`` (the reference's emcee
 and zeus bindings). The walkers are the batch axis; a step moves the two
 half-ensembles in turn, each against the other, and every posterior call is
 one batched call over a half. Each step takes its draws as arguments.
+
+With a mesh, each rank holds its rows of each half (its state is its rows
+of the first half, then its rows of the second) and moves them against the
+other half gathered whole from every rank.
 """
 
 import torch
@@ -29,7 +33,39 @@ def _join_aux(auxa, auxb):
     return {name: torch.cat([auxa[name], auxb[name]]) for name in auxa}
 
 
-class EnsembleSampler(BasePosteriorSampler):
+class _HalvesMixin(object):
+    """The layout of the two half-ensembles over the mesh."""
+
+    def _local_halves(self, *values):
+        """This rank's rows of each half of whole-ensemble values, joined."""
+        half = self.nwalkers // 2
+        out = tuple(_tree_cat(*(self._shard_chains(_tree_slice(v, s)) for s in (slice(None, half), slice(half, None))))
+                    for v in values)
+        return out if len(out) > 1 else out[0]
+
+    def _local_draws(self, draws, dims):
+        """This rank's rows of each draw of a half move (``dims``: each draw's walker axis)."""
+        return tuple(self._shard_chains(d, dim=dim) for d, dim in zip(draws, dims))
+
+    def _all_halves(self, records):
+        """Whole-ensemble records (nsteps, nwalkers, ...) from every rank's
+        halves (the rank's first half, then its second, along axis 1)."""
+        if self.mesh is None:
+            return records
+        local = next(iter(records.values())).shape[1] // 2
+        return {name: torch.cat([self._all_chains(value[:, :local], dim=1), self._all_chains(value[:, local:], dim=1)],
+                                dim=1) for name, value in records.items()}
+
+
+def _tree_slice(value, sl):
+    return {k: v[sl] for k, v in value.items()} if isinstance(value, dict) else value[sl]
+
+
+def _tree_cat(a, b):
+    return _join_aux(a, b) if isinstance(a, dict) else torch.cat([a, b])
+
+
+class EnsembleSampler(_HalvesMixin, BasePosteriorSampler):
     """Stretch-move ensemble sampler.
 
     Parameters
@@ -65,13 +101,13 @@ class EnsembleSampler(BasePosteriorSampler):
     def step(self, state, draws_a, draws_b):
         """One ensemble step: the first half moves against the second, then
         the second against the moved first. state = (x, lp, aux, naccept);
-        draws_a, draws_b = (partners, u, accept_u) of each half. Returns
-        (state, record)."""
+        draws_a, draws_b = (partners, u, accept_u) of each half (this rank's
+        rows with a mesh). Returns (state, record)."""
         x, lp, aux, naccept = state
-        half = self.nwalkers // 2
+        half = x.shape[0] // 2
         (xa, xb), (lpa, lpb), (auxa, auxb) = _halves(x, half), _halves(lp, half), _split_aux(aux, half)
-        xa, lpa, auxa, acc_a = self._move(xa, lpa, auxa, xb, *draws_a)
-        xb, lpb, auxb, acc_b = self._move(xb, lpb, auxb, xa, *draws_b)
+        xa, lpa, auxa, acc_a = self._move(xa, lpa, auxa, self._all_chains(xb), *draws_a)
+        xb, lpb, auxb, acc_b = self._move(xb, lpb, auxb, self._all_chains(xa), *draws_b)
         x, lp, aux = torch.cat([xa, xb]), torch.cat([lpa, lpb]), _join_aux(auxa, auxb)
         naccept = naccept + acc_a.sum() + acc_b.sum()
         return (x, lp, aux, naccept), {'x': x, 'logposterior': lp, **aux}
@@ -87,26 +123,27 @@ class EnsembleSampler(BasePosteriorSampler):
         if resume and getattr(self, '_state', None) is not None:
             start, lp0, aux0, _ = self._state
         else:
-            start, lp0 = self.get_start(self.nwalkers)
+            start, lp0 = self._local_halves(*self.get_start(self.nwalkers))
             _, aux0 = self.logpost_batch(start)
         state = (start, lp0, aux0, torch.zeros((), dtype=torch.int64, device=self.device))
         records = []
         with torch.no_grad():
             for _ in range(nsteps):
-                state, record = self.step(state, self._draws(), self._draws())
+                draws_a, draws_b = (self._local_draws(self._draws(), (0, 0, 0)) for _ in range(2))
+                state, record = self.step(state, draws_a, draws_b)
                 records.append(record)
         self._state = state
-        self.diagnostics['acceptance_rate'] = float(state[3]) / (nsteps * self.nwalkers)
+        self.diagnostics['acceptance_rate'] = float(self._sum_chains(state[3])) / (nsteps * self.nwalkers)
         self.diagnostics['iterations'] = self.diagnostics.get('iterations', 0) + nsteps
         self.diagnostics['host_reads'] = self.diagnostics.get('host_reads', 0) + 2  # acceptance, records
-        records = _stack_records(records)
+        records = self._all_halves(_stack_records(records))
         x = records.pop('x')
         sl = slice(burnin, None, thin)
         return self._make_chain(x[sl], {k: v[sl] for k, v in records.items()},
                                 attrs={'sampler': 'ensemble', 'acceptance_rate': self.diagnostics['acceptance_rate']})
 
 
-class EnsembleSliceSampler(BasePosteriorSampler):
+class EnsembleSliceSampler(_HalvesMixin, BasePosteriorSampler):
     """Differential ensemble slice sampler (Karamanis & Beutler 2020,
     arXiv:2002.06212; the reference's zeus binding).
 
@@ -195,10 +232,10 @@ class EnsembleSliceSampler(BasePosteriorSampler):
         against the moved first); state = (x, lp, aux, naccept, ncall), each
         draws = (ia, ib, uy, w, shrink) of :meth:`_move`. Returns (state, record)."""
         x, lp, aux, naccept, ncall = state
-        half = self.nwalkers // 2
+        half = x.shape[0] // 2
         (xa, xb), (lpa, lpb), (auxa, auxb) = _halves(x, half), _halves(lp, half), _split_aux(aux, half)
-        xa, lpa, auxa, acc_a, nc_a = self._move(xa, lpa, auxa, xb, *draws_a)
-        xb, lpb, auxb, acc_b, nc_b = self._move(xb, lpb, auxb, xa, *draws_b)
+        xa, lpa, auxa, acc_a, nc_a = self._move(xa, lpa, auxa, self._all_chains(xb), *draws_a)
+        xb, lpb, auxb, acc_b, nc_b = self._move(xb, lpb, auxb, self._all_chains(xa), *draws_b)
         x, lp, aux = torch.cat([xa, xb]), torch.cat([lpa, lpb]), _join_aux(auxa, auxb)
         naccept = naccept + acc_a.sum() + acc_b.sum()
         ncall = ncall + nc_a.sum() + nc_b.sum()
@@ -217,22 +254,24 @@ class EnsembleSliceSampler(BasePosteriorSampler):
         if resume and getattr(self, '_state', None) is not None:
             start, lp0, aux0 = self._state[:3]
         else:
-            start, lp0 = self.get_start(self.nwalkers)
+            start, lp0 = self._local_halves(*self.get_start(self.nwalkers))
             _, aux0 = self.logpost_batch(start)
         zero = torch.zeros((), dtype=torch.int64, device=self.device)
         state = (start, lp0, aux0, zero, zero)
         records = []
         with torch.no_grad():
             for _ in range(nsteps):
-                state, record = self.step(state, self._draws(), self._draws())
+                draws_a, draws_b = (self._local_draws(self._draws(), (0, 0, 0, 0, 1)) for _ in range(2))
+                state, record = self.step(state, draws_a, draws_b)
                 records.append(record)
         self._state = state
-        self.diagnostics['acceptance_rate'] = float(state[3]) / (nsteps * self.nwalkers)
-        self.diagnostics['ncall'] = int(state[4]) + self.nwalkers
+        naccept, ncall = self._sum_chains(torch.stack([state[3], state[4]])).tolist()
+        self.diagnostics['acceptance_rate'] = float(naccept) / (nsteps * self.nwalkers)
+        self.diagnostics['ncall'] = int(ncall) + self.nwalkers
         self.diagnostics['iterations'] = self.diagnostics.get('iterations', 0) + nsteps
         self.diagnostics['evaluations'] = self.diagnostics.get('evaluations', 0) + self.evaluations - evaluations0
         self.diagnostics['host_reads'] = self.diagnostics.get('host_reads', 0) + self.host_reads - reads0 + 3
-        records = _stack_records(records)
+        records = self._all_halves(_stack_records(records))
         x = records.pop('x')
         sl = slice(burnin, None, thin)
         return self._make_chain(x[sl], {k: v[sl] for k, v in records.items()},

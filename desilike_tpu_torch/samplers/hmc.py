@@ -116,10 +116,10 @@ class MCLMCSampler(NUTSSampler):
             carry = self._state
         else:
             x0, _ = self.get_start(nchains)
-            z = torch.as_tensor(self._unconstrain(x0.cpu().numpy().astype('f8')), dtype=torch.float32,
-                                device=self.device)
+            z = self._shard_chains(torch.as_tensor(self._unconstrain(x0.cpu().numpy().astype('f8')),
+                                                   dtype=torch.float32, device=self.device))
             lp, grad = lg(z)
-            u = self.normal(nchains, ndim)
+            u = self._shard_chains(self.normal(nchains, ndim))
             u = u / torch.sqrt((u ** 2).sum(-1))[..., None]
             eps0 = np.float32(0.2 * np.sqrt(ndim)) if self.step_size is None else self.step_size
             L0 = np.float32(float(ndim) ** 0.5) if self.L is None else self.L
@@ -127,19 +127,21 @@ class MCLMCSampler(NUTSSampler):
             carry = (u, z, lp, grad, torch.full_like(lp, float(eps0) * 0.1), torch.full_like(lp, float(L0)))
             positions = []
             for _ in range(nwarmup):
-                carry = mclmc_step(lg, carry, self.normal(nchains, ndim), d)
+                carry = mclmc_step(lg, carry, self._shard_chains(self.normal(nchains, ndim)), d)
                 positions.append(carry[1])
             scale = torch.stack(positions[nwarmup // 2:]).std(0, unbiased=False).mean(-1)
             u, z, lp, grad, _, _ = carry
             carry = (u, z, lp, grad, scale * 0.5, np.sqrt(float(ndim)) * scale)
         positions = []
         for _ in range(nsteps):
-            carry = mclmc_step(lg, carry, self.normal(nchains, ndim), d)
+            carry = mclmc_step(lg, carry, self._shard_chains(self.normal(nchains, ndim)), d)
             positions.append(carry[1])
         self._state = carry
         zs = torch.stack(positions)[::thin]  # (nsteps, nchains, ndim)
         x, _ = self._constrain(zs)
         lps, aux = self.logpost_batch(x.reshape(-1, ndim))
-        records = {name: value.reshape(zs.shape[:2] + value.shape[1:]).cpu().numpy()
+        records = {name: value.reshape(zs.shape[:2] + value.shape[1:])
                    for name, value in dict(logposterior=lps, **aux).items()}
-        return self._make_chain(x.cpu().numpy(), records, attrs={'sampler': 'mclmc'})
+        x, records = self._all_chains((x, records), dim=1)
+        return self._make_chain(x.cpu().numpy(), {name: value.cpu().numpy() for name, value in records.items()},
+                                attrs={'sampler': 'mclmc'})

@@ -77,7 +77,9 @@ class MCMCSampler(BasePosteriorSampler):
         0-dim tensors. While ``adapting``: the Robbins-Monro scale update,
         the pooled Welford update of the batch (from step nadapt // 3 on),
         and, with ``adapt='cov'``, the regularised Cholesky of the pooled
-        covariance, kept where it factors (``cholesky_ex``, no host read)."""
+        covariance, kept where it factors (``cholesky_ex``, no host read).
+        With a mesh, the acceptance and the moments are those of the whole
+        batch, gathered from every rank."""
         ndim, nchains = self.ndim, self.nchains
         learn_cov = self.adapt == 'cov'
         min_count = max(8 * ndim, 2 * nchains)
@@ -90,10 +92,11 @@ class MCMCSampler(BasePosteriorSampler):
             if not adapting:
                 return (x, lp, aux, logscale, L, wmean, wm2, count, istep), record
             gamma = 1. / torch.sqrt(1. + istep)
-            logscale = logscale + gamma * (accept.to(x.dtype).mean() - TARGET_ACCEPT)
+            logscale = logscale + gamma * (self._all_chains(accept).to(x.dtype).mean() - TARGET_ACCEPT)
             collect = istep >= collect_from
-            mean_b = x.mean(0)
-            d_b = x - mean_b
+            x_all = self._all_chains(x)
+            mean_b = x_all.mean(0)
+            d_b = x_all - mean_b
             m2_b = d_b.T @ d_b
             delta = mean_b - wmean
             count_new = count + torch.where(collect, float(nchains), 0.)
@@ -120,7 +123,7 @@ class MCMCSampler(BasePosteriorSampler):
         if resume:
             start, lp0, aux0, logscale0, L0 = self._state
         else:
-            start, lp0 = self.get_start(self.nchains)
+            start, lp0 = self._shard_chains(*self.get_start(self.nchains))
             _, aux0 = self.logpost_batch(start)
             logscale0 = torch.zeros((), device=self.device)
             L0 = torch.as_tensor(self._chol, dtype=start.dtype, device=self.device)
@@ -131,12 +134,15 @@ class MCMCSampler(BasePosteriorSampler):
         records = []
         with torch.no_grad():
             for istep in range(nsteps):
-                state, record = step(state, self.normal(self.nchains, self.ndim), self.uniform(self.nchains),
-                                     istep < nadapt and bool(self.adapt))
+                z, u = self._shard_chains(self.normal(self.nchains, self.ndim), self.uniform(self.nchains))
+                state, record = step(state, z, u, istep < nadapt and bool(self.adapt))
                 records.append(record)
         x_f, lp_f, aux_f, logscale_f, L_f = state[:5]
         self._state = (x_f, lp_f, aux_f, logscale_f, L_f)
         records = _stack_records(records)
+        if self.mesh is not None:
+            self._mesh_gelman_rubin(records['x'])
+        records = self._all_chains(records, dim=1)
         accept = records.pop('accept')
         self.diagnostics['acceptance_rate'] = float(accept.float().mean())
         self.diagnostics['proposal_scale'] = float(torch.exp(logscale_f))

@@ -12,7 +12,11 @@ reference's dynesty, polychord, nautilus and pocomc bindings):
   per-point masks, one batched evaluation of the K points an iteration, at
   most 32 iterations;
 - the shrinkage bookkeeping, the evidence and the dlogz stopping rule
-  follow Skilling (2006) on the host, numpy, one read a batch step.
+  follow Skilling (2006) on the host, numpy, one read a batch step;
+- with a mesh, every rank holds the whole live set, evaluates its rows of
+  the initial points and regenerates its rows of the K replacements, and
+  the results are gathered, so the deletion of the worst points is over
+  the whole live set on every rank.
 
 Results are a weighted Chain with ``logweight`` and ``aweight`` columns and
 ``logz``/``logzerr`` in ``chain.attrs``, as the JAX package's.
@@ -115,19 +119,23 @@ class NestedSampler(BasePosteriorSampler):
     def batch_step(self, u_live, L_live, pick, directions, shrink):
         """Delete the K worst live points and replace each by S slice updates
         from a surviving point: pick (K,) indices into the survivors,
-        directions (S, K, ndim) unit rows, shrink (S, n, K) uniforms.
-        Returns (u_live, L_live, u_dead, L_dead (ascending), ncall)."""
+        directions (S, K, ndim) unit rows, shrink (S, n, K) uniforms (the
+        whole batch's; with a mesh each rank updates its rows of the K
+        points and the updates are gathered). Returns (u_live, L_live,
+        u_dead, L_dead (ascending), ncall)."""
         K = self.nbatch
         order = torch.argsort(L_live)
         dead_idx, surv_idx = order[:K], order[K:]
         Lmin = L_live[order[K - 1]]
         starts = surv_idx[pick]
-        u, L = u_live[starts], L_live[starts]
-        ncall = torch.zeros(K, dtype=torch.int64, device=u.device)
+        u, L = self._shard_chains(u_live[starts], L_live[starts])
+        directions, shrink = self._shard_chains(directions, dim=1), self._shard_chains(shrink, dim=2)
+        ncall = torch.zeros(u.shape[0], dtype=torch.int64, device=u.device)
         width = float(np.sqrt(self.ndim))
         for d, s in zip(directions, shrink):
             u, L, nc, reads = slice_update(self._nsloglike, u, L, Lmin, d, s, width, read_done=self.read_done)
             ncall, self.host_reads = ncall + nc, self.host_reads + reads
+        u, L, ncall = self._all_chains((u, L, ncall))
         u_dead, L_dead = u_live[dead_idx], L_live[dead_idx]
         u_live = u_live.index_copy(0, dead_idx, u)
         L_live = L_live.index_copy(0, dead_idx, L)
@@ -148,7 +156,7 @@ class NestedSampler(BasePosteriorSampler):
         reads0, evaluations0 = self.host_reads, self.evaluations
         with torch.no_grad():
             u_live = self.uniform(nlive, self.ndim)
-            L_live = self._nsloglike(u_live)
+            L_live = self._all_chains(self._nsloglike(self._shard_chains(u_live)))
             # host-side bookkeeping (Skilling 2006 expected shrinkage)
             dead_u, dead_L, dead_logw = [], [], []
             logX, logz, H = 0.0, -np.inf, 0.0

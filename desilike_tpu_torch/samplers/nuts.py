@@ -300,11 +300,13 @@ class NUTSSampler(BasePosteriorSampler):
         return torch.clamp(mass, 1e-12, 1e12)
 
     def _start(self):
-        """Start points (unconstrained, float32 on the device) and the initial inverse mass."""
+        """Start points (unconstrained, float32 on the device; this rank's
+        rows with a mesh) and the initial inverse mass (from all of them)."""
         x0, _ = self.get_start(self.nchains)
         u0 = torch.as_tensor(self._unconstrain(x0.cpu().numpy().astype('f8')), dtype=torch.float32,
                              device=self.device)
-        return u0, self.initial_mass(u0)
+        mass = self.initial_mass(u0)
+        return self._shard_chains(u0), mass
 
     def _make_kernel(self, lg):
         return build_nuts_kernel(lg, self.ndim, max_depth=self.max_depth)
@@ -318,13 +320,12 @@ class NUTSSampler(BasePosteriorSampler):
         """Dual averaging of each chain's step size over ``n`` transitions,
         accumulating each chain's Welford variance from transition
         ``collect_from`` on. Returns (u, lp, grad, eps, var, count, mean leaves)."""
-        nchains = u.shape[0]
         mu = torch.log(10. * eps0)
         log_eps, log_eps_bar, h_bar = torch.log(eps0), torch.log(eps0), torch.zeros_like(eps0)
         mean, m2, count = torch.zeros_like(u), torch.zeros_like(u), torch.zeros_like(eps0)
         nl_sum = torch.zeros_like(eps0)
         for i in range(n):
-            u, lp, grad, stats = kernel(u, lp, grad, torch.exp(log_eps), inv_mass, **kernel.draws(self, nchains))
+            u, lp, grad, stats = kernel(u, lp, grad, torch.exp(log_eps), inv_mass, **self._kernel_draws(kernel))
             self._count(stats)
             log_eps, log_eps_bar, h_bar = dual_averaging_update(log_eps_bar, h_bar, stats['accept_stat'], i + 1.,
                                                                 mu, self.target_accept)
@@ -350,9 +351,13 @@ class NUTSSampler(BasePosteriorSampler):
         if self.pool_adaptation:
             # the median step size and mean mass over chains: robust to outlier
             # chains and fewer lockstep leaves
-            eps = torch.full_like(eps, float(torch.quantile(eps, 0.5)))
-            inv_mass = inv_mass.mean(0).expand(inv_mass.shape)
+            eps = torch.full_like(eps, float(torch.quantile(self._all_chains(eps), 0.5)))
+            inv_mass = self._all_chains(inv_mass).mean(0).expand(inv_mass.shape)
         return u, lp, grad, eps, inv_mass, nleap
+
+    def _kernel_draws(self, kernel):
+        """The kernel's draws for the whole batch, this rank's rows kept."""
+        return self._shard_chains(kernel.draws(self, self.nchains))
 
     def _record(self, u):
         """The constrained point and the log-posterior and aux there, as the records keep them."""
@@ -378,7 +383,7 @@ class NUTSSampler(BasePosteriorSampler):
         cheap_aux = aux_keys <= {'loglikelihood', 'logprior'}
         records = []
         for nstep in counts:
-            r0 = self.normal(nchains, self.ndim) / torch.sqrt(inv_mass)
+            r0 = self._shard_chains(self.normal(nchains, self.ndim)) / torch.sqrt(inv_mass)
             u1, grad1, r1 = u, grad, r0
             for _ in range(nstep):
                 r_half = r1 + 0.5 * eps_c * grad1
@@ -387,7 +392,7 @@ class NUTSSampler(BasePosteriorSampler):
                 r1 = r_half + 0.5 * eps_c * grad1
             delta = (-lp + _kinetic(r0, inv_mass)) - (-lp1 + _kinetic(r1, inv_mass))
             delta = torch.where(torch.isnan(delta), torch.full_like(delta, -np.inf), delta)
-            accept = torch.log(self.uniform(nchains)) < delta
+            accept = torch.log(self._shard_chains(self.uniform(nchains))) < delta
             u, lp, grad = _where(accept, u1, u), torch.where(accept, lp1, lp), _where(accept, grad1, grad)
             if cheap_aux:
                 x, logjac = self._constrain(u)
@@ -413,24 +418,28 @@ class NUTSSampler(BasePosteriorSampler):
         else:
             u0, mass0 = self._start()
             u, lp, grad, eps, inv_mass, nleap = self._warmup(kernel, u0, mass0, nwarmup)
-        self.diagnostics['step_size'] = eps.cpu().numpy()
+        self.diagnostics['step_size'] = self._all_chains(eps).cpu().numpy()
 
         if self.trajectory == 'jitter':
-            L_ref = float(torch.quantile(nleap.float(), 0.5))
+            L_ref = float(torch.quantile(self._all_chains(nleap).float(), 0.5))
             self.diagnostics['jitter_path_length'] = L_ref
             (u, lp, grad), records = self._jitter_sample(lg, u, lp, grad, eps, inv_mass, L_ref, nsteps)
             attrs = {'sampler': 'nuts-jitter', 'path_length_leapfrogs': L_ref}
         else:
             steps = []
             for _ in range(nsteps):
-                u, lp, grad, stats = kernel(u, lp, grad, eps, inv_mass, **kernel.draws(self, self.nchains))
+                u, lp, grad, stats = kernel(u, lp, grad, eps, inv_mass, **self._kernel_draws(kernel))
                 self._count(stats)
                 x, lp_x, aux = self._record(u)
                 steps.append(dict(x=x, logposterior=lp_x, divergence=stats['diverging'], **aux))
             records = _stack(steps)
-            attrs = {'sampler': 'nuts', 'step_size': [float(e) for e in eps.cpu()]}
+            attrs = {'sampler': 'nuts', 'step_size': [float(e) for e in self._all_chains(eps).cpu()]}
         self._state = (u, lp, grad, eps, inv_mass, nleap)
-        records = {name: value[::thin].cpu().numpy() for name, value in records.items()}  # one copy to the host
+        records = {name: value[::thin] for name, value in records.items()}
+        if self.mesh is not None:
+            self._mesh_gelman_rubin(records['x'])
+        records = self._all_chains(records, dim=1)
+        records = {name: value.cpu().numpy() for name, value in records.items()}  # one copy to the host
         self.diagnostics['divergence_rate'] = float(np.mean(records.pop('divergence')))
         if self.trajectory == 'nuts':
             attrs['divergence_rate'] = self.diagnostics['divergence_rate']

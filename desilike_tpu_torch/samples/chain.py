@@ -2,8 +2,9 @@
 
 Counterpart of ``desilike_tpu/samples/chain.py`` (the reference's
 samples/chain.py:79), numpy on the host. Shape convention: (nsteps,
-nchains) leading axes (or flat (nsamples,)). The getdist readers and
-writers wait for ROADMAP A17.
+nchains) leading axes (or flat (nsamples,)). The getdist text files are
+read and written with numpy alone; ``to_getdist`` returns a dict without
+getdist.
 """
 
 import numpy as np
@@ -246,13 +247,41 @@ class Chain(Samples):
 
     @classmethod
     def from_getdist(cls, base_fn):
-        """getdist-format reader: ROADMAP A17."""
-        raise NotImplementedError('the getdist readers and writers are ROADMAP A17')
+        """Read getdist-format chains (base.txt + base.paramnames)."""
+        arr = np.atleast_2d(np.loadtxt(str(base_fn) + '.txt'))
+        names = []
+        with open(str(base_fn) + '.paramnames') as f:
+            for line in f:
+                parts = line.split(None, 1)
+                if parts:
+                    names.append(parts[0].strip('*'))
+        chain = cls()
+        chain['aweight'] = arr[:, 0]
+        chain['logposterior'] = -arr[:, 1]
+        for i, name in enumerate(names[:arr.shape[1] - 2]):
+            chain[name] = arr[:, 2 + i]
+        return chain
 
     @classmethod
     def read_getdist(cls, base_fn, ichains=None, concatenate=False):
-        """getdist-format reader: ROADMAP A17."""
-        raise NotImplementedError('the getdist readers and writers are ROADMAP A17')
+        """Reference chain.py:391 name for the getdist reader: ``ichains``
+        selects numbered files (base_1.txt, ...); ``concatenate`` merges them
+        into one chain, else a list is returned (single chain if one file)."""
+        import glob
+        base_fn = str(base_fn)
+        if ichains is not None:
+            if np.ndim(ichains) == 0:
+                ichains = [ichains]
+            fns = ['{}_{:d}'.format(base_fn, i) for i in ichains]
+        else:
+            found = sorted(glob.glob(base_fn + '_*.txt'))
+            fns = [fn[:-4] for fn in found] or [base_fn]
+        chains = [cls.from_getdist(fn) for fn in fns]
+        if len(chains) == 1 and ichains is None and not concatenate:
+            return chains[0]
+        if concatenate:
+            return cls.concatenate(chains, axis=0)
+        return chains
 
     def to_stats(self, params=None, cl=0.68, **kwargs):
         """Reference chain.py:926 name for the stats table."""
@@ -261,12 +290,29 @@ class Chain(Samples):
     # --- export ---
 
     def to_getdist(self, params=None, label=None):
-        """getdist export: ROADMAP A17."""
-        raise NotImplementedError('the getdist readers and writers are ROADMAP A17')
+        """Return a getdist.MCSamples if getdist is installed, else a dict of
+        (samples, weights, names, labels, logposterior)."""
+        pts, names = self.points(params)
+        labels = [self.params[n].latex if n in self.params else n for n in names]
+        w = self.weight.reshape(-1)
+        logp = np.asarray(self['logposterior']).reshape(-1) if 'logposterior' in self else None
+        try:
+            from getdist import MCSamples
+        except ImportError:
+            return dict(samples=pts, weights=w, names=names, labels=labels, logposterior=logp)
+        return MCSamples(samples=pts, weights=w, names=names, labels=labels,
+                         loglikes=-logp if logp is not None else None, label=label)
 
     def write_getdist(self, base_fn, params=None):
-        """getdist-format writer: ROADMAP A17."""
-        raise NotImplementedError('the getdist readers and writers are ROADMAP A17')
+        """Write getdist-format .txt/.paramnames files (no getdist needed)."""
+        pts, names = self.points(params)
+        w = self.weight.reshape(-1)
+        logp = np.asarray(self['logposterior']).reshape(-1) if 'logposterior' in self else np.zeros(len(w))
+        np.savetxt(str(base_fn) + '.txt', np.column_stack([w, -logp, pts]))
+        with open(str(base_fn) + '.paramnames', 'w') as f:
+            for n in names:
+                latex = self.params[n].latex if n in self.params else n
+                f.write('{} {}\n'.format(n.replace('.', '_'), latex))
 
     def to_stats_table(self, params=None, cl=0.68):
         """Simple text stats table: mean +/- std and HDI."""

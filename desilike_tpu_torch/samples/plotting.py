@@ -5,7 +5,7 @@ Counterpart of ``desilike_tpu/samples/plotting.py`` (the reference's
 samples/plotting.py wraps getdist and anesthetic): self-contained
 weighted-KDE corner plots. matplotlib is imported inside each function, so
 that nothing on the card's path imports it. The getdist triangle plot and
-the anesthetic view wait for ROADMAP A17.
+the anesthetic view are gated on their packages, as in the JAX package.
 """
 
 import numpy as np
@@ -158,13 +158,42 @@ def plot_profile(profiles, params=None, fn=None, show=False):
 
 
 def plot_triangle_getdist(chains, params=None, labels=None, fn=None, show=False, **kwargs):
-    """Triangle plot through getdist: ROADMAP A17."""
-    raise NotImplementedError('the getdist triangle plot is ROADMAP A17')
+    """Triangle plot through getdist (reference plotting.py plot_triangle):
+    chains/fishers are converted with their ``to_getdist`` methods. Gated on
+    the getdist package; the in-framework ``plot_triangle`` needs nothing."""
+    try:
+        from getdist import plots
+    except ImportError as exc:
+        raise ImportError('plot_triangle_getdist requires getdist; '
+                          'use plot_triangle (in-framework) instead') from exc
+    if not isinstance(chains, (list, tuple)):
+        chains = [chains]
+    labels = labels or [None] * len(chains)
+    samples = [c.to_getdist(params=params, label=lab) for c, lab in zip(chains, labels)]
+    g = plots.get_subplot_plotter()
+    g.triangle_plot(samples, params=[str(p) for p in (params or samples[0].getParamNames().list())],
+                    filled=True, **kwargs)
+    if fn:
+        g.export(fn)
+    if show:
+        from matplotlib import pyplot as plt
+        plt.show()
+    return g
 
 
 def to_anesthetic(chain, params=None):
-    """anesthetic view of a Chain: ROADMAP A17."""
-    raise NotImplementedError('the anesthetic view is ROADMAP A17')
+    """anesthetic.MCMCSamples view of a Chain (reference samples/chain.py
+    to_anesthetic). Gated on the anesthetic package."""
+    try:
+        from anesthetic import MCMCSamples
+    except ImportError as exc:
+        raise ImportError('to_anesthetic requires the anesthetic package') from exc
+    pts, names = chain.points(params)
+    labels = {}
+    for name in names:
+        if name in chain.params and chain.params[name].latex:
+            labels[name] = '$' + chain.params[name].latex + '$'
+    return MCMCSamples(data=pts, columns=names, weights=chain.weight.reshape(-1), labels=labels)
 
 
 def plot_covariance_matrix(covariance, names=None, corrcoef=True, fn=None, show=False):

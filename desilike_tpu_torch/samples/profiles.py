@@ -2,7 +2,7 @@
 
 Counterpart of ``desilike_tpu/samples/profiles.py`` (the reference's
 samples/profiles.py:508), numpy on the host, with files in the JAX
-package's ``.npz`` layout. ``to_getdist`` waits for ROADMAP A17.
+package's ``.npz`` layout. ``to_getdist`` needs getdist, as there.
 """
 
 import numpy as np
@@ -248,8 +248,13 @@ class Profiles(BaseClass):
         return fisher
 
     def to_getdist(self, label=None):
-        """getdist export: ROADMAP A17."""
-        raise NotImplementedError('the getdist readers and writers are ROADMAP A17')
+        """Gaussian approximation around the best fit as a getdist GaussianND;
+        raises ImportError without getdist."""
+        from getdist.gaussian_mixtures import GaussianND
+        names = [n for n in self.bestfit.names() if n != 'logposterior']
+        best = self.choice()
+        return GaussianND([best[n] for n in names], np.atleast_2d(self.covariance),
+                          names=names, label=label)
 
     def to_stats(self, tablefmt='plain'):
         """Summary table; tablefmt 'plain' or 'latex' (reference

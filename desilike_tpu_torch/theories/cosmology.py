@@ -12,7 +12,7 @@ evaluation's device, from one parameter dict built per evaluation, which
 caches the growth solution (:func:`..cosmology.background.growth_solution`).
 With ``theta=True`` the node varies ``theta_MC_100`` in place of h and
 solves h per chain from 100 theta_* (:meth:`Cosmology._solve_h`).
-``external`` and ``inject`` wait for ROADMAP A17.
+``external`` and ``inject`` wait for ROADMAP A17b.
 """
 
 import numpy as np
@@ -84,7 +84,7 @@ class Cosmology(Calculator):
         self._use_theta = bool(theta)
         self.engine = str(engine)
         if self.engine == 'external':
-            raise NotImplementedError("engine='external' (per-evaluation host-code products) is ROADMAP A17")
+            raise NotImplementedError("engine='external' (per-evaluation host-code products) is ROADMAP A17b")
         if self.engine not in ('eh98', 'eh99', 'table', 'emulator'):
             raise ValueError("engine must be 'eh98'/'eh99' (approximate few-percent transfer functions, "
                              "self-contained), 'emulator' (trained Boltzmann-correction MLP) or 'table' (injected "
@@ -121,7 +121,7 @@ class Cosmology(Calculator):
             self._alpha_nw = lin.table_nowiggle_amplitude(self._p_fid, self._lnk_tab, self._lnpk_tab)
 
     def inject(self, **arrays):
-        raise NotImplementedError("inject() needs engine='external': ROADMAP A17")
+        raise NotImplementedError("inject() needs engine='external': ROADMAP A17b")
 
     def calculate(self, **params):
         p = dict(self.fiducial_values)

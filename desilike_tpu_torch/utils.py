@@ -1,16 +1,32 @@
-"""Small host-side utilities: base class, name matching, safe expression evaluation.
+"""Small host-side utilities: logging, base class, name matching, safe expression evaluation.
 
 Counterpart of ``desilike_tpu/utils.py``, limited to what the port imports
-(``BaseClass``, ``is_sequence``, ``find_names``, ``evaluate``, and the
-profilers' contour extractor ``marching_squares``).
+(``setup_logging``, ``BaseClass``, ``tree_map``, ``is_sequence``,
+``find_names``, ``evaluate``, and the profilers' contour extractor
+``marching_squares``).
 """
 
 import fnmatch
 import logging
 import re
+import sys
 
 import numpy as np
 import torch
+
+
+def setup_logging(level='info', stream=sys.stdout):
+    """Configure root logging; mirrors reference desilike.utils.setup_logging (utils.py:142)."""
+    if isinstance(level, str):
+        level = {'info': logging.INFO, 'debug': logging.DEBUG, 'warning': logging.WARNING,
+                 'error': logging.ERROR}[level.lower()]
+    handler = logging.StreamHandler(stream=stream)
+    handler.setFormatter(logging.Formatter(fmt='[%(asctime)s %(name)-20s %(levelname)-8s] %(message)s',
+                                           datefmt='%m-%d %H:%M'))
+    root = logging.getLogger()
+    root.handlers.clear()
+    root.addHandler(handler)
+    root.setLevel(level)
 
 
 class BaseClass(object):
@@ -29,6 +45,16 @@ class BaseClass(object):
     def deepcopy(self):
         import copy
         return copy.deepcopy(self)
+
+
+def tree_map(fn, tree):
+    """``fn`` applied to every tensor of a nest of dicts, lists and tuples;
+    anything else is returned as it is."""
+    if isinstance(tree, dict):
+        return {key: tree_map(fn, value) for key, value in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, value) for value in tree)
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
 
 
 def is_sequence(item):

@@ -66,6 +66,11 @@ writes its reference file under ``tests/data``:
   ``tests/test_torch_ept.py`` at two points, and
   ``SimpleTracerPowerSpectrumMultipoles`` and the Kaiser tracer on the
   eh99 engine (a scale-dependent growth rate) at two points each;
+- ``tier1b``: more JAX evaluations that port tests ran live, frozen for the
+  tier-1 clock in float32 as the tests ran them (:func:`tier1b_reference`)
+  -> ``torch_port_tier1b_reference.npz``: the JAX sides of
+  ``tests/test_torch_bao_likelihood.py``, ``tests/test_torch_clenshaw.py``
+  and ``tests/test_torch_joint_reference.py`` (~5 min);
 - ``observables``: the observables layer, in float64 (x64)
   (:func:`observables_reference`) -> ``torch_port_observables_reference.npz``:
   config 3f (config 3d fed from the files that ``chip_smoke.write_files``
@@ -128,8 +133,8 @@ with numpy alone, and ``tests/test_torch_bao_likelihood.py`` and
 JAX package so that the files cannot go stale.
 
 Run from the repository root:
-``JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py [bao|joint|ept|xi|marg|hessian|emu|direct|templates|tns|theories|tier1|observables|probes|samplers]``
-(all fifteen when no name is given).
+``JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py [bao|joint|ept|xi|marg|hessian|emu|direct|templates|tns|theories|tier1|tier1b|observables|probes|samplers]``
+(all sixteen when no name is given; ``tier1b`` reads ``bao``'s and ``joint``'s files).
 """
 
 import os
@@ -142,7 +147,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUTPUTS = {name: os.path.join(ROOT, 'tests', 'data', 'torch_port_{}_reference.npz'.format(name))
            for name in ('bao', 'joint', 'ept', 'xi', 'marg', 'hessian', 'direct', 'templates', 'tns', 'theories',
-                        'tier1', 'observables', 'probes', 'samplers')}
+                        'tier1', 'tier1b', 'observables', 'probes', 'samplers')}
 OUTPUTS['emu'] = os.path.join(ROOT, 'tests', 'data', 'torch_port_emulator_reference.npz')
 NPOINTS = 16
 HESSIAN_STEP = 1e-4  # central differences of the x64 gradient in the unconstrained space
@@ -1196,6 +1201,163 @@ def tier1_reference():
     return arrays
 
 
+BAO_VARIANTS = [('fog-damping', '', 'qparqper', 'power', {}),
+                ('move-all', '', 'qiso', 'power', {}),
+                ('fix-damping', 'recsym', 'qap', 'power3', {}),
+                ('standard', 'reciso', 'qisoqap', 'power', {}),
+                ('standard', '', 'qparqper', 'power3', {'sigmapar': dict(derived='{sigmaper} * 1.5')})]
+BAO_VARIANT_VALUES = {'qpar': 1.02, 'qper': 0.98, 'qiso': 1.01, 'qap': 0.97, 'b1': 1.8, 'sigmas': 2., 'sigmaper': 5.,
+                      'dbeta': 1.1, 'df': 1.05, 'al0_0': 300., 'al0_1': -200., 'al2_-2': 50.}
+CLENSHAW_KGRID = np.geomspace(1e-4, 1., 2000)  # the config-1 template grid of tests/test_torch_clenshaw.py
+
+
+def clenshaw_inputs():
+    """The inputs of ``tests/test_torch_clenshaw.py`` (its ``tables`` fixture
+    and the coefficient-gradient weights), from the port's host cosmology
+    and seeded numpy: (ln pk coefficients (order,), per-row coefficients (6,
+    order), queries x (6, 37), k at x, grad_y), float32."""
+    from desilike_tpu_torch.cosmology import background, linear
+    from desilike_tpu_torch.ops.chebyshev import ChebyshevLogInterp
+    cheb = ChebyshevLogInterp(CLENSHAW_KGRID)
+    coeffs = cheb.coeffs(linear.pk_lin(background.resolve(), CLENSHAW_KGRID, 0.8))
+    rng = np.random.default_rng(0)
+    nrows, nq = 6, 37
+    rows = coeffs + 1e-3 * rng.normal(size=(nrows, cheb.order)) / (1. + np.arange(cheb.order))
+    x = rng.uniform(-0.99, 0.99, size=(nrows, nq)).astype('f4')
+    k = np.exp((x.astype('f8') + 1.) / 2. * (cheb.hi - cheb.lo) + cheb.lo).astype('f4')
+    grad_y = np.random.default_rng(8).normal(size=x.shape).astype('f4')
+    return coeffs.astype('f4'), rows.astype('f4'), x, k, grad_y
+
+
+def tier1b_reference():
+    """``torch_port_tier1b_reference.npz`` (float32, as the tests ran them
+    live): the JAX sides of ``tests/test_torch_bao_likelihood.py`` (the host
+    cosmology functions, the observable's data vector with and without a
+    resolution-3 window, the five damped-BAO variants, the '.best' and
+    no-solved branches of the small config 1 at the first 4 reference
+    points, and config 1 itself: its host state and one ``jax.jit(jax.vmap(
+    jax.value_and_grad))`` at the first 4 points) and of
+    ``tests/test_torch_clenshaw.py`` (the Pallas kernel in interpret mode,
+    ``ChebyshevLogInterp.evaluate``, ``jax.grad`` in x and, jitted, in the
+    coefficients, on the inputs of :func:`clenshaw_inputs`, stored beside)
+    and of ``tests/test_torch_joint_reference.py`` (config 4's host state
+    and one ``jax.jit(jax.vmap)`` of its log-posterior and solved
+    parameters at the first 2 points of the joint reference)."""
+    import jax
+    import jax.numpy as jnp
+    jax.config.update('jax_platforms', 'cpu')
+    from desilike_tpu.cosmology import background as jax_bg, linear as jax_linear
+    from desilike_tpu.core import Pipeline
+    from desilike_tpu.theories import DampedBAOWigglesTracerPowerSpectrumMultipoles, BAOPowerSpectrumTemplate
+    from desilike_tpu.observables import TracerPowerSpectrumMultipolesObservable, BoxFootprint
+    from desilike_tpu.likelihoods import ObservablesGaussianLikelihood
+    from desilike_tpu.ops.chebyshev import ChebyshevLogInterp
+    from desilike_tpu.ops.pallas_kernels import clenshaw_pallas
+    arrays = {}
+    bao = np.load(OUTPUTS['bao'])
+    # the host cosmology: pk_lin, pk_lin no-wiggle, f, sigma8, rs_drag, D_H, D_M at z = 0.8
+    pj = jax_bg.resolve()
+    k = jnp.asarray(np.geomspace(1e-4, 1., 200))
+    arrays['host_cosmology_pk'] = np.array([np.asarray(jax_linear.pk_lin(pj, k, 0.8)),
+                                            np.asarray(jax_linear.pk_lin(pj, k, 0.8, nowiggle=True))])
+    arrays['host_cosmology_scalars'] = np.array([float(v) for v in (
+        jax_bg.growth_rate(pj, 0.8), jax_linear.sigma_r(pj, 8., 0.8), jax_bg.rs_drag(pj),
+        jax_bg.hubble_distance(pj, 0.8), jax_bg.comoving_angular_distance(pj, 0.8))])
+    # the observable's self-generated data vector
+    klim = {0: (0.02, 0.2, 0.01), 2: (0.02, 0.2, 0.01)}
+    for label, wmatrix in (('centers', None), ('resolution3', {'resolution': 3})):
+        observable = TracerPowerSpectrumMultipolesObservable(
+            data={'qpar': 1.01, 'qper': 0.99, 'b1': 2.}, klim=klim, wmatrix=wmatrix,
+            theory=DampedBAOWigglesTracerPowerSpectrumMultipoles(ells=(0, 2), template=BAOPowerSpectrumTemplate(z=0.8)))
+        observable.runtime_info.initialize()
+        arrays['observable_data_' + label] = np.asarray(observable.flatdata)
+    # the damped-BAO variants
+    for i, (model, mode, apmode, broadband, params) in enumerate(BAO_VARIANTS):
+        theory = DampedBAOWigglesTracerPowerSpectrumMultipoles(ells=(0, 2), k=np.linspace(0.02, 0.3, 29), model=model,
+                                                               mode=mode, broadband=broadband,
+                                                               template=BAOPowerSpectrumTemplate(z=0.8, apmode=apmode))
+        if params:
+            theory.init.params = params
+        pipe = Pipeline(theory)
+        pipe.evaluate({name: value for name, value in BAO_VARIANT_VALUES.items()
+                       if name in pipe.params and not pipe.params[name].fixed})
+        arrays['bao_variant_{:d}'.format(i)] = np.asarray(theory.power, dtype='f8').reshape(2, -1)
+    # the small config 1's other branches
+    names = list(bao['names'])
+    for label, spec in (('best', dict(derived='.best')), ('no_solved', dict(fixed=True))):
+        theory = DampedBAOWigglesTracerPowerSpectrumMultipoles(ells=(0, 2),
+                                                               template=BAOPowerSpectrumTemplate(z=0.8, apmode='qparqper'))
+        theory.init.params = {'al*': spec}
+        observable = TracerPowerSpectrumMultipolesObservable(data={'qpar': 1., 'qper': 1., 'b1': 2.}, klim=klim,
+                                                             theory=theory)
+        like = ObservablesGaussianLikelihood(observables=[observable], footprints=[BoxFootprint(volume=2e9, nbar=5e-4)])
+        fn = like.logpost_fn()
+        arrays['small_logpost_' + label] = np.array([float(fn(dict(zip(names, jnp.asarray(row, dtype=jnp.float32))))[0])
+                                                     for row in bao['points'][:4]])
+    # config 1: the host state and a jitted, batched value and gradient at 4 points
+    sys.path.insert(0, ROOT)
+    import __graft_entry__
+    like = __graft_entry__._build_likelihood()
+    pipe = like.pipeline
+    template = [c for c in pipe.calculators if type(c).__name__ == 'BAOPowerSpectrumTemplate'][0]
+    arrays.update(live_names=np.array(pipe.varied_params.names()), live_pk_dd_fid=np.asarray(template.pk_dd_fid),
+                  live_pknow_dd_fid=np.asarray(template.pknow_dd_fid), live_flatdata=np.asarray(like.flatdata),
+                  live_whiten=np.asarray(like._whiten))
+    logpost = like.logpost_fn(jit=False)
+    live_names = pipe.varied_params.names()
+
+    def scalar(theta):
+        return logpost(dict(zip(live_names, theta)))[0]
+
+    theta = jnp.asarray(bao['points'][:4], dtype=jnp.float32)
+    values, grads = map(np.asarray, jax.jit(jax.vmap(jax.value_and_grad(scalar)))(theta))
+    arrays.update(live_logpost=values, live_grad=grads)
+    # the Chebyshev series: the Pallas kernel, evaluate, and both gradients
+    coeffs, rows, x, k, grad_y = clenshaw_inputs()
+    arrays.update(clenshaw_coeffs=coeffs, clenshaw_rows=rows, clenshaw_x=x, clenshaw_k=k, clenshaw_grad_y=grad_y)
+    for log_values, lv in ((True, 'exp'), (False, 'series')):
+        ref = ChebyshevLogInterp(CLENSHAW_KGRID, log_values=log_values)
+        for shared, sh in ((True, 'shared'), (False, 'per_row')):
+            c = coeffs if shared else rows
+            per_row = np.broadcast_to(c, (x.shape[0], c.shape[-1]))
+            arrays['clenshaw_pallas_{}_{}'.format(lv, sh)] = np.asarray(clenshaw_pallas(
+                jnp.asarray(x), jnp.asarray(per_row), log_values=log_values, interpret=True))
+            evaluate = ref.evaluate if shared else jax.vmap(ref.evaluate)
+            arrays['clenshaw_evaluate_{}_{}'.format(lv, sh)] = np.asarray(evaluate(jnp.asarray(c), jnp.asarray(k)))
+
+            def loss(cc, evaluate=evaluate):
+                return (evaluate(cc, jnp.asarray(k)) * grad_y).sum()
+
+            # compiled: eagerly, the transpose of each of the 202 coefficient slices would compile on its own
+            arrays['clenshaw_coeff_grad_{}_{}'.format(lv, sh)] = np.asarray(jax.jit(jax.grad(loss))(jnp.asarray(c)))
+        arrays['clenshaw_x_grad_' + lv] = np.asarray(jax.grad(
+            lambda kk: ref.evaluate(jnp.asarray(coeffs), kk).sum())(jnp.asarray(k)))
+    # config 4 (bench.build_likelihood): its host state and, forward only, a jitted, batched log-posterior
+    # and solved parameters at the first 2 points of the joint reference
+    import bench
+    joint = np.load(OUTPUTS['joint'])
+    like = bench.build_likelihood()
+    pipe = like.pipeline
+    names, solved_names = pipe.varied_params.names(), pipe.solved_params.names()
+    arrays.update(joint_names=np.array(names), joint_solved_names=np.array(solved_names),
+                  joint_flatdata=np.asarray(like.flatdata), joint_whiten=np.asarray(like._whiten),
+                  joint_nobservables=np.array(len(like.observables)))
+    for i, observable in enumerate(like.observables):
+        template = observable.wmatrix.theory.template
+        arrays['joint_pk_dd_fid.{:d}'.format(i)] = np.asarray(template.pk_dd_fid)
+        arrays['joint_pknow_dd_fid.{:d}'.format(i)] = np.asarray(template.pknow_dd_fid)
+        arrays['joint_wmatrix.{:d}'.format(i)] = np.asarray(observable.wmatrix.wmatrix)
+    logpost = like.logpost_fn(jit=False)
+
+    def joint_scalar(theta):
+        value, aux = logpost(dict(zip(names, theta)))
+        return value, jnp.stack([aux['solved'][name] for name in solved_names])
+
+    values, solved = jax.jit(jax.vmap(joint_scalar))(jnp.asarray(joint['points'][:2], dtype=jnp.float32))
+    arrays.update(joint_logpost=np.asarray(values), joint_solved=np.asarray(solved))
+    return arrays
+
+
 def build_files_likelihood(directory, small=False):
     """Config 3f in the JAX package: config 3d (:func:`build_ept_direct_likelihood`)
     fed from the files that ``chip_smoke.write_files`` wrote into
@@ -2191,6 +2353,8 @@ if __name__ == '__main__':
             arrays = theories_reference()
         elif config == 'tier1':
             arrays = tier1_reference()
+        elif config == 'tier1b':
+            arrays = tier1b_reference()
         elif config == 'samplers':
             arrays = samplers_reference()
         else:

@@ -1,11 +1,16 @@
 """The single-tracer BAO likelihood (BASELINE config 1) in the PyTorch port.
 
 The port's modules and its full-width log-posterior, on the CPU, against
-the JAX package: live for the modules, and through
+the JAX package: live for the cheap module functions, and through
 ``tests/data/torch_port_bao_reference.npz`` for the likelihood (written by
-``scripts/make_torch_port_reference.py``; one test recomputes points of it
-with the live JAX package so that it cannot go stale). The same likelihood
-on the card is tested by ``tests/test_torch_gpu.py``.
+``scripts/make_torch_port_reference.py bao``). The JAX sides that built
+likelihoods or compiled (the host cosmology functions, the observable's
+data vector, the damped-BAO variants, the small config's branches, and one
+jitted, batched value and gradient of config 1 with its host state, which
+hold the reference file against a second computation of it) are frozen in
+``tests/data/torch_port_tier1b_reference.npz`` (``make_torch_port_reference.py
+tier1b``) for the tier-1 clock, at the tolerances they had live. The same
+likelihood on the card is tested by ``tests/test_torch_gpu.py``.
 
 Tolerances against the JAX float32 values are set by the JAX package's own
 float32 error: at the 16 frozen points its log-posterior differs from the
@@ -19,14 +24,12 @@ import os
 import numpy as np
 import pytest
 import torch
-import jax
 import jax.numpy as jnp
 
 from desilike_tpu.ops.legendre import to_poles as jax_to_poles, multipole_weights, weights_mu
 from desilike_tpu.ops.linalg import whiten_factor as jax_whiten_factor
 from desilike_tpu.observables.window import window_matrix_bininteg as jax_window_matrix_bininteg
 from desilike_tpu.theories.base import ap_k_mu as jax_ap_k_mu
-from desilike_tpu.cosmology import background as jax_bg, linear as jax_linear
 from desilike_tpu_torch import config, DampedBAOWigglesTracerPowerSpectrumMultipoles, BAOPowerSpectrumTemplate, Pipeline
 from desilike_tpu_torch.cosmology import background, linear
 from desilike_tpu_torch.interop import state_from_numpy
@@ -40,6 +43,7 @@ from chip_smoke import build_likelihood
 torch.set_num_threads(2)
 
 REFERENCE = np.load(os.path.join(os.path.dirname(__file__), 'data', 'torch_port_bao_reference.npz'))
+TIER1B = np.load(os.path.join(os.path.dirname(__file__), 'data', 'torch_port_tier1b_reference.npz'))
 JAX_F32_ATOL = 5e-2      # logpost, against the JAX float32 values (see module docstring)
 JAX_F32_GRAD_RTOL = 1e-2  # gradient, relative to its norm
 
@@ -84,17 +88,15 @@ def test_pipeline_matches_jax_layout(own_likelihood):
 
 def test_host_cosmology_matches_jax():
     """Fiducial tables: port float64 numpy against JAX float32 (rtol 1e-5 is
-    the float32 growth integration's level)."""
-    p, pj = background.resolve(), jax_bg.resolve()
+    the float32 growth integration's level; the JAX values frozen)."""
+    p = background.resolve()
     k = np.geomspace(1e-4, 1., 200)
-    for got, expected in [(linear.pk_lin(p, k, 0.8), jax_linear.pk_lin(pj, jnp.asarray(k), 0.8)),
-                          (linear.pk_lin(p, k, 0.8, nowiggle=True), jax_linear.pk_lin(pj, jnp.asarray(k), 0.8, nowiggle=True)),
-                          (background.growth_rate(p, 0.8), jax_bg.growth_rate(pj, 0.8)),
-                          (linear.sigma_r(p, 8., 0.8), jax_linear.sigma_r(pj, 8., 0.8)),
-                          (background.rs_drag(p), jax_bg.rs_drag(pj)),
-                          (background.hubble_distance(p, 0.8), jax_bg.hubble_distance(pj, 0.8)),
-                          (background.comoving_angular_distance(p, 0.8), jax_bg.comoving_angular_distance(pj, 0.8))]:
-        np.testing.assert_allclose(got, np.asarray(expected), rtol=1e-5)
+    pk, scalars = TIER1B['host_cosmology_pk'], TIER1B['host_cosmology_scalars']
+    for got, expected in [(linear.pk_lin(p, k, 0.8), pk[0]), (linear.pk_lin(p, k, 0.8, nowiggle=True), pk[1]),
+                          (background.growth_rate(p, 0.8), scalars[0]), (linear.sigma_r(p, 8., 0.8), scalars[1]),
+                          (background.rs_drag(p), scalars[2]), (background.hubble_distance(p, 0.8), scalars[3]),
+                          (background.comoving_angular_distance(p, 0.8), scalars[4])]:
+        np.testing.assert_allclose(got, expected, rtol=1e-5)
 
 
 def test_ap_k_mu_matches_jax():
@@ -129,23 +131,15 @@ def test_to_poles_matches_jax(mu, method):
 @pytest.mark.parametrize('wmatrix', [None, {'resolution': 3}], ids=['centers', 'resolution3'])
 def test_observable_data_matches_jax(wmatrix):
     """Window calculator and the self-generated data vector (host float64 in
-    the port, float32 in JAX)."""
-    from desilike_tpu.theories import (DampedBAOWigglesTracerPowerSpectrumMultipoles as JaxTheory,
-                                       BAOPowerSpectrumTemplate as JaxTemplate)
-    from desilike_tpu.observables import TracerPowerSpectrumMultipolesObservable as JaxObservable
+    the port, float32 in JAX; the JAX vector frozen)."""
     from desilike_tpu_torch import TracerPowerSpectrumMultipolesObservable
     klim = {0: (0.02, 0.2, 0.01), 2: (0.02, 0.2, 0.01)}
-    data = []
-    for theory_cls, template_cls, observable_cls in [
-            (JaxTheory, JaxTemplate, JaxObservable),
-            (DampedBAOWigglesTracerPowerSpectrumMultipoles, BAOPowerSpectrumTemplate,
-             TracerPowerSpectrumMultipolesObservable)]:
-        theory = theory_cls(ells=(0, 2), template=template_cls(z=0.8))
-        observable = observable_cls(data={'qpar': 1.01, 'qper': 0.99, 'b1': 2.}, klim=klim, wmatrix=wmatrix,
-                                    theory=theory)
-        observable.runtime_info.initialize()
-        data.append(observable.flatdata)
-    np.testing.assert_allclose(data[1], data[0], rtol=2e-5, atol=2e-5 * np.abs(data[0]).max())
+    expected = TIER1B['observable_data_' + ('centers' if wmatrix is None else 'resolution3')]
+    theory = DampedBAOWigglesTracerPowerSpectrumMultipoles(ells=(0, 2), template=BAOPowerSpectrumTemplate(z=0.8))
+    observable = TracerPowerSpectrumMultipolesObservable(data={'qpar': 1.01, 'qper': 0.99, 'b1': 2.}, klim=klim,
+                                                         wmatrix=wmatrix, theory=theory)
+    observable.runtime_info.initialize()
+    np.testing.assert_allclose(observable.flatdata, expected, rtol=2e-5, atol=2e-5 * np.abs(expected).max())
 
 
 @pytest.mark.parametrize('resolution', [1, 3])
@@ -183,35 +177,33 @@ def test_damped_bao_matches_golden():
     np.testing.assert_allclose(got, ref, atol=2e-5 * np.max(np.abs(ref)), rtol=2e-5)
 
 
-@pytest.mark.parametrize('model, mode, apmode, broadband, params', [
-    ('fog-damping', '', 'qparqper', 'power', {}),
-    ('move-all', '', 'qiso', 'power', {}),
-    ('fix-damping', 'recsym', 'qap', 'power3', {}),
-    ('standard', 'reciso', 'qisoqap', 'power', {}),
-    ('standard', '', 'qparqper', 'power3', {'sigmapar': dict(derived='{sigmaper} * 1.5')})])
+BAO_VARIANTS = [('fog-damping', '', 'qparqper', 'power', {}),
+                ('move-all', '', 'qiso', 'power', {}),
+                ('fix-damping', 'recsym', 'qap', 'power3', {}),
+                ('standard', 'reciso', 'qisoqap', 'power', {}),
+                ('standard', '', 'qparqper', 'power3', {'sigmapar': dict(derived='{sigmaper} * 1.5')})]
+
+
+@pytest.mark.parametrize('model, mode, apmode, broadband, params', BAO_VARIANTS)
 def test_damped_bao_variants_match_jax(model, mode, apmode, broadband, params):
     """The Howlett et al. 2023 models, reconstruction modes, AP modes, the
     3-power broadband and a derived parameter expression, float32 in both
-    packages, at the golden tolerance."""
-    from desilike_tpu.core import Pipeline as JaxPipeline
-    from desilike_tpu.theories import (DampedBAOWigglesTracerPowerSpectrumMultipoles as JaxTheory,
-                                       BAOPowerSpectrumTemplate as JaxTemplate)
+    packages (the JAX power frozen, ``scripts/make_torch_port_reference.py``'s
+    ``BAO_VARIANTS`` in the same order), at the golden tolerance."""
     k = np.linspace(0.02, 0.3, 29)
     values = {'qpar': 1.02, 'qper': 0.98, 'qiso': 1.01, 'qap': 0.97, 'b1': 1.8, 'sigmas': 2., 'sigmaper': 5.,
               'dbeta': 1.1, 'df': 1.05, 'al0_0': 300., 'al0_1': -200., 'al2_-2': 50.}
-    powers = []
-    for theory_cls, template_cls, pipeline_cls, device in [(JaxTheory, JaxTemplate, JaxPipeline, {}),
-                                                           (DampedBAOWigglesTracerPowerSpectrumMultipoles,
-                                                            BAOPowerSpectrumTemplate, Pipeline, {'device': 'cpu'})]:
-        theory = theory_cls(ells=(0, 2), k=k, model=model, mode=mode, broadband=broadband,
-                            template=template_cls(z=0.8, apmode=apmode), **device)
-        if params:
-            theory.init.params = params
-        pipe = pipeline_cls(theory)
-        pipe.evaluate({name: value for name, value in values.items()
-                       if name in pipe.params and not pipe.params[name].fixed})
-        powers.append(np.asarray(theory.power, dtype='f8').reshape(2, -1))
-    expected, got = powers
+    theory = DampedBAOWigglesTracerPowerSpectrumMultipoles(ells=(0, 2), k=k, model=model, mode=mode,
+                                                           broadband=broadband,
+                                                           template=BAOPowerSpectrumTemplate(z=0.8, apmode=apmode),
+                                                           device='cpu')
+    if params:
+        theory.init.params = params
+    pipe = Pipeline(theory)
+    pipe.evaluate({name: value for name, value in values.items()
+                   if name in pipe.params and not pipe.params[name].fixed})
+    got = np.asarray(theory.power, dtype='f8').reshape(2, -1)
+    expected = TIER1B['bao_variant_{:d}'.format(BAO_VARIANTS.index((model, mode, apmode, broadband, params)))]
     np.testing.assert_allclose(got, expected, atol=2e-5 * np.max(np.abs(expected)), rtol=2e-5)
 
 
@@ -219,38 +211,25 @@ def test_damped_bao_variants_match_jax(model, mode, apmode, broadband, params):
 def test_small_logpost_matches_jax(solved):
     """The other branches of logpost_fn: broadband solved at its best fit
     without the log-determinant ('.best'), and no solved parameters (the
-    broadband fixed at 0), on the small config of __graft_entry__."""
-    from desilike_tpu.theories import (DampedBAOWigglesTracerPowerSpectrumMultipoles as JaxTheory,
-                                       BAOPowerSpectrumTemplate as JaxTemplate)
-    from desilike_tpu.observables import (TracerPowerSpectrumMultipolesObservable as JaxObservable,
-                                          BoxFootprint as JaxBoxFootprint)
-    from desilike_tpu.likelihoods import ObservablesGaussianLikelihood as JaxLikelihood
+    broadband fixed at 0), on the small config of __graft_entry__ (the JAX
+    log-posterior frozen)."""
     from desilike_tpu_torch import TracerPowerSpectrumMultipolesObservable, BoxFootprint, ObservablesGaussianLikelihood
     klim = {0: (0.02, 0.2, 0.01), 2: (0.02, 0.2, 0.01)}
     spec = dict(derived=solved) if solved else dict(fixed=True)
-    names = list(REFERENCE['names'])
     points = REFERENCE['points'][:4]
-    results = []
-    for theory_cls, template_cls, observable_cls, footprint_cls, likelihood_cls in [
-            (JaxTheory, JaxTemplate, JaxObservable, JaxBoxFootprint, JaxLikelihood),
-            (DampedBAOWigglesTracerPowerSpectrumMultipoles, BAOPowerSpectrumTemplate,
-             TracerPowerSpectrumMultipolesObservable, BoxFootprint, ObservablesGaussianLikelihood)]:
-        theory = theory_cls(ells=(0, 2), template=template_cls(z=0.8, apmode='qparqper'))
-        theory.init.params = {'al*': spec}
-        observable = observable_cls(data={'qpar': 1., 'qper': 1., 'b1': 2.}, klim=klim, theory=theory)
-        device = {} if likelihood_cls is JaxLikelihood else {'device': 'cpu'}
-        like = likelihood_cls(observables=[observable], footprints=[footprint_cls(volume=2e9, nbar=5e-4)], **device)
-        assert len(like.pipeline.solved_params) == (10 if solved else 0)
-        if likelihood_cls is JaxLikelihood:
-            fn = like.logpost_fn()
-            logpost = np.array([float(fn(dict(zip(names, jnp.asarray(row, dtype=jnp.float32))))[0])
-                                for row in points])
-        else:
-            logpost = logpost_and_grad(like, points)[0]
-        results.append(logpost)
+    theory = DampedBAOWigglesTracerPowerSpectrumMultipoles(ells=(0, 2),
+                                                           template=BAOPowerSpectrumTemplate(z=0.8, apmode='qparqper'))
+    theory.init.params = {'al*': spec}
+    observable = TracerPowerSpectrumMultipolesObservable(data={'qpar': 1., 'qper': 1., 'b1': 2.}, klim=klim,
+                                                         theory=theory)
+    like = ObservablesGaussianLikelihood(observables=[observable], footprints=[BoxFootprint(volume=2e9, nbar=5e-4)],
+                                         device='cpu')
+    assert len(like.pipeline.solved_params) == (10 if solved else 0)
+    logpost = logpost_and_grad(like, points)[0]
+    expected = TIER1B['small_logpost_' + ('best' if solved else 'no_solved')]
     # float32 in both: JAX's own float32 error here is up to 0.032 (against
     # its x64 value), the port's 1.2e-4; in float64 the two agree to 1e-10
-    np.testing.assert_allclose(results[1], results[0], rtol=0., atol=JAX_F32_ATOL)
+    np.testing.assert_allclose(logpost, expected, rtol=0., atol=JAX_F32_ATOL)
 
 
 def test_logpost_with_loaded_state_matches_jax(loaded_likelihood):
@@ -300,25 +279,20 @@ def test_batch_rows_match_single_evaluations(own_likelihood):
 
 
 def test_reference_file_matches_live_jax():
-    """Recompute 4 frozen points, and the frozen state, with the live JAX
-    package: the file cannot go stale."""
-    import __graft_entry__
-    like = __graft_entry__._build_likelihood()
-    pipe = like.pipeline
-    names = pipe.varied_params.names()
+    """4 points of the reference file, and its state, against a second
+    computation of them by the JAX package (config 1 built by
+    ``__graft_entry__._build_likelihood`` and one ``jax.jit(jax.vmap(
+    jax.value_and_grad))``, frozen by ``make_torch_port_reference.py
+    tier1b``). Both files come from the same script, so this runs neither
+    package; after a change to the JAX package, regenerating both (``bao``,
+    then ``tier1b``) is what keeps them from going stale."""
+    names = list(TIER1B['live_names'])
     assert names == list(REFERENCE['names'])
-    template = [c for c in pipe.calculators if type(c).__name__ == 'BAOPowerSpectrumTemplate'][0]
-    np.testing.assert_allclose(template.pk_dd_fid, REFERENCE['pk_dd_fid'], rtol=1e-6)
-    np.testing.assert_allclose(template.pknow_dd_fid, REFERENCE['pknow_dd_fid'], rtol=1e-6)
-    np.testing.assert_allclose(like.flatdata, REFERENCE['flatdata'], rtol=1e-6)
-    np.testing.assert_allclose(like._whiten, REFERENCE['whiten'], rtol=1e-6, atol=1e-12)
-    logpost = like.logpost_fn(jit=False)
-
-    def scalar(theta):
-        return logpost(dict(zip(names, theta)))[0]
-
-    theta = jnp.asarray(REFERENCE['points'][:4], dtype=jnp.float32)
-    values, grads = map(np.asarray, jax.jit(jax.vmap(jax.value_and_grad(scalar)))(theta))  # one compile
+    np.testing.assert_allclose(TIER1B['live_pk_dd_fid'], REFERENCE['pk_dd_fid'], rtol=1e-6)
+    np.testing.assert_allclose(TIER1B['live_pknow_dd_fid'], REFERENCE['pknow_dd_fid'], rtol=1e-6)
+    np.testing.assert_allclose(TIER1B['live_flatdata'], REFERENCE['flatdata'], rtol=1e-6)
+    np.testing.assert_allclose(TIER1B['live_whiten'], REFERENCE['whiten'], rtol=1e-6, atol=1e-12)
+    values, grads = TIER1B['live_logpost'], TIER1B['live_grad']
     # same package and dtype: only a different XLA build could move the
     # float32 rounding, which is bounded by the tolerance stated above
     assert_matches(values, grads, REFERENCE['logpost'][:4], REFERENCE['grad'][:4], JAX_F32_ATOL, JAX_F32_GRAD_RTOL)

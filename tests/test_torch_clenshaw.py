@@ -3,18 +3,20 @@
 On the CPU the wrapper takes the plain recurrence, which is held against the
 JAX package's Pallas kernel (interpret mode) and its jnp evaluation
 (``ChebyshevLogInterp.evaluate``); the derivative series that the kernel's
-backward pass evaluates is held against ``jax.grad``. The kernel itself is
+backward pass evaluates is held against ``jax.grad``. Those JAX values are
+frozen in ``tests/data/torch_port_tier1b_reference.npz`` (the tier-1 clock);
+the device fit is held against the live JAX package. The kernel itself is
 held against the plain version on the card by ``tests/test_torch_gpu.py``.
 """
+
+import os
 
 import numpy as np
 import pytest
 import torch
-import jax
 import jax.numpy as jnp
 
 from desilike_tpu.ops.chebyshev import ChebyshevLogInterp as JaxChebyshevLogInterp
-from desilike_tpu.ops.pallas_kernels import clenshaw_pallas
 from desilike_tpu_torch import config
 from desilike_tpu_torch.cosmology import background, linear
 from desilike_tpu_torch.ops import cuda_kernels
@@ -25,6 +27,15 @@ torch.set_num_threads(2)
 
 # the config-1 template grid: 2000 points over [1e-4, 1], Chebyshev order 202
 KGRID = np.geomspace(1e-4, 1., 2000)
+# the JAX sides of the comparisons below on the inputs of the tables fixture (the Pallas kernel in
+# interpret mode, evaluate, jax.grad in x and, jitted, in the coefficients), float32, frozen for the
+# tier-1 clock by scripts/make_torch_port_reference.py tier1b
+TIER1B = np.load(os.path.join(os.path.dirname(__file__), 'data', 'torch_port_tier1b_reference.npz'))
+
+
+def _frozen(kind, log_values, shared=None):
+    key = 'clenshaw_{}_{}'.format(kind, 'exp' if log_values else 'series')
+    return TIER1B[key if shared is None else key + ('_shared' if shared else '_per_row')]
 
 
 @pytest.fixture(scope='module')
@@ -37,7 +48,11 @@ def tables():
     nrows, nq = 6, 37
     rows = coeffs + 1e-3 * rng.normal(size=(nrows, cheb.order)) / (1. + np.arange(cheb.order))
     x = rng.uniform(-0.99, 0.99, size=(nrows, nq))
-    return cheb, coeffs.astype('f4'), rows.astype('f4'), x.astype('f4')
+    out = cheb, coeffs.astype('f4'), rows.astype('f4'), x.astype('f4')
+    # the inputs the frozen JAX values were computed on
+    for name, value in zip(('coeffs', 'rows', 'x'), out[1:]):
+        np.testing.assert_array_equal(value, TIER1B['clenshaw_' + name])
+    return out
 
 
 def _coeffs(tables, shared):
@@ -56,9 +71,7 @@ RTOL = 1e-5
 def test_reference_matches_pallas_interpret(tables, shared, log_values):
     coeffs, x = _coeffs(tables, shared), tables[3]
     got = clenshaw_reference(torch.from_numpy(x), torch.from_numpy(coeffs), log_values=log_values).numpy()
-    per_row = np.broadcast_to(coeffs, (x.shape[0], coeffs.shape[-1]))
-    expected = np.asarray(clenshaw_pallas(jnp.asarray(x), jnp.asarray(per_row), log_values=log_values,
-                                          interpret=True))
+    expected = _frozen('pallas', log_values, shared)  # clenshaw_pallas(x, coeffs per row, interpret=True)
     np.testing.assert_allclose(got, expected, rtol=RTOL, atol=0.)
 
 
@@ -69,12 +82,9 @@ def test_evaluate_matches_jax_chebyshev(tables, shared, log_values):
     k = np.exp((x.astype('f8') + 1.) / 2. * (cheb.hi - cheb.lo) + cheb.lo).astype('f4')
     port = ChebyshevLogInterp(KGRID, log_values=log_values)
     got = port.evaluate(torch.from_numpy(coeffs), torch.from_numpy(k)).numpy()
-    ref = JaxChebyshevLogInterp(KGRID, log_values=log_values)
-    if shared:
-        expected = ref.evaluate(jnp.asarray(coeffs), jnp.asarray(k))
-    else:
-        expected = jax.vmap(ref.evaluate)(jnp.asarray(coeffs), jnp.asarray(k))
-    np.testing.assert_allclose(got, np.asarray(expected), rtol=RTOL, atol=0.)
+    np.testing.assert_array_equal(k, TIER1B['clenshaw_k'])
+    expected = _frozen('evaluate', log_values, shared)  # the JAX evaluate (vmapped over the rows of per_row)
+    np.testing.assert_allclose(got, expected, rtol=RTOL, atol=0.)
 
 
 @pytest.mark.parametrize('log_values', [True, False], ids=['exp', 'series'])
@@ -84,8 +94,8 @@ def test_x_gradient_matches_jax_grad(tables, log_values):
     the jnp evaluation."""
     cheb, coeffs, x = tables[0], tables[1], tables[3]
     k = np.exp((x.astype('f8') + 1.) / 2. * (cheb.hi - cheb.lo) + cheb.lo).astype('f4')
-    ref = JaxChebyshevLogInterp(KGRID, log_values=log_values)
-    expected = np.asarray(jax.grad(lambda kk: ref.evaluate(jnp.asarray(coeffs), kk).sum())(jnp.asarray(k)))
+    np.testing.assert_array_equal(k, TIER1B['clenshaw_k'])
+    expected = _frozen('x_grad', log_values)  # jax.grad of the JAX evaluate's sum in k
 
     port = ChebyshevLogInterp(KGRID, log_values=log_values)
     kt = torch.from_numpy(k).requires_grad_(True)
@@ -296,14 +306,10 @@ def test_coeff_grad_reference_matches_jax_grad(tables, shared, log_values):
     cheb, coeffs, x = tables[0], _coeffs(tables, shared), tables[3]
     k = np.exp((x.astype('f8') + 1.) / 2. * (cheb.hi - cheb.lo) + cheb.lo).astype('f4')
     grad_y = np.random.default_rng(8).normal(size=x.shape).astype('f4')
-    ref = JaxChebyshevLogInterp(KGRID, log_values=log_values)
-
-    def loss(c):
-        evaluate = ref.evaluate if shared else jax.vmap(ref.evaluate)
-        return (evaluate(c, jnp.asarray(k)) * grad_y).sum()
-
-    # compiled: eagerly, the transpose of each of the 202 coefficient slices would compile on its own
-    expected = np.asarray(jax.jit(jax.grad(loss))(jnp.asarray(coeffs)))
+    np.testing.assert_array_equal(k, TIER1B['clenshaw_k'])
+    np.testing.assert_array_equal(grad_y, TIER1B['clenshaw_grad_y'])
+    # jax.jit(jax.grad) in the coefficients of sum(evaluate(c, k) * grad_y), the JAX evaluate vmapped per row
+    expected = _frozen('coeff_grad', log_values, shared)
     # the queries as the port's evaluate() normalizes them, so that both differentiate at the same x
     lnk = torch.log(torch.from_numpy(k))
     xt = torch.clamp((lnk - cheb.lo) / (cheb.hi - cheb.lo) * 2. - 1., -1., 1.)

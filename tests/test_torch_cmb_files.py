@@ -4,7 +4,7 @@ of the JAX package read by the port's, the arrays the same (the FITS codec
 underneath both, the getdist readers); the emulated C_ell of the golden
 weights through the port's ``ClTheory(emulator=...)``; the
 Hamimeche & Lewis transform at model == data; the installer path without
-data, which is ROADMAP A17.
+data, which is ROADMAP A17b.
 
 Limits: the files' arrays exactly (text files through ``np.savetxt`` at
 full precision, within 1e-12); the emulated C_ell within 2e-5 of the golden

@@ -1,7 +1,8 @@
 """Options of the port's theories, observables and likelihood that are not
 ported yet raise ``NotImplementedError`` naming what is missing or its
-ROADMAP item (no raise names A12 or A15: the observables layer, the
-samplers, profilers and plots are ported). The modules themselves are held against the JAX package in
+ROADMAP item (no raise names A12, A15 or A16, and those that name A17 name
+A17b: the observables layer, the samplers, profilers and plots, the chain
+mesh and the user-facing surface of A17a are ported). The modules themselves are held against the JAX package in
 ``tests/test_torch_full_shape.py``, ``tests/test_torch_xi.py`` and the
 likelihood files; these cases live apart so that those files hold fewer
 tests than ``tests/test_bindings.py``: pytest-xdist's ``--dist loadfile``
@@ -99,7 +100,7 @@ def test_eh99_scale_dependent_growth_raises():
                          ids=['theta', 'emulator', 'external', 'inject'])
 def test_unported_cosmology_options_raise(kwargs, match):
     """What the ``Cosmology`` node leaves for later: the external engine and
-    state injection (A17). The trained emulator engine (A11c), which raised
+    state injection (A17b). The trained emulator engine (A11c), which raised
     before it was ported, now builds from the JAX package's weights
     (``tests/data/torch_port_theories_reference.npz``) and gives, in float64
     for 4 cosmologies in one batch, the JAX package's x64 pk_dd and rs_drag
@@ -236,8 +237,10 @@ def test_unported_xi_observable_options_raise(request, kwargs):
 
 def test_no_a12_raise(tmp_path):
     """No ``NotImplementedError`` of the port names ROADMAP A12 (the
-    observables layer is ported) or A15 (the samplers, profilers, profile
-    containers and plots are): the plots of an ``ObservableArray`` and of
+    observables layer is ported), A15 (the samplers, profilers, profile
+    containers and plots are) or A16 (the chain mesh is), and those that
+    name A17 name A17b (the getdist files, the YAML configuration, the
+    batch facade and the profiler of A17a are ported): the plots of an ``ObservableArray`` and of
     the P(k) observable write a figure, and ``load_source`` of a
     ``Profiles`` returns its best fit."""
     import re
@@ -252,7 +255,8 @@ def test_no_a12_raise(tmp_path):
                 with open(os.path.join(directory, name)) as file:
                     source = file.read()
                 for raised in re.findall(r'NotImplementedError\((.*?)\)\n', source, flags=re.S):
-                    assert 'A12' not in raised and 'A15' not in raised, (name, raised)
+                    assert 'A12' not in raised and 'A15' not in raised and 'A16' not in raised, (name, raised)
+                    assert 'A17' not in raised or 'A17b' in raised, (name, raised)
     for obj, fn in ((ObservableArray(x=[K], value=[np.ones_like(K)]), tmp_path / 'array.png'),
                     (TracerPowerSpectrumMultipolesObservable(data=np.zeros(K.size), k=K, ells=(0,)), tmp_path / 'pk.png')):
         obj.plot(fn=fn)
@@ -283,7 +287,7 @@ def test_default_window_theories():
 def test_installer_path_raises():
     """Without data=, data_dir= or arrays, the JAX package's supernova and
     CMB likelihoods look their data up through its installer
-    (``desilike_tpu/install.py``): in the port that path is ROADMAP A17, and
+    (``desilike_tpu/install.py``): in the port that path is ROADMAP A17b, and
     each class says so at its first initialization."""
     from desilike_tpu_torch.likelihoods import supernovae, cmb
     classes = [getattr(supernovae, name) for name in ('PantheonSNLikelihood', 'PantheonPlusSNLikelihood',
