@@ -27,7 +27,9 @@ log-posterior (config 3d + the CMB distance prior + DES-Y5 supernovae + BBN,
 :func:`build_probes_likelihood`), ``Cosmology(theta=True)``; and the gradient samplers (ChEES, NUTS) over config 4, ChEES over config 3,
 NUTS over config 5; the other samplers and the profilers over configs 3d and
 1; the samplers over a one-card NCCL mesh on config 4, and config 1 built
-from a YAML file.
+from a YAML file; config 3e (config 3d on host-injected products,
+:func:`build_ept_external_likelihood`) through the bindings' generated
+cobaya module and factories, and the installer's lookup.
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions, the
    kernel library's build time, ptxas's registers, and the blocks of each
@@ -196,7 +198,20 @@ A16. the chain mesh and the rest of the user-facing surface
    seconds) against ``build_likelihood``'s log-posterior over 4096 chains;
    ``vmap(errors='ref')`` over config 1 with one chain forced to fail (only
    that row replaced); ``profile_speed`` on config 4 (milliseconds a
-   calculator); the process group torn down.
+   calculator); the process group torn down;
+A17b. the hosts and bindings (:func:`run_a17b`): config 3e through the
+   module ``CobayaLikelihoodGenerator`` writes, run against a stub cobaya
+   with a provider built from the port's host EH98 functions (the fiducial
+   ranked above h = 0.70, omega_cdm = 0.125) and with the frozen products
+   of ``tests/data/torch_port_bindings_reference.npz`` (against the JAX
+   package's x64 log-likelihood and the port's CPU path at 8 points); the
+   cobaya, CosmoSIS and MontePython factories at the same products through
+   stub hosts, bit-identical to it; config 3e over 4096 chains at one
+   injection, forward and with the gradient (launches, peak memory, wall
+   and device milliseconds beside config 3d's, the synchronising calls
+   beside config 3d's, an injection and the call after it, nothing
+   re-initialized); ``DESY5SNLikelihood()`` found through
+   ``DESILIKE_TPU_DATA_DIR``, bit-identical to ``data_dir=``.
 
 Any failure raises (exit code 1). The last three lines of standard output
 are a JSON object describing the kernels, one with the samplers' numbers,
@@ -207,6 +222,7 @@ Run from the repository root: ``python3 chip_smoke.py`` (``--kernels-only``
 stops after phase 2 and prints no result line).
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -490,6 +506,39 @@ def build_ept_direct_likelihood(device):
                                          device=device)
     like.pipeline
     return like
+
+
+_EXTERNAL_LIKELIHOODS = {}
+
+
+def build_ept_external_likelihood(device=None):
+    """Config 3e in the port: config 3d (:func:`build_ept_direct_likelihood`:
+    EPT, ells 0/2/4, k 0.02-0.2 in steps of 0.005, ``ct*`` and ``sn*``
+    solved, 108 data, z = 0.8) on ``DirectPowerSpectrumTemplate(z=0.8,
+    cosmo=Cosmology(engine='external'))``: the host code varies the
+    cosmology and injects its products (the bindings), the chains vary the
+    nuisance parameters b1, b2, bs, b3nl (4 varied, 6 solved).
+    ``device=None``: the card."""
+    from desilike_tpu_torch import (EPTTracerPowerSpectrumMultipoles, DirectPowerSpectrumTemplate, Cosmology,
+                                    TracerPowerSpectrumMultipolesObservable, BoxFootprint,
+                                    ObservablesGaussianLikelihood)
+    theory = EPTTracerPowerSpectrumMultipoles(ells=(0, 2, 4), template=DirectPowerSpectrumTemplate(
+        z=0.8, cosmo=Cosmology(engine='external')))
+    theory.init.params = {'ct*': dict(derived='.marg'), 'sn*': dict(derived='.marg')}
+    observable = TracerPowerSpectrumMultipolesObservable(
+        data={'b1': 2.0}, klim={ell: (0.02, 0.2, 0.005) for ell in (0, 2, 4)}, theory=theory)
+    like = ObservablesGaussianLikelihood(observables=[observable], footprints=[BoxFootprint(volume=2e9, nbar=5e-4)],
+                                         device=device)
+    like.pipeline
+    return like
+
+
+def ept_external_factory():
+    """The bindings' factory of config 3e on the card: one likelihood, built
+    at the first call and shared by every wrapper of phase A17b."""
+    if 'card' not in _EXTERNAL_LIKELIHOODS:
+        _EXTERNAL_LIKELIHOODS['card'] = build_ept_external_likelihood(None)
+    return _EXTERNAL_LIKELIHOODS['card']
 
 
 def files_layout(small=False):
@@ -3674,6 +3723,427 @@ def run_a16(like, joint, smi):
     return out
 
 
+A17B_COSMOLOGIES = {'fid': {}, 'shifted': {'h': 0.70, 'omega_cdm': 0.125}}  # tests/test_bindings.py:112
+A17B_PK_K = np.geomspace(1e-4, 12., 300)  # the provider's Pk_grid, in h/Mpc (tests/test_bindings.py:75)
+A17B_PK_Z = np.linspace(0., 3., 7)
+
+
+class HostProvider(object):
+    """A cobaya provider built on the host from the port's float64 EH98
+    functions (``cosmology/background.py``, ``linear.py``), in cobaya's units:
+    H in km/s/Mpc, distances in Mpc, k in 1/Mpc, P(k) in Mpc^3."""
+
+    def __init__(self, params=None):
+        from desilike_tpu_torch.cosmology import background as bg
+        self.p = bg.resolve(dict(params or {}))
+        self.h = float(self.p['h'])
+
+    def get_Hubble(self, z):
+        from desilike_tpu_torch.cosmology import background as bg
+        return 100. * self.h * bg.efunc(self.p, np.asarray(z, dtype='f8'))
+
+    def get_comoving_radial_distance(self, z):
+        from desilike_tpu_torch.cosmology import background as bg
+        return bg.comoving_radial_distance(self.p, np.asarray(z, dtype='f8')) / self.h
+
+    def get_param(self, name):
+        from desilike_tpu_torch.cosmology import background as bg
+        assert name == 'rdrag'
+        return float(bg.rs_drag(self.p)) / self.h
+
+    def get_Pk_grid(self, var_pair=('delta_tot', 'delta_tot'), nonlinear=False):
+        from desilike_tpu_torch.cosmology import linear as lin
+        pk = np.stack([lin.pk_lin(self.p, A17B_PK_K, zz) for zz in A17B_PK_Z])
+        return A17B_PK_K * self.h, A17B_PK_Z, pk / self.h ** 3
+
+    def get_sigma8_z(self, z):
+        from desilike_tpu_torch.cosmology import linear as lin
+        return np.array([float(lin.sigma_r(self.p, 8., zz)) for zz in np.atleast_1d(z)])
+
+    def get_fsigma8(self, z):
+        from desilike_tpu_torch.cosmology import background as bg
+        return bg.growth_rate(self.p, np.atleast_1d(np.asarray(z, dtype='f8'))) * self.get_sigma8_z(z)
+
+
+class ProductsProvider(object):
+    """A cobaya provider that gives back the products ``products`` (the
+    h-unit tables of an external node, on ``node``'s grids) in cobaya's
+    units with h = 1, so that ``gather_cobaya_products`` returns them (to an
+    ulp: the pk table passes through exp(log))."""
+
+    def __init__(self, node, products):
+        self.node, self.products = node, products
+
+    def _at(self, name, z):
+        z = np.atleast_1d(np.asarray(z, dtype='f8'))
+        if z.shape == (1,) and z[0] == 0.:
+            return self.products[name][:1]
+        assert np.array_equal(z, self.node.z_grid)
+        return self.products[name]
+
+    def get_Hubble(self, z):
+        return 100. * self._at('efunc_tab', z)
+
+    def get_comoving_radial_distance(self, z):
+        return self._at('chi_tab', z)
+
+    def get_param(self, name):
+        assert name == 'rdrag'
+        return float(self.products['rs_drag_tab'])
+
+    def get_Pk_grid(self, var_pair=('delta_tot', 'delta_tot'), nonlinear=False):
+        return self.node.k_grid, self.node.zpk_grid, self.products['pk_tab']
+
+    def get_fsigma8(self, z):
+        return self._at('fsigma8_tab', z)
+
+    def get_sigma8_z(self, z):
+        return self._at('sigma8_tab', z)
+
+
+class ProductsBlock(object):
+    """A cosmosis datablock holding the products ``products`` (h = 1, H in
+    units of H0, a growth section), the sampled parameters under
+    'desilike_tpu_params'."""
+
+    def __init__(self, node, products, values):
+        self._d = {('cosmological_parameters', 'h0'): 1., ('distances', 'z'): node.z_grid,
+                   ('distances', 'h'): products['efunc_tab'], ('distances', 'd_m'): products['chi_tab'],
+                   ('distances', 'rs_zdrag'): float(products['rs_drag_tab']),
+                   ('matter_power_lin', 'k_h'): node.k_grid, ('matter_power_lin', 'z'): node.zpk_grid,
+                   ('matter_power_lin', 'p_k'): products['pk_tab'], ('growth_parameters', 'z'): node.z_grid,
+                   ('growth_parameters', 'fsigma_8'): products['fsigma8_tab'],
+                   ('growth_parameters', 'sigma_8'): products['sigma8_tab']}
+        self._d.update({('desilike_tpu_params', key.replace('.', '_')): value for key, value in values.items()})
+
+    def __getitem__(self, key):
+        return self._d[key]
+
+    def __setitem__(self, key, value):
+        self._d[key] = value
+
+    def has_value(self, section, name):
+        return (section, name) in self._d
+
+
+class ProductsClassy(object):
+    """A classy object giving back the products ``products`` (h = 1, H in
+    units of H0)."""
+
+    def __init__(self, node, products):
+        self.node, self.products = node, products
+
+    def _index(self, z):
+        return int(np.flatnonzero(self.node.z_grid == z)[0])
+
+    def h(self):
+        return 1.
+
+    def Hubble(self, z):
+        return float(self.products['efunc_tab'][self._index(z)])
+
+    def angular_distance(self, z):
+        return float(self.products['chi_tab'][self._index(z)]) / (1. + z)
+
+    def rs_drag(self):
+        return float(self.products['rs_drag_tab'])
+
+    def get_pk_array(self, karr, zarr, nk, nz, nonlinear):
+        return self.products['pk_tab'].reshape(-1)
+
+    def sigma(self, R, z):
+        return float(self.products['sigma8_tab'][self._index(z)])
+
+    def scale_independent_growth_factor_f(self, z):
+        i = self._index(z)
+        return float(self.products['fsigma8_tab'][i] / self.products['sigma8_tab'][i])
+
+
+class host_modules(contextlib.ContextDecorator):
+    """Stub ``cobaya.likelihood`` and ``montepython.likelihood_class``
+    modules (neither host package is installed on the card's machine), as
+    the JAX package's tests make them; a context, or a decorator."""
+
+    def __enter__(self):
+        import types
+
+        class Likelihood(object):
+            def __init__(self, *args):
+                pass
+
+        self.saved = {name: sys.modules.get(name) for name in
+                      ('cobaya', 'cobaya.likelihood', 'montepython', 'montepython.likelihood_class')}
+        for package, module in (('cobaya', 'likelihood'), ('montepython', 'likelihood_class')):
+            parent, child = types.ModuleType(package), types.ModuleType(package + '.' + module)
+            child.Likelihood = Likelihood
+            setattr(parent, module, child)
+            sys.modules[package], sys.modules[package + '.' + module] = parent, child
+        return self
+
+    def __exit__(self, *exc):
+        for name, module in self.saved.items():
+            if module is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = module
+
+
+def run_a17b(direct, dfn, smi, cuda):
+    """Phase A17b: the host codes' side on the card, on config 3e
+    (:func:`build_ept_external_likelihood`, config 3d on host-injected
+    products). (a) a cobaya provider from the port's float64 EH98 functions
+    (:class:`HostProvider`) at the fiducial and at the shifted cosmology;
+    (b) the module ``CobayaLikelihoodGenerator`` writes, executed against a
+    stub cobaya: initialize, get_requirements, logp at both cosmologies
+    (finite, the fiducial ranked above), and at the 8 points of
+    ``tests/data/torch_port_bindings_reference.npz`` with its frozen products
+    (within 2e-2 of the JAX package's x64 log-likelihood, within
+    EPT_X64_ATOL of the port's CPU path); (c) ``CobayaLikelihoodFactory``,
+    ``CosmoSISLikelihoodFactory`` and ``MontePythonLikelihoodFactory`` at the
+    same products through stub hosts (:class:`ProductsProvider`,
+    :class:`ProductsBlock`, :class:`ProductsClassy`): each logp bit-identical
+    to the generated module's; (d) config 3e over 4096 chains at one
+    injection, forward and with the gradient (launches, peak memory, wall and
+    device milliseconds beside config 3d's, the synchronising calls of one
+    forward call beside config 3d's, the milliseconds of an injection and
+    the call after it, no calculator re-initialized); (e) the installer:
+    ``DESY5SNLikelihood()`` with ``DESILIKE_TPU_DATA_DIR`` pointing at the
+    DES-Y5-layout files of :func:`write_probe_files` against the same built
+    with ``data_dir=``, bit-identical on the card. Returns the numbers."""
+    import tempfile
+    import torch
+    from desilike_tpu_torch.ops import cuda_kernels
+    from desilike_tpu_torch.bindings import (CobayaLikelihoodGenerator, CobayaLikelihoodFactory,
+                                             CosmoSISLikelihoodFactory, MontePythonLikelihoodFactory,
+                                             gather_cobaya_products)
+    t_phase = time.perf_counter()
+    reference = np.load(os.path.join(ROOT, 'tests', 'data', 'torch_port_bindings_reference.npz'))
+    t0 = time.perf_counter()
+    like = ept_external_factory()
+    pipe = like.pipeline
+    names, solved = pipe.varied_params.names(), pipe.solved_params.names()
+    (index, node), = pipe.external_nodes()
+    out = {'build_s': time.perf_counter() - t0, 'names': names}
+    if names != list(reference['ept:names']) or len(solved) != 6 or like.size != 108 or pipe.device.type != cuda.type:
+        raise AssertionError('phase A17b: config 3e varies {} and solves {} over {} data on {}'.format(
+            names, solved, like.size, pipe.device))
+    frozen = {cosmo: {key.split(':')[-1]: reference[key] for key in reference.files
+                      if key.startswith(cosmo + ':cobaya:')} for cosmo in A17B_COSMOLOGIES}
+    points = reference['ept:points']
+    # (a), (b): the generated module against a stub cobaya
+    with host_modules():
+        namespace = {}
+        exec(compile(CobayaLikelihoodGenerator(ept_external_factory).generate(), '<generated cobaya module>', 'exec'),
+             namespace)
+        generated = namespace['DesilikeTPULikelihood']()
+        generated.initialize()
+        requirements = generated.get_requirements()
+        if not {'Hubble', 'comoving_radial_distance', 'rdrag', 'Pk_grid', 'fsigma8', 'sigma8_z'} <= set(requirements):
+            raise AssertionError('phase A17b: the generated module requires {}'.format(sorted(requirements)))
+        # the nuisance parameters the data were made at (b1 = 2, the others at their defaults)
+        at_fiducial = {p.name.replace('.', '_'): 2. if p.basename == 'b1' else float(p.value) for p in pipe.varied_params}
+        logp = {}
+        for cosmo, params in A17B_COSMOLOGIES.items():
+            generated.provider = HostProvider(params)
+            t0 = time.perf_counter()
+            logp[cosmo] = generated.logp(**at_fiducial)
+            out['logp_s_' + cosmo] = time.perf_counter() - t0
+        out['logp_host'] = logp
+        line = ('phase A17b: the generated cobaya module on {!r}, config 3e with a host EH98 provider: logp {:.4f} at '
+                'the fiducial, {:.4f} at h = 0.70, omega_cdm = 0.125 ({:.2f} s and {:.2f} s a call, each with its '
+                'injection)'.format(smi, logp['fid'], logp['shifted'], out['logp_s_fid'], out['logp_s_shifted']))
+        print(line)
+        if not (np.isfinite(logp['fid']) and np.isfinite(logp['shifted']) and logp['fid'] > logp['shifted']):
+            raise AssertionError(line)
+        # at the frozen products: the JAX package's x64 values and the port's CPU path
+        like_cpu = build_ept_external_likelihood('cpu')
+        fn_cpu = like_cpu.logpost_fn()
+        out['frozen_error_x64'], out['frozen_error_cpu'] = {}, {}
+        for cosmo in A17B_COSMOLOGIES:
+            generated.provider = ProductsProvider(node, frozen[cosmo])
+            got = np.array([generated.logp(**{name.replace('.', '_'): float(v) for name, v in zip(names, point)})
+                            for point in points])
+            like_cpu.pipeline.set_cosmo_requires(**frozen[cosmo])
+            values = {name: torch.tensor(points[:, i], dtype=torch.float32) for i, name in enumerate(names)}
+            values.update(like_cpu.pipeline.external_values())
+            with torch.no_grad():
+                cpu = fn_cpu(values)[1]['loglikelihood'].numpy().astype('f8')
+            out['frozen_error_x64'][cosmo] = float(np.abs(got - reference['ept:{}:loglikelihood_x64'.format(cosmo)]).max())
+            out['frozen_error_cpu'][cosmo] = float(np.abs(got - cpu).max())
+            line = ('phase A17b: the generated module at the frozen {} products, 8 points, one logp call each: '
+                    'max |d loglikelihood| {:.3e} from JAX x64 (tol 2e-2), {:.3e} from the port\'s CPU path (tol '
+                    '{:.0e})'.format(cosmo, out['frozen_error_x64'][cosmo], out['frozen_error_cpu'][cosmo], EPT_X64_ATOL))
+            print(line)
+            if not (out['frozen_error_x64'][cosmo] <= 2e-2 and out['frozen_error_cpu'][cosmo] <= EPT_X64_ATOL):
+                raise AssertionError(line)
+        # (c) the three factories at the same products, through stub hosts
+        products = frozen['fid']
+        point = {name: float(v) for name, v in zip(names, points[1])}
+        flat = {name.replace('.', '_'): value for name, value in point.items()}
+        generated.provider = ProductsProvider(node, products)
+        expected = generated.logp(**flat)
+
+        def tables():  # the injected tables as the card reads them (float32)
+            return {key: torch.as_tensor(getattr(node, key), dtype=torch.float32) for key in node._external_attrs}
+
+        reference_tables, same_tables = tables(), {}
+
+        def same():
+            return all(torch.equal(value, reference_tables[key]) for key, value in tables().items())
+
+        cobaya = CobayaLikelihoodFactory(ept_external_factory, params=True)()
+        cobaya.initialize()
+        cobaya.provider = ProductsProvider(node, products)
+        got = {'cobaya': cobaya.logp(**flat)}
+        same_tables['cobaya'] = same()
+        setup, execute, _ = CosmoSISLikelihoodFactory(ept_external_factory, name_like='config3e').build_module()
+        block = ProductsBlock(node, products, point)
+        execute(block, setup(None))
+        got['cosmosis'] = block['likelihoods', 'config3e_like']
+        same_tables['cosmosis'] = same()
+        montepython = MontePythonLikelihoodFactory(ept_external_factory)(None, None, None)
+
+        class Data(object):
+            mcmc_parameters = {key: {'current': value, 'scale': 1.} for key, value in flat.items()}
+
+        got['montepython'] = montepython.loglkl(ProductsClassy(node, products), Data())
+        same_tables['montepython'] = same()
+        same_tables = all(same_tables.values())
+        out['factories'] = dict(got, generated=expected, same_tables=same_tables)
+        line = ('phase A17b: the factories at the generated module\'s products and point: generated {!r}, {}; the '
+                'float32 tables identical {}'.format(expected, ', '.join('{} {!r}'.format(k, v) for k, v in got.items()),
+                                                      same_tables))
+        print(line)
+        if not (same_tables and all(value == expected for value in got.values())):
+            raise AssertionError(line)
+    # (d) config 3e over 4096 chains at one injection, beside config 3d
+    fn = like.logpost_fn()
+    pipe.set_cosmo_requires(**gather_cobaya_products(HostProvider(), node))
+    values = chains(names, BATCH, seed=0, device=cuda)
+    values.update(pipe.external_values())
+    out.update(launches={}, max_memory_gib={}, wall_ms={}, device_ms={}, config3d_wall_ms={}, config3d_device_ms={})
+    for mode in ('forward', 'with gradient'):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_kernels.CLENSHAW_LAUNCHES = cuda_kernels.COEFF_GRAD_LAUNCHES = 0
+        if mode == 'forward':
+            with torch.no_grad():
+                logpost, aux = fn(values)
+            finite = bool(torch.isfinite(logpost).all())
+        else:
+            logpost, aux = fn(values)
+            logpost.sum().backward()
+            grad = torch.stack([values[name].grad for name in names], dim=-1)
+            finite = bool(torch.isfinite(logpost).all() and torch.isfinite(grad).all())
+        torch.cuda.synchronize()
+        out['launches'][mode] = (cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES)
+        out['max_memory_gib'][mode] = torch.cuda.max_memory_allocated() / 2 ** 30
+        line = ('phase A17b: config 3e {} over B={} chains on {!r}: shape {}, all finite {}, mean logpost {:.4f}; '
+                'launches: Clenshaw {}, coefficient gradient {}; peak device memory {:.2f} GiB'.format(
+                    mode, BATCH, smi, tuple(logpost.shape), finite, float(logpost.detach().mean()),
+                    out['launches'][mode][0], out['launches'][mode][1], out['max_memory_gib'][mode]))
+        print(line)
+        if logpost.shape != (BATCH,) or not finite or out['launches'][mode][0] <= 0 \
+                or set(aux['solved']) != set(solved):
+            raise AssertionError(line)
+    dnames = direct.pipeline.varied_params.names()
+    dvalues = chains(dnames, BATCH, seed=0, device=cuda)
+    for mode in ('forward', 'with gradient'):
+        for key, function, args in (('', fn, values), ('config3d_', dfn, dvalues)):
+            torch.cuda.empty_cache()
+            if mode == 'forward':
+                def call():
+                    with torch.no_grad():
+                        function(args)
+            else:
+                def call():  # gradients accumulate; harmless
+                    function(args)[0].sum().backward()
+            out[key + 'wall_ms'][mode] = time_cuda(call, 10, warmup=1)
+            out[key + 'device_ms'][mode] = device_ms(call)
+        print('phase A17b: config 3e {} at B={} on {!r}: {:.2f} ms a call wall, {:.2f} ms device (config 3d on the '
+              'same batch: {:.2f} / {:.2f} ms)'.format(mode, BATCH, smi, out['wall_ms'][mode], out['device_ms'][mode],
+                                                       out['config3d_wall_ms'][mode], out['config3d_device_ms'][mode]))
+    out['host_syncs'] = count_host_syncs(fn, values, label='config 3e')
+    out['host_syncs_config3d'] = count_host_syncs(dfn, dvalues, label='config 3d')
+    # beside config 3d's, config 3e may add only the copies of the defaults of the five cosmological parameters it
+    # keeps fixed (the pipeline's default copy, ROADMAP A6): none for its tables
+    pipeline_py = os.path.join('desilike_tpu_torch', 'core', 'pipeline.py')
+    with open(os.path.join(ROOT, pipeline_py)) as file:
+        default_copy = '{}:{}'.format(pipeline_py, 1 + next(i for i, text in enumerate(file)
+                                                              if 'tensor = torch.as_tensor(value, dtype=dtype' in text))
+    added = {place: count - out['host_syncs_config3d'].get(place, 0) for place, count in out['host_syncs'].items()
+             if count > out['host_syncs_config3d'].get(place, 0)}
+    out['host_syncs_added'] = added
+    if any(place != default_copy for place in added):
+        raise AssertionError('phase A17b: config 3e adds synchronising calls beside config 3d\'s: {}'.format(added))
+    # an injection, then the call after it: the tables copied to the card once, nothing re-initialized
+    shifted = gather_cobaya_products(HostProvider(A17B_COSMOLOGIES['shifted']), node)
+    states = [(calc, calc.runtime_info.initialized, calc.init._updated) for calc in pipe.calculators]
+    inject_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.set_cosmo_requires(**shifted)
+        values.update(pipe.external_values())
+        with torch.no_grad():
+            fn(values)
+        torch.cuda.synchronize()
+        inject_ms.append((time.perf_counter() - t0) * 1e3)
+    out['inject_and_call_ms'] = inject_ms
+    reinitialized = [calc.runtime_info.name for calc, initialized, updated in states
+                     if not calc.runtime_info.initialized or calc.init._updated != updated or not initialized]
+    out['reinitialized'] = reinitialized
+    line = ('phase A17b: an injection and the forward call after it at B={}: {} ms (a call alone {:.2f} ms); '
+            'calculators re-initialized: {}; the pipeline kept {}'.format(
+                BATCH, ', '.join('{:.2f}'.format(t) for t in inject_ms), out['wall_ms']['forward'], reinitialized or 'none',
+                like.pipeline is pipe))
+    print(line)
+    if reinitialized or like.pipeline is not pipe:
+        raise AssertionError(line)
+    del values, dvalues, logpost, aux
+    torch.cuda.empty_cache()
+    # (e) the installer: DESY5SNLikelihood with no data argument finds DESILIKE_TPU_DATA_DIR/DESY5SNLikelihood
+    from desilike_tpu_torch import DESY5SNLikelihood, Cosmology
+    from desilike_tpu_torch.install import DATA_DIR_ENV, Installer
+    saved = os.environ.get(DATA_DIR_ENV)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            section = os.path.join(tmp, 'DESY5SNLikelihood')
+            os.makedirs(section)
+            nsn = write_probe_files(section, small=True)
+            os.environ[DATA_DIR_ENV] = tmp
+            logposts = {}
+            for label, kwargs in (('installed', {}), ('data_dir', {'data_dir': section})):
+                cosmo = Cosmology()
+                cosmo.init.params = {name: dict(fixed=False) for name in ('h', 'omega_cdm')}
+                sn = DESY5SNLikelihood(cosmo=cosmo, device=cuda, **kwargs)
+                snames = sn.pipeline.varied_params.names()
+                rng = np.random.default_rng(8)
+                center = dict(COSMO_CENTER, Mb=0.)  # DES-Y5's MU carries the magnitude: Mb is an offset
+                width = dict(COSMO_WIDTH, Mb=0.05)
+                svalues = {name: torch.tensor(center[name] + width[name] * rng.uniform(-1., 1., BATCH),
+                                              dtype=torch.float32, device=cuda) for name in snames}
+                with torch.no_grad():
+                    logposts[label] = sn.logpost_fn()(svalues)[0]
+            out['installer'] = dict(section=Installer().data_dir('DESY5SNLikelihood') == section, nsn=nsn,
+                                    identical=bool(torch.equal(logposts['installed'], logposts['data_dir'])),
+                                    finite=bool(torch.isfinite(logposts['installed']).all()))
+    finally:
+        if saved is None:
+            os.environ.pop(DATA_DIR_ENV, None)
+        else:
+            os.environ[DATA_DIR_ENV] = saved
+    line = ('phase A17b: DESY5SNLikelihood() over B={} chains on {!r} from {} supernovae in DESILIKE_TPU_DATA_DIR\'s '
+            'section: bit-identical to data_dir= {}, all finite {}'.format(
+                BATCH, smi, out['installer']['nsn'], out['installer']['identical'], out['installer']['finite']))
+    print(line)
+    if not (out['installer']['identical'] and out['installer']['finite'] and out['installer']['section']):
+        raise AssertionError(line)
+    out['seconds'] = time.perf_counter() - t_phase
+    print('phase A17b took {:.1f} s'.format(out['seconds']))
+    return out
+
+
 def main(kernels_only=False):
     import torch
     if not torch.cuda.is_available():
@@ -4041,6 +4511,8 @@ def main(kernels_only=False):
     samplers['a15'] = run_a15(like, direct, probes, smi, cuda)
     # --- phase A16: the chain mesh (one NCCL process), config 1 from YAML, the batch facade, the profiler ---
     samplers['a16'] = run_a16(like, joint, smi)
+    # --- phase A17b: config 3e through the bindings' wrappers, and the installer ---
+    samplers['a17b'] = run_a17b(direct, dfn, smi, cuda)
     print('all phases took {:.1f} s'.format(time.perf_counter() - started))
     a15_launches = {run: [entry['launches_clenshaw'], entry['launches_coeff_grad']]
                     for run, entry in samplers['a15'].items() if isinstance(entry, dict) and 'launches_clenshaw' in entry}
@@ -4089,6 +4561,7 @@ def main(kernels_only=False):
         'launches_nuts_config5': samplers['nuts_config5']['launches_clenshaw'],
         'launches_a15': {run: value[0] for run, value in a15_launches.items()},
         'launches_a16': {run: value[0] for run, value in a16_launches.items()},
+        'launches_a17b': {mode: value[0] for mode, value in samplers['a17b']['launches'].items()},
         'launches_config_xi': config_xi['launches']['with gradient', BATCH][0],
         'launches_config_xi_forward': config_xi['launches']['forward', BATCH][0],
         'launches_hessian_config_xi': config_xi['launches_hessian'][0],
@@ -4135,6 +4608,7 @@ def main(kernels_only=False):
         'launches_nuts_config5': samplers['nuts_config5']['launches_coeff_grad'],
         'launches_a15': {run: value[1] for run, value in a15_launches.items()},
         'launches_a16': {run: value[1] for run, value in a16_launches.items()},
+        'launches_a17b': {mode: value[1] for mode, value in samplers['a17b']['launches'].items()},
         **{'launches_config_tns_{}_{}'.format(mode.replace(' ', '_'), batch): value[1]
            for (mode, batch), value in config_tns['launches'].items()},
         **{key + '_config_tns': {label: entry['grad_' + key] for label, entry in tns_timed.items()}

@@ -35,7 +35,10 @@ profilers (``profilers``), the ``Profiles`` and ``ParameterCovariance``
 containers and the plots (``plotting``). The chain mesh (``parallel``):
 samplers shard their chains over processes, one card each, through
 ``torch.distributed``. The YAML configuration (``from_config``) and the
-batch facade (``vmap``).
+batch facade (``vmap``). The host codes' side: ``Cosmology(engine='external')``
+fed by the cobaya, CosmoSIS and MontePython bindings (``bindings``), the
+data directory (``Installer``), the reference's class names (``compat``)
+and import paths.
 Per-evaluation compute runs on a batch of chains, in float32, on the CUDA
 card unless the caller asks for the CPU by name (``device='cpu'``); the
 Chebyshev lookups and their gradients run through hand-written CUDA kernels
@@ -51,6 +54,7 @@ from .parameters import (Parameter, ParameterCollection, Prior, Samples, Deriv, 
 from .core import Calculator, Pipeline
 from .core.collection import CollectionCalculator, vmap
 from .io import BaseConfig, from_config
+from .install import Installer
 from .theories import (DampedBAOWigglesTracerPowerSpectrumMultipoles, BAOPowerSpectrumTemplate,
                        ShapeFitPowerSpectrumTemplate, DirectPowerSpectrumTemplate, Cosmology, KaiserTracerPowerSpectrumMultipoles,
                        EFTLikeKaiserTracerPowerSpectrumMultipoles, EPTTracerPowerSpectrumMultipoles,

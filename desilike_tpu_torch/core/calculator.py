@@ -229,18 +229,18 @@ class Calculator(BaseClass):
             add(name, value)
         return out
 
-    def const(self, name, dtype=None):
+    def const(self, name, dtype=None, device=None):
         """Host attribute ``name`` (numpy) as a tensor of the current
-        evaluation's dtype (or ``dtype``) and device; cached until the
-        attribute is reassigned."""
+        evaluation's dtype and device (or ``dtype``, ``device``); cached
+        until the attribute is reassigned."""
         value = getattr(self, name)
         cache = self.__dict__.setdefault('_const_cache', {})
         entry = cache.get(name)
         if entry is None or entry[0] is not value:
             entry = cache[name] = (value, {})
-        key = (dtype or self.dtype, self.device)
+        key = (dtype or self.dtype, device or self.device)
         if key not in entry[1]:
-            entry[1][key] = torch.as_tensor(np.asarray(value), dtype=key[0], device=self.device)
+            entry[1][key] = torch.as_tensor(np.asarray(value), dtype=key[0], device=key[1])
         return entry[1][key]
 
     @property

@@ -8,8 +8,11 @@ leading batch dimension itself. A calculator flagged ``_host_eval`` (a host
 code that cannot run on the card) is memoized on its parameter footprint,
 so that moves of the other parameters skip it: ``block_params`` splits the
 varied parameters on that footprint for the blocked sampler.
-``profile_speed`` times each calculator and the batched call. Injected
-external state waits for ROADMAP A17b.
+``profile_speed`` times each calculator and the batched call. Nodes with
+injectable external state (``Cosmology(engine='external')``, fed by a host
+code through the bindings) take their tables from the values dict under
+``'external:<index>:<attr>'`` keys (:meth:`Pipeline.external_values`) for
+one call: each table has the node's grid shape and serves every chain.
 """
 
 import numpy as np
@@ -97,11 +100,22 @@ class Pipeline(BaseClass):
 
         Each value is a scalar or a ``(B,)`` tensor/array; scalars broadcast
         to the batch size. A tensor on another device is an error, never
-        silently copied.
+        silently copied. An ``'external:<index>:<attr>'`` entry (an injected
+        table, :meth:`external_values`) is kept as it is, a host array copied
+        to ``device`` in ``dtype``; it comes after the parameters.
         """
         full = self.input_defaults()
+        external = {}
         for name, value in values.items():
-            if name in full:
+            if name.startswith('external:'):
+                if isinstance(value, torch.Tensor):
+                    if value.device != device:
+                        raise ValueError('external table {} is on {}, but the pipeline evaluates on {}'.format(
+                            name, value.device, device))
+                    external[name] = value
+                else:
+                    external[name] = torch.as_tensor(np.asarray(value), dtype=dtype, device=device)
+            elif name in full:
                 full[name] = value
             else:
                 # allow basename shortcut if unique
@@ -159,6 +173,7 @@ class Pipeline(BaseClass):
             if not progress:
                 raise ValueError('circular derived-parameter dependencies: {}'.format(
                     [p.name for p in pending]))
+        full.update(external)
         return full
 
     def param_footprint(self, calc):
@@ -262,27 +277,43 @@ class Pipeline(BaseClass):
 
         Returns (root_get, derived dict of full-name -> value).
         """
-        ref = next(iter(full_values.values()), None)
+        ref = next((value for name, value in full_values.items() if not name.startswith('external:')), None)
         dtype, device = (ref.dtype, ref.device) if ref is not None else (config.get_dtype(), self.device)
         self.batch = ref.numel() if ref is not None else 1  # the batch of the last walk (state snapshots)
-        for calc in self.calculators:
-            cvals = {p.basename: full_values[p.name] for p in calc.runtime_info.params
-                     if p.derived is not True and not p.drop}
-            calc.dtype, calc.device = dtype, device
-            if getattr(calc, '_host_eval', False):
-                inputs = self._host_inputs(calc, full_values)
-                if self._host_lookup(calc, inputs):
+        restore = []
+        try:
+            for key, value in full_values.items():
+                if key.startswith('external:'):
+                    _, index, attr = key.split(':', 2)
+                    calc = self.calculators[int(index)]
+                    original = getattr(calc, attr)
+                    if tuple(value.shape) != np.shape(original):
+                        raise ValueError('external table {} has shape {}, the node\'s grid {}'.format(
+                            key, tuple(value.shape), np.shape(original)))
+                    restore.append((calc, attr, original))
+                    setattr(calc, attr, value)
+            for calc in self.calculators:
+                cvals = {p.basename: full_values[p.name] for p in calc.runtime_info.params
+                         if p.derived is not True and not p.drop}
+                calc.dtype, calc.device = dtype, device
+                if getattr(calc, '_host_eval', False):
+                    inputs = self._host_inputs(calc, full_values)
+                    if self._host_lookup(calc, inputs):
+                        continue
+                    calc.calculate(**cvals)
+                    self._host_store(calc, inputs)
                     continue
                 calc.calculate(**cvals)
-                self._host_store(calc, inputs)
-                continue
-            calc.calculate(**cvals)
-        derived = {}
-        for calc in self.calculators:
-            for p in calc.runtime_info.params:
-                if p.derived is True and hasattr(calc, p.basename):
-                    derived[p.name] = getattr(calc, p.basename)
-        return self.root.get(), derived
+            derived = {}
+            for calc in self.calculators:
+                for p in calc.runtime_info.params:
+                    if p.derived is True and hasattr(calc, p.basename):
+                        derived[p.name] = getattr(calc, p.basename)
+            return self.root.get(), derived
+        finally:
+            # the injected tables stay the node's between calls: a passed-in one serves its call only
+            for calc, attr, original in restore:
+                setattr(calc, attr, original)
 
     def evaluate(self, values=None, device=None, dtype=None):
         """Eager evaluation; attributes on the calculators are left as tensors
@@ -346,6 +377,38 @@ class Pipeline(BaseClass):
                 'compiled_per_eval': per_eval,
                 'compiled_evals_per_sec': 1. / per_eval if per_eval > 0 else float('inf'),
                 'per_call': per_call, 'batch': int(batch)}
+
+    # --- external (host-cosmology) state ---
+
+    def external_nodes(self):
+        """(index, calculator) of the calculators with injectable external
+        state (the host-code products of ``Cosmology(engine='external')``)."""
+        return [(i, c) for i, c in enumerate(self.calculators) if getattr(c, '_external_attrs', None)]
+
+    def external_values(self):
+        """The current external tables, keyed ``'external:<index>:<attr>'``
+        for the values dict of a call, as tensors of the compute dtype on the
+        pipeline's device: the copies the nodes made at injection (or now,
+        once for each injected table)."""
+        dtype, device = config.get_dtype(), self.device
+        return {'external:{}:{}'.format(i, attr): calc.external_tensor(attr, dtype, device)
+                for i, calc in self.external_nodes() for attr in calc._external_attrs}
+
+    def get_cosmo_requires(self):
+        """The host-cosmology requirements the calculators declare, merged
+        (section -> quantity -> arguments; the grids are the nodes', the last
+        one wins)."""
+        merged = {}
+        for calc in self.calculators:
+            for section, quantities in getattr(calc, 'cosmo_requires', {}).items():
+                merged.setdefault(section, {}).update(quantities)
+        return merged
+
+    def set_cosmo_requires(self, **products):
+        """Inject host-cosmology products into every external node; follow
+        with :meth:`external_values` for the values dict of a call."""
+        for _, calc in self.external_nodes():
+            calc.inject(**products)
 
     def logprior(self, values):
         """Sum of log priors of varied params at given (resolved) values -> (B,)."""

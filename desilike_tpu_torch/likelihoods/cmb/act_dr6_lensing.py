@@ -14,7 +14,7 @@ import torch
 
 from ..base import BaseGaussianLikelihood
 from .base import request_cls
-from .planck2018 import no_installer
+from ...install import installed_data_dir
 
 
 def pp_to_kk(clpp, ell):
@@ -57,6 +57,7 @@ class ACTDR6LensingLikelihood(BaseGaussianLikelihood):
     """
 
     name = 'ACTDR6Lensing'
+    installer_section = 'ACTDR6LensingLikelihood'
     data_version = 'v1.2'
     trim_ellmax = 2998
     _params = dict(BaseGaussianLikelihood._params)
@@ -64,9 +65,18 @@ class ACTDR6LensingLikelihood(BaseGaussianLikelihood):
 
     def initialize(self, theory=None, data=None, lens_only=False, data_dir=None, variant='act_baseline', **kwargs):
         if data is None and data_dir is None:
-            raise no_installer(type(self).__name__)
-        if data is None:
+            data_dir = installed_data_dir(self.installer_section)
+            if data_dir is not None:
+                # the reference installs the product under a version subdirectory (<section>/<version>):
+                # prefer it, else the bare section directory
+                versioned = os.path.join(data_dir, self.data_version)
+                if os.path.isdir(versioned):
+                    data_dir = versioned
+        if data is None and data_dir is not None:
             data = read_act_dr6_data(data_dir, variant=variant, lens_only=lens_only)
+        if data is None:
+            raise ValueError('provide data= dict (act_dr6_lenslike load_data layout) or data_dir= '
+                             '(act_dr6_lenslike v1.2 file layout)')
         self.data = {k: (np.asarray(v) if isinstance(v, (list, tuple, np.ndarray)) else v) for k, v in data.items()}
         self.lens_only = bool(lens_only)
         self.ellmax = int(data.get('trim_ellmax', self.trim_ellmax)) + 1

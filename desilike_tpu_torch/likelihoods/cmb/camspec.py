@@ -23,7 +23,8 @@ import torch
 
 from ..base import BaseGaussianLikelihood
 from .base import request_cls
-from .planck2018 import _CALIB_PARAMS, no_installer
+from ...install import installed_data_dir
+from .planck2018 import _CALIB_PARAMS
 
 
 ALL_BLOCKS = ('100x100', '143x143', '217x217', '143x217', 'TE', 'EE')
@@ -64,9 +65,12 @@ class BasePlanckNPIPECamspecLikelihood(BaseGaussianLikelihood):
             if block not in ALL_BLOCKS:
                 raise ValueError('unknown CamSpec block {}; expected {}'.format(block, ALL_BLOCKS))
         if data is None and data_dir is None:
-            raise no_installer(type(self).__name__)
-        if data is None:
+            data_dir = installed_data_dir('Planck2020CamSpecLikelihood')
+        if data is None and data_dir is not None:
             data = read_camspec_data(data_dir)
+        if data is None:
+            raise ValueError('pass data= (arrays, see synthetic_camspec_data) or data_dir= (real NPIPE 12.6 '
+                             'distribution layout)')
         # per-block selected multipoles, flattened in ALL_BLOCKS order; the data covariance spans every block
         # present in the data, so a block subset selects the matching sub-matrix
         data_blocks = [b for b in ALL_BLOCKS if len(data['ells'].get(b, ())) > 0]

@@ -37,7 +37,7 @@ import torch
 
 from ..base import BaseLikelihood
 from .base import request_cls
-from .planck2018 import no_installer
+from ...install import installed_data_dir
 
 T_CMB = 2.72548
 K_B = 1.3806503e-23
@@ -100,6 +100,26 @@ def powerlaw_dl(lmax, alpha, lnorm=3000):
     if lnorm is not None:
         t = t / t[lnorm]
     return t[:lmax + 1]
+
+
+class FgComponent(object):
+    """One foreground as the JAX package holds it: dl(pars) = factor(pars)[:,
+    None] * shape. Kept as the plain holder (name, shape (nxspec, lmax + 1),
+    factor (a callable of the parameters and the mode), modes) that the reference's
+    ``fgmodel`` name resolves to; :func:`build_foregrounds` folds the
+    foregrounds into static tables instead."""
+
+    def __init__(self, name, shape, factor, modes=('TT',)):
+        self.name = name
+        self.shape = np.asarray(shape, dtype='f8')
+        self.factor = factor
+        self.modes = tuple(modes)
+
+    def dl(self, pars, mode):
+        if mode not in self.modes:
+            return 0.
+        factor = torch.as_tensor(self.factor(pars, mode))
+        return factor[..., None] * torch.as_tensor(self.shape, dtype=factor.dtype, device=factor.device)
 
 
 def _pair_exponents(pairs, f0):
@@ -280,9 +300,11 @@ class BaseHillipopLikelihood(BaseLikelihood):
 
     def initialize(self, theory=None, data=None, data_dir=None, **kwargs):
         if data is None and data_dir is None:
-            raise no_installer(type(self).__name__)
-        if data is None:
+            data_dir = installed_data_dir('Planck2020HillipopLikelihood')
+        if data is None and data_dir is not None:
             data = read_hillipop_data(data_dir, modes=self.modes)
+        if data is None:
+            raise ValueError('provide data= dict (see class docstring) or data_dir= with the PR4 hillipop products')
         self.frequencies = tuple(data.get('frequencies', (100, 100, 143, 143, 217, 217)))
         self._mapnames = tuple(data.get('mapnames', ('100A', '100B', '143A', '143B', '217A', '217B')))
         nmap = len(self.frequencies)

@@ -18,7 +18,7 @@ import torch
 
 from ..base import BaseLikelihood
 from .base import request_cls
-from .planck2018 import no_installer
+from ...install import installed_data_dir
 
 
 _CALIB_PARAMS = {'A_planck': dict(value=1., prior=dict(dist='norm', loc=1., scale=0.0025),
@@ -140,9 +140,12 @@ class LollipopLikelihood(BaseLikelihood):
         self.mode = mode
         self.marginalised_over_covariance = bool(marginalised_over_covariance)
         if data is None and data_dir is None:
-            raise no_installer(type(self).__name__)
-        if data is None:
+            data_dir = installed_data_dir('Planck2020LollipopLikelihood')
+        if data is None and data_dir is not None:
             data = read_lollipop_data(data_dir)
+        if data is None:
+            raise ValueError("provide data= {'cl', 'fiducial', 'covariance', ...} or data_dir= with the PR4 "
+                             'lollipop files')
         self.nsim = int(data.get('nsim', 400))
         fsky = float(data.get('fsky', 0.52) if fsky is None else fsky)
         lmins, lmaxs = lollipop_bins(self.lmin, self.lmax)

@@ -13,8 +13,8 @@ reimplementations), per chain:
   layout as the JAX package's readers) or as arrays (``data=``).
 
 The calibration parameter A_planck carries the standard Planck prior
-N(1, 0.0025). Without ``data=`` or ``data_dir=``, the JAX package looks the
-data up through its installer; that path is ROADMAP A17b here.
+N(1, 0.0025). Without ``data=`` or ``data_dir=``, the data directory is
+looked up through the installer (:func:`...install.installed_data_dir`).
 """
 
 import os
@@ -22,6 +22,7 @@ import os
 import numpy as np
 import torch
 
+from ...install import installed_data_dir
 from ..base import BaseLikelihood, BaseGaussianLikelihood
 from .base import request_cls
 
@@ -29,13 +30,6 @@ from .base import request_cls
 _CALIB_PARAMS = {'A_planck': dict(value=1., prior=dict(dist='norm', loc=1., scale=0.0025),
                                   ref=dict(dist='norm', loc=1., scale=0.002),
                                   proposal=0.0005, latex=r'y_\mathrm{cal}')}
-
-
-def no_installer(name):
-    """The JAX package's installer lookup, when neither data nor a data
-    directory is given: ROADMAP A17b here."""
-    return NotImplementedError('{} without data= or data_dir= looks its data up through the installer: '
-                               'ROADMAP A17b'.format(name))
 
 
 def interp_rows(x, grid, values, outside=None):
@@ -94,7 +88,9 @@ class TTTEEEHighlPlanck2018LiteLikelihood(BasePlanck2018Likelihood, BaseGaussian
         self.elllim = tuple(elllim)
         if data is None:
             if data_dir is None:
-                raise no_installer(type(self).__name__)
+                data_dir = installed_data_dir('Planck2018LiteLikelihood')
+            if data_dir is None:
+                raise ValueError('provide data= arrays or data_dir= with the plik-lite files')
             data = self.load_plik_lite(data_dir)
         ellmin = np.asarray(data['ellmin'], dtype='i8')
         ellmax = np.asarray(data['ellmax'], dtype='i8')
@@ -178,7 +174,9 @@ class TTLowlPlanck2018Likelihood(BasePlanck2018Likelihood):
         self.elllim = tuple(elllim)
         if data is None:
             if data_dir is None:
-                raise no_installer(type(self).__name__)
+                data_dir = installed_data_dir('TTLowlPlanck2018Likelihood')
+            if data_dir is None:
+                raise ValueError('provide data= arrays or data_dir= with sigma.fits')
             data = self.load_commander(data_dir, self.elllim)
         cl2x = np.asarray(data['cl2x'], dtype='f8')   # (nell, ngrid, 2)
         self._grid = np.ascontiguousarray(cl2x[..., 0])
@@ -258,7 +256,9 @@ class EELowlPlanck2018Likelihood(BasePlanck2018Likelihood):
         self.elllim = tuple(elllim)
         if data is None:
             if data_dir is None:
-                raise no_installer(type(self).__name__)
+                data_dir = installed_data_dir('EELowlPlanck2018Likelihood')
+            if data_dir is None:
+                raise ValueError('provide data= arrays or data_dir= with probEE')
             data = self.load_simall(data_dir, self.elllim)
         self._prob = np.asarray(data['prob'], dtype='f8')
         self._bins = self.dcl * (0.5 + np.arange(self._prob.shape[1]))

@@ -19,6 +19,7 @@ import os
 import numpy as np
 import torch
 
+from ...install import installed_data_dir
 from ..base import BaseGaussianLikelihood
 from ..external import stack
 from ...theories.cosmology import Cosmology, TNCDM_NEFF
@@ -189,10 +190,16 @@ def planck2018_base_fn(basename, data_dir=None):
     ``<data_dir>/<model>/plikHM_<obs>/[dist/]<basename>`` for a chain
     basename like 'base_mnu_plikHM_TTTEEE_lowl_lowE_lensing'; returns
     (chain_fn, dist_fn) prefixes (reference planck2018_gaussian.py:20-43).
-    ``data_dir=None`` (the JAX package's installer lookup) is ROADMAP A17b."""
+    With ``data_dir=None`` the installer sections
+    FullGridPlanck2018GaussianLikelihood, then BasePlanck2018GaussianLikelihood
+    for a base_plik* chain, are tried in that order."""
     if data_dir is None:
-        raise NotImplementedError('the Planck 2018 grid without data_dir= is looked up through the installer: '
-                                  'ROADMAP A17b')
+        data_dir = installed_data_dir('FullGridPlanck2018GaussianLikelihood')
+        if data_dir is None and basename.startswith('base_plik'):
+            data_dir = installed_data_dir('BasePlanck2018GaussianLikelihood')
+        if data_dir is None:
+            raise ValueError('no data_dir= given and no installed Planck 2018 grid found (see '
+                             'desilike_tpu_torch.install)')
     try:
         base_dir, obs_dir = basename.split('_plikHM_')
     except ValueError as exc:

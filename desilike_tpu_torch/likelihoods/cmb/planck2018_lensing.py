@@ -22,7 +22,7 @@ import numpy as np
 
 from ..base import BaseGaussianLikelihood
 from .base import request_cls
-from .planck2018 import no_installer
+from ...install import installed_data_dir
 
 PLANCK_LENSING_VARIANTS = ('consext8', 'CMBmarged')
 _CORR_CLS = ('tt', 'ee', 'te')
@@ -51,6 +51,7 @@ class Planck2018LensingLikelihood(BaseGaussianLikelihood):
     """
 
     name = 'LensingPlanck2018'
+    installer_section = 'LensingPlanck2018Likelihood'
     _params = dict(BaseGaussianLikelihood._params)
     _params.update({'A_planck': dict(value=1., prior=dict(dist='norm', loc=1., scale=0.0025),
                                      ref=dict(dist='norm', loc=1., scale=0.0005),
@@ -62,9 +63,11 @@ class Planck2018LensingLikelihood(BaseGaussianLikelihood):
         self.variant = str(variant)
         self.lens_only = (self.variant == 'CMBmarged')
         if data is None and data_dir is None:
-            raise no_installer(type(self).__name__)
-        if data is None:
+            data_dir = installed_data_dir(self.installer_section)
+        if data is None and data_dir is not None:
             data = read_planck2018_lensing_data(data_dir, variant=variant)
+        if data is None:
+            raise ValueError('provide data= dict or data_dir= (write_planck2018_lensing_data layout)')
         self.data = {k: (np.asarray(v) if isinstance(v, (list, tuple, np.ndarray)) else v) for k, v in data.items()}
         binmat = np.atleast_2d(np.asarray(self.data['binmat'], dtype='f8'))
         self.ellmax_pp = binmat.shape[1] - 1

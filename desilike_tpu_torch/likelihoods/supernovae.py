@@ -22,8 +22,9 @@ the JAX package evaluates a 64-node quadrature per redshift), plus the
 magnitude offset, which is solved with a static design row
 (``_static_linear_solved``).
 
-Without ``data_dir=``, arrays or ``data_fn=``, the JAX package looks the
-data up through its installer; that path is ROADMAP A17b here.
+Without ``data_dir=``, arrays or ``data_fn=``, the data directory is looked
+up through the installer (:func:`..install.installed_data_dir`, the
+section named after the class).
 """
 
 import os
@@ -33,6 +34,7 @@ import torch
 
 from ..theories.cosmology import Cosmology
 from ..cosmology import background as bg
+from ..install import installed_data_dir
 from .base import BaseGaussianLikelihood
 
 
@@ -141,8 +143,7 @@ class BaseSNLikelihood(BaseGaussianLikelihood):
     def initialize(self, z=None, magnitudes=None, covariance=None, zhel=None, cosmo=None, data_dir=None,
                    config_fn=None, data_fn=None, cov_fn=None, **kwargs):
         if z is None and data_dir is None and data_fn is None:
-            raise NotImplementedError('{} without data_dir=, data_fn= or arrays looks its data up through the '
-                                      'installer: ROADMAP A17b'.format(type(self).__name__))
+            data_dir = installed_data_dir(type(self).__name__)
         if data_dir is not None:
             config = read_sn_config(os.path.join(data_dir, config_fn or self.config_fn))
             lc = read_light_curve_params(os.path.join(data_dir, config['data_file']), header=self.lc_header,

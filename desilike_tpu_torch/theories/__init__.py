@@ -34,3 +34,20 @@ from .tns import (TNSTracerPowerSpectrumMultipoles, EFTLikeTNSTracerPowerSpectru
 from .png import PNGTracerPowerSpectrumMultipoles, PNGTracerVelocityPowerSpectrumMultipoles
 from .bispectrum import TreeLevelBispectrumMultipoles
 from .lya import P1DPowerSpectrumExtractor
+from .weak_lensing import DESY3Theory, DES_Y3_PARAM_MAP
+
+# the reference's class names (``desilike_tpu_torch.compat``), resolved at first use (PEP 562): compat imports
+# the samplers and profilers, which import this package
+_COMPAT_NAMES = ('FOLPSTracerPowerSpectrumMultipoles', 'FOLPSAXTracerPowerSpectrumMultipoles',
+                 'LPTVelocileptorsTracerPowerSpectrumMultipoles', 'REPTVelocileptorsTracerPowerSpectrumMultipoles',
+                 'PyBirdTracerPowerSpectrumMultipoles', 'FOLPSTracerCorrelationFunctionMultipoles',
+                 'FOLPSAXTracerCorrelationFunctionMultipoles', 'LPTVelocileptorsTracerCorrelationFunctionMultipoles',
+                 'REPTVelocileptorsTracerCorrelationFunctionMultipoles', 'PyBirdTracerCorrelationFunctionMultipoles',
+                 'GeoFPTAXTracerBispectrumMultipoles', 'JAXEffortTracerPowerSpectrumMultipoles', 'Cosmoprimo')
+
+
+def __getattr__(name):
+    if name in _COMPAT_NAMES:
+        from .. import compat
+        return getattr(compat, name)
+    raise AttributeError('module {!r} has no attribute {!r}'.format(__name__, name))

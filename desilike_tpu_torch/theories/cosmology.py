@@ -12,7 +12,12 @@ evaluation's device, from one parameter dict built per evaluation, which
 caches the growth solution (:func:`..cosmology.background.growth_solution`).
 With ``theta=True`` the node varies ``theta_MC_100`` in place of h and
 solves h per chain from 100 theta_* (:meth:`Cosmology._solve_h`).
-``external`` and ``inject`` wait for ROADMAP A17b.
+The ``external`` engine reads a host code's products (E(z), the comoving
+distance, rs_drag, the linear pk table, sigma8 and f sigma8) from tables on
+fixed grids, set by :meth:`Cosmology.inject` or passed in through the
+pipeline's ``'external:<index>:<attr>'`` values (the bindings,
+:mod:`desilike_tpu_torch.bindings`): one table for every chain of the
+batch, copied to the evaluation's device once per injection.
 """
 
 import numpy as np
@@ -80,15 +85,15 @@ class Cosmology(Calculator):
             params['h'] = dict(derived=True, latex='h')
         return params
 
-    def initialize(self, fiducial=None, fixed=True, engine='eh98', pk_table=None, theta=False, emulator=None):
+    def initialize(self, fiducial=None, fixed=True, engine='eh98', pk_table=None, z_grid=None, k_grid=None,
+                   zpk_grid=None, theta=False, emulator=None):
         self._use_theta = bool(theta)
         self.engine = str(engine)
-        if self.engine == 'external':
-            raise NotImplementedError("engine='external' (per-evaluation host-code products) is ROADMAP A17b")
-        if self.engine not in ('eh98', 'eh99', 'table', 'emulator'):
+        if self.engine not in ('eh98', 'eh99', 'table', 'external', 'emulator'):
             raise ValueError("engine must be 'eh98'/'eh99' (approximate few-percent transfer functions, "
-                             "self-contained), 'emulator' (trained Boltzmann-correction MLP) or 'table' (injected "
-                             "Boltzmann pk, fiducial-pinned response)")
+                             "self-contained), 'emulator' (trained Boltzmann-correction MLP), 'table' (injected "
+                             "Boltzmann pk, fiducial-pinned response) or 'external' (per-evaluation host-code "
+                             "products, bindings)")
         base = dict(bg.DEFAULT_PARAMS)
         if fiducial:
             base.update(fiducial)
@@ -119,11 +124,72 @@ class Cosmology(Calculator):
             self._p_fid = bg.resolve(dict(base))
             self._p_fid_tensors = {}
             self._alpha_nw = lin.table_nowiggle_amplitude(self._p_fid, self._lnk_tab, self._lnpk_tab)
+        if self.engine == 'external':
+            self._init_external(z_grid, k_grid, zpk_grid)
+
+    _EXTERNAL_ATTRS = ('efunc_tab', 'chi_tab', 'rs_drag_tab', 'pk_tab', 'fsigma8_tab', 'sigma8_tab')
+
+    def _init_external(self, z_grid, k_grid, zpk_grid):
+        """The host-cosmology tables on fixed grids (h-units: k in h/Mpc, pk
+        in (Mpc/h)^3, distances in Mpc/h), filled with the EH98 values of the
+        node's cosmology in float64 on the host, so that the node evaluates
+        before the first injection; and the requirements a host code reads
+        (``cosmo_requires``)."""
+        self.z_grid = np.asarray(z_grid if z_grid is not None else np.linspace(0., 4., 65), dtype='f8')
+        self.k_grid = np.asarray(k_grid if k_grid is not None else np.geomspace(1e-4, 10., 256), dtype='f8')
+        self.zpk_grid = np.asarray(zpk_grid if zpk_grid is not None else np.linspace(0., 3., 13), dtype='f8')
+        # the node's parameters stay fixed here (the host varies the cosmology): the EH98 no-wiggle shape
+        # of pk_dd_now is that of their values, made on the host
+        self._p_host = bg.resolve(self._inputs({param.basename: float(param.value) for param in self.params
+                                                if param.derived is not True}))
+        self._external_varied = any(param.varied for param in self.params)
+        p = bg.resolve(dict(self.fiducial_values))
+        self.efunc_tab = np.asarray(bg.efunc(p, self.z_grid), dtype='f8')
+        self.chi_tab = np.asarray(bg.comoving_radial_distance(p, self.z_grid), dtype='f8')
+        self.rs_drag_tab = np.asarray(bg.rs_drag(p), dtype='f8')
+        self.pk_tab = np.stack([lin.pk_lin(p, self.k_grid, zz) for zz in self.zpk_grid])
+        self.sigma8_tab = np.array([float(lin.sigma_r(p, 8., zz)) for zz in self.z_grid])
+        self.fsigma8_tab = np.asarray(bg.growth_rate(p, self.z_grid), dtype='f8') * self.sigma8_tab
+        self._external_attrs = self._EXTERNAL_ATTRS
+        self._external_nowiggle = {}
+        self.cosmo_requires = {
+            'background': {'efunc': {'z': self.z_grid}, 'comoving_radial_distance': {'z': self.z_grid}},
+            'thermodynamics': {'rs_drag': None},
+            'fourier': {'pk_interpolator': {'k': self.k_grid, 'z': self.zpk_grid, 'of': [('delta_m', 'delta_m')],
+                                            'non_linear': False},
+                        'fsigma8': {'z': self.z_grid}, 'sigma8_z': {'z': self.z_grid}}}
 
     def inject(self, **arrays):
-        raise NotImplementedError("inject() needs engine='external': ROADMAP A17b")
+        """Set external tables (host arrays, float64). Keys: efunc_tab,
+        chi_tab, rs_drag_tab, pk_tab, fsigma8_tab, sigma8_tab; each of the
+        shape of the node's grids. A table the node has already read on a
+        device is copied there now, once, and the pipeline's calls read that
+        copy."""
+        self.runtime_info.initialize()
+        if self.engine != 'external':
+            raise ValueError("inject() requires engine='external'")
+        cache = self.__dict__.get('_const_cache', {})
+        for name, value in arrays.items():
+            if name not in self._external_attrs:
+                raise ValueError('unknown external quantity {}; expected {}'.format(name, self._external_attrs))
+            value = np.asarray(value, dtype='f8')
+            expected = np.shape(getattr(self, name))
+            if value.shape != expected:
+                raise ValueError('{} shape {} != grid shape {}'.format(name, value.shape, expected))
+            read = list(cache[name][1]) if name in cache else []  # the (dtype, device) the old table was read in
+            setattr(self, name, value)
+            for dtype, device in read:
+                self.const(name, dtype, device)
 
-    def calculate(self, **params):
+    def external_tensor(self, name, dtype, device):
+        """The current table ``name`` as a tensor of ``dtype`` on ``device``:
+        the copy made at injection (or at the first read after it), or the
+        table passed in for this call."""
+        value = getattr(self, name)
+        return value.to(dtype) if isinstance(value, torch.Tensor) else self.const(name, dtype, device)
+
+    def _inputs(self, params):
+        """The parameter dict of one evaluation, before :func:`bg.resolve`."""
         p = dict(self.fiducial_values)
         p.update({k: v for k, v in params.items() if k in p or k in ('A_s', 'alpha_s')})
         # alternative inputs: w0_fld/wa_fld are CLASS's names of w0_fde/wa_fde; N_eff is the total radiation
@@ -138,6 +204,10 @@ class Cosmology(Calculator):
             p['omega_cdm'] = (params['Omega_m'] * p['h'] ** 2 - p['omega_b']
                               - p['m_ncdm'] * bg.NEUTRINO_MASS_TO_OMEGA)
         p['_massless_ncdm'] = self._massless_ncdm
+        return p
+
+    def calculate(self, **params):
+        p = self._inputs(params)
         if self._use_theta and 'theta_MC_100' in params:
             p['h'] = self.h = self._solve_h(p, params['theta_MC_100'])
         self.p = bg.resolve(p)
@@ -218,18 +288,27 @@ class Cosmology(Calculator):
     # --- background ---
 
     def efunc(self, z):
+        if self.engine == 'external':
+            return self._external_at('efunc_tab', self.z_grid, z)
         return bg.efunc(self.p, z)
 
     def comoving_angular_distance(self, z):
+        if self.engine == 'external':
+            # flat geometry: the host products carry the radial distance only
+            return self.comoving_radial_distance(z)
         return bg.comoving_angular_distance(self.p, z)
 
     def comoving_radial_distance(self, z):
+        if self.engine == 'external':
+            return self._external_at('chi_tab', self.z_grid, z)
         return bg.comoving_radial_distance(self.p, z)
 
     def hubble_distance(self, z):
         return bg.DH_100 / self.efunc(z)
 
     def rs_drag(self):
+        if self.engine == 'external':
+            return self._chains(self._external('rs_drag_tab'))
         if self.engine == 'emulator':
             return bg.rs_drag(self.p) * self._emu_rs_ratio
         return bg.rs_drag(self.p)
@@ -241,9 +320,13 @@ class Cosmology(Calculator):
     # --- growth & fourier ---
 
     def growth_rate(self, z):
+        if self.engine == 'external':
+            return self.fsigma8(z) / self.sigma8(z)
         return bg.growth_rate(self.p, z)
 
     def growth_factor(self, z):
+        if self.engine == 'external':
+            return self.sigma8(z) / self.sigma8(0.)
         return bg.growth_factor(self.p, z)
 
     def growth_rate_k(self, k, z):
@@ -279,6 +362,8 @@ class Cosmology(Calculator):
 
     def pk_dd(self, k, z):
         k = self._grid(k)
+        if self.engine == 'external':
+            return self._pk_external(k, z)
         if self.engine == 'emulator':
             return lin.pk_lin(self.p, k, z) * torch.exp(self._emu_lnratio_at(self._emu_lnr, k, z))
         return self._pk(self.p, k, z)
@@ -286,6 +371,8 @@ class Cosmology(Calculator):
     def pk_dd_rows(self, k, z):
         """pk_dd at one row of k a chain, (B, n) (the extractors' pivots
         rescaled per chain)."""
+        if self.engine == 'external':
+            return self._pk_external(k, z)
         rows = bg.per_chain(lambda p, row: self._pk(p, row, z), self.p, k)
         if self.engine == 'emulator':
             rows = rows * torch.exp(self._emu_lnratio_at(self._emu_lnr, k, z))
@@ -298,6 +385,10 @@ class Cosmology(Calculator):
             return self._alpha_nw * lin.pk_lin(self.p, k, z, nowiggle=True)
         if self.engine == 'eh99':
             return lin.pk_lin(self.p, k, z, nowiggle=True) * eh.neutrino_ratio(self.p, k, z)
+        if self.engine == 'external':
+            # the smooth EH98 shape, amplitude-matched to the injected table: (sigma8(z) / sigma_r(8, z))^2
+            # pk_lin(k, z, nowiggle=True), a no-wiggle reference for the wiggle-split filters
+            return self.sigma8(z) ** 2 * self._nowiggle_shape(k, z)
         if self.engine == 'emulator':
             # the ln-k-smoothed ratio: the broadband correction without the truth table's residual wiggles
             return lin.pk_lin(self.p, k, z, nowiggle=True) * torch.exp(self._emu_lnratio_at(self._emu_lnr_smooth, k, z))
@@ -306,13 +397,84 @@ class Cosmology(Calculator):
     def sigma_r(self, r, z=0.):
         if self.engine == 'eh98':
             return lin.sigma_r(self.p, r, z)
+        if self.engine == 'external':
+            return lin.sigma_r(self.p, r, z, pk_func=lambda k: self._pk_external(k, z))
         return lin.sigma_r(self.p, r, z, pk_func=lambda k: self.pk_dd(k, z))
 
     def sigma8(self, z=0.):
+        if self.engine == 'external':
+            return self._external_at('sigma8_tab', self.z_grid, z, chains=False)
+        # through sigma_r, so that the table, eh99 and emulator engines stay consistent with pk_dd
         return self.sigma_r(8., z)
 
     def fsigma8(self, z=0.):
+        if self.engine == 'external':
+            return self._external_at('fsigma8_tab', self.z_grid, z, chains=False)
         return self.growth_rate(z) * self.sigma8(z)
+
+    # --- external-engine helpers ---
+
+    def _external(self, name):
+        """The current table ``name`` in the evaluation's dtype, on its device."""
+        like = bg.ref(self.p)
+        return self.external_tensor(name, like.dtype, like.device)
+
+    def _chains(self, value):
+        """A value that is one for every chain, broadcast (a view) to the
+        batch's leading dimension: (B,) + its shape. The distances and
+        rs_drag are, as the AP effect's lookups take one row of k a chain;
+        the growth quantities (f, sigma8, f sigma8, the pk tables) stay one
+        value, so that the loop tables made from them are made once."""
+        batch = bg.ref(self.p).shape
+        return value.expand(batch + value.shape)
+
+    def _external_at(self, name, grid, z, chains=True):
+        """Table ``name`` on the host grid ``grid``, linear in z (``np.interp``:
+        the edge values outside), (B,) + z's shape. A static z (a number or
+        numpy) has its bracket found on the host (``chains=False``: z's shape,
+        one value for every chain); a tensor one (one redshift a chain, (B,))
+        by ``torch.searchsorted``."""
+        table = self._external(name)
+        if isinstance(z, torch.Tensor):
+            return lin.interp(z.to(table.dtype), bg.as_grid(grid, self.p), table)
+        z = np.asarray(z, dtype='f8')
+        idx = np.clip(np.searchsorted(grid, z, side='right') - 1, 0, len(grid) - 2)
+        t = np.clip((z - grid[idx]) / (grid[idx + 1] - grid[idx]), 0., 1.)
+        out = [torch.lerp(table[i], table[i + 1], float(w)) for i, w in zip(idx.ravel(), t.ravel())]
+        out = out[0] if z.ndim == 0 else torch.stack(out).reshape(z.shape)
+        return self._chains(out) if chains else out
+
+    def _pk_external(self, k, z):
+        """The injected (nzpk, nk) table at ``k`` (a static grid, or one row a
+        chain) and the static ``z``: linear in z between the two rows that
+        bracket it (found on the host), then in ln k (``torch.searchsorted``
+        and a gather), in ln pk; the edge values outside. On a static grid
+        the result is one row for every chain, (nk,): its Chebyshev fit is
+        made once, and the lookups share its coefficients."""
+        lnpk = torch.log(self._external('pk_tab'))
+        z = float(z)
+        grid = self.zpk_grid
+        iz = int(np.clip(np.searchsorted(grid, z, side='right') - 1, 0, len(grid) - 2))
+        t = float(np.clip((z - grid[iz]) / (grid[iz + 1] - grid[iz]), 0., 1.))
+        row = torch.lerp(lnpk[iz], lnpk[iz + 1], t)
+        lnk = torch.log(self._grid(k).to(row.dtype))
+        return torch.exp(lin.interp(lnk, bg.as_grid(np.log(self.k_grid), self.p), row))
+
+    def _nowiggle_shape(self, k, z):
+        """pk_lin(p, k, z, nowiggle=True) / sigma_r(p, 8, z)^2 of the node's
+        cosmology, for pk_dd_now: with its parameters fixed, made once a grid
+        (kept by the grid tensor's identity) in float64 on the host."""
+        if self._external_varied:
+            return lin.pk_lin(self.p, k, z, nowiggle=True) / bg.over(lin.sigma_r(self.p, 8., z) ** 2, k)
+        key = (id(k), float(z))
+        hit = self._external_nowiggle.get(key)
+        if hit is None or hit[0] is not k:
+            host_k = k.detach().cpu().double().numpy()
+            shape = lin.pk_lin(self._p_host, host_k, z, nowiggle=True) / lin.sigma_r(self._p_host, 8., z) ** 2
+            if len(self._external_nowiggle) >= 16:
+                self._external_nowiggle.clear()
+            hit = self._external_nowiggle[key] = (k, torch.as_tensor(shape, dtype=k.dtype, device=k.device))
+        return hit[1]
 
     def get(self):
         return self

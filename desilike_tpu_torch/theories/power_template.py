@@ -99,7 +99,10 @@ class BasePowerSpectrumTemplate(Calculator):
                 return self.const(fid + '_coeffs_fid')
         cached = self._cheb_cache.get(name)
         if cached is None or cached[0] is not table:
-            cached = self._cheb_cache[name] = (table, self._cheb.coeffs(table))
+            # one row for every chain (a host-injected table) is fitted in float64 at no cost: its float32 fit
+            # moved the external Kaiser likelihood's gradient near the data's point by 3.7e-3 of its norm
+            coeffs = self._cheb.coeffs(table.double()).to(table.dtype) if table.ndim == 1 else self._cheb.coeffs(table)
+            cached = self._cheb_cache[name] = (table, coeffs)
         return cached[1]
 
     def pk_dd_coeffs(self):
@@ -234,18 +237,23 @@ class DirectPowerSpectrumTemplate(BasePowerSpectrumTemplate):
     (``cosmo=``: two templates may share a node), and the geometric AP
     effect from the same node. Per evaluation, per chain: pk_dd and, with
     ``with_now``, its no-wiggle filter (one product with the static
-    smoothing matrix), f, sigma8 and fk."""
+    smoothing matrix), f, sigma8 and fk. The engine is the given node's; on
+    ``'external'`` no cosmological parameter is varied here (the host code
+    varies the cosmology and injects its products), and the tables are one
+    for every chain."""
 
     def initialize(self, k=None, z=1., fiducial=None, with_now='peakaverage', only_now=False, eta=1. / 3.,
                    varied=('h', 'omega_cdm', 'omega_b', 'logA', 'n_s'), engine='eh98', pk_table=None,
                    emulator=None, cosmo=None):
         if cosmo is not None:
             self.cosmo = cosmo
+            engine = cosmo.init.get('engine', engine)
         else:
             self.cosmo = Cosmology(fiducial=fiducial if isinstance(fiducial, dict) else None, engine=engine,
                                    pk_table=pk_table, emulator=emulator)
-        for name in varied:
-            self.cosmo.init.params.set(_direct_param(name))
+        if engine != 'external':
+            for name in varied:
+                self.cosmo.init.params.set(_direct_param(name))
         # the AP effect shares this cosmology node (passed through init, so that it survives re-initialization)
         super().initialize(k=k, z=z, fiducial=fiducial, apmode='geometry', with_now=with_now, only_now=only_now,
                            eta=eta, cosmo=self.cosmo)

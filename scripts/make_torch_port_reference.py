@@ -96,6 +96,22 @@ writes its reference file under ``tests/data``:
   fits, Hessian, intervals, contour grid and 1D profile from fixed starts,
   20 optax Adam steps and the warmup-cosine schedule; and in x64, config
   1's grid (size 3) and the importance weights of a 64-point chain;
+- ``bindings``: the host-code side of the bindings (``tests/test_bindings.py``)
+  -> ``torch_port_bindings_reference.npz``, all host products in float64
+  (x64, a child process): for the fiducial cosmology and the shifted one
+  (``fid``, ``shifted``: h = 0.70, omega_cdm = 0.125), what the test's fake
+  cobaya provider, cosmosis datablock and classy object give on the
+  external node's default grids (``<cosmo>:provider:*``, ``<cosmo>:block:*``,
+  ``<cosmo>:classy:*``), their conversions (``<cosmo>:cobaya:*``,
+  ``<cosmo>:cosmosis:*``, ``<cosmo>:classy_products:*``), ``regrid_pk`` of
+  the provider's table (and of one row of it), ``cobaya_requirements`` of
+  the external Kaiser likelihood and ``desilike_to_cobaya_params`` of the
+  BAO one (JSON); and for the external Kaiser likelihood (``kaiser``) and
+  config 3e (``ept``: config 3d's EPT likelihood on
+  ``DirectPowerSpectrumTemplate(z=0.8, cosmo=Cosmology(engine='external'))``)
+  at 8 nuisance points, with each cosmology's cobaya products injected,
+  the log-posterior, log-likelihood and gradient in float32 and in x64,
+  and their x64 mock data (``<config>:flatdata``);
 - ``hessian``: config 4's log-density in the gradient samplers' unconstrained
   space (``NUTSSampler._logdens_grad``: the logit transform of the bounded
   parameters and its log-Jacobian), its gradient and its Hessian, in
@@ -133,8 +149,8 @@ with numpy alone, and ``tests/test_torch_bao_likelihood.py`` and
 JAX package so that the files cannot go stale.
 
 Run from the repository root:
-``JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py [bao|joint|ept|xi|marg|hessian|emu|direct|templates|tns|theories|tier1|tier1b|observables|probes|samplers]``
-(all sixteen when no name is given; ``tier1b`` reads ``bao``'s and ``joint``'s files).
+``JAX_PLATFORMS=cpu python scripts/make_torch_port_reference.py [bao|joint|ept|xi|marg|hessian|emu|direct|templates|tns|theories|tier1|tier1b|observables|probes|samplers|bindings]``
+(all seventeen when no name is given; ``tier1b`` reads ``bao``'s and ``joint``'s files).
 """
 
 import os
@@ -147,7 +163,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUTPUTS = {name: os.path.join(ROOT, 'tests', 'data', 'torch_port_{}_reference.npz'.format(name))
            for name in ('bao', 'joint', 'ept', 'xi', 'marg', 'hessian', 'direct', 'templates', 'tns', 'theories',
-                        'tier1', 'tier1b', 'observables', 'probes', 'samplers')}
+                        'tier1', 'tier1b', 'observables', 'probes', 'samplers', 'bindings')}
 OUTPUTS['emu'] = os.path.join(ROOT, 'tests', 'data', 'torch_port_emulator_reference.npz')
 NPOINTS = 16
 HESSIAN_STEP = 1e-4  # central differences of the x64 gradient in the unconstrained space
@@ -2224,6 +2240,148 @@ def samplers_x64(path):
              importance_logpost_x64=weighted['logposterior'], importance_aweight_x64=weighted['aweight'])
 
 
+BINDINGS_COSMOLOGIES = {'fid': {}, 'shifted': {'h': 0.70, 'omega_cdm': 0.125}}  # tests/test_bindings.py:112
+BINDINGS_NPOINTS = 8
+# the external Kaiser likelihood within 0.05 of its data's point (b1 = 2, sn0 = 0): at config 3's widths (0.3,
+# 1) its log-likelihood reaches -1e5, where float32 holds 1e-2 no more; nearer than ~0.02 its gradient falls to
+# the float32 rounding of the likelihood (the JAX package's own float32 gradient is 0.03 from its x64 there)
+BINDINGS_WIDTHS = {'kaiser': {'b1': 0.05, 'sn0': 0.05}, 'ept': {}}
+
+
+def build_ept_external_likelihood():
+    """Config 3e in the JAX package: config 3d (:func:`build_ept_direct_likelihood`)
+    on ``DirectPowerSpectrumTemplate(z=0.8, cosmo=Cosmology(engine='external'))``:
+    the host code varies the cosmology, the chains the nuisance parameters."""
+    from desilike_tpu.theories import EPTTracerPowerSpectrumMultipoles, DirectPowerSpectrumTemplate, Cosmology
+    from desilike_tpu.observables import TracerPowerSpectrumMultipolesObservable, BoxFootprint
+    from desilike_tpu.likelihoods import ObservablesGaussianLikelihood
+    theory = EPTTracerPowerSpectrumMultipoles(ells=(0, 2, 4), template=DirectPowerSpectrumTemplate(
+        z=0.8, cosmo=Cosmology(engine='external')))
+    theory.init.params = {'ct*': dict(derived='.marg'), 'sn*': dict(derived='.marg')}
+    observable = TracerPowerSpectrumMultipolesObservable(
+        data={'b1': 2.0}, klim={ell: (0.02, 0.2, 0.005) for ell in (0, 2, 4)}, theory=theory)
+    return ObservablesGaussianLikelihood(observables=[observable], footprints=[BoxFootprint(volume=2e9, nbar=5e-4)])
+
+
+def bindings_likelihoods():
+    sys.path.insert(0, os.path.join(ROOT, 'tests'))
+    from test_bindings import external_fs_factory
+    return {'kaiser': external_fs_factory(), 'ept': build_ept_external_likelihood()}
+
+
+def evaluate_injected(like, names, points, products):
+    """The JAX log-posterior, log-likelihood and gradient of ``like`` at
+    ``points`` with ``products`` injected into its external node."""
+    import jax
+    import jax.numpy as jnp
+    pipe = like.pipeline
+    pipe.set_cosmo_requires(**products)
+    external = {key: jnp.asarray(value) for key, value in pipe.external_values().items()}
+    logpost = like.logpost_fn(jit=False)
+
+    def scalar(theta):
+        value, aux = logpost(dict(dict(zip(names, theta)), **external))
+        return value, aux['loglikelihood']
+
+    (values, loglike), grads = jax.jit(jax.vmap(jax.value_and_grad(scalar, has_aux=True)))(jnp.asarray(points))
+    return [np.asarray(a, dtype='f8') for a in (values, loglike, grads)]
+
+
+def bindings_likelihood_arrays(arrays, suffix):
+    """The log-posterior, log-likelihood and gradient of the external Kaiser
+    likelihood and of config 3e at each cosmology's cobaya products (from
+    ``arrays``), keyed ``<config>:<cosmo>:<what><suffix>``; in x64, their
+    mock data too (``<config>:flatdata``)."""
+    out = {}
+    for config, like in bindings_likelihoods().items():
+        names = like.pipeline.varied_params.names()
+        if suffix == '_x64':
+            out[config + ':flatdata'] = np.asarray(like.flatdata, dtype='f8')
+        points = reference_points(names, npoints=BINDINGS_NPOINTS, seed=3)
+        for i, name in enumerate(names):
+            if name in BINDINGS_WIDTHS[config]:
+                center = B1[''] if name == 'b1' else CENTERS[name]
+                points[:, i] = center + (points[:, i] - center) * BINDINGS_WIDTHS[config][name] / WIDTHS[name]
+        points = points.astype('f4').astype('f8')
+        out[config + ':names'], out[config + ':points'] = np.array(names), points
+        for cosmo in BINDINGS_COSMOLOGIES:
+            products = {key.split(':')[-1]: value for key, value in arrays.items()
+                        if key.startswith(cosmo + ':cobaya:')}
+            values, loglike, grads = evaluate_injected(like, names, points, products)
+            out.update({'{}:{}:logpost{}'.format(config, cosmo, suffix): values,
+                        '{}:{}:loglikelihood{}'.format(config, cosmo, suffix): loglike,
+                        '{}:{}:grad{}'.format(config, cosmo, suffix): grads})
+    return out
+
+
+def bindings_x64(path):
+    """The x64 child of the ``bindings`` mode: the fake hosts' products,
+    their conversions, the requirements and parameter blocks, and the
+    likelihoods in x64 -> ``path``."""
+    import json
+    sys.path.insert(0, os.path.join(ROOT, 'tests'))
+    from test_bindings import FakeProvider, FakeBlock, FakeClassy, external_fs_factory, bao_factory
+    from desilike_tpu.theories import Cosmology
+    from desilike_tpu.bindings import desilike_to_cobaya_params
+    from desilike_tpu.bindings.base import regrid_pk
+    from desilike_tpu.bindings.cobaya import cobaya_requirements, gather_cobaya_products
+    from desilike_tpu.bindings.cosmosis import gather_cosmosis_products
+    from desilike_tpu.bindings.montepython import gather_classy_products
+    node = Cosmology(engine='external')
+    node.runtime_info.initialize()
+    z = node.z_grid
+    arrays = {'z_grid': z, 'k_grid': node.k_grid, 'zpk_grid': node.zpk_grid}
+    for cosmo, params in BINDINGS_COSMOLOGIES.items():
+        provider = FakeProvider(params)
+        kmpc, zpk, pk = provider.get_Pk_grid()
+        arrays.update({cosmo + ':provider:H': provider.get_Hubble(z), cosmo + ':provider:H0': provider.get_Hubble(np.array([0.])),
+                       cosmo + ':provider:chi': provider.get_comoving_radial_distance(z),
+                       cosmo + ':provider:rdrag': np.array(provider.get_param('rdrag')),
+                       cosmo + ':provider:pk_k': kmpc, cosmo + ':provider:pk_z': zpk, cosmo + ':provider:pk': pk,
+                       cosmo + ':provider:fsigma8': provider.get_fsigma8(z),
+                       cosmo + ':provider:sigma8': provider.get_sigma8_z(z)})
+        arrays.update({cosmo + ':cobaya:' + key: value for key, value in gather_cobaya_products(provider, node).items()})
+        h = provider.h
+        arrays[cosmo + ':regrid'] = regrid_pk(kmpc / h, zpk, np.log(pk * h ** 3), node.zpk_grid, node.k_grid)
+        arrays[cosmo + ':regrid_one_row'] = regrid_pk(kmpc / h, zpk[:1], np.log(pk[:1] * h ** 3), node.zpk_grid[:2],
+                                                      node.k_grid)
+        block = FakeBlock(params)
+        arrays.update({'{}:block:{}:{}'.format(cosmo, *key): np.asarray(value) for key, value in block._d.items()})
+        arrays.update({cosmo + ':cosmosis:' + key: value for key, value in gather_cosmosis_products(block, node).items()})
+        classy = FakeClassy(params)
+        hh = classy.h()
+        nk, nz = len(node.k_grid), len(node.zpk_grid)
+        arrays.update({cosmo + ':classy:h': np.array(hh), cosmo + ':classy:H': np.array([classy.Hubble(zz) for zz in z]),
+                       cosmo + ':classy:H0': np.array(classy.Hubble(0.)),
+                       cosmo + ':classy:angular_distance': np.array([classy.angular_distance(zz) for zz in z]),
+                       cosmo + ':classy:rs_drag': np.array(classy.rs_drag()),
+                       cosmo + ':classy:pk_array': classy.get_pk_array(np.tile(node.k_grid * hh, nz), node.zpk_grid,
+                                                                       nk, nz, 0),
+                       cosmo + ':classy:sigma8': np.array([classy.sigma(8. / hh, zz) for zz in z]),
+                       cosmo + ':classy:f': np.array([classy.scale_independent_growth_factor_f(zz) for zz in z])})
+        arrays.update({cosmo + ':classy_products:' + key: value
+                       for key, value in gather_classy_products(classy, node).items()})
+
+    def plain(obj):
+        return obj.tolist() if isinstance(obj, np.ndarray) else float(obj)
+
+    arrays['cobaya_requirements'] = np.array(json.dumps(cobaya_requirements(external_fs_factory()), default=plain))
+    arrays['cobaya_params'] = np.array(json.dumps(desilike_to_cobaya_params(bao_factory().pipeline.varied_params),
+                                                  default=plain))
+    arrays.update(bindings_likelihood_arrays(arrays, '_x64'))
+    np.savez(path, **arrays)
+
+
+def bindings_reference():
+    """The ``bindings`` mode: its x64 child, then the likelihoods in float32
+    at the same products."""
+    import jax
+    jax.config.update('jax_platforms', 'cpu')
+    arrays = run_x64('--x64-bindings')
+    arrays.update(bindings_likelihood_arrays(arrays, ''))
+    return arrays
+
+
 def run_x64(mode):
     """Run this script with ``mode`` (a child mode that writes one .npz) in
     float64 in a child process; returns its arrays."""
@@ -2322,6 +2480,11 @@ if __name__ == '__main__':
         jax.config.update('jax_platforms', 'cpu')
         samplers_x64(sys.argv[2])
         sys.exit(0)
+    if sys.argv[1:2] == ['--x64-bindings']:
+        import jax
+        jax.config.update('jax_platforms', 'cpu')
+        bindings_x64(sys.argv[2])
+        sys.exit(0)
     if sys.argv[1:2] == ['--x64-emu']:
         import jax
         jax.config.update('jax_platforms', 'cpu')
@@ -2357,6 +2520,8 @@ if __name__ == '__main__':
             arrays = tier1b_reference()
         elif config == 'samplers':
             arrays = samplers_reference()
+        elif config == 'bindings':
+            arrays = bindings_reference()
         else:
             arrays = build_reference(config)
         np.savez_compressed(OUTPUTS[config], **arrays)

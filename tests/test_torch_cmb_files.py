@@ -3,8 +3,9 @@ every writer of the port read by the JAX package's reader and every writer
 of the JAX package read by the port's, the arrays the same (the FITS codec
 underneath both, the getdist readers); the emulated C_ell of the golden
 weights through the port's ``ClTheory(emulator=...)``; the
-Hamimeche & Lewis transform at model == data; the installer path without
-data, which is ROADMAP A17b.
+Hamimeche & Lewis transform at model == data. The installer's lookup
+without data is held in ``tests/test_torch_unported.py`` and
+``tests/test_torch_compat.py``.
 
 Limits: the files' arrays exactly (text files through ``np.savetxt`` at
 full precision, within 1e-12); the emulated C_ell within 2e-5 of the golden

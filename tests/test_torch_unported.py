@@ -1,8 +1,7 @@
-"""Options of the port's theories, observables and likelihood that are not
-ported yet raise ``NotImplementedError`` naming what is missing or its
-ROADMAP item (no raise names A12, A15 or A16, and those that name A17 name
-A17b: the observables layer, the samplers, profilers and plots, the chain
-mesh and the user-facing surface of A17a are ported). The modules themselves are held against the JAX package in
+"""The cases here once held the options of the port that raised
+``NotImplementedError`` naming what was missing or its ROADMAP item; every
+item is ported now (no raise names A12, A15, A16 or A17), and each case
+holds the behaviour in place of its raise. The modules themselves are held against the JAX package in
 ``tests/test_torch_full_shape.py``, ``tests/test_torch_xi.py`` and the
 likelihood files; these cases live apart so that those files hold fewer
 tests than ``tests/test_bindings.py``: pytest-xdist's ``--dist loadfile``
@@ -16,7 +15,9 @@ and the template options and eh99's growth rate raised before the per-chain
 cosmology was ported, the remaining BAO xi models and the emulator engine
 before the other theories were, and the xi observable's options and the
 windows' default theories before the observables layer was: the cases that
-held the raises now hold the behaviour.
+held the raises now hold the behaviour; so do the external cosmology engine,
+its injection and the installer's lookup, which raised before the hosts and
+bindings were ported.
 """
 
 import os
@@ -96,11 +97,18 @@ def test_eh99_scale_dependent_growth_raises():
 
 
 @pytest.mark.parametrize('kwargs, match', [(dict(theta=True), 'A13'), (dict(engine='emulator'), 'A11c'),
-                                           (dict(engine='external'), 'A17'), (None, 'A17')],
+                                           (dict(engine='external'), 'external'), (None, 'inject')],
                          ids=['theta', 'emulator', 'external', 'inject'])
 def test_unported_cosmology_options_raise(kwargs, match):
-    """What the ``Cosmology`` node leaves for later: the external engine and
-    state injection (A17b). The trained emulator engine (A11c), which raised
+    """The ``Cosmology`` node's options that raised before they were ported.
+    The external engine and state injection: the node initializes on its
+    default grids (z 0-4 in 65 steps, k 1e-4-10 in 256 log steps, z_pk 0-3
+    in 13) with the EH98 tables of its cosmology, and its growth rate,
+    sigma8 and E(z) at z = 0.8 agree with the eh98 node's within 1e-3 (the
+    grids' interpolation), E(z) one value a chain and the growth quantities
+    one for every chain; ``inject`` of a table of the
+    grid's shape changes pk_dd by its ratio, of another shape raises, and on
+    another engine raises. The trained emulator engine (A11c), which raised
     before it was ported, now builds from the JAX package's weights
     (``tests/data/torch_port_theories_reference.npz``) and gives, in float64
     for 4 cosmologies in one batch, the JAX package's x64 pk_dd and rs_drag
@@ -134,11 +142,26 @@ def test_unported_cosmology_options_raise(kwargs, match):
                                    reference['emu_template_pk_x64'], rtol=1e-6)
         np.testing.assert_allclose(cosmo.rs_drag().numpy(), reference['emu_template_rs_x64'], rtol=1e-6)
         return
-    with pytest.raises(NotImplementedError, match=match):
-        if kwargs is None:
-            Cosmology(device='cpu').inject(pk_tab=np.ones(3))
-        else:
-            Cosmology(device='cpu', **kwargs).runtime_info.initialize()
+    external, eh98 = Cosmology(engine='external', device='cpu'), Cosmology(device='cpu')
+    for node in (external, eh98):
+        Pipeline(node).evaluate({'h': torch.tensor([0.6736, 0.6736])})
+    if match == 'external':
+        assert (external.z_grid.size, external.k_grid.size, external.zpk_grid.size) == (65, 256, 13)
+        assert external.pk_tab.shape == (13, 256) and external.efunc_tab.shape == (65,)
+        for name in ('growth_rate', 'sigma8', 'efunc', 'comoving_radial_distance'):
+            got, expected = getattr(external, name)(0.8), getattr(eh98, name)(0.8)
+            # the distances one row a chain, the growth quantities one value for every chain
+            assert expected.shape == (2,) and got.shape == ((2,) if name in ('efunc', 'comoving_radial_distance') else ())
+            np.testing.assert_allclose(np.broadcast_to(got.numpy(), (2,)), expected.numpy(), rtol=1e-3, err_msg=name)
+        return
+    k = external.k_grid[100:104]
+    before = external.pk_dd(k, 0.).numpy()
+    external.inject(pk_tab=2. * external.pk_tab)
+    np.testing.assert_allclose(external.pk_dd(k, 0.).numpy(), 2. * before, rtol=1e-6)
+    with pytest.raises(ValueError, match='shape'):
+        external.inject(pk_tab=np.ones(3))
+    with pytest.raises(ValueError, match="engine='external'"):
+        eh98.inject(pk_tab=np.ones(3))
 
 
 @pytest.mark.parametrize('name', ['SimpleBAOWigglesCorrelationFunctionMultipoles',
@@ -238,9 +261,8 @@ def test_unported_xi_observable_options_raise(request, kwargs):
 def test_no_a12_raise(tmp_path):
     """No ``NotImplementedError`` of the port names ROADMAP A12 (the
     observables layer is ported), A15 (the samplers, profilers, profile
-    containers and plots are) or A16 (the chain mesh is), and those that
-    name A17 name A17b (the getdist files, the YAML configuration, the
-    batch facade and the profiler of A17a are ported): the plots of an ``ObservableArray`` and of
+    containers and plots are), A16 (the chain mesh is) or A17 (the
+    user-facing surface, the hosts, bindings and shims are): the plots of an ``ObservableArray`` and of
     the P(k) observable write a figure, and ``load_source`` of a
     ``Profiles`` returns its best fit."""
     import re
@@ -256,7 +278,7 @@ def test_no_a12_raise(tmp_path):
                     source = file.read()
                 for raised in re.findall(r'NotImplementedError\((.*?)\)\n', source, flags=re.S):
                     assert 'A12' not in raised and 'A15' not in raised and 'A16' not in raised, (name, raised)
-                    assert 'A17' not in raised or 'A17b' in raised, (name, raised)
+                    assert 'A17' not in raised, (name, raised)
     for obj, fn in ((ObservableArray(x=[K], value=[np.ones_like(K)]), tmp_path / 'array.png'),
                     (TracerPowerSpectrumMultipolesObservable(data=np.zeros(K.size), k=K, ells=(0,)), tmp_path / 'pk.png')):
         obj.plot(fn=fn)
@@ -284,12 +306,19 @@ def test_default_window_theories():
     np.testing.assert_array_equal(window.theory.s, window.sin)
 
 
-def test_installer_path_raises():
-    """Without data=, data_dir= or arrays, the JAX package's supernova and
-    CMB likelihoods look their data up through its installer
-    (``desilike_tpu/install.py``): in the port that path is ROADMAP A17b, and
-    each class says so at its first initialization."""
+def test_installer_path_raises(tmp_path, monkeypatch):
+    """Without data=, data_dir= or arrays, the supernova and CMB likelihoods
+    look their data up through the installer (``desilike_tpu_torch/install.py``,
+    as the JAX package's ``desilike_tpu/install.py``), which raised before it
+    was ported: with nothing installed under ``DESILIKE_TPU_DATA_DIR`` each
+    class raises as the JAX package's does (a ValueError asking for data;
+    the supernova classes fall through to their arrays, None), never naming
+    a ROADMAP item; with the DES-Y5 layout installed in its section,
+    ``DESY5SNLikelihood`` builds from it."""
     from desilike_tpu_torch.likelihoods import supernovae, cmb
+    from desilike_tpu_torch.install import DATA_DIR_ENV
+    from chip_smoke import write_probe_files
+    monkeypatch.setenv(DATA_DIR_ENV, str(tmp_path))
     classes = [getattr(supernovae, name) for name in ('PantheonSNLikelihood', 'PantheonPlusSNLikelihood',
                                                       'PantheonPlusSHOESSNLikelihood', 'Union3SNLikelihood',
                                                       'DESY5SNLikelihood')]
@@ -299,7 +328,13 @@ def test_installer_path_raises():
                                                 'TTTEEEHighlPlanckNPIPECamspecLikelihood',
                                                 'TTTEEEHighlPlanck2020HillipopLikelihood')]
     for cls in classes:
-        with pytest.raises(NotImplementedError, match='A17'):
+        expected = TypeError if issubclass(cls, supernovae.BaseSNLikelihood) else ValueError
+        with pytest.raises(expected) as info:
             cls(theory=cmb.ClTheory(tables=cmb.synthetic_cl_tables(lmax=100)), device='cpu').runtime_info.initialize()
-    with pytest.raises(NotImplementedError, match='A17'):
+        assert 'A17' not in str(info.value), cls
+    with pytest.raises(ValueError, match='installed Planck 2018 grid'):
         cmb.FullGridPlanck2018GaussianLikelihood(device='cpu').runtime_info.initialize()
+    write_probe_files(str(tmp_path / 'DESY5SNLikelihood'), small=True)
+    like = supernovae.DESY5SNLikelihood(device='cpu')
+    like.runtime_info.initialize()
+    assert like.flatdata.shape == (64,)
