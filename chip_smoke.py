@@ -29,7 +29,9 @@ NUTS over config 5; the other samplers and the profilers over configs 3d and
 1; the samplers over a one-card NCCL mesh on config 4, and config 1 built
 from a YAML file; config 3e (config 3d on host-injected products,
 :func:`build_ept_external_likelihood`) through the bindings' generated
-cobaya module and factories, and the installer's lookup.
+cobaya module and factories, and the installer's lookup; the last public
+members (``get_fn``, ``states_fn``, the interpolation and linear-algebra
+helpers) and the trainers with no device.
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions, the
    kernel library's build time, ptxas's registers, and the blocks of each
@@ -211,7 +213,14 @@ A17b. the hosts and bindings (:func:`run_a17b`): config 3e through the
    and device milliseconds beside config 3d's, the synchronising calls
    beside config 3d's, an injection and the call after it, nothing
    re-initialized); ``DESY5SNLikelihood()`` found through
-   ``DESILIKE_TPU_DATA_DIR``, bit-identical to ``data_dir=``.
+   ``DESILIKE_TPU_DATA_DIR``, bit-identical to ``data_dir=``;
+A18. the last public surface (:func:`run_a18`): on config 4 at 4096,
+   ``get_fn()`` and ``states_fn()`` bit-identical to ``evaluate()`` with a
+   forward call's launches, ``ParameterCollection.prior`` equal to the
+   pipeline's log-prior, ``ndof`` against the JAX package's build, the
+   kernels and device milliseconds of a forward call; ``interp1d`` and the
+   small Cholesky helpers against the CPU; the emulator trainers and the
+   1-loop table makers called with no device, on the card.
 
 Any failure raises (exit code 1). The last three lines of standard output
 are a JSON object describing the kernels, one with the samplers' numbers,
@@ -296,6 +305,10 @@ HESSIAN_ROWS = 18  # the start-point Hessian's batch: one copy of the point a va
 EMU_MLP_CHECK = 0.05  # Emulator.check() of an MLP template: the JAX package's bound (tests/test_config5.py:30)
 EMU_TAYLOR_CHECK = 1e-3  # Emulator.check() of a Taylor-emulated BAO template (its qpar, qper: linear in theta)
 EMU_TRACERS = (('LRG', 0.8, 2.0), ('ELG', 1.1, 1.3))  # configs 4 and 5: namespace, redshift, b1 of the mock data
+A18_INTERP_RTOL = 1e-6  # interp1d, card against the CPU, float32 both: of the output's magnitude
+A18_CHOL_RTOL = 1e-5  # the small Cholesky helpers in float32 on the card against float64 on the CPU (cond < 20)
+A18_TABLES_RTOL = 1e-5  # the 1-loop tables and FFTLog coefficients, card against the CPU, float32 both, of each max
+A18_LOSS_RTOL = 1e-4  # 20 Adam steps from the JAX package's initial weights: tests/test_torch_cosmo_emulator.py's limit
 # config 3d's cosmological parameters: chains (and the frozen points) drawn uniformly within these of the fiducial
 COSMO_CENTER = {'h': 0.6736, 'omega_cdm': 0.12, 'omega_b': 0.02237, 'logA': 3.036394, 'n_s': 0.9649}
 COSMO_WIDTH = {'h': 0.02, 'omega_cdm': 0.006, 'omega_b': 0.0008, 'logA': 0.1, 'n_s': 0.02}
@@ -4144,6 +4157,199 @@ def run_a17b(direct, dfn, smi, cuda):
     return out
 
 
+def run_a18(joint, jfn, ept, forward4, smi, cuda):
+    """Phase A18: the JAX package's last public surface on the card. On
+    config 4 at B = 4096: ``get_fn()`` and ``states_fn()`` bit-identical to
+    ``Pipeline.evaluate`` and its derived values, with the launches of a
+    forward call (``forward4``, phase 3); ``ParameterCollection.prior`` equal
+    to the pipeline's log-prior; ``ndof`` equal to the JAX package's build's
+    (``tests/data/torch_port_joint_reference.npz``: data less varied and
+    solved); the kernels and device milliseconds of a forward call
+    (``torch.profiler``). ``interp1d`` (cubic, linear) at (4096, 560) queries
+    on the ShapeFit template's fiducial table against the same call on the
+    CPU; the small Cholesky helpers on a (4096, 4, 4) batch against float64
+    on the CPU. The trainers and table makers called with no device, which
+    run on the card: ``fit_layers`` for 20 steps from the JAX package's
+    initial weights against its loss, ``train_mlp``, ``train_pk_emulator``,
+    ``train_cl_emulator``, ``layer_tensors``, ``OneLoopIntegrals.tables``,
+    ``FFTLogOneLoop.tables`` and ``coefficients*`` (config 3's engine)
+    against the CPU. Returns the numbers."""
+    import torch
+    from desilike_tpu_torch.ops import cuda_kernels, interp, linalg
+    from desilike_tpu_torch.ops.spt import OneLoopIntegrals
+    from desilike_tpu_torch.ops.spt_fftlog import FFTLogOneLoop
+    from desilike_tpu_torch.cosmology import emulator
+    from desilike_tpu_torch.likelihoods.cmb import cl_emulator
+    t_phase = time.perf_counter()
+    out = {}
+    failures = []
+
+    def check(ok, line):
+        print(line)
+        if not ok:
+            failures.append(line)
+
+    def counted(call):
+        cuda_kernels.CLENSHAW_LAUNCHES = cuda_kernels.COEFF_GRAD_LAUNCHES = 0
+        with torch.no_grad():
+            result = call()
+        torch.cuda.synchronize()
+        return result, (cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES)
+
+    def rel(got, expected):
+        got, expected = np.asarray(got, dtype='f8'), np.asarray(expected, dtype='f8')
+        return float(np.abs(got - expected).max() / np.abs(expected).max())
+
+    # (a) config 4: get_fn, states_fn, the prior, ndof
+    pipe = joint.pipeline
+    names = pipe.varied_params.names()
+    values = {name: value.detach() for name, value in chains(names, BATCH, seed=18, device=cuda).items()}
+    expected, launches_evaluate = counted(lambda: pipe.evaluate(values))
+    derived = dict(pipe.derived)
+    got, launches_get = counted(lambda: pipe.get_fn()(values))
+    (result, states_derived, states), launches_states = counted(lambda: pipe.states_fn()(values))
+    identical = (torch.equal(got, expected) and torch.equal(result, expected) and list(states_derived) == list(derived)
+                 and all(torch.equal(states_derived[n], derived[n]) for n in derived))
+    out['launches'] = {'forward': list(forward4), 'evaluate': list(launches_evaluate), 'get_fn': list(launches_get),
+                       'states_fn': list(launches_states)}
+    check(identical and len(states) == len(pipe.calculators) and pipe.get_fn() is pipe.get_fn()
+          and launches_get == launches_states == launches_evaluate == tuple(forward4),
+          'phase A18: config 4 at B={} on {!r}: get_fn() and states_fn() bit-identical to evaluate() (and its {} '
+          'derived values) {}, {} calculator states; B1 launches (Clenshaw, coefficient gradient): evaluate {}, '
+          'get_fn {}, states_fn {}, a forward logpost call {}'.format(
+              BATCH, smi, len(derived), identical, len(states), launches_evaluate, launches_get, launches_states,
+              tuple(forward4)))
+    full = pipe._resolve_values(values, device=cuda, dtype=torch.float32)
+    prior = pipe.params.prior(**values)
+    check(torch.equal(prior, pipe.logprior(full)) and prior.device.type == 'cuda',
+          'phase A18: config 4: ParameterCollection.prior(**values) on {} equals the pipeline\'s log-prior: {}'.format(
+              prior.device, bool(torch.equal(prior, pipe.logprior(full)))))
+    reference = np.load(os.path.join(ROOT, 'tests', 'data', 'torch_port_joint_reference.npz'))
+    jax_ndof = reference['flatdata'].size - reference['names'].size - reference['solved_names'].size
+    out['ndof'] = joint.ndof
+    check(joint.ndof == jax_ndof == 320 and joint.nvaried == 48,
+          'phase A18: config 4: ndof {} (data {} less {} varied and solved), the JAX package\'s build {}'.format(
+              joint.ndof, joint.size, joint.nvaried, jax_ndof))
+    out['forward_device_ms'], out['forward_kernels'] = kernel_profile(lambda: jfn(values))
+    out['evaluate_device_ms'], out['evaluate_kernels'] = kernel_profile(lambda: pipe.get_fn()(values))
+    print('phase A18: config 4 forward at B={} (torch.profiler, a call): logpost_fn {:.3f} ms device, {:.0f} kernels; '
+          'get_fn {:.3f} ms, {:.0f} kernels'.format(BATCH, out['forward_device_ms'], out['forward_kernels'],
+                                                      out['evaluate_device_ms'], out['evaluate_kernels']))
+    del expected, got, result, states, states_derived, derived, full
+
+    # (b) interp1d at the template's lookup shape, and the small Cholesky helpers
+    template = next(c for c in pipe.calculators if type(c).__name__ == 'ShapeFitPowerSpectrumTemplate')
+    rng = np.random.default_rng(18)
+    logk = np.log10(template.k)
+    xq = rng.uniform(logk[0] - 0.1, logk[-1] + 0.1, size=(BATCH, NQUERY))
+    out['interp'] = {}
+    for method in ('cubic', 'linear'):
+        args = [np.asarray(logk, dtype='f4'), np.asarray(template.pk_dd_fid, dtype='f4')]
+        queries = torch.tensor(xq, dtype=torch.float32, device=cuda)
+        on_card = interp.interp1d(queries, *args, method=method)
+        on_cpu = interp.interp1d(queries.cpu(), *args, method=method)
+        err = rel(on_card.cpu(), on_cpu)
+        ms = device_ms(lambda: interp.interp1d(queries, *args, method=method))
+        out['interp'][method] = {'max_rel_err': err, 'device_ms': ms}
+        check(on_card.device.type == 'cuda' and on_card.shape == (BATCH, NQUERY) and err <= A18_INTERP_RTOL,
+              'phase A18: interp1d {} at ({}, {}) queries on {} ({} nodes): {:.3e} of the CPU call\'s magnitude '
+              '(tol {:.0e}), {:.4f} ms device'.format(method, BATCH, NQUERY, on_card.device, logk.size, err,
+                                                       A18_INTERP_RTOL, ms))
+    a = rng.normal(size=(BATCH, 4, 4))
+    matrices = a @ np.swapaxes(a, -1, -2) + 4. * np.eye(4)
+    rhs = rng.normal(size=(BATCH, 4))
+    results = []
+    for dtype, device in ((torch.float32, cuda), (torch.float64, 'cpu')):
+        factor = linalg.chol_small(torch.tensor(matrices, dtype=dtype, device=device))
+        results.append([factor, linalg.chol_solve_small(factor, torch.tensor(rhs, dtype=dtype, device=device)),
+                        linalg.chol_logdet_small(factor)])
+    errors = [rel(card.cpu(), host) for card, host in zip(*results)]
+    out['chol_max_rel_err'] = errors
+    check(max(errors) <= A18_CHOL_RTOL and results[0][0].device.type == 'cuda',
+          'phase A18: chol_small, chol_solve_small, chol_logdet_small on a ({}, 4, 4) float32 batch on the card '
+          'against float64 on the CPU: {} of the magnitude (tol {:.0e})'.format(
+              BATCH, ', '.join('{:.3e}'.format(e) for e in errors), A18_CHOL_RTOL))
+
+    # (c) the trainers and table makers with no device
+    theories_reference = np.load(os.path.join(ROOT, 'tests', 'data', 'torch_port_theories_reference.npz'))
+    X, Y = theories_reference['emu_X'], theories_reference['emu_Y']
+    perm = np.random.default_rng(2).permutation(len(X))  # train_mlp's rows at seed 2
+    train = perm[max(1, int(0.1 * len(X))):]
+    xm, xs = X[train].mean(0), X[train].std(0) + 1e-30
+    ym, ys = Y[train].mean(0), Y[train].std(0) + 1e-12
+    layers = [(theories_reference['emu_init_W%d' % i], np.zeros(theories_reference['emu_init_W%d' % i].shape[1], 'f4'))
+              for i in range(3)]
+    trained = {}
+
+    def on_card(label, call):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = call()
+        torch.cuda.synchronize()
+        trained[label] = {'s': time.perf_counter() - t0, 'card_bytes': torch.cuda.max_memory_allocated() - before}
+        return result
+
+    _, loss = on_card('fit_layers', lambda: emulator.fit_layers(
+        layers, ((X[train] - xm) / xs).astype('f4'), ((Y[train] - ym) / ys).astype('f4'), nsteps=20,
+        learning_rate=1e-3))
+    loss_err = abs(loss / float(theories_reference['emu_loss_20']) - 1.)
+    trained['fit_layers'].update(loss=loss, loss_rel_err=loss_err)
+    names4 = tuple(theories_reference['emu_names'])
+    mlp = on_card('train_mlp', lambda: emulator.train_mlp(names4, X, Y, hidden=(64, 64), nsteps=200,
+                                                          learning_rate=1e-3, seed=2))
+    pk = on_card('train_pk_emulator', lambda: emulator.train_pk_emulator(
+        names4, X, Y, theories_reference['emu_w_k_grid'], theories_reference['emu_w_z_grid'], hidden=(64, 64),
+        nsteps=200, learning_rate=1e-3, seed=2))
+    ell = np.arange(301)
+    amplitude = np.exp(X[:, :1])  # a Cl table whose amplitude and tilt follow the first two parameters
+    cls = {'tt': amplitude * 1e3 / (ell + 10.) ** (2. + 0.1 * X[:, 1:2]), 'ee': amplitude / (ell + 20.) ** 2.}
+    cl = on_card('train_cl_emulator', lambda: cl_emulator.train_cl_emulator(names4, X, cls, hidden=(64, 64),
+                                                                           nsteps=200, learning_rate=1e-3, seed=2))
+    tensors = emulator.layer_tensors(pk)
+    trained.update(train_mlp_loss=mlp['loss'], pk_holdout_err=pk['holdout_err'], cl_holdout_err=cl['holdout_err'])
+    ok = (loss_err <= A18_LOSS_RTOL and all(np.isfinite([mlp['loss'], pk['loss'], pk['holdout_err'], cl['holdout_err']]))
+          and all(entry['card_bytes'] > 0 for key, entry in trained.items() if isinstance(entry, dict))
+          and all(W.device.type == 'cuda' and b.device.type == 'cuda' for W, b in tensors))
+    check(ok, 'phase A18: trainers with no device on {!r}: fit_layers 20 steps from the JAX initial weights: loss '
+              '{:.8g} against the JAX package\'s {:.8g} ({:.3e} relative, tol {:.0e}); train_mlp loss {:.4g}, '
+              'train_pk_emulator held-out error {:.3e}, train_cl_emulator {:.3e} (200 steps each); seconds and card '
+              'bytes: {}; layer_tensors on {}'.format(
+                  smi, loss, float(theories_reference['emu_loss_20']), loss_err, A18_LOSS_RTOL, mlp['loss'],
+                  pk['holdout_err'], cl['holdout_err'],
+                  ', '.join('{} {:.2f} s {:d}'.format(k, v['s'], v['card_bytes']) for k, v in trained.items()
+                            if isinstance(v, dict)), tensors[0][0].device))
+    out['trainers'] = trained
+    def analytic_pk(k):
+        return 2e4 * k / (1. + (k / 0.02) ** 2) ** 1.3
+
+    loop = next(c.loop for c in ept.pipeline.calculators if isinstance(getattr(c, 'loop', None), FFTLogOneLoop))
+    quadrature = OneLoopIntegrals(np.geomspace(0.02, 0.3, 20), nr=32, nx=16)
+    errors = {}
+    for label, engine in (('quadrature', quadrature), ('fftlog', loop)):
+        card, host = engine.tables(analytic_pk), engine.tables(analytic_pk, device='cpu')
+        errors[label] = max(rel(card[name].cpu(), host[name]) for name in host)
+        errors[label + '_device'] = str(next(iter(card.values())).device)
+    for name in ('coefficients', 'coefficients_half'):
+        card = getattr(loop, name)(analytic_pk)
+        host = getattr(loop, name)(analytic_pk, device='cpu')
+        errors[name] = rel(torch.view_as_real(card).cpu(), torch.view_as_real(host))
+        errors[name + '_device'] = str(card.device)
+    out['tables'] = errors
+    check(all(value <= A18_TABLES_RTOL for key, value in errors.items() if not key.endswith('_device'))
+          and all(value.startswith('cuda') for key, value in errors.items() if key.endswith('_device')),
+          'phase A18: with no device, on the card against the CPU (of each max, tol {:.0e}): OneLoopIntegrals.tables '
+          '{:.3e}, FFTLogOneLoop.tables (config 3\'s engine) {:.3e}, coefficients {:.3e}, coefficients_half {:.3e}'.format(
+              A18_TABLES_RTOL, errors['quadrature'], errors['fftlog'], errors['coefficients'],
+              errors['coefficients_half']))
+    out['seconds'] = time.perf_counter() - t_phase
+    print('phase A18 took {:.1f} s'.format(out['seconds']))
+    if failures:
+        raise AssertionError('phase A18 failed: ' + ' | '.join(failures))
+    return out
+
+
 def main(kernels_only=False):
     import torch
     if not torch.cuda.is_available():
@@ -4513,6 +4719,8 @@ def main(kernels_only=False):
     samplers['a16'] = run_a16(like, joint, smi)
     # --- phase A17b: config 3e through the bindings' wrappers, and the installer ---
     samplers['a17b'] = run_a17b(direct, dfn, smi, cuda)
+    # --- phase A18: the last public surface: get_fn / states_fn on config 4, the helpers, the trainers ---
+    samplers['a18'] = run_a18(joint, jfn, ept, forward4, smi, cuda)
     print('all phases took {:.1f} s'.format(time.perf_counter() - started))
     a15_launches = {run: [entry['launches_clenshaw'], entry['launches_coeff_grad']]
                     for run, entry in samplers['a15'].items() if isinstance(entry, dict) and 'launches_clenshaw' in entry}
@@ -4562,6 +4770,7 @@ def main(kernels_only=False):
         'launches_a15': {run: value[0] for run, value in a15_launches.items()},
         'launches_a16': {run: value[0] for run, value in a16_launches.items()},
         'launches_a17b': {mode: value[0] for mode, value in samplers['a17b']['launches'].items()},
+        'launches_a18': {mode: value[0] for mode, value in samplers['a18']['launches'].items()},
         'launches_config_xi': config_xi['launches']['with gradient', BATCH][0],
         'launches_config_xi_forward': config_xi['launches']['forward', BATCH][0],
         'launches_hessian_config_xi': config_xi['launches_hessian'][0],
@@ -4609,6 +4818,7 @@ def main(kernels_only=False):
         'launches_a15': {run: value[1] for run, value in a15_launches.items()},
         'launches_a16': {run: value[1] for run, value in a16_launches.items()},
         'launches_a17b': {mode: value[1] for mode, value in samplers['a17b']['launches'].items()},
+        'launches_a18': {mode: value[1] for mode, value in samplers['a18']['launches'].items()},
         **{'launches_config_tns_{}_{}'.format(mode.replace(' ', '_'), batch): value[1]
            for (mode, batch), value in config_tns['launches'].items()},
         **{key + '_config_tns': {label: entry['grad_' + key] for label, entry in tns_timed.items()}

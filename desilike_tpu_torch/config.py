@@ -56,3 +56,10 @@ def device(name='cpu'):
     elif dev.type != 'cpu':
         raise ValueError('unsupported device {!r}: use "cpu" or "cuda[:i]"'.format(str(dev)))
     return dev
+
+
+def resolve(name=None):
+    """An entry point's device: ``name`` resolved by :func:`device`, the CUDA
+    card when it is None (an error where there is none, as for a
+    pipeline)."""
+    return device('cuda' if name is None else name)

@@ -82,6 +82,12 @@ class InitConfig(dict):
         self._updated = True
         self._calculator.runtime_info.initialized = False
 
+    def setdefault(self, key, value, if_none=False):
+        """Set ``key`` to ``value`` if it is missing (or None, with
+        ``if_none``), which marks the calculator for re-initialization."""
+        if key not in self or (if_none and self[key] is None):
+            self[key] = value
+
 
 class RuntimeInfo(object):
     """Bookkeeping attached to each calculator."""
@@ -254,6 +260,15 @@ class Calculator(BaseClass):
     @params.setter
     def params(self, params):
         self.__dict__['_instance_params'] = params
+
+    @property
+    def all_params(self):
+        """All parameters of this calculator's pipeline."""
+        return self.pipeline.params
+
+    @property
+    def varied_params(self):
+        return self.pipeline.varied_params
 
     @property
     def pipeline(self):

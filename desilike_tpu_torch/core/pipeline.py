@@ -18,8 +18,9 @@ one call: each table has the node's grid shape and serves every chain.
 import numpy as np
 import torch
 
-from ..utils import BaseClass, evaluate as safe_evaluate
+from ..utils import BaseClass
 from ..parameters import ParameterCollection
+from ..parameters.parameter import eval_expression
 from .. import config
 
 
@@ -30,6 +31,7 @@ class Pipeline(BaseClass):
         self.root = root
         self.calculators = []
         self.host_reads = 0  # footprint reads of host-evaluated nodes (one a call)
+        self._fns = {}  # get_fn, states_fn
 
         def callback(calc):
             calc.runtime_info.initialize()
@@ -89,6 +91,10 @@ class Pipeline(BaseClass):
     @property
     def solved_params(self):
         return ParameterCollection([p for p in self.params if p.solved])
+
+    @property
+    def derived_params(self):
+        return ParameterCollection([p for p in self.params if p.derived is True])
 
     def input_defaults(self):
         """Default values for every input parameter (fixed + varied + solved)."""
@@ -158,13 +164,7 @@ class Pipeline(BaseClass):
                         break
                     deps[dep] = full[key]
                 if ok:
-                    expr = p.derived
-                    locs = {}
-                    for i, (dep, val) in enumerate(deps.items()):
-                        var = '__dep{}__'.format(i)
-                        expr = expr.replace('{' + dep + '}', var)
-                        locs[var] = val
-                    value = torch.as_tensor(safe_evaluate(expr, locals=locs), dtype=dtype, device=device)
+                    value = torch.as_tensor(eval_expression(p.derived, deps), dtype=dtype, device=device)
                     full[p.name] = value.reshape(-1).expand(batch)
                     pending.remove(p)
                     progress = True
@@ -324,6 +324,30 @@ class Pipeline(BaseClass):
         full = self._resolve_values(values or {}, device=device, dtype=dtype)
         result, self.derived = self.run_once(full)
         return result
+
+    def get_fn(self):
+        """{name: value} -> root.get(): :meth:`evaluate` as a plain function of
+        the values, on the pipeline's device in the compute dtype (the JAX
+        package's compiled entry point; nothing is compiled here). Made once
+        a pipeline."""
+        if 'get' not in self._fns:
+            def fn(values):
+                return self.evaluate(values)
+            self._fns['get'] = fn
+        return self._fns['get']
+
+    def states_fn(self):
+        """values -> (root.get(), derived {name: value}, {'<name>:<index>':
+        calculator.__getstate__()}) of one :meth:`evaluate`. Made once a
+        pipeline."""
+        if 'states' not in self._fns:
+            def fn(values):
+                result = self.evaluate(values)
+                states = {c.runtime_info.name + ':' + str(i): c.__getstate__()
+                          for i, c in enumerate(self.calculators)}
+                return result, self.derived, states
+            self._fns['states'] = fn
+        return self._fns['states']
 
     def host_evaluate(self, values=None):
         """Initialization-time evaluation: float64 on the CPU."""

@@ -26,6 +26,7 @@ import math
 import numpy as np
 import torch
 
+from .. import config
 from . import background as bg
 from . import linear as lin
 
@@ -100,11 +101,13 @@ def init_layers(sizes, seed=3):
              np.zeros(fan_out, dtype='f4')) for fan_in, fan_out in zip(sizes[:-1], sizes[1:])]
 
 
-def fit_layers(layers, Xt, Yt, nsteps=8000, learning_rate=3e-3, device='cpu'):
+def fit_layers(layers, Xt, Yt, nsteps=8000, learning_rate=3e-3, device=None):
     """Full-batch Adam on the mean squared error, the learning rate decayed
     by a cosine to 0 over ``nsteps``, from ``layers`` ((W, b) pairs) on
-    normalized float32 inputs ``Xt`` and targets ``Yt``. Returns (the fitted
-    layers as numpy, the loss of the last step before its update)."""
+    normalized float32 inputs ``Xt`` and targets ``Yt``, on ``device`` (the
+    card when None). Returns (the fitted layers as numpy, the loss of the
+    last step before its update)."""
+    device = config.resolve(device)
     params = [torch.tensor(np.asarray(array), dtype=torch.float32, device=device, requires_grad=True)
               for pair in layers for array in pair]
     Xt = torch.as_tensor(np.asarray(Xt), dtype=torch.float32, device=device)
@@ -125,10 +128,11 @@ def fit_layers(layers, Xt, Yt, nsteps=8000, learning_rate=3e-3, device='cpu'):
 
 
 def train_mlp(names, X, Y, hidden=(128, 128), nsteps=8000, learning_rate=3e-3,
-              seed=3, holdout=0.1, device='cpu'):
+              seed=3, holdout=0.1, device=None):
     """Full-batch MLP regression X -> Y with per-output normalization.
     Returns a weights dict (see :func:`predict_raw` for the layout) plus
-    '_holdout_idx' (the held-out rows)."""
+    '_holdout_idx' (the held-out rows). Trains on ``device``, the card when
+    None."""
     X = np.asarray(X, dtype='f8')
     Y = np.asarray(Y, dtype='f8')
     n = X.shape[0]
@@ -148,9 +152,10 @@ def train_mlp(names, X, Y, hidden=(128, 128), nsteps=8000, learning_rate=3e-3,
 
 
 def train_pk_emulator(names, X, Y, k_grid, z_grid, hidden=(128, 128),
-                      nsteps=8000, learning_rate=3e-3, seed=3, holdout=0.1, device='cpu'):
-    """Train the pk-correction MLP. Returns a weights dict with the held-out
-    max |pk ratio error| in 'holdout_err'."""
+                      nsteps=8000, learning_rate=3e-3, seed=3, holdout=0.1, device=None):
+    """Train the pk-correction MLP on ``device`` (the card when None).
+    Returns a weights dict with the held-out max |pk ratio error| in
+    'holdout_err'."""
     weights = train_mlp(names, X, Y, hidden=hidden, nsteps=nsteps, learning_rate=learning_rate, seed=seed,
                         holdout=holdout, device=device)
     idx_ho = weights.pop('_holdout_idx')
@@ -161,8 +166,10 @@ def train_pk_emulator(names, X, Y, k_grid, z_grid, hidden=(128, 128),
     return weights
 
 
-def layer_tensors(weights, device='cpu'):
-    """The network's layers as float32 tensors on ``device`` (made once by a caller that evaluates often)."""
+def layer_tensors(weights, device=None):
+    """The network's layers as float32 tensors on ``device``, the card when
+    None (made once by a caller that evaluates often)."""
+    device = config.resolve(device)
     return [(torch.as_tensor(np.asarray(W), dtype=torch.float32, device=device),
              torch.as_tensor(np.asarray(b), dtype=torch.float32, device=device)) for W, b in weights['layers']]
 

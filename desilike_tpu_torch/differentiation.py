@@ -144,9 +144,12 @@ class Differentiation(BaseClass):
     accuracy : 2 or 4, the finite-difference stencil's
     delta_scale : float
         Multiplier on the per-parameter finite-difference steps.
+    mpicomm
+        Accepted for the reference's signature and ignored: the
+        finite-difference points are one batch on the device.
     """
 
-    def __init__(self, calculator, getter=None, order=1, method='auto', accuracy=2, delta_scale=1.):
+    def __init__(self, calculator, getter=None, order=1, method='auto', accuracy=2, delta_scale=1., mpicomm=None):
         self.calculator = calculator
         self.pipeline = calculator.pipeline
         if getter is None:

@@ -235,10 +235,11 @@ class Fisher(BaseClass):
     the central differences of ``Differentiation``
     (:func:`~desilike_tpu_torch.differentiation.finite_derivatives`: accuracy
     2 or 4, steps scaled by ``delta_scale`` and clamped inside the prior
-    limits) instead.
+    limits) instead. ``mpicomm`` is accepted for the reference's signature
+    and ignored.
     """
 
-    def __init__(self, likelihood, method='auto', accuracy=2, delta_scale=1.):
+    def __init__(self, likelihood, method='auto', accuracy=2, delta_scale=1., mpicomm=None):
         self.likelihood = likelihood
         self.pipeline = likelihood.pipeline
         self.varied_params = ParameterCollection(

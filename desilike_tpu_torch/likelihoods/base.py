@@ -523,6 +523,16 @@ class BaseGaussianLikelihood(BaseLikelihood):
     def size(self):
         return len(self.flatdata)
 
+    @property
+    def nvaried(self):
+        pipe = self.pipeline
+        return len(pipe.varied_params) + len(pipe.solved_params)
+
+    @property
+    def ndof(self):
+        """Degrees of freedom: the data size less the varied and solved parameters."""
+        return self.size - self.nvaried
+
 
 class ObservablesGaussianLikelihood(BaseGaussianLikelihood):
     """Gaussian likelihood over a list of observables.

@@ -46,8 +46,8 @@ def make_cl_targets(cls_tables, nodes):
 
 
 def train_cl_emulator(names, X, cls_tables, fiducial=None, lmax=None, hidden=(128, 128), nsteps=8000,
-                      learning_rate=3e-3, seed=3, holdout=0.1, device='cpu', **node_kwargs):
-    """Train the Cl MLP. ``cls_tables``: {xy: (n, nell)} raw C_ell.
+                      learning_rate=3e-3, seed=3, holdout=0.1, device=None, **node_kwargs):
+    """Train the Cl MLP on ``device`` (the card when None). ``cls_tables``: {xy: (n, nell)} raw C_ell.
     ``fiducial``: {param: value} stored in the weights (the registered
     parameter defaults). Returns weights with 'holdout_err' = max held-out
     D_ell error relative to each spectrum's peak."""

@@ -9,6 +9,20 @@ import numpy as np
 import torch
 
 
+def legendre(ell, x):
+    """Legendre polynomial P_ell(x) by the stable recurrence, on the tensor x
+    (an array or a number is taken as a tensor), differentiable."""
+    x = torch.as_tensor(x)
+    if ell == 0:
+        return torch.ones_like(x)
+    if ell == 1:
+        return x
+    p0, p1 = torch.ones_like(x), x
+    for n in range(1, ell):
+        p0, p1 = p1, ((2 * n + 1) * x * p1 - n * p0) / (n + 1)
+    return p1
+
+
 def weights_mu(mu=20, method='leggauss'):
     """Return (mu nodes, weights) for integration over mu in [0, 1].
 

@@ -18,6 +18,8 @@ import itertools
 import numpy as np
 import torch
 
+from .. import config
+
 
 # --- exact 2nd-order kernels in (r, x) variables: q1 = k r (angle x), q2 = k - q1 ---
 
@@ -232,8 +234,9 @@ class OneLoopIntegrals:
                                   for name, value in arrays.items()}
         return self._tensors[key]
 
-    def tables(self, pk_fn, dtype=torch.float32, device='cpu'):
-        """All 1-loop tables on self.k, (..., nk) each, given the linear pk.
+    def tables(self, pk_fn, dtype=torch.float32, device=None):
+        """All 1-loop tables on self.k, (..., nk) each, given the linear pk,
+        in ``dtype`` on ``device`` (the card when None).
 
         pk_fn : callable, k tensor of any shape S -> P_lin(k) of shape S or,
         with a chain batch, (B,) + S (e.g. a template's Chebyshev lookup).
@@ -246,7 +249,7 @@ class OneLoopIntegrals:
           Pb2s2(k)   = (k^3/(8 pi^2)) int ... [S2 P(ky) - (2/3) P(kr)]
           Pbs22(k)   = (k^3/(8 pi^2)) int ... [S2^2 P(ky) - (4/9) P(kr)]
         """
-        c = self._const(dtype, torch.device(device))
+        c = self._const(dtype, config.resolve(device))
         k = c['k']
         pk_k = pk_fn(k)                         # (..., nk)
         pk_q = pk_fn(c['kq'])                   # (..., nk, nr)

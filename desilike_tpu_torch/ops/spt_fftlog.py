@@ -21,6 +21,7 @@ and P(kr)^2 pieces as products with static (nr, 4) and (nr,) weights.
 import numpy as np
 import torch
 
+from .. import config
 from .spt import p13_radial_kernels, sigma3sq_radial_kernel, sigma_v2_grid
 
 SIGMA_V2_Q, SIGMA_V2_W = sigma_v2_grid()
@@ -125,6 +126,24 @@ class FFTLogOneLoop:
         m = np.fft.fftfreq(n, d=1. / n)  # integer frequencies, negative included
         return 2. * np.pi * m / (n * self.delta)
 
+    def _phased(self, pk_fn, bias, transform, eta, dtype, device):
+        device = config.resolve(device)
+        xg = torch.as_tensor(self.x_grid, dtype=dtype, device=device)
+        c = transform(pk_fn(xg) * xg ** (-(self.bias if bias is None else bias)), dim=-1) / self.nfft
+        return c * torch.as_tensor(np.exp(-1j * eta * np.log(self.x_grid[0])), dtype=c.dtype, device=device)
+
+    def coefficients(self, pk_fn, bias=None, dtype=torch.float32, device=None):
+        """Complex decomposition coefficients c_m (the full FFT spectrum) of
+        pk, the phase referred to x_0: pk_fn(x_grid) x^-bias, its FFT over N,
+        times x_0^{-i eta_m}; in ``dtype``'s complex type on ``device`` (the
+        card when None)."""
+        return self._phased(pk_fn, bias, torch.fft.fft, self._full_eta(), dtype, device)
+
+    def coefficients_half(self, pk_fn, bias=None, dtype=torch.float32, device=None):
+        """Half-spectrum (rFFT) coefficients c_h, h = 0..N/2, as
+        :meth:`coefficients`."""
+        return self._phased(pk_fn, bias, torch.fft.rfft, self.eta, dtype, device)
+
     def _const(self, dtype, device):
         """Per-evaluation constants as tensors of ``dtype`` on ``device``, cast
         once: for each bias group the factor x^-nu on the grid, the phase
@@ -197,8 +216,10 @@ class FFTLogOneLoop:
         out['sigma_v2'] = pk_sig @ c['sigma_w']
         return out
 
-    def tables(self, pk_fn, dtype=torch.float32, device='cpu'):
+    def tables(self, pk_fn, dtype=torch.float32, device=None):
         """Same contract as :meth:`OneLoopIntegrals.tables` (quadrature engine)."""
+        device = config.resolve(device)
+
         def grid(array):
             return pk_fn(torch.as_tensor(array, dtype=dtype, device=device))
         return self.tables_from_arrays(grid(self.x_grid), grid(self.k), grid(self.k[:, None] * self.r[None, :]),

@@ -17,12 +17,24 @@ import re
 import numpy as np
 import torch
 
-from ..utils import BaseClass, find_names
+from ..utils import BaseClass, evaluate, find_names
 from .prior import Prior
 from .. import config
 
 
 _ALLOWED_SOLVED = ('.best', '.marg', '.auto', '.prec')
+
+
+def eval_expression(expression, values):
+    """Evaluate a derived expression '{a} + {b}' with each ``{name}`` bound to
+    ``values[name]`` through a placeholder (``__dep<i>__``), so that full
+    names with dots need no quoting."""
+    locs = {}
+    for i, (dep, value) in enumerate(values.items()):
+        var = '__dep{}__'.format(i)
+        expression = expression.replace('{' + dep + '}', var)
+        locs[var] = value
+    return evaluate(expression, locals=locs)
 
 
 class Deriv(dict):
@@ -208,6 +220,38 @@ class Parameter(BaseClass):
             return torch.full(tuple(shape), self.value, dtype=config.get_dtype(), device=device)
         return dist.sample(generator, shape, device=device)
 
+    @property
+    def limits(self):
+        """The prior's limits, (-inf, inf) without a prior."""
+        if self.prior is not None:
+            return tuple(self.prior.limits)
+        return (-np.inf, np.inf)
+
+    @property
+    def ndim(self):
+        return len(self.shape)
+
+    @property
+    def size(self):
+        return int(np.prod(self.shape, dtype='i8')) if self.shape else 1
+
+    def eval(self, **values):
+        """The value of a derived expression '{a}+{b}' given its inputs in
+        ``values`` (tensors stay tensors); any other parameter returns its
+        own entry of ``values``."""
+        if isinstance(self.derived, str) and not self.solved:
+            missing = [dep for dep in self.depends if dep not in values]
+            if missing:
+                raise ValueError('parameter {} derives from {}, not provided'.format(self.name, missing[0]))
+            return eval_expression(self.derived, {dep: values[dep] for dep in self.depends})
+        return values[self.name]
+
+    def logprior(self, x):
+        """The prior's log density at x, zeros like x without a prior."""
+        if self.prior is None:
+            return torch.zeros_like(torch.as_tensor(x))
+        return self.prior.logpdf(x)
+
     def __eq__(self, other):
         if isinstance(other, str):
             return self.name == other
@@ -282,6 +326,30 @@ class ParameterCollection(BaseClass):
 
     def copy(self):
         return ParameterCollection(self)
+
+    def clone(self):
+        return ParameterCollection([p.clone() for p in self])
+
+    def eval(self, **values):
+        """{name: value} of every parameter (derived expressions included)
+        whose inputs are in ``values``."""
+        out = {}
+        for param in self:
+            try:
+                out[param.name] = param.eval(**values)
+            except (KeyError, ValueError):
+                pass
+        return out
+
+    def prior(self, **values):
+        """Sum of the log-priors of the varied, non-solved parameters at the
+        given values (tensors: on their device, batched as they are)."""
+        logp = None
+        for param in self:
+            if param.varied and not param.solved and param.prior is not None and param.name in values:
+                term = param.prior.logpdf(values[param.name])
+                logp = term if logp is None else logp + term
+        return torch.zeros((), dtype=config.get_dtype()) if logp is None else logp
 
     def params(self, **kwargs):
         """Selected parameters as a collection (the reference's name for :meth:`select`)."""

@@ -76,6 +76,18 @@ class Prior(BaseClass):
     def is_limited(self):
         return np.isfinite(self.limits).any()
 
+    def isin(self, x):
+        """Whether x (a tensor, an array or a number) lies within the limits."""
+        return (x >= self.limits[0]) & (x <= self.limits[1])
+
+    def affine_transform(self, loc=0., scale=1.):
+        """Return the prior of y = loc + scale * x."""
+        limits = tuple(loc + scale * lim for lim in self.limits)
+        if scale < 0:
+            limits = limits[::-1]
+        return Prior(dist=self.dist, limits=limits, loc=loc + scale * self.loc,
+                     scale=abs(scale) * self.scale)
+
     def logpdf(self, x):
         """Log density at the tensor x (any shape); -inf outside limits."""
         x = torch.as_tensor(x)

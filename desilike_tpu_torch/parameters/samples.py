@@ -71,7 +71,7 @@ class Samples(BaseClass):
             name = param.name
         if name not in self.params:
             self.params.set(param if param is not None else Parameter(basename=name))
-        self.data[name] = np.asarray(value)
+        self.data[name] = value if isinstance(value, DerivArray) else np.asarray(value)
 
     def __delitem__(self, name):
         name = getattr(name, 'name', name)
@@ -116,11 +116,53 @@ class Samples(BaseClass):
             new.data[name] = arr.reshape(tuple(shape) + arr.shape[len(self.shape):])
         return new
 
+    def set(self, item, name=None):
+        """Set a column from an array carrying its parameter (``item.param``)
+        or from a plain array under ``name``."""
+        param = getattr(item, 'param', None)
+        if param is not None:
+            self[param] = item
+        elif name is not None:
+            self[name] = item
+        else:
+            raise ValueError('provide a parameter-carrying array or name=')
+
     def update(self, other):
         """Merge the columns and attrs of another Samples."""
         for name in other.names():
             self[other.params[name] if name in other.params else name] = other[name]
         self.attrs.update(getattr(other, 'attrs', {}))
+
+    def to_array(self, params=None, struct=True):
+        """The columns as one numpy array: structured (``struct=True``, one
+        field a column) or stacked, (nparams,) + shape float64."""
+        names = [getattr(p, 'name', p) for p in (params or self.names())]
+        if struct:
+            arrays = [np.asarray(self[n]) for n in names]
+            dtype = np.dtype([(n, a.dtype, a.shape[len(self.shape):]) for n, a in zip(names, arrays)])
+            out = np.empty(self.shape, dtype=dtype)
+            for n, a in zip(names, arrays):
+                out[n] = a
+            return out
+        return np.stack([np.asarray(self[n], dtype='f8') for n in names], axis=0)
+
+    def match(self, other, eps=1e-7, params=None):
+        """The rows of ``other`` that lie within ``eps`` of a row of ``self``
+        on ``params`` (default: the names both hold), by a k-d tree on the
+        host: (indices in other, indices in self), each unravelled to its
+        samples' shape (aligns resumed or merged grids)."""
+        if params is None:
+            params = sorted(set(self.names()) & set(other.names()))
+        names = [getattr(p, 'name', p) for p in params]
+        from scipy import spatial
+        kdtree = spatial.cKDTree(np.column_stack(
+            [np.asarray(self[n], dtype='f8').reshape(self.size, -1)[:, 0] for n in names]))
+        queries = np.column_stack(
+            [np.asarray(other[n], dtype='f8').reshape(other.size, -1)[:, 0] for n in names])
+        _, indices = kdtree.query(queries, k=1, distance_upper_bound=eps)
+        mask = indices < self.size
+        return (np.unravel_index(np.flatnonzero(mask), other.shape),
+                np.unravel_index(indices[mask], self.shape))
 
     def ravel(self):
         new = self.copy()

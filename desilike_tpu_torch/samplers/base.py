@@ -124,12 +124,12 @@ class BasePosteriorSampler(BaseClass):
             self._logpost_aux_fn = self.likelihood.logpost_fn()
         return self._logpost_aux_fn
 
-    def logpost_flat(self, thetas):
-        """thetas (B, ndim) -> ((B,) logposterior with NaN read as -inf, aux
+    def logpost_flat(self, theta):
+        """theta (B, ndim) -> ((B,) logposterior with NaN read as -inf, aux
         dict of (B,) values and, for solved parameters, their best fits and
         'solved_hessian' (B, n, n))."""
-        self.evaluated_points += thetas.shape[0]
-        lp, aux = self._logpost_aux(dict(zip(self.names, thetas.unbind(-1))))
+        self.evaluated_points += theta.shape[0]
+        lp, aux = self._logpost_aux(dict(zip(self.names, theta.unbind(-1))))
         lp = torch.where(torch.isnan(lp), torch.full_like(lp, -np.inf), lp)
         keep = {name: aux[name] for name in ('loglikelihood', 'logprior') if name in aux}
         for name, val in aux.items():

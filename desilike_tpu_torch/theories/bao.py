@@ -74,6 +74,10 @@ class BaseBAOWigglesPowerSpectrumMultipoles(BaseTheoryPowerSpectrumMultipoles, W
         self.set_k_mu(k=self.k, mu=mu, method=method, ells=self.ells)
 
     @property
+    def z(self):
+        return self.template.z
+
+    @property
     def rs_drag_fid(self):
         return self.template.rs_drag_fid
 

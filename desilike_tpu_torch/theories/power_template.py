@@ -23,9 +23,17 @@ from ..core import Calculator
 from ..cosmology import background as bg
 from ..cosmology import linear as lin
 from ..ops.chebyshev import ChebyshevLogInterp
+from ..ops.interp import interp1d
 from ..ops.legendre import trapz_weights
-from .base import APEffect, ap_k_mu
+from .base import APEffect, ap_k_mu, ap_s_mu
 from .cosmology import Cosmology, _COSMO_PARAM_DEFAULTS
+
+
+def loglog_interp(template_k_log10, values, k):
+    """Cubic interpolation of a pk table ``values`` (..., nk) against log10 k,
+    on ``template_k_log10``, at the wavenumbers k."""
+    return interp1d(torch.log10(k) if isinstance(k, torch.Tensor) else np.log10(k), template_k_log10, values,
+                    method='cubic')
 
 
 class BasePowerSpectrumTemplate(Calculator):
@@ -140,6 +148,9 @@ class BasePowerSpectrumTemplate(Calculator):
 
     def ap_k_mu(self, k, mu):
         return ap_k_mu(k, mu, qpar=self.qpar, qper=self.qper)
+
+    def ap_s_mu(self, s, mu):
+        return ap_s_mu(s, mu, qpar=self.qpar, qper=self.qper)
 
 
 class BAOPowerSpectrumTemplate(BasePowerSpectrumTemplate):

@@ -66,18 +66,22 @@ def is_sequence(item):
     return isinstance(item, (list, tuple))
 
 
-def find_names(allnames, name):
+def find_names(allnames, name, quiet=True):
     """Match ``name`` (with * wildcards, or re.Pattern) against list of names;
-    returns matching names in input order."""
+    returns matching names in input order. With ``quiet=False`` a name with
+    no wildcard that matches nothing raises ``ValueError``."""
     if is_sequence(name):
         toret = []
         for nn in name:
-            toret += find_names(allnames, nn)
+            toret += find_names(allnames, nn, quiet=quiet)
         return toret
     if isinstance(name, re.Pattern):
         return [nn for nn in allnames if name.fullmatch(nn)]
     pattern = fnmatch.translate(str(name))
-    return [nn for nn in allnames if re.fullmatch(pattern, nn)]
+    toret = [nn for nn in allnames if re.fullmatch(pattern, nn)]
+    if not toret and not quiet and '*' not in str(name):
+        raise ValueError('{} not found in {}'.format(name, allnames))
+    return toret
 
 
 def expand_dict(di, names):
@@ -95,8 +99,9 @@ def expand_dict(di, names):
     return toret
 
 
-def evaluate(value, locals=None):
-    """Evaluate a python expression with np/torch in scope.
+def evaluate(value, type=None, locals=None):
+    """Evaluate a python expression with np/torch in scope, then cast the
+    result with ``type`` if given.
 
     Used for derived-parameter expressions ('{a} + {b}') after placeholder
     substitution; the values are batched tensors, so expressions use
@@ -104,7 +109,10 @@ def evaluate(value, locals=None):
     """
     gl = {'np': np, 'torch': torch}
     gl.update(locals or {})
-    return eval(value, {'__builtins__': {'abs': abs, 'min': min, 'max': max}}, gl)
+    toret = eval(value, {'__builtins__': {'abs': abs, 'min': min, 'max': max}}, gl)
+    if type is not None:
+        toret = type(toret)
+    return toret
 
 
 def marching_squares(x, y, z, level):

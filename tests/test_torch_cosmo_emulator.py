@@ -21,11 +21,15 @@ emulator engine in float64 against the JAX package's x64 values within
 import os
 
 import numpy as np
+import pytest
 import torch
 
 from desilike_tpu.cosmology import emulator as jax_emulator
 from desilike_tpu_torch import Pipeline, theories
 from desilike_tpu_torch.cosmology import emulator
+from desilike_tpu_torch.likelihoods.cmb import cl_emulator
+from desilike_tpu_torch.ops.spt import OneLoopIntegrals
+from desilike_tpu_torch.ops.spt_fftlog import FFTLogOneLoop
 from desilike_tpu_torch.interop import pk_emulator_weights_from_jax
 
 torch.set_num_threads(2)
@@ -77,8 +81,32 @@ def test_training_from_jax_initial_weights():
     layers = [(reference['emu_init_W%d' % i], np.zeros(reference['emu_init_W%d' % i].shape[1], dtype='f4'))
               for i in range(3)]
     _, loss = emulator.fit_layers(layers, ((X[idx_tr] - xm) / xs).astype('f4'), ((Y[idx_tr] - ym) / ys).astype('f4'),
-                                  nsteps=20, learning_rate=1e-3)
+                                  nsteps=20, learning_rate=1e-3, device='cpu')
     np.testing.assert_allclose(loss, reference['emu_loss_20'], rtol=1e-4)
+
+
+def test_trainers_default_to_the_card(monkeypatch):
+    """The trainers and table makers called without ``device`` ask for the
+    card, as a pipeline does: with no card they raise (here, and anywhere
+    with ``torch.cuda.is_available`` reporting none), they never train on
+    the CPU unasked."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    rng = np.random.default_rng(0)
+    X, Y = rng.normal(size=(16, 2)), rng.normal(size=(16, 3))
+    layers = emulator.init_layers((2, 4, 3))
+    k = np.geomspace(0.02, 0.2, 4)
+    calls = [lambda: emulator.fit_layers(layers, X.astype('f4'), Y.astype('f4'), nsteps=1),
+             lambda: emulator.train_mlp(('a', 'b'), X, Y, nsteps=1),
+             lambda: emulator.train_pk_emulator(('a', 'b'), X, Y, np.ones(3), np.ones(1), nsteps=1),
+             lambda: emulator.layer_tensors({'layers': layers}),
+             lambda: cl_emulator.train_cl_emulator(('a', 'b'), X, {'tt': np.ones((16, 8))}, nsteps=1),
+             lambda: OneLoopIntegrals(k, nr=8, nx=4).tables(lambda q: q),
+             lambda: FFTLogOneLoop(k, nfft=16, nr=8, nx=4).tables(lambda q: q),
+             lambda: FFTLogOneLoop(k, nfft=16, nr=8, nx=4).coefficients(lambda q: q)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match='cuda'):
+            call()
+    assert len(emulator.layer_tensors({'layers': layers}, device='cpu')) == 2
 
 
 def test_save_load_round_trip(tmp_path):

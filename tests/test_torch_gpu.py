@@ -424,3 +424,25 @@ def test_chees_on_config1(cuda):
     assert np.isfinite(chain['logposterior']).all()
     assert cuda_kernels.CLENSHAW_LAUNCHES > before
     assert sampler.diagnostics['leapfrogs'] >= 5
+
+
+def test_get_fn_and_states_fn_on_card(cuda):
+    """Config 1 on the card: ``get_fn()`` and ``states_fn()`` bit-identical
+    to ``Pipeline.evaluate`` and its derived values, each with the 3
+    Clenshaw launches of a forward call."""
+    like = build_likelihood(None)
+    pipe = like.pipeline
+    values = {name: value.detach() for name, value in chains(pipe.varied_params.names(), 256, seed=1,
+                                                             device=cuda).items()}
+    launched, results = [], []
+    with torch.no_grad():
+        for call in (pipe.evaluate, pipe.get_fn(), lambda v: pipe.states_fn()(v)[:2]):
+            before = cuda_kernels.CLENSHAW_LAUNCHES
+            result = call(values)
+            results.append(result if isinstance(result, tuple) else (result, dict(pipe.derived)))
+            torch.cuda.synchronize()
+            launched.append(cuda_kernels.CLENSHAW_LAUNCHES - before)
+    assert launched == [3, 3, 3]
+    (expected, derived), (got, _), (states, states_derived) = results
+    assert got.device.type == 'cuda' and torch.equal(got, expected) and torch.equal(states, expected)
+    assert list(states_derived) == list(derived) and all(torch.equal(states_derived[n], derived[n]) for n in derived)
