@@ -31,7 +31,9 @@ from a YAML file; config 3e (config 3d on host-injected products,
 :func:`build_ept_external_likelihood`) through the bindings' generated
 cobaya module and factories, and the installer's lookup; the last public
 members (``get_fn``, ``states_fn``, the interpolation and linear-algebra
-helpers) and the trainers with no device.
+helpers) and the trainers with no device; and each compiled entry point
+(``logpost_fn()``, ``get_fn``, the samplers' log-density and gradient)
+replayed as a CUDA graph against its eager call.
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions, the
    kernel library's build time, ptxas's registers, and the blocks of each
@@ -220,7 +222,21 @@ A18. the last public surface (:func:`run_a18`): on config 4 at 4096,
    pipeline's log-prior, ``ndof`` against the JAX package's build, the
    kernels and device milliseconds of a forward call; ``interp1d`` and the
    small Cholesky helpers against the CPU; the emulator trainers and the
-   1-loop table makers called with no device, on the card.
+   1-loop table makers called with no device, on the card;
+A19. the compiled entry points, the JAX package's ``jax.jit`` as CUDA-graph
+   capture and replay (:func:`run_a19`): configs 1, 4, 3 and 3d at their
+   two timed batches, ``logpost_fn()`` (:func:`jit_forward_case`) and the
+   samplers' captured log-density and gradient (:func:`jit_gradient_case`)
+   against the eager calls at two sets of values (within 1e-6, bit-identity
+   reported), the B1 kernels in the profiler's trace of a replay against
+   the eager call's, the
+   synchronising calls of one replay (none allowed on configs 1, 4 and 3d),
+   wall and device milliseconds and kernels a call and peak memory, eager
+   and replayed; configs xi, 3xi, 5, tns, 3f and 3j forward at 4096;
+   ``Cosmology(theta=True)`` captured; config 3e through the generated
+   cobaya module, one point a call; ChEES on configs 4 and 3, NUTS on config
+   4 and Metropolis on config 3d captured against eager given the same
+   draws (iterations/s both ways). Each graph is cleared before the next.
 
 Any failure raises (exit code 1). The last three lines of standard output
 are a JSON object describing the kernels, one with the samplers' numbers,
@@ -1426,7 +1442,7 @@ def at_points(likelihood, names, rows):
     import torch
     vals = {n: torch.tensor(rows[:, i], dtype=torch.float32, device=likelihood.pipeline.device,
                             requires_grad=True) for i, n in enumerate(names)}
-    lp, g = logpost_and_grad(likelihood.logpost_fn(), vals)
+    lp, g = logpost_and_grad(likelihood.logpost_fn(jit=False), vals)
     return lp.cpu().numpy(), g.cpu().numpy()
 
 
@@ -1482,7 +1498,7 @@ def check_failed_chain(likelihood, fn, values, index=BATCH // 3):
         raise AssertionError('one failed chain changed the others, or did not read -inf with a finite gradient')
 
 
-def count_host_syncs(fn, values, label='config 4'):
+def count_host_syncs(fn, values, label='config 4', phase='phase 3'):
     """The synchronising CUDA calls of one forward call of ``fn`` (``label``'s), as
     ``torch.cuda.set_sync_debug_mode('warn')`` reports them, each at the
     innermost frame of this repository that made it: prints and returns
@@ -1515,8 +1531,8 @@ def count_host_syncs(fn, values, label='config 4'):
         finally:
             calling[0] = False
             torch.cuda.set_sync_debug_mode(0)
-    print('phase 3: {}: one forward call at B={} made {} synchronising CUDA call(s){}'.format(
-        label, next(iter(values.values())).shape[0], sum(places.values()),
+    print('{}: {}: one forward call at B={} made {} synchronising CUDA call(s){}'.format(
+        phase, label, next(iter(values.values())).shape[0], sum(places.values()),
         ': ' + ', '.join('{} x{}'.format(k, v) for k, v in sorted(places.items())) if places else ''))
     return dict(places)
 
@@ -1582,7 +1598,7 @@ def check_config3(golden):
     out = dict(build_s=time.perf_counter() - t0, launches={}, max_memory_gib={})
     if names != list(reference['names']) or solved != list(reference['solved_names']) or ept.size != 108:
         raise AssertionError('config 3 varies {} and solves {} over {} data'.format(names, solved, ept.size))
-    fn = ept.logpost_fn()
+    fn = ept.logpost_fn(jit=False)
     if pipe.device.type != 'cuda':
         raise AssertionError('a likelihood built with no device evaluates on {}'.format(pipe.device))
     for batch in (BATCH, EPT_BIG_BATCH):
@@ -1670,7 +1686,7 @@ def check_config3d(golden, smi, ept):
             or pipe.device.type != 'cuda':
         raise AssertionError('config 3d varies {} and solves {} over {} data on {}'.format(names, solved, like.size,
                                                                                         pipe.device))
-    fn, efn, enames = like.logpost_fn(), ept.logpost_fn(), ept.pipeline.varied_params.names()
+    fn, efn, enames = like.logpost_fn(jit=False), ept.logpost_fn(jit=False), ept.pipeline.varied_params.names()
     cosmo_names = direct_template(like).cosmo.runtime_info.params.names()
     for batch in (BATCH, EPT_BIG_BATCH):
         values = chains(names, batch, seed=0, device=pipe.device)
@@ -1808,7 +1824,7 @@ def check_config_tns(golden, smi, ept):
             or pipe.device.type != 'cuda':
         raise AssertionError('config tns varies {} and solves {} over {} data on {}'.format(names, solved, like.size,
                                                                                          pipe.device))
-    fn, efn, enames = like.logpost_fn(), ept.logpost_fn(), ept.pipeline.varied_params.names()
+    fn, efn, enames = like.logpost_fn(jit=False), ept.logpost_fn(jit=False), ept.pipeline.varied_params.names()
     for batch in sorted(set(TNS_BATCHES) | set(TNS_GRAD_BATCHES)):
         values = chains(names, batch, seed=0, device=pipe.device)
         evalues = chains(enames, batch, seed=0, device=pipe.device)
@@ -1957,7 +1973,7 @@ def check_config3f(smi, direct, dfn):
         t0 = time.perf_counter()
         like = build_files_likelihood(None, tmp)  # no device: the card
         pipe = like.pipeline
-        fn = like.logpost_fn()
+        fn = like.logpost_fn(jit=False)
         out['build_s'] = time.perf_counter() - t0
         names, solved = pipe.varied_params.names(), pipe.solved_params.names()
         out.update(hartlap=like.hartlap, percival=like._mock_factor, nmocks=like._nmocks)
@@ -2058,7 +2074,7 @@ def check_bao_compression(smi):
         [[1., -0.4], [-0.4, 1.]]), z=0.8, cosmo=cosmo)
     like = ObservablesGaussianLikelihood(observables=[observable])  # no device: the card
     names = like.pipeline.varied_params.names()
-    fn = like.logpost_fn()
+    fn = like.logpost_fn(jit=False)
     values = chains(names, BATCH, seed=0, device=like.pipeline.device)
     logpost, grad = logpost_and_grad(fn, values)
     finite = bool(torch.isfinite(logpost).all() and torch.isfinite(grad).all())
@@ -2106,7 +2122,7 @@ def check_config3j(smi, direct, dfn):
         t0 = time.perf_counter()
         like = build_probes_likelihood(None, tmp)  # no device: the card
         pipe = like.pipeline
-        fn = like.logpost_fn()
+        fn = like.logpost_fn(jit=False)
         out['build_s'] = time.perf_counter() - t0
         names, solved = pipe.varied_params.names(), pipe.solved_params.names()
         sizes = [likelihood.size for likelihood in like.likelihoods]
@@ -2428,7 +2444,7 @@ def check_cmb_family(smi):
             t0 = time.perf_counter()
             like = gaussian(None) if case == 'gaussian' else build_cmb_likelihood(cases[case], None)
             names = like.pipeline.varied_params.names()
-            fn = like.logpost_fn()
+            fn = like.logpost_fn(jit=False)
             build_s = time.perf_counter() - t0
             if case == 'gaussian':
                 rng = np.random.default_rng(6)
@@ -2598,7 +2614,7 @@ def check_config_xi(golden):
     if names != list(reference['names']) or solved != list(reference['solved_names']) or xi.size != 52 \
             or theory.template._cheb.order != XI_ORDER or theory.kin.size * theory.power.mu.size != XI_NQUERY:
         raise AssertionError('config xi varies {} and solves {} over {} data'.format(names, solved, xi.size))
-    fn = xi.logpost_fn()
+    fn = xi.logpost_fn(jit=False)
     if pipe.device.type != 'cuda':
         raise AssertionError('a likelihood built with no device evaluates on {}'.format(pipe.device))
     for batch in (BATCH, BIG_BATCH):
@@ -2696,7 +2712,7 @@ def solved_at_points(likelihood, names, rows):
     values = {n: torch.tensor(rows[:, i], dtype=torch.float32, device=likelihood.pipeline.device)
               for i, n in enumerate(names)}
     with torch.no_grad():
-        _, aux = likelihood.logpost_fn()(values)
+        _, aux = likelihood.logpost_fn(jit=False)(values)
     return torch.stack([aux['solved'][n] for n in likelihood.pipeline.solved_params.names()], dim=-1).cpu().numpy()
 
 
@@ -2733,7 +2749,7 @@ def check_config_3xi(smi):
     if names != list(reference['ept_xi_names']) or solved != list(reference['ept_xi_solved_names']) \
             or like.size != 90:
         raise AssertionError('config 3xi varies {} and solves {} over {} data'.format(names, solved, like.size))
-    fn = like.logpost_fn()
+    fn = like.logpost_fn(jit=False)
     if pipe.device.type != 'cuda':
         raise AssertionError('a likelihood built with no device evaluates on {}'.format(pipe.device))
     for batch in (BATCH, EPT_XI_BIG_BATCH):
@@ -2841,7 +2857,7 @@ def check_fisher_and_sum(xi, ept, smi):
     names = pipe.varied_params.names()
     if names != list(reference['sum_names']) or pipe.solved_params.names() != list(reference['sum_solved_names']):
         raise AssertionError('the sum varies {} and solves {}'.format(names, pipe.solved_params.names()))
-    fn = total.logpost_fn()
+    fn = total.logpost_fn(jit=False)
     values = chains(names, BATCH, seed=0, device=pipe.device)
     logpost, grad, forward, backward = drive(fn, values)
     out['launches_sum'] = {'forward': forward, 'with gradient': backward}
@@ -2916,7 +2932,7 @@ def check_config5(smi, joint_fn):
     t0 = time.perf_counter()
     like = build_joint_likelihood(None, {ns: emu.to_calculator() for ns, emu in emulators.items()})
     out['build_s'] = time.perf_counter() - t0
-    fn = like.logpost_fn()
+    fn = like.logpost_fn(jit=False)
     for batch in (BATCH, JOINT_BIG_BATCH):
         values = chains(names, batch, seed=0, device=like.pipeline.device)
         runs = {}
@@ -3157,11 +3173,11 @@ def gaussian_likelihoods(device):
 
         def initialize(self):
             self.flatdata = 1. * xgrid - 0.5
+            self.xgrid = xgrid
             self._set_whitening(np.eye(50) * 0.04)
 
-        def flattheory(self):
-            return self._a[..., None] * torch.as_tensor(xgrid, dtype=self._a.dtype, device=self._a.device) \
-                + self._b[..., None]
+        def flattheory(self):  # the grid copied to the card once (const): a capturable call
+            return self._a[..., None] * self.const('xgrid') + self._b[..., None]
 
         def calculate(self, a=1., b=0.):
             self._a, self._b = a, b
@@ -3698,15 +3714,17 @@ def run_a16(like, joint, smi):
         # the 'ref' policy of the batch facade over config 1, one chain forced to fail
         index = A16_CHAINS // 3
         ref_values = {p.name: p.value for p in like.pipeline.varied_params}
+        # the eager function: a compiled one replays what it captured before the failure is patched in
+        eager1 = like.logpost_fn(jit=False)
         with torch.no_grad():
             with fail_power(like, index):
-                raw = fn1(values)[0]
+                raw = eager1(values)[0]
                 cuda_kernels.CLENSHAW_LAUNCHES = cuda_kernels.COEFF_GRAD_LAUNCHES = 0
-                replaced, aux = vmap(fn1, errors='ref', ref_values=ref_values)(values)
+                replaced, aux = vmap(eager1, errors='ref', ref_values=ref_values)(values)
                 torch.cuda.synchronize()
                 out['launches_vmap_ref'] = [cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES]
-            at_ref = fn1({name: torch.full((1,), value, device=like.pipeline.device)
-                          for name, value in ref_values.items()})[0]
+            at_ref = eager1({name: torch.full((1,), value, device=like.pipeline.device)
+                             for name, value in ref_values.items()})[0]
         others = torch.arange(A16_CHAINS, device=built.device) != index
         out['vmap_ref'] = dict(index=index, raw_failed=float(raw[index]), replaced=float(replaced[index]),
                                at_ref=float(at_ref[0]), others_identical=bool(torch.equal(replaced[others],
@@ -4030,7 +4048,7 @@ def run_a17b(direct, dfn, smi, cuda):
         if not (same_tables and all(value == expected for value in got.values())):
             raise AssertionError(line)
     # (d) config 3e over 4096 chains at one injection, beside config 3d
-    fn = like.logpost_fn()
+    fn = like.logpost_fn(jit=False)
     pipe.set_cosmo_requires(**gather_cobaya_products(HostProvider(), node))
     values = chains(names, BATCH, seed=0, device=cuda)
     values.update(pipe.external_values())
@@ -4232,6 +4250,8 @@ def run_a18(joint, jfn, ept, forward4, smi, cuda):
               joint.ndof, joint.size, joint.nvaried, jax_ndof))
     out['forward_device_ms'], out['forward_kernels'] = kernel_profile(lambda: jfn(values))
     out['evaluate_device_ms'], out['evaluate_kernels'] = kernel_profile(lambda: pipe.get_fn()(values))
+    pipe.get_fn().clear()  # the graphs of get_fn and states_fn (replayed above): their memory back to the card
+    pipe.states_fn().clear()
     print('phase A18: config 4 forward at B={} (torch.profiler, a call): logpost_fn {:.3f} ms device, {:.0f} kernels; '
           'get_fn {:.3f} ms, {:.0f} kernels'.format(BATCH, out['forward_device_ms'], out['forward_kernels'],
                                                       out['evaluate_device_ms'], out['evaluate_kernels']))
@@ -4347,6 +4367,464 @@ def run_a18(joint, jfn, ept, forward4, smi, cuda):
     print('phase A18 took {:.1f} s'.format(out['seconds']))
     if failures:
         raise AssertionError('phase A18 failed: ' + ' | '.join(failures))
+    return out
+
+
+
+A19_RTOL = 1e-6  # a replay against the eager call on the same values: of each output's magnitude
+A19_CONFIGS = ('1', '4', '3', '3d')  # replayed at two batches, with the gradient through the samplers' lg
+A19_BATCHES = {'1': (BATCH, BIG_BATCH), '4': (BATCH, JOINT_BIG_BATCH), '3': (BATCH, EPT_BIG_BATCH),
+               '3d': (BATCH, EPT_BIG_BATCH)}
+A19_NO_SYNC = ('1', '4', '3d')  # configs whose forward replay must make no synchronising call
+A19_FORWARD = ('xi', '3xi', '5', 'tns', '3f', '3j')  # replayed forward at B = 4096
+A19_SAMPLERS = (  # sampler, config, options, run: the chains given the same draws, eager and captured
+    ('ChEESSampler', '4', dict(nchains=SAMPLER_BATCH, max_leapfrog=32, seed=1), dict(nsteps=4, nwarmup=8)),
+    ('ChEESSampler', '3', dict(nchains=SAMPLER_BATCH, max_leapfrog=EPT_SAMPLER_LEAPFROG, seed=3),
+     dict(nsteps=4, nwarmup=8)),
+    ('NUTSSampler', '4', dict(nchains=64, max_depth=5, seed=2), dict(nsteps=4, nwarmup=8)))
+A19_METROPOLIS = dict(nchains=A15_CHAINS, nsteps=24)  # config 3d through logpost_fn(jit=True), beside eager
+
+
+def outputs_error(got, expected):
+    """(max over the tensor outputs of max |got - expected| / max |expected|,
+    bit-identical) of two output structures (dicts, tuples, tensors); a
+    non-finite entry must be the same in both (it counts as an error of inf
+    otherwise)."""
+    import torch
+    import torch.utils._pytree as pytree
+    got, expected = pytree.tree_leaves(got), pytree.tree_leaves(expected)
+    if len(got) != len(expected):
+        return float('inf'), False
+    err, identical = 0., True
+    for g, e in zip(got, expected):
+        if not isinstance(e, torch.Tensor):
+            identical = identical and g == e
+            continue
+        g, e = g.detach().double().cpu(), e.detach().double().cpu()
+        if g.shape != e.shape:
+            return float('inf'), False
+        identical = identical and bool(torch.equal(g.nan_to_num(0., 1e300, -1e300), e.nan_to_num(0., 1e300, -1e300)))
+        finite = torch.isfinite(e)
+        if not torch.equal(finite, torch.isfinite(g)) or not torch.equal(g[~finite].nan_to_num(0.), e[~finite].nan_to_num(0.)):
+            return float('inf'), False
+        if finite.any():
+            scale = max(float(e[finite].abs().max()), 1e-30)
+            err = max(err, float((g[finite] - e[finite]).abs().max()) / scale)
+    return err, identical
+
+
+def counted_call(call):
+    """(result, (Clenshaw, coefficient-gradient) launches) of ``call()`` under
+    no_grad, the counters set to 0 just before and read just after."""
+    import torch
+    from desilike_tpu_torch.ops import cuda_kernels
+    torch.cuda.synchronize()
+    cuda_kernels.CLENSHAW_LAUNCHES = cuda_kernels.COEFF_GRAD_LAUNCHES = 0
+    with torch.no_grad():
+        result = call()
+    torch.cuda.synchronize()
+    return result, (cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES)
+
+
+def runtime_syncs(call):
+    """The CUDA runtime's synchronising calls (``cuda*Synchronize``) that
+    ``torch.profiler`` records in one call of ``call`` (after one call of
+    warm-up): it sees those a library makes, which
+    ``torch.cuda.set_sync_debug_mode`` does not. Returns {name: count}."""
+    import collections
+    import torch
+    from torch.profiler import profile, ProfilerActivity
+
+    def counts(work):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            work()
+        return collections.Counter(event.name for event in prof.events()
+                                   if event.name.startswith('cuda') and 'Synchronize' in event.name)
+
+    with torch.no_grad():
+        call()
+        made = counts(call) - counts(lambda: None)  # less the profiler's own (a cudaDeviceSynchronize as it stops)
+    return dict(made)
+
+
+B1_KERNEL_NAMES = (('clenshaw_flat_kernel', 'clenshaw_rows_kernel'), ('clenshaw_coeff_grad_kernel',))
+
+
+def profiled_launches(call):
+    """(Clenshaw, coefficient-gradient) kernels that ``torch.profiler``
+    records in one call of ``call`` (after one call of warm-up), counted by
+    their names in the trace: what a replay runs, counted on the card and
+    not by the launch counters (which a graph moves by what it captured)."""
+    import torch
+    from torch.profiler import profile, ProfilerActivity
+    with torch.no_grad():
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+    names = [event.name for event in prof.events() if event.device_type == torch.autograd.DeviceType.CUDA]
+    return tuple(sum(any(kernel in name for kernel in kernels) for name in names) for kernels in B1_KERNEL_NAMES)
+
+
+def jit_timings(out, key, call, iterations):
+    """Wall (CUDA events around back-to-back calls, host included) and device
+    (torch.profiler) milliseconds a call, and the kernels a call runs, into
+    ``out`` under ``key``."""
+    import torch
+    with torch.no_grad():
+        out[key + '_wall_ms'] = time_cuda(call, iterations, warmup=1)
+        out[key + '_device_ms'], out[key + '_kernels'] = kernel_profile(call)
+
+
+def jit_forward_case(label, like, batch, smi, extra=None, timing=True, no_sync=False):
+    """``like.logpost_fn()`` (jitted) against ``logpost_fn(jit=False)`` at
+    ``batch`` seeded chains (``extra``: more values, e.g. external tables):
+    the eager calls at two sets of values first, then the capture (its
+    first call, the warm-up's outputs), a replay at each set (the second
+    after the values changed), each against the eager call at its values
+    (the log-posterior and every aux tensor); the B1 kernels in the
+    profiler's trace of a replay against those of an eager call and the
+    eager call's launch counts; the synchronising calls of one replay (and
+    of one eager call); peak memory eager and with the graph, and the memory
+    the graph holds; with ``timing``, wall and device milliseconds and
+    kernels a call, eager and replayed. The graph is cleared at the end.
+    Raises where a replay is off by more than A19_RTOL, no replay ran, the
+    launches differ or (``no_sync``) a replay synchronised."""
+    import torch
+    pipe = like.pipeline
+    names = pipe.varied_params.names()
+    values = [dict({n: v.detach() for n, v in chains(names, batch, seed=seed, device=pipe.device).items()},
+                   **(extra or {})) for seed in (21, 22)]
+    eager, jitted = like.logpost_fn(jit=False), like.logpost_fn()
+    out = {'batch': batch}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    expected = []
+    for v in values:
+        result, out['launches_eager'] = counted_call(lambda: eager(v))
+        expected.append(result)
+    out['peak_gib_eager'] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out['launches_eager_profiled'] = list(profiled_launches(lambda: eager(values[0])))
+    if timing:
+        out['syncs_eager'] = sum(count_host_syncs(eager, values[0], label='{} eager'.format(label),
+                                                  phase='phase A19').values())
+        out['runtime_syncs_eager'] = runtime_syncs(lambda: eager(values[0]))
+        jit_timings(out, 'eager', lambda: eager(values[0]), 10 if batch == BATCH else 3)
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first, out['launches_capture'] = counted_call(lambda: jitted(values[0]))
+    out['capture_s'] = time.perf_counter() - t0
+    replayed = []
+    for v in values:
+        result, out['launches_replay'] = counted_call(lambda: jitted(v))
+        replayed.append(result)
+    out['peak_gib_jit'] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out['held_gib'] = (torch.cuda.memory_reserved() - reserved) / 2 ** 30
+    out['error_capture'], out['identical_capture'] = outputs_error(first, expected[0])
+    out['error'], out['identical'] = outputs_error(replayed[0], expected[0])
+    out['error_changed'], out['identical_changed'] = outputs_error(replayed[1], expected[1])
+    out['not_aliased'] = replayed[0][0].data_ptr() != replayed[1][0].data_ptr()
+    out['outputs'] = len(torch.utils._pytree.tree_leaves(replayed[0]))
+    del first, replayed, expected
+    out['syncs_replay'] = count_host_syncs(jitted, values[0], label='{} replay'.format(label), phase='phase A19')
+    out['launches_replay_profiled'] = list(profiled_launches(lambda: jitted(values[0])))
+    if timing:
+        out['runtime_syncs_replay'] = runtime_syncs(lambda: jitted(values[0]))
+        jit_timings(out, 'replay', lambda: jitted(values[0]), 10 if batch == BATCH else 3)
+    out['replays'], out['captures'] = jitted.replays, jitted.captures
+    jitted.clear()
+    ok = (max(out['error'], out['error_changed'], out['error_capture']) <= A19_RTOL and out['replays'] >= 2
+          and out['captures'] == 1 and out['launches_replay'] == out['launches_eager'] and out['not_aliased']
+          and out['launches_replay_profiled'] == out['launches_eager_profiled'] == list(out['launches_eager'])
+          and (not no_sync or not (out['syncs_replay'] or out.get('runtime_syncs_replay'))))
+    line = 'phase A19: config {} forward at B={} on {!r}, jit against eager: {}'.format(label, batch, smi, json.dumps(out))
+    print(line)
+    if not ok:
+        raise AssertionError(line)
+    return out
+
+
+def jit_gradient_case(label, like, batch, smi, timing=True):
+    """The samplers' log-density and gradient (``_logdens_grad``'s ``lg``:
+    the constraint, the forward pass and ``torch.autograd.grad``, captured
+    as one graph) at ``batch`` seeded chains against the same function run
+    eagerly: eager at two sets of points first, then the capture, a replay
+    at each set; launches (counted, and the B1 kernels in the profiler's
+    trace of a replay and of an eager call), the synchronising calls of a
+    replay, peak and held memory, and with ``timing`` wall and device
+    milliseconds and kernels, eager and replayed. The graph is cleared at
+    the end. Raises where a replay is off by more than A19_RTOL, no replay
+    ran or the launches differ."""
+    import torch
+    from desilike_tpu_torch.samplers import ChEESSampler
+    sampler = ChEESSampler(like, nchains=batch)
+    lg = sampler._logdens_grad()
+    graph = sampler.lg_graph
+    names = sampler.names
+    points = []
+    for seed in (23, 24):
+        values = chains(names, batch, seed=seed, device='cpu')
+        x = np.stack([values[n].detach().numpy().astype('f8') for n in names], axis=-1)
+        points.append(torch.tensor(sampler._unconstrain(x), dtype=torch.float32, device=sampler.device))
+    out = {'batch': batch}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    expected = []
+    for u in points:
+        result, out['launches_eager'] = counted_call(lambda: graph.fn(u))
+        expected.append(result)
+    out['peak_gib_eager'] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out['launches_eager_profiled'] = list(profiled_launches(lambda: graph.fn(points[0])))
+    if timing:
+        jit_timings(out, 'eager', lambda: graph.fn(points[0]), 10 if batch == BATCH else 3)
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first, out['launches_capture'] = counted_call(lambda: lg(points[0]))
+    out['capture_s'] = time.perf_counter() - t0
+    replayed = []
+    for u in points:
+        result, out['launches_replay'] = counted_call(lambda: lg(u))
+        replayed.append(result)
+    out['peak_gib_jit'] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out['held_gib'] = (torch.cuda.memory_reserved() - reserved) / 2 ** 30
+    out['error_capture'], out['identical_capture'] = outputs_error(first, expected[0])
+    out['error'], out['identical'] = outputs_error(replayed[0], expected[0])
+    out['error_changed'], out['identical_changed'] = outputs_error(replayed[1], expected[1])
+    del first, replayed, expected
+    out['syncs_replay'] = count_host_syncs(lambda v: lg(v['u']), {'u': points[0]}, label='{} lg replay'.format(label),
+                                           phase='phase A19')
+    out['launches_replay_profiled'] = list(profiled_launches(lambda: lg(points[0])))
+    if timing:
+        jit_timings(out, 'replay', lambda: lg(points[0]), 10 if batch == BATCH else 3)
+    out['replays'], out['captures'] = graph.replays, graph.captures
+    graph.clear()
+    ok = (max(out['error'], out['error_changed'], out['error_capture']) <= A19_RTOL and out['replays'] >= 2
+          and out['captures'] == 1 and out['launches_replay'] == out['launches_eager']
+          and out['launches_replay_profiled'] == out['launches_eager_profiled'] == list(out['launches_eager']))
+    line = 'phase A19: config {} log-density and gradient (lg) at B={} on {!r}, captured against eager: {}'.format(
+        label, batch, smi, json.dumps(out))
+    print(line)
+    if not ok:
+        raise AssertionError(line)
+    return out
+
+
+def jit_theta_case(smi):
+    """``Cosmology(theta=True)`` (h solved per chain by 8 Newton steps of
+    ``torch.func.jvp``) captured through ``Pipeline.capture`` at B = 4096:
+    the replay's h against the eager call's at two sets of values, wall
+    milliseconds a call eager and replayed. Raises where a replay is off by
+    more than A19_RTOL (a capture that fails raises on its own)."""
+    import torch
+    from desilike_tpu_torch import Cosmology, Pipeline
+    cosmo = Cosmology(theta=True)  # no device: the card
+    names = ('theta_MC_100', 'omega_cdm', 'omega_b')
+    cosmo.init.params = {name: dict(fixed=False) for name in names}
+    pipe = Pipeline(cosmo)
+    rng = np.random.default_rng(19)
+    center, width = dict(theta_MC_100=1.04109, omega_cdm=0.12, omega_b=0.02237), \
+        dict(theta_MC_100=0.002, omega_cdm=0.006, omega_b=0.0008)
+    values = [{name: torch.tensor(center[name] + width[name] * rng.uniform(-1., 1., BATCH), dtype=torch.float32,
+                                  device=pipe.device) for name in names} for _ in range(2)]
+
+    def solve(v):
+        pipe.evaluate(v)
+        return cosmo.h
+
+    captured = pipe.capture(solve, name='Cosmology(theta=True)')
+    out = {}
+    with torch.no_grad():
+        expected = [solve(v).clone() for v in values]
+        try:
+            captured(values[0])
+        except RuntimeError as exc:  # recorded, not run eagerly in its place: ROADMAP lists such a path
+            out = {'captured': False, 'error': str(exc)[:500]}
+            print('phase A19: Cosmology(theta=True) at B={} on {!r} cannot be captured: {}'.format(BATCH, smi,
+                                                                                               json.dumps(out)))
+            return out
+        replayed = [captured(v) for v in values]
+    out['error'] = max(outputs_error(g, e)[0] for g, e in zip(replayed, expected))
+    out['identical'] = all(outputs_error(g, e)[1] for g, e in zip(replayed, expected))
+    out['eager_wall_ms'] = time_cuda(lambda: solve(values[0]), 5, warmup=1)
+    out['replay_wall_ms'] = time_cuda(lambda: captured(values[0]), 5, warmup=1)
+    out['replays'], out['capture_s'], out['captured'] = captured.replays, captured.capture_seconds, True
+    captured.clear()
+    line = 'phase A19: Cosmology(theta=True) at B={} on {!r}, captured against eager: {}'.format(BATCH, smi,
+                                                                                          json.dumps(out))
+    print(line)
+    if not (out['error'] <= A19_RTOL and out['replays'] >= 2):
+        raise AssertionError(line)
+    return out
+
+
+def eager_sampler(sampler):
+    """Make ``sampler`` run eagerly: its log-posterior ``logpost_fn(jit=False)``
+    and its log-density-and-gradient the uncaptured function (the baseline
+    of a captured run given the same draws)."""
+    sampler._logpost_aux_fn = sampler.likelihood.logpost_fn(jit=False)
+    if hasattr(sampler, '_logdens_grad'):
+        make = sampler._logdens_grad
+
+        def logdens_grad():
+            make()
+            graph = sampler.lg_graph
+
+            def lg(u):
+                sampler.gradient_evaluations += 1
+                sampler.evaluated_points += u.shape[0]
+                return graph.fn(u)
+            return lg
+        sampler._logdens_grad = logdens_grad
+    return sampler
+
+
+def jit_sampler_pair(label, make, run, smi):
+    """``make()``'s sampler run eagerly and captured, from the same seed (the
+    same draws): the chains' positions and log-posteriors against each
+    other, iterations/s both ways (from this call), the launches, the
+    replays of the captured run. Raises where they differ by more than
+    A19_RTOL or the captured run replayed nothing."""
+    import torch
+    from desilike_tpu_torch.ops import cuda_kernels
+    out, records = {}, {}
+    for mode in ('eager', 'captured'):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        cuda_kernels.CLENSHAW_LAUNCHES = cuda_kernels.COEFF_GRAD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        sampler = make()
+        if mode == 'eager':
+            eager_sampler(sampler)
+        chain = sampler.run(**run)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        iterations = sampler.diagnostics.get('iterations', run.get('nsteps'))
+        records[mode] = (np.stack([chain[n] for n in sampler.names], axis=-1), np.asarray(chain['logposterior']))
+        entry = out[mode] = dict(seconds=seconds, iterations=iterations, iterations_per_s=iterations / seconds,
+                                 launches=[cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES])
+        if mode == 'captured':
+            graphs = [g for g in (getattr(sampler, 'lg_graph', None), sampler._logpost_aux) if g is not None]
+            entry['replays'] = sum(g.replays for g in graphs)
+            entry['lg_replays'] = getattr(sampler, 'lg_graph', None) and sampler.lg_graph.replays
+            entry['logpost_replays'] = sampler._logpost_aux.replays
+            entry['captures'] = sum(g.captures for g in graphs)
+            entry['capture_s'] = sum(g.capture_seconds for g in graphs)
+            for g in graphs:
+                g.clear()
+        del sampler, chain
+    errors = []
+    for i in range(2):
+        got, expected = records['captured'][i], records['eager'][i]
+        finite = np.isfinite(expected)
+        same = np.array_equal(np.isfinite(got), finite)
+        errors.append(float(np.abs(got[finite] - expected[finite]).max() / max(np.abs(expected[finite]).max(), 1e-30))
+                      if same else float('inf'))
+    out['error'] = max(errors)
+    out['identical'] = all(np.array_equal(records['captured'][i], records['eager'][i], equal_nan=True) for i in range(2))
+    out['speedup'] = out['captured']['iterations_per_s'] / out['eager']['iterations_per_s']
+    line = 'phase A19: {} on {!r}, given the same draws, captured against eager: {}'.format(label, smi, json.dumps(out))
+    print(line)
+    if not (out['error'] <= A19_RTOL and out['captured']['replays'] > 0):
+        raise AssertionError(line)
+    return out
+
+
+def release_state(like):
+    """One eager call of ``like`` at one chain: its calculators then hold one
+    chain's tensors in place of their last call's (up to tens of GiB at the
+    large batches), so that a graph captured next has the card's memory."""
+    import torch
+    names = like.pipeline.varied_params.names()
+    with torch.no_grad():
+        like.logpost_fn(jit=False)({n: v.detach() for n, v in chains(names, 1, seed=0,
+                                                                        device=like.pipeline.device).items()})
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def run_a19(builders, smi):
+    """Phase A19: the port's ``jax.jit`` (CUDA-graph capture and replay) at
+    the JAX package's jit sites. ``builders``: {config: likelihood}, the
+    likelihoods of phases 3 to A18 (each built once). Configs 1, 4, 3 and
+    3d at their two timed batches, forward through ``logpost_fn()``
+    (:func:`jit_forward_case`) and with the gradient through the samplers'
+    captured ``lg`` (:func:`jit_gradient_case`); configs xi, 3xi, 5, tns, 3f
+    and 3j forward at B = 4096; config 3e through the generated cobaya
+    module (``logpost_fn()`` at its default, one point a call, against the
+    eager call); ChEES on configs 4 and 3 and NUTS on config 4, eager and
+    captured given the same draws (:func:`jit_sampler_pair`); Metropolis on
+    config 3d through ``logpost_fn(jit=True)`` beside eager. Every graph is
+    cleared before the next config's, and each config's state released
+    (:func:`release_state`). Returns the numbers."""
+    import torch
+    from desilike_tpu_torch.samplers import ChEESSampler, NUTSSampler, MCMCSampler
+    from desilike_tpu_torch.bindings import CobayaLikelihoodGenerator
+    t_phase = time.perf_counter()
+    out = {'forward': {}, 'gradient': {}, 'samplers': {}, 'allocator': os.environ.get('PYTORCH_CUDA_ALLOC_CONF')}
+    print('phase A19: the caching allocator on {!r}: PYTORCH_CUDA_ALLOC_CONF={}'.format(smi, out['allocator']))
+    for like in builders.values():
+        release_state(like)
+    for config in A19_CONFIGS:
+        for batch in A19_BATCHES[config]:
+            out['forward']['{} {}'.format(config, batch)] = jit_forward_case(
+                config, builders[config], batch, smi, no_sync=config in A19_NO_SYNC)
+            release_state(builders[config])  # the last case's tensors, held by the calculators, out of the way
+            out['gradient']['{} {}'.format(config, batch)] = jit_gradient_case(config, builders[config], batch, smi)
+        release_state(builders[config])
+    for config in A19_FORWARD:
+        out['forward']['{} {}'.format(config, BATCH)] = jit_forward_case(config, builders[config], BATCH, smi,
+                                                                         timing=False)
+        release_state(builders[config])
+    out['theta'] = jit_theta_case(smi)
+    # config 3e through the generated cobaya module: one point a call, each with its injection
+    with host_modules():
+        namespace = {}
+        exec(compile(CobayaLikelihoodGenerator(ept_external_factory).generate(), '<generated cobaya module>', 'exec'),
+             namespace)
+        generated = namespace['DesilikeTPULikelihood']()
+        generated.initialize()
+        like = namespace['_get_like']()
+        compiled = like._compiled_logpost
+        eager = like.logpost_fn(jit=False)
+        reference = np.load(os.path.join(ROOT, 'tests', 'data', 'torch_port_bindings_reference.npz'))
+        points, names = reference['ept:points'], like.pipeline.varied_params.names()
+        products = {key.split(':')[-1]: reference[key] for key in reference.files if key.startswith('fid:cobaya:')}
+        generated.provider = ProductsProvider(next(c for _, c in like.pipeline.external_nodes()), products)
+        got, expected = [], []
+        for point in points:
+            got.append(generated.logp(**{name.replace('.', '_'): float(v) for name, v in zip(names, point)}))
+            values = {name: torch.tensor([float(v)], dtype=torch.float32, device=like.pipeline.device)
+                      for name, v in zip(names, point)}
+            values.update(like.pipeline.external_values())
+            with torch.no_grad():
+                expected.append(float(eager(values)[1]['loglikelihood'][0]))
+        entry = out['config3e_cobaya'] = dict(points=len(points), replays=compiled.replays, captures=compiled.captures,
+                                              max_abs_diff=float(np.abs(np.array(got) - np.array(expected)).max()),
+                                              identical=got == expected)
+        compiled.clear()
+    line = ('phase A19: config 3e through the generated cobaya module on {!r}, logpost_fn() at its default, one '
+            'point a call at {} points against the eager call: {}'.format(smi, len(points), json.dumps(entry)))
+    print(line)
+    if not (entry['replays'] >= len(points) - 1 and entry['max_abs_diff'] <= A19_RTOL * max(np.abs(expected))):
+        raise AssertionError(line)
+    # the samplers, given the same draws
+    classes = {'ChEESSampler': ChEESSampler, 'NUTSSampler': NUTSSampler}
+    for cls_name, config, options, run in A19_SAMPLERS:
+        label = '{} over {} chains on config {}'.format(cls_name, options['nchains'], config)
+        out['samplers'][label] = jit_sampler_pair(
+            label, lambda: classes[cls_name](builders[config], **options), run, smi)
+    label = 'MCMCSampler over {} chains on config 3d'.format(A19_METROPOLIS['nchains'])
+    out['samplers'][label] = jit_sampler_pair(
+        label, lambda: MCMCSampler(builders['3d'], nchains=A19_METROPOLIS['nchains'], seed=4),
+        dict(nsteps=A19_METROPOLIS['nsteps']), smi)
+    out['seconds'] = time.perf_counter() - t_phase
+    print('phase A19 took {:.1f} s'.format(out['seconds']))
     return out
 
 
@@ -4478,7 +4956,7 @@ def main(kernels_only=False):
     reference = np.load(os.path.join(ROOT, 'tests', 'data', 'torch_port_bao_reference.npz'))
     joint_reference = np.load(os.path.join(ROOT, 'tests', 'data', 'torch_port_joint_reference.npz'))
     golden = np.load(os.path.join(ROOT, 'tests', 'data', 'golden_theories.npz'))
-    fn = like.logpost_fn()
+    fn = like.logpost_fn(jit=False)
     if pipe.device.type != 'cuda':
         raise AssertionError('a likelihood built with no device evaluates on {}'.format(pipe.device))
     values = chains(names, BATCH, seed=0, device=cuda)
@@ -4516,7 +4994,7 @@ def main(kernels_only=False):
     solved_names = jpipe.solved_params.names()
     if jnames != list(joint_reference['names']) or solved_names != list(joint_reference['solved_names']):
         raise AssertionError('config 4 varies {} and solves {}'.format(jnames, solved_names))
-    jfn = joint.logpost_fn()
+    jfn = joint.logpost_fn(jit=False)
     if jpipe.device.type != 'cuda':
         raise AssertionError('a likelihood built with no device evaluates on {}'.format(jpipe.device))
     jvalues = chains(jnames, BATCH, seed=0, device=cuda)
@@ -4567,7 +5045,7 @@ def main(kernels_only=False):
     xi, xfn, config_xi = check_config_xi(golden)
     xnames = xi.pipeline.varied_params.names()
     lap('phase 3: config xi')
-    _, _, config_3xi = check_config_3xi(smi)
+    ept_xi, _, config_3xi = check_config_3xi(smi)
     lap('phase 3: config 3xi')
     tns, tfn, config_tns = check_config_tns(golden, smi, ept)
     tnames = tns.pipeline.varied_params.names()
@@ -4721,6 +5199,11 @@ def main(kernels_only=False):
     samplers['a17b'] = run_a17b(direct, dfn, smi, cuda)
     # --- phase A18: the last public surface: get_fn / states_fn on config 4, the helpers, the trainers ---
     samplers['a18'] = run_a18(joint, jfn, ept, forward4, smi, cuda)
+    # --- phase A19: the compiled entry points (jit) as captured CUDA graphs, replayed against eager ---
+    samplers['a19'] = run_a19({'1': like, '4': joint, '3': ept, '3d': direct, 'xi': xi, '3xi': ept_xi, '5': emulated,
+                               'tns': tns, '3f': files, '3j': probes}, smi)
+    a19_replay = {'{} {}'.format(kind, case): entry['launches_replay_profiled'] for kind in ('forward', 'gradient')
+                  for case, entry in samplers['a19'][kind].items()}
     print('all phases took {:.1f} s'.format(time.perf_counter() - started))
     a15_launches = {run: [entry['launches_clenshaw'], entry['launches_coeff_grad']]
                     for run, entry in samplers['a15'].items() if isinstance(entry, dict) and 'launches_clenshaw' in entry}
@@ -4771,6 +5254,7 @@ def main(kernels_only=False):
         'launches_a16': {run: value[0] for run, value in a16_launches.items()},
         'launches_a17b': {mode: value[0] for mode, value in samplers['a17b']['launches'].items()},
         'launches_a18': {mode: value[0] for mode, value in samplers['a18']['launches'].items()},
+        'launches_a19_replay': {case: value[0] for case, value in a19_replay.items()},
         'launches_config_xi': config_xi['launches']['with gradient', BATCH][0],
         'launches_config_xi_forward': config_xi['launches']['forward', BATCH][0],
         'launches_hessian_config_xi': config_xi['launches_hessian'][0],
@@ -4819,6 +5303,7 @@ def main(kernels_only=False):
         'launches_a16': {run: value[1] for run, value in a16_launches.items()},
         'launches_a17b': {mode: value[1] for mode, value in samplers['a17b']['launches'].items()},
         'launches_a18': {mode: value[1] for mode, value in samplers['a18']['launches'].items()},
+        'launches_a19_replay': {case: value[1] for case, value in a19_replay.items()},
         **{'launches_config_tns_{}_{}'.format(mode.replace(' ', '_'), batch): value[1]
            for (mode, batch), value in config_tns['launches'].items()},
         **{key + '_config_tns': {label: entry['grad_' + key] for label, entry in tns_timed.items()}

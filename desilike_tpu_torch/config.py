@@ -9,9 +9,23 @@ Float32 matmuls stay full float32: reduced-precision matmuls inject noise
 into the log-posterior that collapses the step-size adaptation of gradient
 samplers (the finding recorded at ``desilike_tpu/config.py:17-25``; TF32 is
 the Hopper counterpart of the TPU's single-pass bf16).
+
+The card's caching allocator maps its memory in expandable segments unless
+the caller's environment sets ``PYTORCH_CUDA_ALLOC_CONF`` or
+``PYTORCH_ALLOC_CONF`` (read when CUDA starts, so before the first
+allocation on the card): a graph captured by the compiled entry points
+(``core/_capture.py``) allocates in a pool of its own, where fixed-size
+segments fragmented to 1.35x the capture's peak (config 3 with the gradient
+at 32768 chains) and config 3d's 66 GiB did not fit an 80 GB card; in
+expandable segments the pool holds about that peak.
 """
 
-import torch
+import os
+
+if 'PYTORCH_CUDA_ALLOC_CONF' not in os.environ and 'PYTORCH_ALLOC_CONF' not in os.environ:
+    os.environ['PYTORCH_CUDA_ALLOC_CONF'] = 'expandable_segments:True'
+
+import torch  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -24,6 +24,21 @@ from ..parameters.parameter import eval_expression
 from .. import config
 
 
+def _same_values(a, b):
+    """Whether the dicts of parameter values ``a`` and ``b`` hold the same values."""
+    return a.keys() == b.keys() and all(
+        x is b[k] or (np.array_equal(x, b[k]) if isinstance(x, np.ndarray) else x == b[k]) for k, x in a.items())
+
+
+def _only_tensors(value):
+    """Whether ``value`` is a tensor, or a non-empty dict, list or tuple of only tensors (nested)."""
+    if isinstance(value, torch.Tensor):
+        return True
+    if isinstance(value, dict):
+        value = list(value.values())
+    return isinstance(value, (list, tuple)) and bool(value) and all(_only_tensors(item) for item in value)
+
+
 class Pipeline(BaseClass):
     """Builds and evaluates the calculator graph rooted at ``root``."""
 
@@ -100,6 +115,28 @@ class Pipeline(BaseClass):
         """Default values for every input parameter (fixed + varied + solved)."""
         return {p.name: p.value for p in self.params if p.derived is not True}
 
+    def _default_tensors(self, device, dtype):
+        """The defaults (:meth:`input_defaults`) as 0-dim tensors of ``dtype``
+        on ``device``, made once and kept until a default changes: after the
+        first call, a call copies no default from the host (a capturable
+        call). ``self._defaults_version`` counts the changes."""
+        defaults = self.input_defaults()
+        cached = self.__dict__.get('_defaults_cache')
+        if cached is None or not _same_values(cached[0], defaults):
+            cached = self._defaults_cache = (defaults, {})
+            self._defaults_version = self.__dict__.get('_defaults_version', 0) + 1
+        key = (torch.device(device), dtype)
+        if key not in cached[1]:
+            tensors = {}
+            for name, value in defaults.items():
+                tensor = torch.as_tensor(value, dtype=dtype, device=device)
+                if tensor.ndim > 1:
+                    raise ValueError('parameter {} must be a scalar or a (B,) vector, got shape {}'.format(
+                        name, tuple(tensor.shape)))
+                tensors[name] = tensor
+            cached[1][key] = tensors
+        return cached[1][key]
+
     def _resolve_values(self, values, device, dtype):
         """Overlay user values on defaults as ``(B,)`` tensors of ``dtype`` on
         ``device``; evaluate derived expressions.
@@ -110,7 +147,8 @@ class Pipeline(BaseClass):
         table, :meth:`external_values`) is kept as it is, a host array copied
         to ``device`` in ``dtype``; it comes after the parameters.
         """
-        full = self.input_defaults()
+        defaults = self._default_tensors(device, dtype)
+        full = {}
         external = {}
         for name, value in values.items():
             if name.startswith('external:'):
@@ -121,7 +159,7 @@ class Pipeline(BaseClass):
                     external[name] = value
                 else:
                     external[name] = torch.as_tensor(np.asarray(value), dtype=dtype, device=device)
-            elif name in full:
+            elif name in defaults:
                 full[name] = value
             else:
                 # allow basename shortcut if unique
@@ -132,7 +170,7 @@ class Pipeline(BaseClass):
                     raise ValueError('ambiguous parameter {}: {}'.format(name, matches))
                 else:
                     raise ValueError('unknown parameter {}'.format(name))
-        tensors = {}
+        tensors = dict(defaults)
         for name, value in full.items():
             if isinstance(value, torch.Tensor) and value.device != device:
                 raise ValueError('parameter {} is on {}, but the pipeline evaluates on {}'.format(
@@ -325,28 +363,89 @@ class Pipeline(BaseClass):
         result, self.derived = self.run_once(full)
         return result
 
+    def _defaults_version_at(self, device, dtype):
+        """The version of the defaults (:meth:`_default_tensors`) as they stand."""
+        self._default_tensors(device, dtype)
+        return self._defaults_version
+
+    def _graph_constants(self):
+        """Every tensor reachable from the calculators (their attributes and
+        caches, through dicts, lists and tuples) and the defaults' tensors:
+        what a graph captured from this pipeline's calls may read besides its
+        inputs. It keeps alive those there before and after its capture (the
+        constants), so that an attribute or a default set later frees none
+        that it reads."""
+        found, seen = [], set()
+
+        def walk(value):
+            if isinstance(value, torch.Tensor):
+                found.append(value)
+            elif isinstance(value, (dict, list, tuple)) and id(value) not in seen:
+                seen.add(id(value))
+                for item in (value.values() if isinstance(value, dict) else value):
+                    walk(item)
+
+        walk(self.__dict__.get('_defaults_cache'))
+        for calc in self.calculators:
+            walk(calc.__dict__)
+        return found
+
+    def _warmup_state(self):
+        """Marks the calculators' attributes before a capture's warm-up, and
+        returns the function that, called after it, deletes the public ones
+        that the warm-up set and that hold only tensors: the state of that
+        call, which the capture sets again. With them go the autograd graphs
+        that hang from those the log-density does not read (config 3d's
+        sigma8 and fsigma8: 65 GiB at 32768 chains with the gradient), whose
+        memory the capture's pool then takes. Private attributes are the
+        calculators' own caches, which a calculator may keep only where it
+        finds them (``EmulatedCalculator``'s ``_cheb_cache``): they stay."""
+        marks = [{name: id(value) for name, value in calc.__dict__.items()} for calc in self.calculators]
+
+        def forget():
+            for calc, before in zip(self.calculators, marks):
+                for name, value in list(calc.__dict__.items()):
+                    if not name.startswith('_') and before.get(name) != id(value) and _only_tensors(value):
+                        del calc.__dict__[name]
+        return forget
+
+    def capture(self, fn, name=None):
+        """``fn`` (a function of the values dict) as a
+        :class:`~desilike_tpu_torch.core._capture.CapturedFunction` on the
+        pipeline's device in the compute dtype: captured as a CUDA graph a
+        signature and replayed on the card, eager on the CPU (the port's
+        ``jax.jit``). A graph is never replayed on defaults that changed
+        since its capture."""
+        from ._capture import CapturedFunction
+        device, dtype = self.device, config.get_dtype()
+        return CapturedFunction(fn, device, version=lambda: self._defaults_version_at(device, dtype),
+                                retain=self._graph_constants, release=self._warmup_state, name=name)
+
     def get_fn(self):
-        """{name: value} -> root.get(): :meth:`evaluate` as a plain function of
-        the values, on the pipeline's device in the compute dtype (the JAX
-        package's compiled entry point; nothing is compiled here). Made once
-        a pipeline."""
+        """{name: value} -> root.get(): :meth:`evaluate` as a function of the
+        values, on the pipeline's device in the compute dtype, compiled as
+        the JAX package compiles it: on the card each signature (batch size,
+        dtypes, scalars or (B,) values) is captured once as a CUDA graph and
+        replayed (:meth:`capture`); on the CPU it runs eagerly. Its outputs
+        are fresh tensors; the calculators' attributes after a replayed call
+        are not its values. Made once a pipeline."""
         if 'get' not in self._fns:
             def fn(values):
                 return self.evaluate(values)
-            self._fns['get'] = fn
+            self._fns['get'] = self.capture(fn, name='Pipeline.get_fn')
         return self._fns['get']
 
     def states_fn(self):
         """values -> (root.get(), derived {name: value}, {'<name>:<index>':
-        calculator.__getstate__()}) of one :meth:`evaluate`. Made once a
-        pipeline."""
+        calculator.__getstate__()}) of one :meth:`evaluate`, compiled as
+        :meth:`get_fn` is. Made once a pipeline."""
         if 'states' not in self._fns:
             def fn(values):
                 result = self.evaluate(values)
                 states = {c.runtime_info.name + ':' + str(i): c.__getstate__()
                           for i, c in enumerate(self.calculators)}
                 return result, self.derived, states
-            self._fns['states'] = fn
+            self._fns['states'] = self.capture(fn, name='Pipeline.states_fn')
         return self._fns['states']
 
     def host_evaluate(self, values=None):
@@ -361,8 +460,9 @@ class Pipeline(BaseClass):
         calculator's ``calculate`` and each whole call is bracketed by
         ``torch.cuda.synchronize``. Returns {'eager_per_calculator': {name:
         seconds a call}, 'compiled_per_eval': seconds an evaluation of the
-        whole batched call, 'compiled_evals_per_sec', 'per_call', 'batch'};
-        the JAX package's key names are kept, though nothing is compiled."""
+        whole batched call through :meth:`get_fn` (compiled: replayed as a
+        CUDA graph on the card, eager on the CPU), 'compiled_evals_per_sec',
+        'per_call', 'batch'}, the JAX package's keys."""
         import time
         device, dtype = self.device, config.get_dtype()
         sync = torch.cuda.synchronize if device.type == 'cuda' else (lambda: None)
@@ -390,10 +490,12 @@ class Pipeline(BaseClass):
                     sync()
                     timings[key] += time.perf_counter() - t0
             nrep = max(3, niterations)
+            fn = self.get_fn()
+            fn(values)  # its capture, on the card, outside the timing
             sync()
             t0 = time.perf_counter()
             for _ in range(nrep):
-                self.evaluate(values)
+                fn(values)
             sync()
             per_call = (time.perf_counter() - t0) / nrep
         per_eval = per_call / batch

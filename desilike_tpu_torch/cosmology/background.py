@@ -28,7 +28,6 @@ matter+Lambda(+w0wa) universe, neglecting radiation (the normalization
 convention of the Eisenstein-Hu transfer functions).
 """
 
-import collections
 import functools
 
 import numpy as np
@@ -128,15 +127,14 @@ def ref(p):
     return p['h']
 
 
-_GRIDS = collections.OrderedDict()  # static grids copied to a card, by content: at most _NGRIDS
-_NGRIDS = 256
+_GRIDS = {}  # static grids copied to a card, by content; never evicted: a captured graph reads them by address
 
 
 def as_grid(x, p):
     """A static grid (number, numpy or tensor) as a tensor of ``p``'s dtype
     and device. A host grid is copied to a card once and kept (by content,
-    the most recent ``_NGRIDS``): a copy each call would synchronise the
-    host with the card."""
+    never dropped: a graph captured on the card reads it by address); a copy
+    each call would synchronise the host with the card."""
     like = ref(p)
     if isinstance(x, torch.Tensor):
         return x.to(like.dtype)
@@ -144,12 +142,8 @@ def as_grid(x, p):
     if like.device.type == 'cpu':
         return torch.as_tensor(x, dtype=like.dtype)
     key = (x.shape, x.tobytes(), like.dtype, like.device)
-    if key in _GRIDS:
-        _GRIDS.move_to_end(key)
-    else:
+    if key not in _GRIDS:
         _GRIDS[key] = torch.as_tensor(x, dtype=like.dtype, device=like.device)
-        if len(_GRIDS) > _NGRIDS:
-            _GRIDS.popitem(last=False)
     return _GRIDS[key]
 
 

@@ -58,7 +58,7 @@ import torch
 from torch.func import jvp, vmap
 
 from ..core import Calculator, Pipeline
-from ..ops.linalg import whiten_factor, inverse, cholesky, cholesky_equilibrated
+from ..ops.linalg import whiten_factor, inverse, cholesky, cholesky_equilibrated, cholesky_solve
 from ..parameters import ParameterCollection
 from ..utils import is_sequence
 from .. import config
@@ -235,9 +235,23 @@ class BaseLikelihood(Calculator):
                 plan[i] = terms
         return analytic, plan
 
-    def logpost_fn(self):
+    def logpost_fn(self, jit=True):
         """Function {varied name: scalar or (B,) tensor} -> ((B,) logposterior,
         aux dict), evaluated in float32 on the pipeline's device.
+
+        With ``jit`` (the JAX package's default), the function is compiled as
+        ``jax.jit`` compiles it there: on the card, each signature (batch
+        size, dtypes, which values are scalars and which (B,), the external
+        tables' shapes) is captured once as a CUDA graph, the values and
+        external tables its inputs, and replayed at every later call
+        (:meth:`Pipeline.capture`); the outputs are fresh tensors. A call
+        inside another capture, under a ``torch.func`` transform, or with a
+        value that requires a gradient while autograd is on runs eagerly, as
+        ``jax.jit`` inlines under an outer transform; so does every call on
+        the CPU. A capture that fails raises. A pipeline with host-evaluated
+        calculators (:meth:`Pipeline.host_calculators`) cannot be compiled,
+        as the JAX package's trace cannot: ``jit=True`` raises there, and
+        ``jit=False`` gives the eager function (the blocked sampler's).
 
         aux contains 'loglikelihood', 'logprior', derived parameters, and for
         solved parameters their analytic best-fit values 'solved' and the
@@ -253,6 +267,15 @@ class BaseLikelihood(Calculator):
         host: the caller checks it after the call where it needs to.
         """
         pipe = self.pipeline
+        if jit and pipe.host_calculators():
+            raise ValueError('logpost_fn(jit=True): the pipeline holds host-evaluated calculators ({}), which cannot '
+                             'be compiled; use logpost_fn(jit=False)'.format(
+                                 ', '.join(c.runtime_info.name for c in pipe.host_calculators())))
+        fn = self._logpost_fn(pipe)
+        return pipe.capture(fn, name='{}.logpost_fn'.format(type(self).__name__)) if jit else fn
+
+    def _logpost_fn(self, pipe):
+        """The eager log-posterior function of :meth:`logpost_fn`."""
         device, dtype = pipe.device, config.get_dtype()
         names, solved, marg_idx, prior_loc, prior_prec = self._solved_setup(pipe)
         likelihoods, gauss = self.likelihoods, self._gaussian()
@@ -324,7 +347,7 @@ class BaseLikelihood(Calculator):
 
         def solve_static(rhs):
             """A^-1 rhs for rhs (..., ns, m), through the constant equilibrated factor."""
-            return scale_t[:, None] * torch.cholesky_solve(rhs * scale_t[:, None], Ls_t)
+            return scale_t[:, None] * cholesky_solve(rhs * scale_t[:, None], Ls_t)
 
         def primal(s_traced, full, batch):
             """The pipeline at ``full`` with the traced solved parameters at
@@ -366,7 +389,7 @@ class BaseLikelihood(Calculator):
             g_prior = -prec_t * (s0 - loc_t)
             if not na:
                 g = g_prior - d @ J_t.T
-                dx = scale_t * torch.cholesky_solve((g * scale_t)[..., None], Ls_t)[..., 0]
+                dx = scale_t * cholesky_solve((g * scale_t)[..., None], Ls_t)[..., 0]
                 # -1/2 d.d + 1/2 dx.H_like.dx + g_like.dx == -1/2 |d + J^T dx|^2:
                 # the residual after the best-fit solved terms, which does not
                 # cancel two large float32 terms
@@ -402,7 +425,7 @@ class BaseLikelihood(Calculator):
                 S = torch.where(solved_ok[..., None, None], S, eye)
                 rhs = torch.where(solved_ok[..., None], rhs, torch.zeros_like(rhs))
                 La, scale_a, _ = cholesky_equilibrated(S)
-                dxa = scale_a * torch.cholesky_solve((rhs * scale_a)[..., None], La)[..., 0]
+                dxa = scale_a * cholesky_solve((rhs * scale_a)[..., None], La)[..., 0]
                 logdet_chain = 0.
                 if ma:
                     if len(ma) == na and len(ms) == ns:
@@ -412,7 +435,7 @@ class BaseLikelihood(Calculator):
                         Sm = D[..., ma_t[:, None], ma_t]
                         if ms:
                             Cm = C[..., ma_t[:, None], ms_t]
-                            Sm = Sm - Cm @ (scale_m_t[:, None] * torch.cholesky_solve(Cm.mT * scale_m_t[:, None], Lm_t))
+                            Sm = Sm - Cm @ (scale_m_t[:, None] * cholesky_solve(Cm.mT * scale_m_t[:, None], Lm_t))
                         Sm = torch.where(solved_ok[..., None, None], Sm, eye[:len(ma), :len(ma)])
                         Lma, scale_ma, _ = cholesky_equilibrated(Sm)
                     logdet_chain = 2. * (torch.log(torch.diagonal(Lma, dim1=-2, dim2=-1)).sum(-1)

@@ -498,12 +498,13 @@ def _coeff_grad(x, w, y, order, per_row):
     return _launch_coeff_grad(x.contiguous(), w.contiguous(), None if y is None else y.contiguous(), order, per_row)
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def _derivative_adjoint(order, dtype, device):
     """M with M[j, k] = D[k, j], where D is the linear map
     :func:`clenshaw_derivative_coeffs` (T'_j = sum_k D[k, j] T_k): the
     adjoint that carries a gradient in the derivative series' coefficients
-    back to the series' own. Exact: its entries are integers below 2 order."""
+    back to the series' own. Exact: its entries are integers below 2 order.
+    Kept for good (a graph captured on the card reads it by address)."""
     return clenshaw_derivative_coeffs(torch.eye(order, dtype=torch.float64)).to(dtype=dtype, device=device)
 
 

@@ -4,8 +4,8 @@ factorizations.
 Counterpart of ``desilike_tpu/ops/linalg.py``. The unrolled small-matrix
 Cholesky there (``chol_small``, ``chol_solve_small``, ``chol_logdet_small``)
 was a TPU workaround for LAPACK custom calls under ``vmap``; here the same
-names are ``torch.linalg.cholesky_ex`` and ``torch.cholesky_solve``, batched
-over the chains. ``chol_small`` keeps the JAX function's answer for a
+names are ``torch.linalg.cholesky_ex`` and :func:`cholesky_solve` (two
+triangular solves), batched over the chains. ``chol_small`` keeps the JAX function's answer for a
 matrix that does not factor (each pivot clipped at 1e-30); the port's own
 paths use :func:`cholesky` (raises) or :func:`cholesky_equilibrated`
 (reports ``info``) instead.
@@ -50,6 +50,21 @@ def cholesky(matrix):
     if bool((info != 0).any()):
         raise ValueError('matrix is not positive definite (cholesky_ex info {})'.format(info.tolist()))
     return factor
+
+
+def cholesky_solve(rhs, factor):
+    """M^-1 rhs for rhs (..., n, m), given the lower Cholesky factor L (...,
+    n, n) of M, by two triangular solves: on the card they do not wait for
+    the host, so that a call that uses them can be captured in a CUDA graph,
+    where ``torch.cholesky_solve`` of a batch (MAGMA) synchronises and
+    cannot be captured. A single factor (n, n) solves every right-hand side
+    of the batch at once, as columns."""
+    if factor.ndim == 2 and rhs.ndim > 2:
+        n = factor.shape[-1]
+        columns = rhs.movedim(-2, 0).reshape(n, -1)
+        return cholesky_solve(columns, factor).reshape((n,) + rhs.shape[:-2] + rhs.shape[-1:]).movedim(0, -2)
+    y = torch.linalg.solve_triangular(factor, rhs, upper=False)
+    return torch.linalg.solve_triangular(factor.mT, y, upper=True)
 
 
 def cholesky_equilibrated(matrix):
@@ -162,7 +177,7 @@ def chol_small(A):
 
 def chol_solve_small(L, b):
     """Solve A x = b, b (..., n), given L = chol_small(A)."""
-    return torch.cholesky_solve(b[..., None], L)[..., 0]
+    return cholesky_solve(b[..., None], L)[..., 0]
 
 
 def chol_logdet_small(L):

@@ -129,6 +129,10 @@ class BasePosteriorSampler(BaseClass):
         dict of (B,) values and, for solved parameters, their best fits and
         'solved_hessian' (B, n, n))."""
         self.evaluated_points += theta.shape[0]
+        return self._logpost_flat(theta)
+
+    def _logpost_flat(self, theta):
+        """:meth:`logpost_flat` without the count (the body of a captured function)."""
         lp, aux = self._logpost_aux(dict(zip(self.names, theta.unbind(-1))))
         lp = torch.where(torch.isnan(lp), torch.full_like(lp, -np.inf), lp)
         keep = {name: aux[name] for name in ('loglikelihood', 'logprior') if name in aux}

@@ -192,6 +192,13 @@ class BlockedMCMCSampler(BasePosteriorSampler):
             raise ValueError('dragging needs exactly one slow + one fast block '
                              '(got {} blocks)'.format(len(self._block_idx)))
 
+    @property
+    def _logpost_aux(self):
+        # host nodes cannot be captured (desilike_tpu/samplers/mcmc.py:211): evaluate the pipeline eagerly
+        if self._logpost_aux_fn is None:
+            self._logpost_aux_fn = self.likelihood.logpost_fn(jit=False)
+        return self._logpost_aux_fn
+
     def _rng(self):
         """The numpy generator of a run, seeded from the sampler's generator."""
         seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=self.generator, device=self.device))

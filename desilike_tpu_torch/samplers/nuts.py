@@ -268,17 +268,28 @@ class NUTSSampler(BasePosteriorSampler):
     def _logdens_grad(self):
         """u (B, ndim) -> ((B,) log-density in u, (B, ndim) its gradient): one
         batched call and one backward of the sum, since the chains are
-        independent. Counts its calls in ``self.gradient_evaluations``."""
+        independent. On the card the whole of it (the constraint, the
+        forward pass and ``torch.autograd.grad``) is captured as one CUDA
+        graph a (B, ndim) and replayed (:meth:`Pipeline.capture`), the unit
+        that the JAX package's jitted loops repeat: one leapfrog, or one NUTS
+        leaf, is one replay. ``self.lg_graph`` is that captured function.
+        Counts its calls in ``self.gradient_evaluations``."""
         self.gradient_evaluations = 0
 
-        def lg(u):
-            self.gradient_evaluations += 1
+        def value_and_grad(u):
             with torch.enable_grad():
                 u = u.detach().requires_grad_(True)
                 x, logjac = self._constrain(u)
-                lp = self.logpost_flat(x)[0] + logjac
+                lp = self._logpost_flat(x)[0] + logjac
                 (grad,) = torch.autograd.grad(lp.sum(), u)
             return lp.detach(), grad
+
+        self.lg_graph = self.pipeline.capture(value_and_grad, name='{}.logdens_grad'.format(type(self).__name__))
+
+        def lg(u):
+            self.gradient_evaluations += 1
+            self.evaluated_points += u.shape[0]
+            return self.lg_graph(u)
         return lg
 
     def initial_mass(self, u0):

@@ -7,6 +7,7 @@ from the repository root:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_gpu.py
 """
 
+import gc
 import os
 
 import numpy as np
@@ -446,3 +447,91 @@ def test_get_fn_and_states_fn_on_card(cuda):
     (expected, derived), (got, _), (states, states_derived) = results
     assert got.device.type == 'cuda' and torch.equal(got, expected) and torch.equal(states, expected)
     assert list(states_derived) == list(derived) and all(torch.equal(states_derived[n], derived[n]) for n in derived)
+
+
+@pytest.mark.parametrize('config', ['1', '4'])
+def test_jit_replay_matches_eager(cuda, config):
+    """``logpost_fn()`` (jit) on the card: the first call of a signature
+    captures, later calls replay; each replay within 1e-6 of the eager call
+    at its values (log-posterior and every aux tensor), its outputs fresh
+    tensors that the next replay does not overwrite, the launch counters
+    moved by the eager call's launches at each replay, and the B1 kernels in
+    the profiler's trace of a replay those of an eager call."""
+    from chip_smoke import A19_RTOL, outputs_error, profiled_launches
+    like = (build_likelihood if config == '1' else build_joint_likelihood)(None)
+    names = like.pipeline.varied_params.names()
+    values = [{n: v.detach() for n, v in chains(names, 512, seed=seed, device=cuda).items()} for seed in (7, 8)]
+    eager, jitted = like.logpost_fn(jit=False), like.logpost_fn()
+    launched, expected, replayed = [], [], []
+    with torch.no_grad():
+        for v in values:
+            before = (cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES)
+            expected.append(eager(v))
+            launched.append((cuda_kernels.CLENSHAW_LAUNCHES - before[0], cuda_kernels.COEFF_GRAD_LAUNCHES - before[1]))
+        jitted(values[0])  # the capture
+        for v in values:
+            before = (cuda_kernels.CLENSHAW_LAUNCHES, cuda_kernels.COEFF_GRAD_LAUNCHES)
+            replayed.append(jitted(v))
+            launched.append((cuda_kernels.CLENSHAW_LAUNCHES - before[0], cuda_kernels.COEFF_GRAD_LAUNCHES - before[1]))
+    torch.cuda.synchronize()
+    assert jitted.captures == 1 and jitted.replays == 2 and len(set(launched)) == 1 and launched[0][0] > 0
+    for got, want in zip(replayed, expected):
+        assert outputs_error(got, want)[0] <= A19_RTOL
+    assert replayed[0][0].data_ptr() != replayed[1][0].data_ptr()
+    assert profiled_launches(lambda: jitted(values[0])) == profiled_launches(lambda: eager(values[0])) == launched[0]
+    jitted.clear()
+
+
+def test_jit_capture_with_a_host_read_raises(cuda):
+    """A function that reads the card's values on the host cannot be
+    captured: the capture raises, at its first call and again at the next,
+    nothing runs eagerly in its place, and the card stays usable: draws
+    work and the failed captures' memory (a 1 GiB intermediate) is released."""
+    from desilike_tpu_torch.core._capture import CapturedFunction
+    grid = torch.linspace(0., 1., 2 ** 16, device=cuda)
+
+    def reads_the_host(values):
+        wide = torch.exp(values['a'][:, None] * grid)  # (4096, 65536) float32: 1 GiB
+        return wide.sum(-1) / float(wide.sum())
+
+    captured = CapturedFunction(reads_the_host, cuda)
+    a = torch.rand(4096, device=cuda)
+    expected = reads_the_host({'a': a})
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match='capturing'):
+            captured({'a': a})
+    assert captured.signatures == 0 and captured.replays == 0
+    assert torch.rand(4, device=cuda).shape == (4,)  # draws on the card work after the failed captures
+    assert torch.allclose(reads_the_host({'a': a}), expected)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved() <= reserved + 2 ** 22
+
+
+def test_jit_clear_releases_the_pool(cuda):
+    """A captured function's graphs hold their intermediates in the
+    function's pool; ``clear()`` drops them and returns that memory to the
+    card."""
+    from desilike_tpu_torch.core._capture import CapturedFunction
+    grid = torch.linspace(0., 1., 2 ** 16, device=cuda)
+
+    def wide(values):  # a (4096, 65536) float32 intermediate: 1 GiB
+        return torch.exp(values['a'][:, None] * grid).sum(-1)
+
+    captured = CapturedFunction(wide, cuda)
+    a = torch.rand(4096, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    captured({'a': a})
+    got = captured({'a': a})
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved() - reserved
+    assert torch.allclose(got, wide({'a': a})) and held > 0.9 * 2 ** 30
+    captured.clear()
+    assert torch.cuda.memory_reserved() - reserved < held - 2 ** 29

@@ -55,7 +55,6 @@ CLASS_MEMBER_EXCLUSIONS = {
 KEYWORD_EXCLUSIONS = {
     'key': 'a jax.random key; the port draws from a torch.Generator (generator=)',
     'rng': 'a jax.random key; the port draws from a torch.Generator (generator=)',
-    'jit': 'the choice to compile with jax.jit; the port does not compile',
     'precision': 'the XLA matmul precision; the port keeps float32 matmuls full precision',
 }
 
